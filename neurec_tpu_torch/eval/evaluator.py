@@ -1,0 +1,485 @@
+"""Full-catalogue top-K ranking evaluation on one device.
+
+Port of ``neurec_tpu/eval/evaluator.py`` (``UniEvaluator``,
+``GroupedEvaluator`` and the ``Evaluator`` facade) for the full-catalogue
+protocol:
+
+    tables = model.eval_tables(params)          # once per call, if offered
+    per batch of users:
+        scores + train mask   -> kernel K1 (eval/tiers.py)
+        top-K                 -> lowest item id first among ties
+        metric sums (f32)     -> ops/metrics.py
+    mean = float64(total) / count -> float32
+
+The per-eval-user train masks are packed once per layout into a bit-plane
+table (the default ``bits`` tier) and kept on the device.
+
+Not ported yet: the sampled-candidates protocol (``.neg`` negatives), the
+``native`` host backend, the streamed bits tier and the multi-device tiers;
+each raises ``NotImplementedError`` where the JAX package would take it.
+
+Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from neurec_tpu_torch.device import DeviceLike, resolve_device
+from neurec_tpu_torch.eval import tiers
+from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
+from neurec_tpu_torch.ops.masked_scores import pack_train_bits
+from neurec_tpu_torch.ops.metrics import METRIC_INDEX, METRIC_NAMES, all_metrics, hit_matrix
+
+PredictFn = Callable[[object, torch.Tensor], torch.Tensor]
+
+
+class EvalProgram(NamedTuple):
+    """The tier plan for one predict function and the functions it runs."""
+
+    plan: TierPlan
+    fact_topk: Optional[Callable]   # (u_vecs, item_table, mask) -> ids
+    pred_topk: Optional[Callable]   # (scores, mask) -> ids
+    tables_fn: Optional[Callable]   # eval_tables, hoisted out of the batches
+    dense_fn: Optional[Callable]    # eval_dense_scores, for predict tiers
+    factorized: Optional[Callable]  # eval_embeddings
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError("%s is not ported to the PyTorch evaluator yet" % what)
+
+
+def _pad_rows(rows: List[List[int]], pad_value: int, min_len: int = 1):
+    max_len = max(max((len(r) for r in rows), default=0), min_len)
+    out = np.full((len(rows), max_len), pad_value, dtype=np.int32)
+    lengths = np.zeros(len(rows), dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+        lengths[i] = len(r)
+    return out, lengths
+
+
+class UniEvaluator:
+    """Evaluator for a flat (ungrouped) set of test users."""
+
+    def __init__(
+        self,
+        user_train_dict: Dict[int, List[int]],
+        user_test_dict: Dict[int, List[int]],
+        user_neg_test: Optional[Dict[int, List[int]]] = None,
+        metric: Optional[Sequence[str]] = None,
+        top_k=50,
+        batch_size: int = 1024,
+        num_items: Optional[int] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        if user_neg_test is not None:
+            raise _not_ported("the sampled-candidates protocol (test negatives)")
+        if metric is None:
+            metric = list(METRIC_NAMES)
+        elif isinstance(metric, str):
+            metric = [metric]
+        for m in metric:
+            if m not in METRIC_INDEX:
+                raise ValueError("There is no metric named '%s'!" % m)
+        self.metrics = list(metric)
+        self.metrics_num = len(self.metrics)
+        self._metric_rows = np.asarray([METRIC_INDEX[m] for m in self.metrics])
+
+        self.user_pos_train = user_train_dict
+        self.user_pos_test = user_test_dict
+        self.user_neg_test = None
+        self.batch_size = int(batch_size)
+
+        self.max_top = top_k if isinstance(top_k, int) else max(top_k)
+        if isinstance(top_k, int):
+            self.top_show = np.arange(top_k) + 1
+        else:
+            self.top_show = np.sort(top_k)
+
+        if num_items is None:
+            num_items = 0
+            for d in (user_train_dict, user_test_dict):
+                for items in d.values():
+                    if len(items):
+                        num_items = max(num_items, max(items) + 1)
+        self.num_items = int(num_items)
+
+        self._num_mask_users = max(
+            [u for u in user_train_dict] + [u for u in user_test_dict], default=-1
+        ) + 1
+        self._train_rows_table = None  # padded rows, legacy tiers only
+
+        self.test_users = np.asarray(list(user_test_dict.keys()), dtype=np.int32)
+        test_rows, test_lens = _pad_rows(
+            [list(user_test_dict[u]) for u in self.test_users], self.num_items
+        )
+        self._test_rows = torch.from_numpy(test_rows).to(self.device)
+        self._test_lens = torch.from_numpy(test_lens).to(self.device)
+
+        self._user_pos_index = {int(u): i for i, u in enumerate(self.test_users)}
+        self._programs: Dict[Tuple[int, int], EvalProgram] = {}
+        self._default_batches = None
+        # explicit-user-list (grouped eval) batch blocks, keyed by the ids
+        self._subset_batch_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self._subset_cache_max = 32
+        # packed train-mask bitmaps, keyed by (pack_block, width) layout
+        self._bits_tables: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def _host_rows(self, users, min_len: int = 1, pad_to: Optional[int] = None) -> np.ndarray:
+        """Padded sorted train rows for the given users, padded with
+        ``num_items`` to the group's max length rounded to a power of two
+        (``pad_to`` pins an exact width)."""
+        rows = self.user_pos_train
+        users = np.asarray(users)
+        lens = [len(rows.get(int(u), ())) for u in users]
+        if pad_to is None:
+            L = max(max(lens, default=0), min_len)
+            L = 1 << (L - 1).bit_length()
+        else:
+            L = pad_to
+        out = np.full((len(users), L), self.num_items, dtype=np.int32)
+        for r, u in enumerate(users):
+            items = rows.get(int(u), ())
+            if len(items):
+                out[r, : len(items)] = np.sort(items)
+        return out
+
+    @property
+    def _train_rows(self) -> torch.Tensor:
+        """Lazy padded-to-max row table — legacy (premask off) tiers only."""
+        if self._train_rows_table is None:
+            self._train_rows_table = torch.from_numpy(
+                self._host_rows(np.arange(self._num_mask_users))
+            ).to(self.device)
+        return self._train_rows_table
+
+    def metrics_info(self) -> str:
+        metrics_show = [
+            "\t".join(("%s@" % m + str(k)).ljust(12) for k in self.top_show)
+            for m in self.metrics
+        ]
+        return "metrics:\t%s" % "\t".join(metrics_show)
+
+    def _premask_requested(self) -> bool:
+        """NEUREC_EVAL_PREMASK gate for the bit-plane tiers (default on)."""
+        import os
+
+        return os.environ.get("NEUREC_EVAL_PREMASK", "auto") not in ("0", "off")
+
+    def _get_bits_table(self, pack_block: int, width: int) -> torch.Tensor:
+        """(n_test, width/8) uint8 bit-plane-packed train masks of the test
+        users, in test-user order; built on the device once per layout."""
+        key = (int(pack_block), int(width))
+        if key not in self._bits_tables:
+            chunk = 4096
+            n = len(self.test_users)
+            L = max(
+                max((len(self.user_pos_train.get(int(u), ())) for u in self.test_users), default=0),
+                1,
+            )
+            L = 1 << (L - 1).bit_length()
+            parts = []
+            for lo in range(0, n, chunk):
+                sel = self.test_users[lo : min(lo + chunk, n)]
+                rows = torch.from_numpy(self._host_rows(sel, pad_to=L)).to(self.device)
+                bits = pack_train_bits(rows, self.num_items, block_items=pack_block)
+                short = width // 8 - bits.shape[1]
+                if short:
+                    bits = torch.nn.functional.pad(bits, (0, short))
+                parts.append(bits)
+            self._bits_tables[key] = (
+                torch.cat(parts, dim=0) if parts
+                else torch.zeros((0, width // 8), dtype=torch.uint8, device=self.device)
+            )
+        return self._bits_tables[key]
+
+    def _select_plan(self, predict_fn: PredictFn) -> TierPlan:
+        model = getattr(predict_fn, "__self__", None)
+        factorized = getattr(model, "eval_embeddings", None) is not None
+        return select_tier(
+            factorized=factorized,
+            has_tables=getattr(model, "eval_tables", None) is not None,
+            # K1 runs on every device of the port (kernel on cuda, plain on cpu)
+            pallas_ok=factorized,
+            n_model=1,
+            has_data_axis=False,
+            mesh_size=1,
+            item_shard_mode="off",
+            num_items=self.num_items,
+            batch_size=self.batch_size,
+            n_test_users=len(self.test_users),
+            premask=self._premask_requested(),
+        )
+
+    def _make_program(self, predict_fn: PredictFn) -> EvalProgram:
+        num_items = self.num_items
+        K = min(self.max_top, num_items)
+        model = getattr(predict_fn, "__self__", None)
+        plan = self._select_plan(predict_fn)
+        if plan.stream:
+            raise _not_ported(
+                "the streamed bits tier (a bits table above NEUREC_EVAL_BITS_BUDGET)"
+            )
+
+        fact_topk = pred_topk = None
+        if plan.name == "bits":
+            if plan.kind == "factorized" or plan.hoist:
+                fact_topk = tiers.make_bits_topk(K, plan.bits_width, num_items)
+            if plan.kind == "predict":
+                pred_topk = tiers.make_bits_predict_topk(K, plan.bits_width, num_items)
+        elif plan.name == "pallas":
+            fact_topk = tiers.make_pallas_topk(K)
+        elif plan.name == "scatter":
+            pred_topk = tiers.make_scatter_topk(K, num_items)
+        else:
+            raise _not_ported("the %r tier" % plan.name)
+
+        # user-independent tables (graph propagation) are computed once per
+        # call instead of once per batch
+        tables_fn = getattr(model, "eval_tables", None) if plan.hoist else None
+        # models whose predict redoes full-catalogue work per batch expose
+        # eval_dense_scores; engaged only when the caller passed model.predict
+        is_model_predict = model is not None and getattr(
+            predict_fn, "__func__", None
+        ) is getattr(type(model), "predict", None)
+        dense_fn = (
+            getattr(model, "eval_dense_scores", None)
+            if pred_topk is not None and is_model_predict
+            else None
+        )
+        if dense_fn is not None and not callable(dense_fn):
+            dense_fn = None
+        return EvalProgram(
+            plan=plan,
+            fact_topk=fact_topk,
+            pred_topk=pred_topk,
+            tables_fn=tables_fn,
+            dense_fn=dense_fn,
+            factorized=getattr(model, "eval_embeddings", None),
+        )
+
+    def _get_program(self, predict_fn: PredictFn) -> EvalProgram:
+        # bound methods are re-created on every attribute access, so key on
+        # (underlying function, instance)
+        key = (
+            id(getattr(predict_fn, "__func__", predict_fn)),
+            id(getattr(predict_fn, "__self__", None)),
+        )
+        if key not in self._programs:
+            self._programs[key] = self._make_program(predict_fn)
+        return self._programs[key]
+
+    def _make_batches(self, users: np.ndarray, positions: np.ndarray):
+        B = min(self.batch_size, max(len(users), 1))
+        n_batches = (len(users) + B - 1) // B
+        n_pad = n_batches * B
+        valid = np.zeros(n_pad, dtype=np.float32)
+        valid[: len(users)] = 1.0
+        sel = np.zeros(n_pad, dtype=np.int32)
+        sel[: len(users)] = positions
+        users_pad = np.zeros(n_pad, dtype=np.int32)
+        users_pad[: len(users)] = users
+
+        def put(a):
+            return torch.from_numpy(a.reshape(n_batches, B)).to(self.device)
+
+        return put(users_pad).long(), put(sel).long(), put(valid)
+
+    # -- evaluation ---------------------------------------------------------
+    def evaluate_raw(
+        self,
+        predict_fn: PredictFn,
+        params,
+        test_users: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """Mean per-user metric matrix, shape (metrics_num, len(top_show))."""
+        prog = self._get_program(predict_fn)
+        plan = prog.plan
+        mask_data = (
+            self._get_bits_table(plan.pack_block, plan.bits_width) if plan.bits else None
+        )
+        if test_users is None:
+            if self._default_batches is None:
+                self._default_batches = self._make_batches(
+                    self.test_users, np.arange(len(self.test_users), dtype=np.int32)
+                )
+            batches = self._default_batches
+            n_users = len(self.test_users)
+        else:
+            users = np.asarray(list(test_users), dtype=np.int32)
+            n_users = len(users)
+            ck = users.tobytes()
+            batches = self._subset_batch_cache.get(ck)
+            if batches is None:
+                positions = np.asarray(
+                    [self._user_pos_index[int(u)] for u in users], dtype=np.int32
+                )
+                batches = self._make_batches(users, positions)
+                self._subset_batch_cache[ck] = batches
+                while len(self._subset_batch_cache) > self._subset_cache_max:
+                    self._subset_batch_cache.popitem(last=False)
+            self._subset_batch_cache.move_to_end(ck)
+        if n_users == 0:
+            return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
+        return self._run(prog, predict_fn, params, batches, mask_data)
+
+    @torch.no_grad()
+    def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data):
+        plan = prog.plan
+        users_b, sel_b, valid_b = batches
+        K = min(self.max_top, self.num_items)
+        hoisted = None
+        if prog.tables_fn is not None:
+            u_table, item_table = prog.tables_fn(params)
+            hoisted = (u_table.float(), item_table.float())
+        dense_scores = prog.dense_fn(params).float() if prog.dense_fn is not None else None
+
+        total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
+        count = torch.zeros((), dtype=torch.float32, device=self.device)
+        for users, sel, valid in zip(users_b, sel_b, valid_b):
+            mask = mask_data[sel] if plan.bits else self._train_rows[users]
+            if hoisted is not None:
+                u_table, item_table = hoisted
+                topk = prog.fact_topk(u_table[users], item_table, mask)
+            elif plan.kind == "factorized":
+                u_vecs, item_table = prog.factorized(params, users)
+                topk = prog.fact_topk(u_vecs.float(), item_table.float(), mask)
+            else:
+                scores = (
+                    dense_scores[users] if dense_scores is not None
+                    else predict_fn(params, users).float()
+                )
+                topk = prog.pred_topk(scores, mask)
+            hits = hit_matrix(topk, self._test_rows[sel], self._test_lens[sel])
+            m = all_metrics(hits, self._test_lens[sel])  # (B, 5, K)
+            total = total + torch.sum(m * valid[:, None, None], dim=0)
+            count = count + torch.sum(valid)
+
+        mean = (
+            total.cpu().numpy().astype(np.float64) / max(float(count), 1.0)
+        ).astype(np.float32)  # (5, K)
+        k_idx = np.minimum(self.top_show, self.num_items) - 1
+        return mean[self._metric_rows][:, k_idx]
+
+    def evaluate(
+        self,
+        predict_fn: PredictFn,
+        params,
+        test_users: Optional[Sequence[int]] = None,
+    ) -> str:
+        result = self.evaluate_raw(predict_fn, params, test_users).reshape(-1)
+        return "\t".join(("%.8f" % x).ljust(12) for x in result)
+
+
+class GroupedEvaluator:
+    """Evaluate per user group bucketed by train-interaction count, with
+    the reference's ``(lo,hi]:`` row labels; users above the last bound are
+    discarded."""
+
+    def __init__(
+        self,
+        user_train_dict,
+        user_test_dict,
+        user_neg_test=None,
+        metric=None,
+        group_view=None,
+        top_k=50,
+        batch_size=1024,
+        num_items=None,
+        device: DeviceLike = None,
+    ):
+        if not isinstance(group_view, list):
+            raise TypeError("The type of 'group_view' must be `list`!")
+        self.evaluator = UniEvaluator(
+            user_train_dict,
+            user_test_dict,
+            user_neg_test,
+            metric=metric,
+            top_k=top_k,
+            batch_size=batch_size,
+            num_items=num_items,
+            device=device,
+        )
+        group_list = [0] + group_view
+        group_info = [
+            ("(%d,%d]:" % (g_l, g_h)).ljust(12)
+            for g_l, g_h in zip(group_list[:-1], group_list[1:])
+        ]
+        all_test_user = list(user_test_dict.keys())
+        num_interaction = [len(user_train_dict.get(u, ())) for u in all_test_user]
+        group_idx = np.searchsorted(group_list[1:], num_interaction)
+        self.grouped_user: "OrderedDict[str, List[int]]" = OrderedDict()
+        for gi in range(len(group_info)):
+            members = [u for u, g in zip(all_test_user, group_idx) if g == gi]
+            if members:
+                self.grouped_user[group_info[gi]] = members
+        if not self.grouped_user:
+            raise ValueError("The splitting of user groups is not suitable!")
+
+    def metrics_info(self) -> str:
+        return self.evaluator.metrics_info()
+
+    def evaluate(self, predict_fn: PredictFn, params) -> str:
+        result_to_show = ""
+        for group, users in self.grouped_user.items():
+            tmp_result = self.evaluator.evaluate(predict_fn, params, users)
+            result_to_show = "%s\n%s\t%s" % (result_to_show, group, tmp_result)
+        return result_to_show
+
+
+class Evaluator:
+    """Facade dispatching to UniEvaluator or GroupedEvaluator."""
+
+    def __init__(
+        self,
+        user_train_dict,
+        user_test_dict,
+        user_neg_test=None,
+        metric=None,
+        group_view=None,
+        top_k=50,
+        batch_size=1024,
+        num_items=None,
+        device: DeviceLike = None,
+    ):
+        kwargs = dict(
+            metric=metric, top_k=top_k, batch_size=batch_size,
+            num_items=num_items, device=device,
+        )
+        if group_view is not None:
+            self.evaluator = GroupedEvaluator(
+                user_train_dict, user_test_dict, user_neg_test,
+                group_view=group_view, **kwargs,
+            )
+        else:
+            self.evaluator = UniEvaluator(
+                user_train_dict, user_test_dict, user_neg_test, **kwargs
+            )
+
+    @classmethod
+    def from_dataset(cls, dataset, config, device: DeviceLike = None) -> "Evaluator":
+        if config.get("eval_backend", "device") != "device":
+            raise _not_ported("eval_backend=%s" % config.get("eval_backend"))
+        return cls(
+            dataset.get_user_train_dict(),
+            dataset.get_user_test_dict(),
+            dataset.get_user_test_neg_dict(),
+            metric=config.get("metric"),
+            group_view=config.get("group_view"),
+            top_k=config.get("topk", 50),
+            batch_size=config.get("test_batch_size", 1024),
+            num_items=dataset.num_items,
+            device=device,
+        )
+
+    def metrics_info(self) -> str:
+        return self.evaluator.metrics_info()
+
+    def evaluate(self, predict_fn: PredictFn, params) -> str:
+        return self.evaluator.evaluate(predict_fn, params)

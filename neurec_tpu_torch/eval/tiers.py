@@ -1,0 +1,207 @@
+"""Evaluation masking/ranking tiers: one builder per tier plus a pure selector.
+
+Port of ``neurec_tpu/eval/tiers.py`` for one device. ``select_tier`` is
+the JAX package's pure function, copied as is; the builders ported here:
+
+``bits`` (DEFAULT)
+    Per-eval-user train masks packed once into a global bit-plane table;
+    scoring and masking run in kernel K1 (``masked_scores_bits``) for
+    factorized models, in plain torch on ``predict``'s scores otherwise.
+
+``pallas`` (NEUREC_EVAL_PREMASK=0, factorized models)
+    K1 on its own contract: int8 mask built from padded train rows
+    (``masked_scores``).
+
+``scatter`` (NEUREC_EVAL_PREMASK=0, other models)
+    Concat a dump column, scatter -inf at the padded train rows, slice.
+
+All top-K here break ties to the lowest item id, as ``lax.top_k`` does.
+Not ported yet: the streamed bits tier, ``bits_dp`` / ``pallas_dp`` and
+the item-sharded tiers (multi-device).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from neurec_tpu_torch.ops import masked_scores as k1
+from neurec_tpu_torch.ops.masked_scores import bits_expand
+from neurec_tpu_torch.ops.topk import top_k
+
+# Prebuilt per-eval-user bits tables larger than this are streamed (packed
+# per batch) instead of held resident.
+BITS_TABLE_BUDGET = 512 * 1024 * 1024
+
+# Memory the replicated evaluator may spend on ONE (B, I) f32 score block;
+# ``item_shard_threshold`` derives the auto item-sharding threshold from it.
+SCORE_BLOCK_BUDGET = 384 * 1024 * 1024
+
+_LANE_ITEMS = 1024  # bit-packed width granularity
+
+
+def _bits_budget() -> int:
+    """Resident bits-table budget; NEUREC_EVAL_BITS_BUDGET (bytes) overrides."""
+    import os
+
+    env = os.environ.get("NEUREC_EVAL_BITS_BUDGET", "")
+    return int(env) if env else BITS_TABLE_BUDGET
+
+
+def item_shard_threshold(batch_size: int) -> int:
+    """Catalogue size at which auto item-sharding engages."""
+    return SCORE_BLOCK_BUDGET // (4 * max(int(batch_size), 1))
+
+
+def global_bits_width(num_items: int) -> int:
+    """Packed catalogue width for the replicated bits tiers (a multiple of
+    1024, as in the JAX package, so both build identical tables)."""
+    return num_items + ((-num_items) % _LANE_ITEMS)
+
+
+def shard_bits_geometry(num_items: int, n_model: int):
+    """(block, width) for the item-sharded bits layout."""
+    block = -(-int(num_items) // int(n_model))
+    block += (-block) % _LANE_ITEMS
+    return block, block * int(n_model)
+
+
+class TierPlan(NamedTuple):
+    """Resolved evaluation strategy for one (evaluator, model) pair."""
+
+    name: str
+    kind: str  # 'factorized' | 'predict'
+    bits: bool
+    table: bool
+    pack_block: Optional[int]
+    bits_width: Optional[int]
+    hoist: bool
+    dp: bool
+    item_shard: bool
+
+    @property
+    def stream(self) -> bool:
+        return self.bits and not self.table
+
+
+def _no_bits(name, kind, dp=False, item_shard=False):
+    return TierPlan(
+        name=name, kind=kind, bits=False, table=False, pack_block=None,
+        bits_width=None, hoist=False, dp=dp, item_shard=item_shard,
+    )
+
+
+def select_tier(
+    *,
+    factorized: bool,
+    has_tables: bool,
+    pallas_ok: bool,
+    n_model: int,
+    has_data_axis: bool,
+    mesh_size: int,
+    item_shard_mode: str,  # 'auto' | 'on' | 'off'
+    num_items: int,
+    batch_size: int,
+    n_test_users: int,
+    premask: bool,
+    neg_protocol: bool = False,
+    bits_budget: Optional[int] = None,
+) -> TierPlan:
+    """Pure tier selection, identical to the JAX package's."""
+    if bits_budget is None:
+        bits_budget = _bits_budget()
+    if neg_protocol:
+        return _no_bits("scatter", "predict")
+
+    shardable = factorized and n_model > 1 and has_data_axis
+    engage_shard = shardable and (
+        item_shard_mode == "on"
+        or (
+            item_shard_mode == "auto"
+            and num_items >= item_shard_threshold(batch_size)
+        )
+    )
+
+    if engage_shard and premask:
+        block, width = shard_bits_geometry(num_items, n_model)
+        fits = n_test_users * (width // 8) <= bits_budget
+        return TierPlan(
+            name="item_shard_bits", kind="factorized", bits=True,
+            table=fits, pack_block=block, bits_width=width,
+            hoist=has_tables, dp=True, item_shard=True,
+        )
+    if engage_shard and pallas_ok:
+        return _no_bits("item_shard_rows", "factorized", dp=True, item_shard=True)
+
+    if premask:
+        width = global_bits_width(num_items)
+        fits = n_test_users * (width // 8) <= bits_budget
+        dp = factorized and mesh_size > 1 and has_data_axis
+        return TierPlan(
+            name="bits_dp" if dp else "bits",
+            kind="factorized" if factorized else "predict",
+            bits=True, table=fits, pack_block=width, bits_width=width,
+            hoist=has_tables, dp=dp, item_shard=False,
+        )
+
+    if pallas_ok:
+        dp = mesh_size > 1 and has_data_axis
+        return _no_bits("pallas_dp" if dp else "pallas", "factorized", dp=dp)
+
+    return _no_bits("scatter", "predict")
+
+
+# -- tier builders ----------------------------------------------------------
+# Factorized builders return fn(u_vecs, item_table, mask) -> (B, K) top-K
+# ids; predict builders return fn(scores, mask).
+
+def make_bits_topk(K: int, width: int, num_items: int):
+    """``bits``: K1 score + bit-plane mask, then top-K."""
+
+    def topk_fn(u_vecs, item_table, bits):
+        masked = k1.masked_scores_bits(u_vecs, item_table, bits, width, num_items)
+        return top_k(masked, K)[1]
+
+    return topk_fn
+
+
+def make_bits_predict_topk(K: int, width: int, num_items: int):
+    """``bits`` for models without eval_embeddings: the same bit-plane
+    mask applied to ``predict``'s scores."""
+
+    def topk_fn(scores, bits):
+        masked = torch.where(
+            bits_expand(bits, width)[:, :num_items] != 0, float("-inf"),
+            scores[:, :num_items],
+        )
+        return top_k(masked, K)[1]
+
+    return topk_fn
+
+
+def make_pallas_topk(K: int):
+    """``pallas``: K1 on padded train rows (int8 mask), then top-K."""
+
+    def topk_fn(u_vecs, item_table, train_rows):
+        return top_k(k1.masked_scores(u_vecs, item_table, train_rows), K)[1]
+
+    return topk_fn
+
+
+def make_scatter_topk(K: int, num_items: int):
+    """``scatter``: concat a dump column, scatter -inf at the padded train
+    rows (pads point at the dump column), slice."""
+
+    def topk_fn(scores, train_rows):
+        B = scores.shape[0]
+        ext = torch.cat(
+            [scores, torch.zeros((B, 1), dtype=torch.float32, device=scores.device)], dim=1
+        )
+        rows = train_rows.long()
+        keep = (rows >= 0) & (rows <= num_items)  # ids past the dump column drop
+        slot = torch.arange(B, device=scores.device)[:, None].expand_as(rows)
+        ext[slot[keep], rows[keep]] = float("-inf")
+        return top_k(ext[:, :num_items], K)[1]
+
+    return topk_fn

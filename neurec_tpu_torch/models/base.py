@@ -1,0 +1,85 @@
+"""Functional model protocol + registry (port of ``neurec_tpu/models/base.py``).
+
+A model is a description over a plain dict of tensors, keyed exactly as the
+JAX package's params:
+
+* ``init_params(generator) -> params``;
+* ``predict(params, users) -> (B, num_items)`` full-catalogue scores;
+* ``eval_embeddings(params, users) -> (u_vecs, item_table)`` where scores
+  factor as ``u_vecs @ item_table.T`` (the evaluator then fuses scoring and
+  masking in kernel K1);
+* ``eval_tables(params) -> (user_table, item_table)`` where those tables
+  are user-independent (the evaluator computes them once per call).
+
+A model lives on one device, chosen at construction (``device=None`` means
+cuda, see ``device.py``). Training (``loss``) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Type
+
+import torch
+
+from neurec_tpu_torch.device import DeviceLike, resolve_device
+
+
+class Recommender:
+    """Base class: catalogue sizes, device and protocol stubs."""
+
+    def __init__(self, dataset, config, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.num_users = dataset.num_users
+        self.num_items = dataset.num_items
+
+    def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def predict(self, params, users) -> torch.Tensor:
+        raise NotImplementedError
+
+    @staticmethod
+    def _affine_eval(u_vecs, item_table, item_bias=None):
+        """Fold a per-item bias into the factorized form by appending a
+        constant-1 column to the user vectors."""
+        if item_bias is None:
+            return u_vecs, item_table
+        ones = torch.ones((u_vecs.shape[0], 1), dtype=u_vecs.dtype, device=u_vecs.device)
+        return (
+            torch.cat([u_vecs, ones], dim=1),
+            torch.cat([item_table, item_bias[:, None].to(item_table.dtype)], dim=1),
+        )
+
+
+_REGISTRY: Dict[str, Type[Recommender]] = {}
+
+_FAMILIES = ("general",)
+
+
+def register(name: str):
+    def deco(cls):
+        _REGISTRY[name] = cls
+        cls.name = name
+        return cls
+    return deco
+
+
+def _import_families():
+    import importlib
+
+    for family in _FAMILIES:
+        importlib.import_module("neurec_tpu_torch.models." + family)
+
+
+def get_model(name: str) -> Type[Recommender]:
+    """Resolve a model class by name, importing model families lazily."""
+    if name not in _REGISTRY:
+        _import_families()
+    if name not in _REGISTRY:
+        raise ImportError("Recommender '%s' is not found" % name)
+    return _REGISTRY[name]
+
+
+def registered_models():
+    _import_families()
+    return sorted(_REGISTRY)

@@ -1,0 +1,125 @@
+"""Graph ops: normalized bipartite adjacency + SpMM.
+
+Port of ``neurec_tpu/ops/graph.py`` (single device). Nodes 0..U-1 are
+users, U..U+I-1 items; A = [[0, R], [R^T, 0]]. Normalizations:
+
+* plain: A
+* norm:  D^-1 (A + I)
+* gcmc:  D^-1 A
+* pre:   D^-1/2 A D^-1/2
+* (anything else): D^-1 A + I   — the reference's fallback "mean" adjacency
+
+``spmm`` has the JAX package's three branches: a dense matmul below
+``DENSE_LIMIT`` entries, the plan SpMM kernel (K2, ``ops/spmm.py``) above
+it, and the sorted COO segment-sum (``index_add_``) when a graph carries
+neither.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from neurec_tpu_torch.device import DeviceLike, resolve_device
+from neurec_tpu_torch.ops import spmm as spmm_ops
+
+
+class SparseAdj(NamedTuple):
+    """Adjacency on a device: padded COO edges, plus a dense copy below
+    ``DENSE_LIMIT`` entries or the forward SpMM plan above it."""
+
+    rows: torch.Tensor  # (nnz_pad,) int32, sorted, pads repeat the last row
+    cols: torch.Tensor  # (nnz_pad,) int32
+    vals: torch.Tensor  # (nnz_pad,) float32, 0.0 on padding
+    n_nodes: int
+    dense: Optional[torch.Tensor] = None  # (n_nodes, n_nodes) f32 or None
+    plan: Optional[spmm_ops.SpmmPlan] = None
+
+
+# dense adjacency cutoff: 64M f32 entries == 256 MB
+DENSE_LIMIT = 64 * 1024 * 1024
+
+
+def _normalize(adj_mat: sp.spmatrix, adj_type: str) -> sp.coo_matrix:
+    def normalized_adj_single(adj):
+        rowsum = np.array(adj.sum(1))
+        # entries where rowsum == 0 are left uninitialized by ``where`` and
+        # zeroed only if non-finite — kept exactly as the reference has it
+        d_inv = np.power(rowsum, -1.0, where=rowsum > 0).flatten()
+        d_inv[~np.isfinite(d_inv)] = 0.0
+        return sp.diags(d_inv).dot(adj).tocoo()
+
+    if adj_type == "plain":
+        return adj_mat.tocoo()
+    elif adj_type == "norm":
+        return normalized_adj_single(adj_mat + sp.eye(adj_mat.shape[0]))
+    elif adj_type == "gcmc":
+        return normalized_adj_single(adj_mat)
+    elif adj_type == "pre":
+        rowsum = np.array(adj_mat.sum(1))
+        d_inv = np.power(rowsum, -0.5, where=rowsum > 0).flatten()
+        d_inv[~np.isfinite(d_inv)] = 0.0
+        d_mat_inv = sp.diags(d_inv)
+        return d_mat_inv.dot(adj_mat).dot(d_mat_inv).tocoo()
+    else:  # reference fallback: mean adjacency + self loops
+        mean_adj = normalized_adj_single(adj_mat)
+        return (mean_adj + sp.eye(mean_adj.shape[0])).tocoo()
+
+
+def build_norm_adjacency(
+    train_matrix: sp.csr_matrix,
+    adj_type: str = "pre",
+    pad_multiple: int = 1024,
+    device: DeviceLike = None,
+) -> SparseAdj:
+    """Bipartite (U+I)x(U+I) adjacency from the train matrix, normalized,
+    built on the host and placed on ``device``."""
+    dev = resolve_device(device)
+    num_users, num_items = train_matrix.shape
+    coo = train_matrix.tocoo()
+    n_nodes = num_users + num_items
+    ratings = np.ones(coo.nnz, dtype=np.float32)
+    tmp = sp.csr_matrix((ratings, (coo.row, coo.col + num_users)), shape=(n_nodes, n_nodes))
+    adj_mat = tmp + tmp.T
+    norm = _normalize(adj_mat, adj_type)
+
+    nnz = norm.nnz
+    nnz_pad = ((nnz + pad_multiple - 1) // pad_multiple) * pad_multiple
+    rows = np.zeros(nnz_pad, dtype=np.int32)
+    cols = np.zeros(nnz_pad, dtype=np.int32)
+    vals = np.zeros(nnz_pad, dtype=np.float32)
+    order = np.argsort(norm.row, kind="stable")
+    rows[:nnz] = norm.row[order]
+    cols[:nnz] = norm.col[order]
+    vals[:nnz] = norm.data[order]
+    # pad edges carry value 0 and repeat the LAST real row, keeping the row
+    # sequence sorted (row-0 pads would break it)
+    if nnz:
+        rows[nnz:] = rows[nnz - 1]
+    dense = plan = None
+    if n_nodes * n_nodes <= DENSE_LIMIT:
+        dense = torch.from_numpy(norm.toarray().astype(np.float32)).to(dev)
+    else:
+        plan = spmm_ops.build_spmm_plan(rows, cols, vals, n_nodes).to(dev)
+    return SparseAdj(
+        rows=torch.from_numpy(rows).to(dev),
+        cols=torch.from_numpy(cols).to(dev),
+        vals=torch.from_numpy(vals).to(dev),
+        n_nodes=n_nodes,
+        dense=dense,
+        plan=plan,
+    )
+
+
+def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
+    """(n_nodes x n_nodes) adjacency @ dense (n_nodes, d), in f32."""
+    if adj.dense is not None:
+        return torch.matmul(adj.dense, x)
+    if adj.plan is not None:
+        return spmm_ops.plan_spmm(adj.plan, x)
+    gathered = x[adj.cols.long()] * adj.vals[:, None]
+    out = torch.zeros((adj.n_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, adj.rows.long(), gathered)

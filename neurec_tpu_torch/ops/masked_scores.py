@@ -1,0 +1,159 @@
+"""K1: fused full-catalogue scoring + train-item masking.
+
+Port of ``neurec_tpu/ops/pallas_kernels.py``. The mask builders give
+bytes identical to the JAX ones:
+
+* ``build_train_mask``: (B, I) int8 membership from padded train rows
+  (pad ids >= I are dropped);
+* ``pack_train_bits`` / ``pack_mask_bits``: bit-plane bytes — within item
+  block ``blk`` of P items, item ``c*(P/8) + j`` sits in byte
+  ``blk*(P/8) + j``, bit ``c``.
+
+Two entry points share one CUDA kernel (``csrc/masked_scores.cu``),
+templated on the mask format:
+
+* ``masked_scores(u, items, train_rows)`` — K1's own contract (int8 mask
+  built from the padded rows, as the JAX package does in XLA);
+* ``masked_scores_bits(u, items, bits, width, num_items)`` — the same
+  score-and-mask read from the bit-plane table of the evaluator's default
+  ``bits`` tier (one global block of width W: item i in byte i % (W/8),
+  bit i // (W/8)).
+
+On CPU tensors both run their plain versions (``*_reference``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from neurec_tpu_torch.ops import _build
+
+_NEG_INF = float("-inf")
+
+
+def build_train_mask(train_rows: torch.Tensor, num_items: int) -> torch.Tensor:
+    """(B, num_items) int8 membership mask from padded train rows; ids
+    outside [0, num_items) are dropped."""
+    B = train_rows.shape[0]
+    mask = torch.zeros((B, num_items), dtype=torch.int8, device=train_rows.device)
+    rows = train_rows.long()
+    keep = (rows >= 0) & (rows < num_items)
+    slot = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
+    mask[slot[keep], rows[keep]] = 1
+    return mask
+
+
+def pack_mask_bits(mask: torch.Tensor, block_items: int) -> torch.Tensor:
+    """(B, I_p) 0/1 mask -> (B, I_p/8) uint8 bit-plane bytes (I_p a
+    multiple of ``block_items``)."""
+    B, I_p = mask.shape
+    m4 = mask.to(torch.uint8).reshape(B, I_p // block_items, 8, block_items // 8)
+    bits = torch.zeros((B, I_p // block_items, block_items // 8), dtype=torch.uint8, device=mask.device)
+    for plane in range(8):
+        bits |= m4[:, :, plane, :] << plane
+    return bits.reshape(B, I_p // 8)
+
+
+def pack_train_bits(
+    train_rows: torch.Tensor, num_items: int, block_items: int = 1024
+) -> torch.Tensor:
+    """(B, I_p/8) uint8 bit-plane-packed train mask, I_p = num_items padded
+    to a multiple of ``block_items``."""
+    I_p = num_items + (-num_items) % block_items
+    return pack_mask_bits(build_train_mask(train_rows, I_p), block_items)
+
+
+def bits_expand(bits: torch.Tensor, width: int) -> torch.Tensor:
+    """(B, width/8) uint8 -> (B, width) 0/1 membership, plane-major."""
+    planes = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits[:, None, :] >> planes[None, :, None]) & 1).reshape(bits.shape[0], width)
+
+
+def masked_scores_reference(
+    u: torch.Tensor, items: torch.Tensor, train_rows: torch.Tensor
+) -> torch.Tensor:
+    scores = torch.matmul(u, items.T)
+    mask = build_train_mask(train_rows, items.shape[0])
+    return torch.where(mask != 0, _NEG_INF, scores)
+
+
+def masked_scores_bits_reference(
+    u: torch.Tensor, items: torch.Tensor, bits: torch.Tensor, width: int, num_items: int
+) -> torch.Tensor:
+    scores = torch.matmul(u, items[:num_items].T)
+    mask = bits_expand(bits, width)[:, :num_items]
+    return torch.where(mask != 0, _NEG_INF, scores)
+
+
+def _check_factors(u: torch.Tensor, items: torch.Tensor, num_items: int) -> None:
+    if u.dtype != torch.float32 or items.dtype != torch.float32:
+        raise TypeError("masked scores take float32 u and items, got %s, %s" % (u.dtype, items.dtype))
+    if u.dim() != 2 or items.dim() != 2 or u.shape[1] != items.shape[1]:
+        raise ValueError("u (B, d) and items (I, d) expected, got %s, %s"
+                         % (tuple(u.shape), tuple(items.shape)))
+    if items.shape[0] < num_items:
+        raise ValueError("items has %d rows, fewer than num_items=%d" % (items.shape[0], num_items))
+    if items.device != u.device:
+        raise ValueError("u on %s, items on %s" % (u.device, items.device))
+
+
+def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
+    """Run the K1 kernel; ``mask`` is a (B, mask_stride) uint8/int8 tensor."""
+    if u.device.type != "cuda":
+        raise ValueError("the masked-scores kernel runs on cuda, not %s" % u.device)
+    if mask.device != u.device or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous tensor on %s" % u.device)
+    B = u.shape[0]
+    if B > 65535 * 64:
+        raise ValueError("batch of %d users is above the kernel's grid limit" % B)
+    u, items = u.contiguous(), items.contiguous()
+    out = torch.empty((B, num_items), dtype=torch.float32, device=u.device)
+    lib = _build.load("masked_scores", u.device)
+    fn = lib.neurec_masked_scores
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(u.device):
+        code = fn(
+            u.data_ptr(), items.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            B, num_items, u.shape[1], mask_stride, plane_bytes, mode,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _build.check(lib, code, "masked_scores")
+    _build.LAUNCHES["masked_scores"] += 1
+    return out
+
+
+def masked_scores(
+    u: torch.Tensor, items: torch.Tensor, train_rows: torch.Tensor
+) -> torch.Tensor:
+    """(B, I) f32 scores u @ items^T with each user's train items at -inf.
+
+    ``train_rows`` (B, L) int holds each user's train items, padded with
+    ids >= I.
+    """
+    num_items = items.shape[0]
+    _check_factors(u, items, num_items)
+    if train_rows.dim() != 2 or train_rows.shape[0] != u.shape[0]:
+        raise ValueError("train_rows must be (B, L), got %s" % (tuple(train_rows.shape),))
+    if u.device.type == "cpu":
+        return masked_scores_reference(u, items, train_rows)
+    mask = build_train_mask(train_rows, num_items)
+    return _launch(u, items, mask, num_items, num_items, 1, mode=0)
+
+
+def masked_scores_bits(
+    u: torch.Tensor, items: torch.Tensor, bits: torch.Tensor, width: int, num_items: int
+) -> torch.Tensor:
+    """(B, num_items) f32 scores with the bit-plane mask ``bits``
+    (B, width/8) uint8 applied; ``items`` needs >= num_items rows."""
+    _check_factors(u, items, num_items)
+    if width % 8 or num_items > width:
+        raise ValueError("width must be a multiple of 8 and >= num_items")
+    if bits.dtype != torch.uint8 or tuple(bits.shape) != (u.shape[0], width // 8):
+        raise ValueError("bits must be (B, width/8) uint8, got %s %s" % (bits.dtype, tuple(bits.shape)))
+    if u.device.type == "cpu":
+        return masked_scores_bits_reference(u, items, bits, width, num_items)
+    return _launch(u, items, bits, num_items, width // 8, width // 8, mode=1)
