@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (neurec_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 from the root of a checkout, on a machine with a CUDA device. Phases (any
 failure exits non-zero before the result line):
@@ -14,14 +14,28 @@ failure exits non-zero before the result line):
    Recall/NDCG, eval batch 2048; random weights from a numpy seed;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with time, roofline bound, plain-version
-   time and a library call's time;
-4. the main path, with every launch count set to 0 just before and read
-   just after: full evaluation of every test user (twice: cold, then warm)
-   and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
+   time and a library call's time: K1 in both mask modes, K2 over the plan
+   of A (forward) and over the plan of A^T (``plan_spmm[bwd]``, the
+   backward of the propagation);
+4. the serving path, with every launch count set to 0 just before and
+   read just after: full evaluation of every test user (twice: cold, then
+   warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
    masked), plus a k-clamp request;
 5. the same path through the plain versions: metrics within 1e-5 and
    top-20 ids agreeing in >= 99.9% of positions, near-ties the only
-   difference.
+   difference;
+6. the training path, counted the same way: ``run.main`` trains the
+   north star (batch 2048, lr 0.001, reg 1e-4, Adam) for 2 epochs with an
+   evaluation after each. It fails on a non-finite loss, an epoch-2 loss
+   not below epoch 1's, a trained Recall@20 not above phase 4's random
+   weights, or K2 launch counts other than 3 forward + 3 backward per step
+   and 3 forward per evaluation;
+7. where a training step's time goes: CUDA-event times of the step, its
+   forward, Adam and one step's negative draw (``--profile`` adds a
+   ``torch.profiler`` table of device time per kernel);
+8. 5 training steps from the trained state through the kernels and again
+   through the plain versions, on the same draws: params within
+   ``TRAIN_PARAM_ATOL``, step losses within ``TRAIN_LOSS_RTOL``.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -69,6 +83,20 @@ NORTHSTAR_ARGS = [
     "--metric=[\"Recall\",\"NDCG\"]",
     "--test_batch_size=%d" % EVAL_USERS_PER_BATCH,
 ]
+# the north star's training hyperparameters (benchmarks/gowalla_northstar.py:34-37)
+TRAIN_EPOCHS = 2
+TRAIN_ARGS = NORTHSTAR_ARGS + [
+    "--epochs=%d" % TRAIN_EPOCHS, "--verbose=1", "--learner=adam",
+    "--batch_size=2048", "--lr=0.001", "--reg=1e-4",
+]
+PLAIN_STEPS = 5
+# Kernel and plain SpMM sum in other orders, so the gradients differ by f32
+# noise (~1e-7 relative). Adam passes it on as lr * d(g / (sqrt(v) + 1e-8)):
+# ~1e-7 of a step where |g| >> 1e-8, at most ~1e-4 of a step (lr = 1e-3)
+# where g is itself cancellation noise near 1e-8. Over 5 steps that stays
+# below 1e-6; 1e-5 leaves room, and is still 1% of one Adam step.
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -134,6 +162,49 @@ def parse_metrics(line: str):
     return [float(x) for x in line.split("\t")]
 
 
+def sparse_csr(torch, np, matrix):
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(matrix.indptr.astype(np.int64)), torch.from_numpy(matrix.indices.astype(np.int64)),
+        torch.from_numpy(matrix.data), size=matrix.shape, check_invariants=True,
+    ).cuda()
+
+
+def profile_steps(torch, step, n=10):
+    """``torch.profiler`` over ``n`` calls of ``step``: device time per
+    kernel (their sum is the device's busy time; one stream, so kernels do
+    not overlap) and host time per operator, per step, the largest first.
+    None where the profiler shows no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            # a user range on the device (Optimizer.step) spans kernels counted on their own
+            if not getattr(e, "is_user_annotation", False):
+                kernels.append((e.self_device_time_total, e.key, e.count))
+        elif e.self_cpu_time_total > 0:
+            ops.append((e.self_cpu_time_total, e.key, e.count))
+    if not kernels:
+        return None
+
+    def top(rows):
+        return [{"name": key[:90], "ms_per_step": us / n / 1e3, "calls_per_step": count / n}
+                for us, key, count in sorted(rows, reverse=True)[:12]]
+
+    return {"steps": n, "wall_ms_per_step_profiled": wall_ms / n,
+            "device_ms_per_step": sum(k[0] for k in kernels) / n / 1e3,
+            "kernel_launches_per_step": sum(k[2] for k in kernels) / n,
+            "kernels": top(kernels), "host_ops": top(ops)}
+
+
 def main() -> int:
     import torch
 
@@ -144,10 +215,15 @@ def main() -> int:
         print("chip_smoke: neurec_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.chdir(REPO)  # the run logger writes under ./log
+    profile = "--profile" in sys.argv[1:]
+
+    import copy
 
     import numpy as np
     import scipy.sparse as sp
 
+    from neurec_tpu_torch import run
     from neurec_tpu_torch.bridge import params_from_numpy
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
@@ -157,6 +233,7 @@ def main() -> int:
     from neurec_tpu_torch.ops import _build
     from neurec_tpu_torch.ops import masked_scores as k1
     from neurec_tpu_torch.ops import spmm as k2
+    from neurec_tpu_torch.ops.sampling import sample_negatives
     from neurec_tpu_torch.ops.topk import top_k
     from neurec_tpu_torch.recommend import batch_topk
 
@@ -249,10 +326,7 @@ def main() -> int:
     )
     rows_np, cols_np, vals_np = (t.cpu().numpy() for t in (model.adj.rows, model.adj.cols, model.adj.vals))
     csr_sp = sp.csr_matrix((vals_np, (rows_np, cols_np)), shape=(model.adj.n_nodes,) * 2)
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(csr_sp.indptr.astype(np.int64)), torch.from_numpy(csr_sp.indices.astype(np.int64)),
-        torch.from_numpy(csr_sp.data), size=csr_sp.shape, check_invariants=True,
-    ).cuda()
+    csr = sparse_csr(torch, np, csr_sp)
     nnz = int((plan.vals != 0).sum())
     plan_bytes = sum(t.numel() * 4 for t in (plan.rows, plan.cols, plan.vals, plan.tile_ptr))
     k2_rec = check(
@@ -264,6 +338,24 @@ def main() -> int:
         plan_bytes + ego.numel() * 4 + plan.n_rows * d * 4, 2.0 * nnz * d,
         {"shape": [plan.n_rows, int(plan.rows.shape[0]), d], "nnz": nnz},
     )
+    # the backward of the propagation: K2 over the plan of A^T, on a
+    # gradient-sized input made from the numpy seed
+    plan_t = model.adj.plan_t
+    g = torch.from_numpy(
+        np.random.RandomState(SEED + 1).standard_normal((model.adj.n_nodes, d)).astype(np.float32)
+    ).cuda()
+    csr_t = sparse_csr(torch, np, csr_sp.T.tocsr())
+    nnz_t = int((plan_t.vals != 0).sum())
+    plan_t_bytes = sum(t.numel() * 4 for t in (plan_t.rows, plan_t.cols, plan_t.vals, plan_t.tile_ptr))
+    k2t_rec = check(
+        "plan_spmm[bwd]", "neurec_tpu_torch/csrc/plan_spmm.cu",
+        "neurec_tpu/ops/pallas_spmm.py:504",
+        lambda: k2.plan_spmm(plan_t, g),
+        lambda: k2.plan_spmm_reference(plan_t, g),
+        lambda: torch.sparse.mm(csr_t, g),
+        plan_t_bytes + g.numel() * 4 + plan_t.n_rows * d * 4, 2.0 * nnz_t * d,
+        {"shape": [plan_t.n_rows, int(plan_t.rows.shape[0]), d], "nnz": nnz_t},
+    )
     # where an eval batch and a serving request spend their time besides
     # the kernels: the lowest-id-first top-K (a stable sort of each row)
     masked = k1.masked_scores_bits(u, item_table, bits, width, I)
@@ -273,6 +365,8 @@ def main() -> int:
           "serving_batch_scores_ms": time_ms(torch, lambda: u[:SERVING_USERS] @ item_table.T)})
     again = k2.plan_spmm(plan, ego)
     require(torch.equal(again, k2.plan_spmm(plan, ego)), "plan_spmm is not deterministic")
+    again = k2.plan_spmm(plan_t, g)
+    require(torch.equal(again, k2.plan_spmm(plan_t, g)), "plan_spmm over plan_t is not deterministic")
 
     # -- 4. the main path, counted ------------------------------------------
     users_all = rng.choice(dataset.num_users, SERVING_REQUESTS * SERVING_USERS, replace=False)
@@ -348,11 +442,112 @@ def main() -> int:
     require(agree >= 0.999, "top-20 ids agree in only %.5f of positions" % agree)
     require(near_tie <= ATOL + RTOL * np.abs(sc_p).max(), "ids differ beyond a near-tie")
 
-    for rec, name in ((k1_rec, "masked_scores"), (int8_rec, "masked_scores"), (k2_rec, "plan_spmm")):
-        rec["launches"] = launches[name]
+    # -- 6. the training path, counted --------------------------------------
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer, train_result = run.main(os.path.join(REPO, "NeuRec.properties"), cmd_args=TRAIN_ARGS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches = dict(_build.LAUNCHES)
+
+    tmodel = trainer.model
+    with open(trainer.logger.path + ".metrics.jsonl") as fin:
+        records = [json.loads(line) for line in fin]
+    losses = [r["loss"] for r in records]
+    epoch_s = [r["time_s"] for r in records]
+    n_evals = sum("metrics" in r for r in records)
+    steps, B = trainer.steps, tmodel.batch_size
+    trained = parse_metrics(train_result)
+    emit({"phase": "train", "epochs": len(records), "steps_per_epoch": steps, "batch_size": B,
+          "train_interactions": trainer.n_positives, "pad_slots": steps * B - trainer.n_instances,
+          "epoch_loss": losses, "epoch_s": epoch_s,
+          "train_examples_per_s": [trainer.n_positives / s for s in epoch_s],
+          "epoch_ms_per_step": [1e3 * s / steps for s in epoch_s],
+          "metrics": evaluator.metrics_info(),
+          "result_after_epoch": [r["metrics"]["values"] for r in records if "metrics" in r],
+          "random_init_result": eval_warm, "run_main_s": train_s, "launches": train_launches})
+    require(len(records) == TRAIN_EPOCHS, "run.main trained %d epochs" % len(records))
+    require(all(np.isfinite(losses)), "non-finite epoch loss: %s" % losses)
+    require(losses[-1] < losses[0], "the epoch-%d loss %g is not below epoch 1's %g"
+            % (len(losses), losses[-1], losses[0]))
+    require(trained[0] > metrics[0], "Recall@20 after training %g is not above random weights' %g"
+            % (trained[0], metrics[0]))
+    n_fwd = tmodel.n_layers * (steps * TRAIN_EPOCHS + n_evals)
+    n_bwd = tmodel.n_layers * steps * TRAIN_EPOCHS
+    require(train_launches["plan_spmm"] > 0 and train_launches["plan_spmm_t"] > 0,
+            "K2 was not launched on the training path: %s" % train_launches)
+    require((train_launches["plan_spmm"], train_launches["plan_spmm_t"]) == (n_fwd, n_bwd),
+            "K2 launches %s, expected %d forward and %d backward"
+            % (train_launches, n_fwd, n_bwd))
+
+    # -- 7. where a training step's time goes --------------------------------
+    def clone_state():
+        params_c = {k: v.detach().clone().requires_grad_(True) for k, v in trainer.params.items()}
+        opt_c = trainer.tx(params_c.values())
+        opt_c.load_state_dict(copy.deepcopy(trainer.opt_state.state_dict()))
+        return params_c, opt_c
+
+    draw_ms = time_ms(torch, lambda: trainer.draw_epoch(trainer.epoch_generator(3)), iters=3, warmup=1)
+    inst, w, negs = trainer.draw_epoch(trainer.epoch_generator(3))
+    params_b, opt_b = clone_state()
+    batch, w0 = trainer._batch(inst[0], negs[0]), w[0]
+    rows0 = trainer._padded_items[batch["users"]]
+    gen = trainer.epoch_generator(4)
+
+    def step():
+        opt_b.zero_grad(set_to_none=True)
+        tmodel.loss(params_b, batch, w0).backward()
+        opt_b.step()
+
+    step_ms = time_ms(torch, step)
+    forward_ms = time_ms(torch, lambda: tmodel.loss(params_b, batch, w0))
+    adam_ms = time_ms(torch, opt_b.step)
+    epoch_steps_ms = time_ms(torch, lambda: trainer.run_epoch(params_b, opt_b, inst, w, negs), iters=2, warmup=1)
+    k2_fwd_ms, k2_bwd_ms = tmodel.n_layers * k2_rec["ms"], tmodel.n_layers * k2t_rec["ms"]
+    prof = profile_steps(torch, step) if profile else None
+    if prof is not None:
+        # the profiler slows the host, not the kernels: the device's share
+        # of an unprofiled step
+        prof["device_busy_share_of_step"] = prof["device_ms_per_step"] / step_ms
+    emit({"phase": "train_breakdown", "step_ms": step_ms,
+          "run_epoch_ms_per_step": epoch_steps_ms / steps,
+          "draw_epoch_ms_per_step": draw_ms / steps,
+          "sampler_ms_per_step": time_ms(torch, lambda: sample_negatives(gen, rows0, I, ())),
+          "forward_ms": forward_ms, "backward_ms": step_ms - forward_ms - adam_ms, "adam_ms": adam_ms,
+          "k2_forward_ms": k2_fwd_ms, "k2_backward_ms": k2_bwd_ms,
+          "rest_ms": step_ms - k2_fwd_ms - k2_bwd_ms - adam_ms,
+          "profile": prof if profile else "not run (--profile)"})
+
+    # -- 8. training steps through the plain versions ------------------------
+    def some_steps():
+        params_c, opt_c = clone_state()
+        step_losses = []
+        for s in range(PLAIN_STEPS):
+            sl = slice(s, s + 1)
+            step_losses.append(float(trainer.run_epoch(params_c, opt_c, inst[sl], w[sl], negs[sl])[2]))
+        return params_c, step_losses
+
+    params_k, losses_k = some_steps()
+    with mock.patch.object(k2, "plan_spmm", k2.plan_spmm_reference):
+        params_p, losses_p = some_steps()
+    with torch.no_grad():
+        param_err = max(float((params_k[n] - params_p[n]).abs().max()) for n in params_k)
+        moved = max(float((params_k[n] - trainer.params[n]).abs().max()) for n in params_k)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    emit({"phase": "train_plain_path", "steps": PLAIN_STEPS, "losses": losses_k, "plain_losses": losses_p,
+          "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "param_max_abs_move": moved,
+          "tol": "params atol %g, losses rtol %g" % (TRAIN_PARAM_ATOL, TRAIN_LOSS_RTOL)})
+    require(all(np.isfinite(losses_k)) and moved > 0, "the kernel steps did not train")
+    require(param_err <= TRAIN_PARAM_ATOL, "params differ from the plain path by %g" % param_err)
+    require(loss_rel <= TRAIN_LOSS_RTOL, "step losses differ from the plain path by %g" % loss_rel)
+
+    for rec, name in ((k1_rec, "masked_scores"), (int8_rec, "masked_scores"), (k2_rec, "plan_spmm"),
+                      (k2t_rec, "plan_spmm_t")):
+        rec["launches_by_path"] = {"serve": launches[name], "train": train_launches[name]}
+        rec["launches"] = launches[name] + train_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: rec[k] for k in keys} for rec in (k1_rec, k2_rec)]})
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
+    emit({"kernels": [{k: rec[k] for k in keys} for rec in (k1_rec, k2_rec, k2t_rec)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
-// K2: plan SpMM forward, out = A @ x over the chunked-COO scatter plan, f32,
-// for sm_90a.
+// K2: plan SpMM, out = A @ x over the chunked-COO scatter plan, f32, for
+// sm_90a. Over the plan of A^T the same kernel computes the backward
+// A^T @ g (ops/graph.py::PlanSpmm), as the TPU design does.
 //
 // Replaces the Pallas TPU kernel neurec_tpu/ops/pallas_spmm.py
 // ::_scatter_kernel (driven by scatter_arrays / plan_spmm / make_spmm):

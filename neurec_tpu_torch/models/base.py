@@ -9,10 +9,16 @@ JAX package's params:
   factor as ``u_vecs @ item_table.T`` (the evaluator then fuses scoring and
   masking in kernel K1);
 * ``eval_tables(params) -> (user_table, item_table)`` where those tables
-  are user-independent (the evaluator computes them once per call).
+  are user-independent (the evaluator computes them once per call);
+* ``loss(params, batch, weights) -> scalar`` — the per-batch training loss,
+  differentiable in ``params``; ``batch`` keys depend on ``data_kind``:
+    - "pairwise":  users, pos_items, neg_items
+    - "pointwise": users, items, labels
+  ``weights`` masks padded instances (1 real / 0 pad).
 
 A model lives on one device, chosen at construction (``device=None`` means
-cuda, see ``device.py``). Training (``loss``) comes with a later slice.
+cuda, see ``device.py``). The Trainer (``trainer.py``) owns sampling, the
+optimizer, the epoch loop and evaluation.
 """
 
 from __future__ import annotations
@@ -25,17 +31,28 @@ from neurec_tpu_torch.device import DeviceLike, resolve_device
 
 
 class Recommender:
-    """Base class: catalogue sizes, device and protocol stubs."""
+    """Base class: hyperparameter capture, device and protocol stubs."""
+
+    data_kind: str = "pairwise"
 
     def __init__(self, dataset, config, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.num_users = dataset.num_users
         self.num_items = dataset.num_items
+        self.batch_size = int(config.get("batch_size", 512))
+        self.epochs = int(config.get("epochs", 100))
+        self.verbose = int(config.get("verbose", 1))
+        self.learner = config.get("learner", "adam")
+        self.learning_rate = float(config.get("learning_rate", config.get("lr", 0.001)))
+        self.num_negatives = int(config.get("num_negatives", 1))
 
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
     def predict(self, params, users) -> torch.Tensor:
+        raise NotImplementedError
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], weights: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     @staticmethod

@@ -1,1 +1,1 @@
-from neurec_tpu_torch.models.general import lightgcn  # noqa: F401  (registers LightGCN)
+from neurec_tpu_torch.models.general import lightgcn, mf  # noqa: F401  (registers LightGCN, MF)

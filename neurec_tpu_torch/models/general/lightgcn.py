@@ -1,39 +1,34 @@
 """LightGCN — K-layer linear propagation over the normalized interaction
 graph (He et al., SIGIR 2020). Port of
-``neurec_tpu/models/general/lightgcn.py`` for serving and evaluation:
+``neurec_tpu/models/general/lightgcn.py``:
 
 * propagation E^{k+1} = Â E^k for K layers, final embedding = mean over
   [E^0..E^K]; at gowalla scale Â lies above ``DENSE_LIMIT`` and each
-  layer runs the plan SpMM kernel (K2);
+  layer runs the plan SpMM kernel (K2), its backward K2 over Â^T;
+* BPR loss sum(softplus(neg - pos)) + reg * l2(layer-0 rows of the batch),
+  each term scaled by the instance weight;
 * eval scores = propagated user rows @ propagated item table^T.
-
-Training (the BPR loss and the SpMM backward) comes with a later slice.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.ops.graph import build_norm_adjacency, spmm
-
-
-def glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
-    """U(-l, l), l = sqrt(6 / (fan_in + fan_out)) with fan_in = rows and
-    fan_out = columns — ``jax.nn.initializers.glorot_uniform`` on 2-D."""
-    fan_in, fan_out = shape
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
-    return (2.0 * u - 1.0) * limit
+from neurec_tpu_torch.ops.initializers import glorot_uniform
+from neurec_tpu_torch.ops.losses import l2_loss, log_loss
 
 
 @register("LightGCN")
 class LightGCN(Recommender):
+    data_kind = "pairwise"
+
     def __init__(self, dataset, config, device: DeviceLike = None):
         super().__init__(dataset, config, device)
+        self.learning_rate = float(config.get("lr", config.get("learning_rate", 0.01)))
+        self.reg = float(config.get("reg", 1e-3))
         self.emb_dim = int(config.get("embed_size", 64))
         self.n_layers = int(config.get("n_layers", 3))
         self.adj_type = config.get("adj_type", "pre")
@@ -41,8 +36,8 @@ class LightGCN(Recommender):
 
     def init_params(self, generator: torch.Generator):
         return {
-            "user_emb": glorot_uniform((self.num_users, self.emb_dim), generator).to(self.device),
-            "item_emb": glorot_uniform((self.num_items, self.emb_dim), generator).to(self.device),
+            "user_emb": glorot_uniform(generator, (self.num_users, self.emb_dim)).to(self.device),
+            "item_emb": glorot_uniform(generator, (self.num_items, self.emb_dim)).to(self.device),
         }
 
     def propagate(self, params):
@@ -55,6 +50,20 @@ class LightGCN(Recommender):
             acc = acc + h
         final = acc / (self.n_layers + 1)
         return final[: self.num_users], final[self.num_users :]
+
+    def loss(self, params, batch, weights):
+        users, pos, neg = batch["users"], batch["pos_items"], batch["neg_items"]
+        u_table, i_table = self.propagate(params)
+        u = u_table[users]
+        y = torch.sum(u * i_table[pos], dim=-1) - torch.sum(u * i_table[neg], dim=-1)
+        mf_loss = torch.sum(log_loss(y) * weights)
+        w = weights[:, None]
+        emb_loss = self.reg * l2_loss(
+            params["user_emb"][users] * w,
+            params["item_emb"][pos] * w,
+            params["item_emb"][neg] * w,
+        )
+        return mf_loss + emb_loss
 
     def predict(self, params, users):
         u_table, i_table = self.propagate(params)

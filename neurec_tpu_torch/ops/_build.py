@@ -44,7 +44,9 @@ NVCC_FLAGS = [
     "-Xcompiler=-fPIC",
 ]
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# one count per kernel, plus plan_spmm's launches over a transposed plan
+# (the backward of A @ x), counted apart from its forward ones
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, "plan_spmm_t")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -12,7 +12,10 @@ users, U..U+I-1 items; A = [[0, R], [R^T, 0]]. Normalizations:
 ``spmm`` has the JAX package's three branches: a dense matmul below
 ``DENSE_LIMIT`` entries, the plan SpMM kernel (K2, ``ops/spmm.py``) above
 it, and the sorted COO segment-sum (``index_add_``) when a graph carries
-neither.
+neither. The plan branch is differentiable through ``PlanSpmm``, whose
+backward runs K2 over the transposed plan (``neurec_tpu/ops/pallas_spmm.py``
+``make_spmm``); the other two keep autograd's own gradient, as JAX's
+``jnp.dot`` and ``segment_sum`` do.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from neurec_tpu_torch.ops import spmm as spmm_ops
 
 class SparseAdj(NamedTuple):
     """Adjacency on a device: padded COO edges, plus a dense copy below
-    ``DENSE_LIMIT`` entries or the forward SpMM plan above it."""
+    ``DENSE_LIMIT`` entries or the SpMM plans of A and A^T above it."""
 
     rows: torch.Tensor  # (nnz_pad,) int32, sorted, pads repeat the last row
     cols: torch.Tensor  # (nnz_pad,) int32
@@ -37,6 +40,7 @@ class SparseAdj(NamedTuple):
     n_nodes: int
     dense: Optional[torch.Tensor] = None  # (n_nodes, n_nodes) f32 or None
     plan: Optional[spmm_ops.SpmmPlan] = None
+    plan_t: Optional[spmm_ops.SpmmPlan] = None  # A^T, for the backward
 
 
 # dense adjacency cutoff: 64M f32 entries == 256 MB
@@ -99,11 +103,12 @@ def build_norm_adjacency(
     # sequence sorted (row-0 pads would break it)
     if nnz:
         rows[nnz:] = rows[nnz - 1]
-    dense = plan = None
+    dense = plan = plan_t = None
     if n_nodes * n_nodes <= DENSE_LIMIT:
         dense = torch.from_numpy(norm.toarray().astype(np.float32)).to(dev)
     else:
         plan = spmm_ops.build_spmm_plan(rows, cols, vals, n_nodes).to(dev)
+        plan_t = spmm_ops.build_spmm_plan(cols, rows, vals, n_nodes)._replace(transposed=True).to(dev)
     return SparseAdj(
         rows=torch.from_numpy(rows).to(dev),
         cols=torch.from_numpy(cols).to(dev),
@@ -111,7 +116,30 @@ def build_norm_adjacency(
         n_nodes=n_nodes,
         dense=dense,
         plan=plan,
+        plan_t=plan_t,
     )
+
+
+class PlanSpmm(torch.autograd.Function):
+    """x -> A @ x over ``plan``, with d/dx = A^T @ g over ``plan_t``: K2
+    both ways, as the JAX package's ``make_spmm`` custom VJP. The adjacency
+    values are not trained, so only x gets a gradient.
+
+    ``spmm_ops.plan_spmm`` is looked up at each call, so that replacing it
+    (with its plain version, say) reaches the backward too.
+    """
+
+    @staticmethod
+    def forward(ctx, x, plan, plan_t):
+        ctx.plan_t = plan_t
+        return spmm_ops.plan_spmm(plan, x)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if ctx.plan_t is None:
+            raise ValueError("the adjacency carries no transposed plan for the backward")
+        # the gradient of a row slice of the output may arrive non-contiguous
+        return spmm_ops.plan_spmm(ctx.plan_t, grad_out.contiguous()), None, None
 
 
 def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +147,7 @@ def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     if adj.dense is not None:
         return torch.matmul(adj.dense, x)
     if adj.plan is not None:
-        return spmm_ops.plan_spmm(adj.plan, x)
+        return PlanSpmm.apply(x, adj.plan, adj.plan_t)
     gathered = x[adj.cols.long()] * adj.vals[:, None]
     out = torch.zeros((adj.n_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
     return out.index_add_(0, adj.rows.long(), gathered)

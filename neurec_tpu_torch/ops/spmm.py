@@ -10,8 +10,12 @@ leaves to XLA; on a CPU tensor it runs ``plan_spmm_reference``.
 The plan also carries ``tile_ptr`` (n_tiles + 1), built once on the host
 from ``chunk_tile``, so that a CUDA block can find its tile's chunks.
 
-Not ported in this slice: the transposed-plan backward (training), the
-bf16 feature path and the lane-packed variant (K3).
+The backward of A @ x is the same kernel over the transposed plan
+(``build_spmm_plan(cols, rows, vals, n)``, marked ``transposed``), as in the
+JAX package's ``make_spmm``; ``ops/graph.py::PlanSpmm`` wires it into
+autograd. A launch over a transposed plan counts as ``plan_spmm_t``.
+
+Not ported yet: the bf16 feature path and the lane-packed variant (K3).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ class SpmmPlan(NamedTuple):
     tile_ptr: ArrayLike    # (n_tiles + 1,) int32 — tile t owns chunks [ptr[t], ptr[t+1])
     n_rows: int            # logical output rows (<= n_tiles * tile_r)
     tile_r: int
+    transposed: bool = False  # the plan of A^T (a backward), counted apart
 
     @property
     def n_tiles(self) -> int:
@@ -160,5 +165,5 @@ def plan_spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, code, "plan_spmm")
-    _build.LAUNCHES["plan_spmm"] += 1
+    _build.LAUNCHES["plan_spmm_t" if plan.transposed else "plan_spmm"] += 1
     return out

@@ -1,0 +1,280 @@
+"""The training loop (port of ``neurec_tpu/trainer.py``).
+
+The JAX package runs a whole epoch as one jitted ``lax.scan``; here an
+epoch is a Python loop of eager steps on the model's device, in two parts:
+
+* ``draw_epoch(generator) -> (inst, w, negs)`` holds all of the epoch's
+  randomness: a permutation of ``steps * B`` instance slots (slots past
+  the instance count take instance 0 with weight 0) and, step by step, one
+  fresh negative per slot from the exclusion sampler (``ops/sampling.py``);
+* ``run_epoch(params, opt_state, inst, w, negs)`` takes the steps: loss,
+  backward, optimizer step; the epoch loss is sum(step losses) / steps.
+
+A test can therefore hand both packages the same draws. Epoch semantics
+are the JAX package's (pairwise: every train positive once per epoch with
+one negative; pointwise: ``1 + num_negatives`` instances per positive,
+instance ``i`` being positive ``i % N`` and labelled 1 when ``i < N``). The
+log lines ("[iter %d : loss : %f, time: %f]", "epoch %d:\\t<results>") and
+the ``.metrics.jsonl`` records are kept.
+
+Random streams: parameters are drawn from a generator seeded with
+``seed``, epoch ``e`` from one seeded with ``(seed + 1, e)``. They are
+torch's (Philox on a CUDA device), not JAX's threefry: the packages agree
+in distribution, not draw for draw. ``scan_unroll`` has no meaning without
+a scan and is ignored.
+
+Not ported yet (``NotImplementedError``): the pair Bloom sampler (an
+exclusion table above ``_EXCL_TABLE_BUDGET``), the ``time_*``,
+``dense_row``, ``custom`` and ``none`` epochs, and ``trace_dir``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from functools import partial
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from neurec_tpu_torch.data.padded import build_padded_positives
+from neurec_tpu_torch.device import DeviceLike, resolve_device
+from neurec_tpu_torch.eval import Evaluator
+from neurec_tpu_torch.logging import Logger, run_logger
+from neurec_tpu_torch.ops.sampling import sample_negatives
+
+# padded-exclusion-table byte budget: above it the JAX package switches the
+# sampler to its pair Bloom filter, which the port does not have yet
+_EXCL_TABLE_BUDGET = 64 * 1024 * 1024
+
+Params = Dict[str, torch.Tensor]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        "%s is not ported to the PyTorch trainer yet (ROADMAP.md queue 1: %s)" % (what, item)
+    )
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr, initial_accumulator_value=1e-8)``: acc += g^2;
+    p -= lr * g * rsqrt(acc + eps) where acc > 0, else 0. (``torch.optim.Adagrad``
+    puts eps outside the square root.)"""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 1e-8, eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+                acc = state["sum_of_squares"]
+                acc.add_(p.grad.square())
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), torch.zeros_like(acc))
+                p.add_(scale * p.grad, alpha=-group["lr"])
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop``: nu = decay * nu + (1 - decay) * g^2 from nu = 0;
+    p -= lr * g * rsqrt(nu + eps), eps inside the square root.
+    (``torch.optim.RMSprop`` puts it outside.)"""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(group["decay"]).add_(p.grad.square(), alpha=1.0 - group["decay"])
+                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+
+
+def make_optimizer(
+    learner: str, learning_rate: float, momentum: float = 0.9
+) -> Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]:
+    """Optimizer factory with the reference's choices (util/learner.py:2-17)
+    and optax's semantics: returns ``params -> torch.optim.Optimizer``.
+
+    Gradients are dense, as in the JAX package: Adam's moments decay on
+    every row at every step.
+    """
+    ln = learner.lower()
+    if ln == "adagrad":
+        return partial(OptaxAdagrad, lr=learning_rate)
+    elif ln == "rmsprop":
+        return partial(OptaxRMSprop, lr=learning_rate)
+    elif ln == "adam":
+        # b1 .9, b2 .999, eps 1e-8 outside the sqrt, bias-corrected: optax.adam
+        return partial(torch.optim.Adam, lr=learning_rate)
+    elif ln == "gd":
+        return partial(torch.optim.SGD, lr=learning_rate)
+    elif ln == "momentum":
+        # t = g + m * t; p -= lr * t: optax.sgd(momentum=m)
+        return partial(torch.optim.SGD, lr=learning_rate, momentum=momentum)
+    raise ValueError("please select a suitable optimizer")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _flat_interactions(user_dict):
+    users, items = [], []
+    for u, its in user_dict.items():
+        users.extend([u] * len(its))
+        items.extend(its)
+    return np.asarray(users, dtype=np.int32), np.asarray(items, dtype=np.int32)
+
+
+class Trainer:
+    def __init__(
+        self,
+        model,
+        dataset,
+        config,
+        logger: Optional[Logger] = None,
+        seed: int = 2018,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        if model.device.type != self.device.type:
+            raise ValueError("the model lives on %s, the trainer on %s" % (model.device, self.device))
+        get_raw = getattr(config, "get_raw", config.get)
+        if get_raw("trace_dir", None):
+            raise _not_ported("trace_dir (a device trace)", "checkpoint, profiling and native")
+        kind = model.data_kind
+        if kind not in ("pairwise", "pointwise"):
+            raise _not_ported("the %r epoch" % kind, "the rest of the zoo")
+        lens = np.diff(dataset.train_matrix.indptr)
+        l_max = max(int(lens.max()) if len(lens) else 0, 8)
+        padded_bytes = 4 * model.num_users * (l_max + (-l_max) % 8)
+        if padded_bytes > _EXCL_TABLE_BUDGET:
+            raise _not_ported(
+                "an exclusion table of %.1f MB (the pair Bloom sampler)" % (padded_bytes / 2**20),
+                "Bloom sampler",
+            )
+        self.model = model
+        self.dataset = dataset
+        self.config = config
+        self.seed = seed
+        self.logger = logger or run_logger(config, dataset.dataset_name)
+        self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device)
+        self.tx = make_optimizer(model.learner, model.learning_rate)
+
+        users, pos = _flat_interactions(dataset.get_user_train_dict())
+        self._users_flat = torch.from_numpy(users).long().to(self.device)
+        self._pos_flat = torch.from_numpy(pos).long().to(self.device)
+        padded = build_padded_positives(dataset.train_matrix)
+        self._padded_items = torch.from_numpy(padded.items).to(self.device)
+        self._pairwise = kind == "pairwise"
+        self.n_positives = len(users)
+        # pointwise epochs visit each positive (1 + num_negatives) times
+        self.n_instances = self.n_positives * (1 if self._pairwise else 1 + model.num_negatives)
+        self.steps = _cdiv(self.n_instances, model.batch_size)
+        self.params: Optional[Params] = None
+        self.opt_state: Optional[torch.optim.Optimizer] = None
+
+    # -- one epoch ----------------------------------------------------------
+    def epoch_generator(self, epoch: int) -> torch.Generator:
+        """The generator of epoch ``epoch``'s draws, seeded from (seed + 1, epoch)."""
+        seed = int(np.random.SeedSequence([self.seed + 1, epoch]).generate_state(1)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def draw_epoch(self, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """All of one epoch's randomness: ``inst`` (steps, B) int32 instance
+        ids, ``w`` (steps, B) f32 weights (0 on pad slots) and ``negs``
+        (steps, B) int32, one fresh negative per slot, drawn step by step."""
+        B, steps = self.model.batch_size, self.steps
+        perm = torch.randperm(steps * B, generator=generator, device=self.device)
+        valid = perm < self.n_instances
+        inst = torch.where(valid, perm, torch.zeros_like(perm)).to(torch.int32).reshape(steps, B)
+        w = valid.to(torch.float32).reshape(steps, B)
+        users = self._users_flat[self._base(inst)]
+        negs = torch.stack([
+            sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
+            for s in range(steps)
+        ])
+        return inst, w, negs
+
+    def _base(self, inst: torch.Tensor) -> torch.Tensor:
+        return (inst if self._pairwise else inst % self.n_positives).long()
+
+    def _batch(self, inst: torch.Tensor, negs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        base = self._base(inst)
+        users, pos, negs = self._users_flat[base], self._pos_flat[base], negs.long()
+        if self._pairwise:
+            return {"users": users, "pos_items": pos, "neg_items": negs}
+        is_pos = inst < self.n_positives
+        return {"users": users, "items": torch.where(is_pos, pos, negs), "labels": is_pos.to(torch.float32)}
+
+    def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs):
+        """One step per row of ``inst`` / ``w`` / ``negs``; returns
+        ``(params, opt_state, mean step loss)``. ``opt_state`` is the
+        optimizer over the tensors of ``params``, which it updates in place."""
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for s in range(inst.shape[0]):
+            batch = self._batch(inst[s], negs[s])
+            opt_state.zero_grad(set_to_none=True)
+            loss = self.model.loss(params, batch, w[s])
+            loss.backward()
+            opt_state.step()
+            total += loss.detach()
+        return params, opt_state, total / inst.shape[0]
+
+    # -- epochs, logs and evaluation ---------------------------------------
+    def initialize(self):
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.params = {
+            name: value.detach().requires_grad_(True)
+            for name, value in self.model.init_params(generator).items()
+        }
+        self.opt_state = self.tx(self.params.values())
+
+    def train(self) -> str:
+        if self.params is None:
+            self.initialize()
+        model = self.model
+        self.logger.info(self.evaluator.metrics_info())
+        if model.epochs == 0:
+            result = self.evaluate()
+            self.logger.info("result:\t%s" % result)
+            return result
+        result = ""
+        jsonl_path = None
+        if getattr(self.logger, "path", None):
+            jsonl_path = self.logger.path + ".metrics.jsonl"
+        for epoch in range(1, model.epochs + 1):
+            t0 = time.time()
+            draws = self.draw_epoch(self.epoch_generator(epoch))
+            self.params, self.opt_state, loss = self.run_epoch(self.params, self.opt_state, *draws)
+            loss = float(loss)
+            elapsed = time.time() - t0
+            self.logger.info("[iter %d : loss : %f, time: %f]" % (epoch, loss, elapsed))
+            record = {"epoch": epoch, "loss": loss, "time_s": round(elapsed, 4)}
+            if epoch % model.verbose == 0:
+                result = self.evaluate()
+                self.logger.info("epoch %d:\t%s" % (epoch, result))
+                record["metrics"] = {
+                    "header": self.evaluator.metrics_info(),
+                    "values": result.split("\t"),
+                }
+            if jsonl_path is not None:
+                with open(jsonl_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+        return result
+
+    def evaluate(self) -> str:
+        return self.evaluator.evaluate(self.model.predict, self.params)

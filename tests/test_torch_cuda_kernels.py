@@ -79,6 +79,33 @@ def test_plan_spmm_kernel_matches_reference(cuda, n_rows, n_src, nnz, tile_r, ch
     assert torch.equal(got, spmm.plan_spmm(plan, x))  # fixed sum order: same bits
 
 
+@pytest.mark.parametrize("adj_type", ["gcmc", "norm"])
+def test_plan_spmm_backward_over_the_transposed_plan(cuda, adj_type):
+    """K2 over plan_t, and PlanSpmm's autograd backward, against the plain
+    version on a non-symmetric adjacency above DENSE_LIMIT."""
+    from neurec_tpu_torch.data.synthetic import random_dataset
+    from neurec_tpu_torch.ops import graph
+
+    ds = random_dataset(num_users=6000, num_items=3000, seed=4)
+    adj = graph.build_norm_adjacency(ds.train_matrix, adj_type, device=cuda)
+    assert adj.dense is None and adj.plan_t.transposed
+    gen = torch.Generator().manual_seed(1)
+    g = torch.randn(adj.n_nodes, 64, generator=gen).to(cuda)
+    before = dict(_build.LAUNCHES)
+    got = spmm.plan_spmm(adj.plan_t, g)
+    torch.testing.assert_close(got, spmm.plan_spmm_reference(adj.plan_t, g), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, spmm.plan_spmm(adj.plan_t, g))
+    assert _build.LAUNCHES["plan_spmm_t"] == before["plan_spmm_t"] + 2
+    assert _build.LAUNCHES["plan_spmm"] == before["plan_spmm"]
+
+    x = torch.randn(adj.n_nodes, 64, generator=gen).to(cuda).requires_grad_(True)
+    out = graph.spmm(adj, x)
+    (out[: ds.num_users] * g[: ds.num_users]).sum().backward()  # a strided gradient
+    g_in = torch.cat([g[: ds.num_users], torch.zeros_like(g[ds.num_users:])])
+    torch.testing.assert_close(x.grad, spmm.plan_spmm_reference(adj.plan_t, g_in), atol=1e-5, rtol=1e-5)
+    assert _build.LAUNCHES["plan_spmm_t"] == before["plan_spmm_t"] + 3
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     plan = _random_plan(1, 300, 50, 100, 256, 256, 0).to(cuda)
     with pytest.raises(TypeError):

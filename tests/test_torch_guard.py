@@ -31,8 +31,10 @@ def test_importing_every_module_loads_neither_jax_nor_neurec_tpu():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neurec_tpu' or m.startswith('neurec_tpu.'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n"
+        "need = {'neurec_tpu_torch.' + m for m in ('trainer', 'run', 'logging', 'ops.losses',"
+        " 'ops.initializers', 'ops.sampling', 'data.padded', 'models.general.mf')}\n"
+        "print(len(names), bad, sorted(need - set(names)))\n"
+        "sys.exit(1 if bad or need - set(names) or len(names) < 23 else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -74,3 +76,45 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     items, _ = batch_topk(model, params, 5, users=np.arange(3), device="cpu")
     assert items.shape == (3, 5)
     assert _build.load("masked_scores", "cpu") is None
+
+
+def _write_ui(path, seed=0, n_users=40, n_items=60):
+    rng = np.random.RandomState(seed)
+    lines = ["%d,%d" % (u, i) for u in range(n_users)
+             for i in rng.choice(n_items, rng.randint(3, 12), replace=False)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    from neurec_tpu_torch import run
+    from neurec_tpu_torch.data.synthetic import DictConfig, random_dataset
+    from neurec_tpu_torch.models import get_model
+    from neurec_tpu_torch.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)  # the run logger writes under ./log
+    ds = random_dataset(num_users=20, num_items=30, seed=0)
+    conf = DictConfig({"recommender": "MF", "embedding_size": 4, "batch_size": 16, "epochs": 1,
+                       "topk": [5], "metric": ["Recall"]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("MF")(ds, conf)
+    model = get_model("MF")(ds, conf, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, ds, conf)
+    trainer = Trainer(model, ds, conf, device="cpu")
+    assert len(trainer.train().split("\t")) == 1
+
+    (tmp_path / "data").mkdir()
+    _write_ui(tmp_path / "data" / "syn.rating")
+    args = ["--recommender=MF", "--config_dir=%s" % os.path.join(REPO, "conf"),
+            "--data.input.path=%s" % (tmp_path / "data"), "--data.cache.path=%s" % (tmp_path / "cache"),
+            "--data.input.dataset=syn", "--data.column.format=UI", "--data.convert.separator=','",
+            "--epochs=2", "--embedding_size=4", "--batch_size=64", "--topk=[5]", "--metric=[\"Recall\"]"]
+    props = os.path.join(REPO, "NeuRec.properties")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(props, args)
+    trainer, result = run.main(props, args, device="cpu")
+    assert trainer.device.type == "cpu" and len(result.split("\t")) == 1
+    assert list((tmp_path / "log" / "syn" / "MF").glob("*.log.metrics.jsonl"))
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        run.main(props, args + ["--ckpt_dir=%s" % (tmp_path / "ck")], device="cpu")

@@ -117,3 +117,76 @@ def test_spmm_branches(branch, monkeypatch):
     want = np.asarray(jax_graph.spmm(jadj, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got, dense @ x, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("adj_type", ["gcmc", "norm"])
+def test_transposed_plan_array_identical(adj_type):
+    ds = random_dataset(num_users=6000, num_items=3000, seed=4)
+    want = jax_graph.build_norm_adjacency(ds.train_matrix, adj_type)
+    got = graph.build_norm_adjacency(ds.train_matrix, adj_type, device="cpu")
+    assert got.plan_t.transposed and not got.plan.transposed
+    for name in ("rows", "cols", "vals", "chunk_tile", "chunk_first"):
+        np.testing.assert_array_equal(getattr(got.plan_t, name).numpy(), np.asarray(getattr(want.plan_t, name)))
+    assert (got.plan_t.n_rows, got.plan_t.tile_r) == (want.plan_t.n_rows, want.plan_t.tile_r)
+    # a non-symmetric adjacency: the transposed plan has its own structure
+    assert not np.array_equal(got.plan_t.vals.numpy(), got.plan.vals.numpy())
+
+
+def _small_plans(adj_type, tile_r=32, chunk=16):
+    ds = random_dataset(num_users=70, num_items=50, seed=8)
+    adj = graph.build_norm_adjacency(ds.train_matrix, adj_type, device="cpu")
+    coo = (adj.rows.numpy(), adj.cols.numpy(), adj.vals.numpy())
+    n = adj.n_nodes
+    jplan = jax_spmm.build_spmm_plan(*coo, n, tile_r=tile_r, chunk=chunk)
+    jplan_t = jax_spmm.build_spmm_plan(coo[1], coo[0], coo[2], n, tile_r=tile_r, chunk=chunk)
+    plan = spmm.build_spmm_plan(*coo, n, tile_r=tile_r, chunk=chunk).to("cpu")
+    plan_t = spmm.build_spmm_plan(coo[1], coo[0], coo[2], n, tile_r=tile_r, chunk=chunk)
+    plan_adj = adj._replace(dense=None, plan=plan, plan_t=plan_t._replace(transposed=True).to("cpu"))
+    return adj.dense.numpy(), plan_adj, jplan, jplan_t
+
+
+@pytest.mark.parametrize("adj_type", ["gcmc", "norm", "mean"])
+def test_plan_spmm_gradient_matches_jax_vjp(adj_type):
+    """d/dx sum(g * (A @ x)) = A^T @ g: the port's PlanSpmm backward
+    against jax.grad through make_spmm (Pallas, interpret mode) and the
+    dense A^T @ g; atol/rtol 1e-5."""
+    import jax
+
+    dense, plan_adj, jplan, jplan_t = _small_plans(adj_type)
+    assert not np.allclose(dense, dense.T)  # a backward without the transpose would fail
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((dense.shape[0], 12)).astype(np.float32)
+    g = rng.standard_normal((dense.shape[0], 12)).astype(np.float32)
+    f = jax_spmm.make_spmm(jplan, jplan_t, interpret=True, compute_dtype=None)
+    want = np.asarray(jax.grad(lambda v: jnp.sum(f(v) * jnp.asarray(g)))(jnp.asarray(x)))
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = graph.spmm(plan_adj, xt)
+    np.testing.assert_allclose(out.detach().numpy(), dense @ x, atol=1e-5, rtol=1e-5)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), dense.T @ g, atol=1e-5, rtol=1e-5)
+
+
+def test_plan_spmm_backward_goes_through_the_module_wrapper(monkeypatch):
+    """PlanSpmm looks ``plan_spmm`` up at call time: a replacement reaches
+    the forward (over plan) and the backward (over plan_t, given a
+    contiguous gradient even when autograd hands it a strided view)."""
+    _, plan_adj, _, _ = _small_plans("gcmc")
+    calls = []
+
+    def spy(plan, x):
+        calls.append((plan.transposed, x.is_contiguous()))
+        return spmm.plan_spmm_reference(plan, x)
+
+    monkeypatch.setattr(spmm, "plan_spmm", spy)
+    x = torch.randn(plan_adj.n_nodes, 6, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    out = graph.spmm(plan_adj, x)
+    # the gradient of out.T arrives at out as a transposed, strided view
+    (out.T * torch.arange(out.numel(), dtype=torch.float32).reshape(out.T.shape)).sum().backward()
+    assert calls == [(False, True), (True, True)]
+    with torch.no_grad():
+        graph.spmm(plan_adj, x)
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="transposed plan"):
+        graph.spmm(plan_adj._replace(plan_t=None), x).sum().backward()
