@@ -7,20 +7,21 @@ from the root of a checkout, on a machine with a CUDA device. Phases (any
 failure exits non-zero before the result line):
 
 1. device and build: prints the card's name and power limit, builds every
-   kernel from ``neurec_tpu_torch/csrc`` (nvcc, ``build/neurec_tpu_torch``);
+   kernel from ``neurec_tpu_torch/csrc`` (nvcc, one process per source, all
+   at once, into ``build/neurec_tpu_torch``);
 2. LightGCN serving set-up at the north-star configuration: gowalla
    (``dataset/gowalla.rating``, ratio 0.8 split cached under
    ``dataset/_tmp_gowalla``), embed_size 64, 3 layers, adj_type pre, top-20
    Recall/NDCG, eval batch 2048; random weights from a numpy seed;
-3. every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with time, roofline bound, plain-version
-   time and a library call's time: K1 in both mask modes, K2 over the plan
-   of A (forward) and over the plan of A^T (``plan_spmm[bwd]``, the
-   backward of the propagation);
+3. kernels against their plain PyTorch versions on the card, at the shapes
+   the main paths give them, with time, roofline bound, plain-version time
+   and a library call's time: K1 in both mask modes, K2 over the plan of A
+   (forward) and of A^T (``plan_spmm[bwd]``), in f32 and bf16;
 4. the serving path, with every launch count set to 0 just before and
    read just after: full evaluation of every test user (twice: cold, then
    warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
-   masked), plus a k-clamp request;
+   masked), plus a k-clamp request; then one evaluation on the ``pallas``
+   tier (K1's int8 mode, ``NEUREC_EVAL_PREMASK=0``), counted apart;
 5. the same path through the plain versions: metrics within 1e-5 and
    top-20 ids agreeing in >= 99.9% of positions, near-ties the only
    difference;
@@ -35,17 +36,42 @@ failure exits non-zero before the result line):
    ``torch.profiler`` table of device time per kernel);
 8. 5 training steps from the trained state through the kernels and again
    through the plain versions, on the same draws: params within
-   ``TRAIN_PARAM_ATOL``, step losses within ``TRAIN_LOSS_RTOL``.
+   ``TRAIN_PARAM_ATOL``, step losses within ``TRAIN_LOSS_RTOL``;
+9. path A, K3: the north star under ``NEUREC_SPMM_CHUNK=512`` and
+   ``NEUREC_SPMM_PACK=2`` (``benchmarks/ab_spmm_epoch.py``'s
+   ``chunk512_pack2``): K3 against its plain version (pack 2 and 4, f32
+   and bf16, the same bits as K2), one full evaluation of phase 2's
+   weights, ``run.main`` for 2 epochs; exactly 3 K3 forward per step and
+   per evaluation, 3 K3 backward per step, no K2; the loss checks of phase
+   6 and the 5 steps of phase 8 against K3's plain version;
+10. the other SpMM variants as paths of their own, each one evaluation and
+   2 training steps from path A's trained state: pack 4, pack 2 in bf16,
+   pack 4 in bf16, and K2 in bf16 (``NEUREC_SPMM_DTYPE=bf16``);
+11. path B, NGCF at its published widths (Wang et al., SIGIR 2019,
+   "Parameter Settings": embedding 64, layers [64, 64, 64], ``norm``
+   adjacency, message dropout 0.1, batch 1024, lr 1e-4, reg 1e-5, Adam;
+   no node dropout) on the same gowalla split: K1 at d = 256 and K3's
+   backward over the non-symmetric ``plan_t`` against their plain
+   versions, a full evaluation of random weights, ``run.main`` for 2
+   epochs; 3 K2 forward and 3 K2 backward per step, 3 K2 forward per
+   evaluation; the loss checks and 5 steps against the plain path, with
+   the same seeded dropout draws;
+12. K4, the copy-rate probe (``python -m neurec_tpu_torch.benchmarks.dma_rate``,
+   65,536 offsets, repeat 8, 3 rounds), then each mode and size against its
+   plain version: the rows written must be the same.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
 
-The last lines: ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit
-line, and ``{"ok": true, "device": {...}}``.
+The last lines: ``{"kernels": [...]}`` (every kernel and variant, with
+``launches_by_path``), the ``nvidia-smi`` name/power-limit line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -54,6 +80,7 @@ import time
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+PROPS = os.path.join(REPO, "NeuRec.properties")
 
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -65,8 +92,7 @@ SERVING_REQUESTS, SERVING_USERS, SERVING_K = 4, 512, 20
 # both sides compute in f32 with another summation order (d = 64 terms)
 ATOL = RTOL = 1e-5
 
-NORTHSTAR_ARGS = [
-    "--recommender=LightGCN",
+DATA_ARGS = [
     "--config_dir=%s" % os.path.join(REPO, "conf"),
     "--data.input.path=%s" % os.path.join(REPO, "dataset"),
     "--data.cache.path=%s" % os.path.join(REPO, "dataset"),
@@ -76,13 +102,11 @@ NORTHSTAR_ARGS = [
     "--splitter=ratio",
     "--ratio=0.8",
     "--by_time=False",
-    "--embed_size=64",
-    "--n_layers=3",
-    "--adj_type=pre",
     "--topk=[20]",
     "--metric=[\"Recall\",\"NDCG\"]",
     "--test_batch_size=%d" % EVAL_USERS_PER_BATCH,
 ]
+NORTHSTAR_ARGS = ["--recommender=LightGCN"] + DATA_ARGS + ["--embed_size=64", "--n_layers=3", "--adj_type=pre"]
 # the north star's training hyperparameters (benchmarks/gowalla_northstar.py:34-37)
 TRAIN_EPOCHS = 2
 TRAIN_ARGS = NORTHSTAR_ARGS + [
@@ -97,6 +121,27 @@ PLAIN_STEPS = 5
 # below 1e-6; 1e-5 leaves room, and is still 1% of one Adam step.
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_LOSS_RTOL = 1e-5
+
+# path A: the repo's lane-packed configuration (benchmarks/ab_spmm_epoch.py:34)
+PACK2_ENV = {"NEUREC_SPMM_CHUNK": "512", "NEUREC_SPMM_PACK": "2"}
+# the other variants: (path, NEUREC_SPMM_PACK, NEUREC_SPMM_DTYPE)
+VARIANT_PATHS = (("pack4", "4", "f32"), ("pack2_bf16", "2", "bf16"),
+                 ("pack4_bf16", "4", "bf16"), ("bf16", "1", "bf16"))
+VARIANT_STEPS = 2
+# bf16 features move the metrics by rounding, not by a fault
+BF16_METRIC_ATOL = 1e-2
+
+# path B: NGCF's published settings (Wang et al., SIGIR 2019, "Parameter Settings")
+NGCF_ARGS = ["--recommender=NGCF"] + DATA_ARGS + [
+    "--embedding_size=64", "--layer_size=[64,64,64]", "--adj_type=norm", "--alg_type=ngcf",
+    "--mess_dropout_ratio=0.1", "--node_dropout_flag=False",
+]
+NGCF_TRAIN_ARGS = NGCF_ARGS + [
+    "--epochs=%d" % TRAIN_EPOCHS, "--verbose=1", "--learner=adam",
+    "--batch_size=1024", "--learning_rate=0.0001", "--reg=1e-5",
+]
+
+PROBE_N, PROBE_REPEAT, PROBE_ROUNDS = 65536, 8, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -118,6 +163,25 @@ def nvidia_smi_line() -> str:
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def env_vars(values):
+    """Set environment variables (None: unset) and restore them afterwards."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -169,6 +233,13 @@ def sparse_csr(torch, np, matrix):
     ).cuda()
 
 
+def adjacency_csr(torch, np, sp, adj, transpose=False):
+    """The adjacency (or its transpose) as a CUDA CSR tensor, for the library call."""
+    rows, cols, vals = (t.cpu().numpy() for t in (adj.rows, adj.cols, adj.vals))
+    m = sp.csr_matrix((vals, (rows, cols)), shape=(adj.n_nodes,) * 2)
+    return sparse_csr(torch, np, m.T.tocsr() if transpose else m)
+
+
 def profile_steps(torch, step, n=10):
     """``torch.profiler`` over ``n`` calls of ``step``: device time per
     kernel (their sum is the device's busy time; one stream, so kernels do
@@ -205,6 +276,85 @@ def profile_steps(torch, step, n=10):
             "kernels": top(kernels), "host_ops": top(ops)}
 
 
+def clone_state(trainer):
+    """A copy of the trainer's params and optimizer state."""
+    from neurec_tpu_torch.bridge import map_params, param_leaves
+
+    params_c = map_params(lambda v: v.detach().clone().requires_grad_(True), trainer.params)
+    opt_c = trainer.tx([p for _, p in param_leaves(params_c)])
+    opt_c.load_state_dict(copy.deepcopy(trainer.opt_state.state_dict()))
+    return params_c, opt_c
+
+
+def run_records(trainer):
+    with open(trainer.logger.path + ".metrics.jsonl") as fin:
+        return [json.loads(line) for line in fin]
+
+
+def check_training(np, records, what):
+    """The loss checks of a run.main training: finite, falling."""
+    losses = [r["loss"] for r in records]
+    require(len(records) == TRAIN_EPOCHS, "%s: run.main trained %d epochs" % (what, len(records)))
+    require(all(np.isfinite(losses)), "%s: non-finite epoch loss: %s" % (what, losses))
+    require(losses[-1] < losses[0], "%s: the epoch-%d loss %g is not below epoch 1's %g"
+            % (what, len(losses), losses[-1], losses[0]))
+    return losses
+
+
+def train_summary(trainer, records, run_s, launches):
+    steps, B = trainer.steps, trainer.model.batch_size
+    epoch_s = [r["time_s"] for r in records]
+    return {"epochs": len(records), "steps_per_epoch": steps, "batch_size": B,
+            "train_interactions": trainer.n_positives, "pad_slots": steps * B - trainer.n_instances,
+            "epoch_loss": [r["loss"] for r in records], "epoch_s": epoch_s,
+            "train_examples_per_s": [trainer.n_positives / s for s in epoch_s],
+            "epoch_ms_per_step": [1e3 * s / steps for s in epoch_s],
+            "result_after_epoch": [r["metrics"]["values"] for r in records if "metrics" in r],
+            "run_main_s": run_s, "launches": launches}
+
+
+def kernel_vs_plain_steps(torch, trainer, draws, patches):
+    """PLAIN_STEPS steps from the trainer's state through the kernels and
+    again with ``patches`` (the plain versions), on the same draws (the
+    step seeds included); fails beyond the tolerances."""
+    from neurec_tpu_torch.bridge import param_leaves
+
+    def some_steps():
+        params_c, opt_c = clone_state(trainer)
+        step_losses = []
+        for s in range(PLAIN_STEPS):
+            sl = slice(s, s + 1)
+            step_losses.append(float(trainer.run_epoch(
+                params_c, opt_c, draws.inst[sl], draws.w[sl], draws.negs[sl], draws.seeds[sl])[2]))
+        return dict(param_leaves(params_c)), step_losses
+
+    params_k, losses_k = some_steps()
+    with contextlib.ExitStack() as stack:
+        for obj, name, fn in patches:
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        params_p, losses_p = some_steps()
+    start = dict(param_leaves(trainer.params))
+    with torch.no_grad():
+        param_err = max(float((params_k[n] - params_p[n]).abs().max()) for n in params_k)
+        moved = max(float((params_k[n] - start[n]).abs().max()) for n in params_k)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    out = {"steps": PLAIN_STEPS, "losses": losses_k, "plain_losses": losses_p,
+           "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "param_max_abs_move": moved,
+           "tol": "params atol %g, losses rtol %g" % (TRAIN_PARAM_ATOL, TRAIN_LOSS_RTOL)}
+    require(all(torch.isfinite(torch.tensor(losses_k))) and moved > 0, "the kernel steps did not train")
+    require(param_err <= TRAIN_PARAM_ATOL, "params differ from the plain path by %g" % param_err)
+    require(loss_rel <= TRAIN_LOSS_RTOL, "step losses differ from the plain path by %g" % loss_rel)
+    return out
+
+
+def step_ms(torch, trainer, draws):
+    """CUDA-event time of one training step (forward, backward, Adam)."""
+    params_c, opt_c = clone_state(trainer)
+    sl = slice(0, 1)
+    return time_ms(torch, lambda: trainer.run_epoch(params_c, opt_c, draws.inst[sl], draws.w[sl],
+                                                    draws.negs[sl], draws.seeds[sl]), iters=10)
+
+
 def main() -> int:
     import torch
 
@@ -218,12 +368,11 @@ def main() -> int:
     os.chdir(REPO)  # the run logger writes under ./log
     profile = "--profile" in sys.argv[1:]
 
-    import copy
-
     import numpy as np
     import scipy.sparse as sp
 
     from neurec_tpu_torch import run
+    from neurec_tpu_torch.benchmarks import dma_rate
     from neurec_tpu_torch.bridge import params_from_numpy
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
@@ -236,10 +385,15 @@ def main() -> int:
     from neurec_tpu_torch.ops.sampling import sample_negatives
     from neurec_tpu_torch.ops.topk import top_k
     from neurec_tpu_torch.recommend import batch_topk
+    from neurec_tpu_torch.trainer import EpochDraws
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # the plain f32 geometry for phases 1-8 and path B, whatever the caller's shell holds
+    stack = contextlib.ExitStack()
+    stack.enter_context(env_vars({name: None for name in (
+        "NEUREC_SPMM_TILE", "NEUREC_SPMM_CHUNK", "NEUREC_SPMM_PACK", "NEUREC_SPMM_DTYPE", "NEUREC_EVAL_PREMASK")}))
 
     # -- 1. device and build ------------------------------------------------
     smi = nvidia_smi_line()
@@ -254,7 +408,7 @@ def main() -> int:
 
     # -- 2. set-up ----------------------------------------------------------
     t0 = time.perf_counter()
-    conf = Config(os.path.join(REPO, "NeuRec.properties"), cmd_args=NORTHSTAR_ARGS)
+    conf = Config(PROPS, cmd_args=NORTHSTAR_ARGS)
     dataset = Dataset(conf)
     model = get_model("LightGCN")(dataset, conf)  # device=None: cuda
     rng = np.random.RandomState(SEED)
@@ -285,28 +439,29 @@ def main() -> int:
     mask8 = k1.build_train_mask(train_rows, I)
     B = u.shape[0]
 
-    kernels = []
+    records = {}
 
-    def check(name, source, replaces, run, plain, library, n_bytes, n_flops, extra=None):
-        got, want = run(), plain()
+    def check(name, source, replaces, run_fn, plain, library, n_bytes, n_flops, extra=None):
+        got, want = run_fn(), plain()
         torch.cuda.synchronize()
         err, ok = compare(torch, got, want)
         rec = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
-            "ms": time_ms(torch, run), "plain_ms": time_ms(torch, plain),
+            "ms": time_ms(torch, run_fn), "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, library) if library is not None else None,
         }
         rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_flops)
         rec.update(extra or {})
         emit({"phase": "kernel", **rec})
         require(ok, "%s disagrees with its plain version: max_abs_err %g" % (name, err))
+        records[name] = rec
         return rec
 
     out_bytes = B * I * 4
     factor_bytes = u.numel() * 4 + I * d * 4
     k1_flops = 2.0 * B * I * d
-    k1_rec = check(
+    check(
         "masked_scores", "neurec_tpu_torch/csrc/masked_scores.cu",
         "neurec_tpu/ops/pallas_kernels.py:37",
         lambda: k1.masked_scores_bits(u, item_table, bits, width, I),
@@ -315,47 +470,56 @@ def main() -> int:
         factor_bytes + bits.numel() + out_bytes, k1_flops,
         {"mode": "bits", "shape": [B, I, d]},
     )
-    int8_rec = check(
+    check(
         "masked_scores[int8]", "neurec_tpu_torch/csrc/masked_scores.cu",
         "neurec_tpu/ops/pallas_kernels.py:37",
         lambda: k1.masked_scores(u, item_table, train_rows),
         lambda: k1.masked_scores_reference(u, item_table, train_rows),
-        None,
+        lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u, item_table.T)),
         factor_bytes + train_rows.numel() * 4 + out_bytes, k1_flops,
         {"mode": "int8", "shape": [B, I, d]},
     )
-    rows_np, cols_np, vals_np = (t.cpu().numpy() for t in (model.adj.rows, model.adj.cols, model.adj.vals))
-    csr_sp = sp.csr_matrix((vals_np, (rows_np, cols_np)), shape=(model.adj.n_nodes,) * 2)
-    csr = sparse_csr(torch, np, csr_sp)
-    nnz = int((plan.vals != 0).sum())
-    plan_bytes = sum(t.numel() * 4 for t in (plan.rows, plan.cols, plan.vals, plan.tile_ptr))
-    k2_rec = check(
-        "plan_spmm", "neurec_tpu_torch/csrc/plan_spmm.cu",
-        "neurec_tpu/ops/pallas_spmm.py:144",
-        lambda: k2.plan_spmm(plan, ego),
-        lambda: k2.plan_spmm_reference(plan, ego),
-        lambda: torch.sparse.mm(csr, ego),
-        plan_bytes + ego.numel() * 4 + plan.n_rows * d * 4, 2.0 * nnz * d,
-        {"shape": [plan.n_rows, int(plan.rows.shape[0]), d], "nnz": nnz},
-    )
+    csr = adjacency_csr(torch, np, sp, model.adj)
+    csr_t = adjacency_csr(torch, np, sp, model.adj, transpose=True)
+
+    def plan_bytes(p, pack=1):
+        if pack > 1:
+            rows_p, vals_p = k2.packed_layout(p, pack)
+            return sum(t.numel() * 4 for t in (rows_p, p.cols, vals_p, p.tile_ptr))
+        return sum(t.numel() * 4 for t in (p.rows, p.cols, p.vals, p.tile_ptr))
+
+    def spmm_check(name, source, replaces, p, x, pack, lib_csr, lib_x, extra=None):
+        """A plan SpMM kernel (K2 at pack 1, K3 above) against its plain
+        version on the same (f32 or bf16) input."""
+        nnz = int((p.vals != 0).sum())
+        if pack > 1:
+            run_fn, plain = (lambda: k2.plan_spmm_packed(p, x, pack)), (lambda: k2.plan_spmm_packed_reference(p, x, pack))
+        else:
+            run_fn, plain = (lambda: k2.plan_scatter(p, x)), (lambda: k2.plan_spmm_reference(p, x))
+        rec = check(name, source, replaces, run_fn, plain, lambda: torch.sparse.mm(lib_csr, lib_x),
+                    plan_bytes(p, pack) + x.numel() * x.element_size() + p.n_rows * x.shape[1] * 4,
+                    2.0 * nnz * x.shape[1],
+                    dict({"shape": [p.n_rows, int(p.rows.shape[0]), int(p.rows.shape[1]), x.shape[1]],
+                          "nnz": nnz, "pack": pack, "dtype": str(x.dtype).replace("torch.", ""),
+                          "library_call": "torch.sparse.mm, CSR, float32"}, **(extra or {})))
+        require(torch.equal(run_fn(), run_fn()), "%s is not deterministic" % name)
+        return rec
+
+    k2_src, k3_src = "neurec_tpu_torch/csrc/plan_spmm.cu", "neurec_tpu_torch/csrc/plan_spmm_packed.cu"
+    spmm_check("plan_spmm", k2_src, "neurec_tpu/ops/pallas_spmm.py:144", plan, ego, 1, csr, ego)
     # the backward of the propagation: K2 over the plan of A^T, on a
     # gradient-sized input made from the numpy seed
     plan_t = model.adj.plan_t
     g = torch.from_numpy(
         np.random.RandomState(SEED + 1).standard_normal((model.adj.n_nodes, d)).astype(np.float32)
     ).cuda()
-    csr_t = sparse_csr(torch, np, csr_sp.T.tocsr())
-    nnz_t = int((plan_t.vals != 0).sum())
-    plan_t_bytes = sum(t.numel() * 4 for t in (plan_t.rows, plan_t.cols, plan_t.vals, plan_t.tile_ptr))
-    k2t_rec = check(
-        "plan_spmm[bwd]", "neurec_tpu_torch/csrc/plan_spmm.cu",
-        "neurec_tpu/ops/pallas_spmm.py:504",
-        lambda: k2.plan_spmm(plan_t, g),
-        lambda: k2.plan_spmm_reference(plan_t, g),
-        lambda: torch.sparse.mm(csr_t, g),
-        plan_t_bytes + g.numel() * 4 + plan_t.n_rows * d * 4, 2.0 * nnz_t * d,
-        {"shape": [plan_t.n_rows, int(plan_t.rows.shape[0]), d], "nnz": nnz_t},
-    )
+    spmm_check("plan_spmm[bwd]", k2_src, "neurec_tpu/ops/pallas_spmm.py:504", plan_t, g, 1, csr_t, g)
+    # bf16 features, compared in the working type: both sides take the same
+    # bf16 input and round the edge values to bf16
+    spmm_check("plan_spmm[bf16]", k2_src, "neurec_tpu/ops/pallas_spmm.py:144", plan, ego.bfloat16(), 1,
+               csr, ego)
+    spmm_check("plan_spmm[bwd,bf16]", k2_src, "neurec_tpu/ops/pallas_spmm.py:504", plan_t, g.bfloat16(), 1,
+               csr_t, g)
     # where an eval batch and a serving request spend their time besides
     # the kernels: the lowest-id-first top-K (a stable sort of each row)
     masked = k1.masked_scores_bits(u, item_table, bits, width, I)
@@ -363,10 +527,6 @@ def main() -> int:
           "eval_batch_topk_ms": time_ms(torch, lambda: top_k(masked, SERVING_K)),
           "serving_batch_topk_ms": time_ms(torch, lambda: top_k(masked[:SERVING_USERS], SERVING_K)),
           "serving_batch_scores_ms": time_ms(torch, lambda: u[:SERVING_USERS] @ item_table.T)})
-    again = k2.plan_spmm(plan, ego)
-    require(torch.equal(again, k2.plan_spmm(plan, ego)), "plan_spmm is not deterministic")
-    again = k2.plan_spmm(plan_t, g)
-    require(torch.equal(again, k2.plan_spmm(plan_t, g)), "plan_spmm over plan_t is not deterministic")
 
     # -- 4. the main path, counted ------------------------------------------
     users_all = rng.choice(dataset.num_users, SERVING_REQUESTS * SERVING_USERS, replace=False)
@@ -384,6 +544,7 @@ def main() -> int:
             out.append((items, scores))
         return out, secs
 
+    paths = {}
     _build.reset_launches()
     t = time.perf_counter()
     eval_cold = evaluator.evaluate(model.predict, params)
@@ -395,7 +556,7 @@ def main() -> int:
     eval_warm_s = time.perf_counter() - t
     served, serve_s = serve()
     clamp_items, clamp_scores = batch_topk(model, params, I + 5, users=requests[0][:2])
-    launches = dict(_build.LAUNCHES)
+    launches = paths["serve"] = dict(_build.LAUNCHES)
 
     n_eval = len(evaluator.evaluator.test_users)
     emit({"phase": "main_path", "metrics": evaluator.metrics_info(), "result": eval_warm,
@@ -404,7 +565,7 @@ def main() -> int:
           "serving_request_s": serve_s,
           "serving_users_per_s": SERVING_REQUESTS * SERVING_USERS / sum(serve_s),
           "launches": launches})
-    for name in _build.SOURCES:
+    for name in ("masked_scores", "plan_spmm"):
         require(launches[name] > 0, "kernel %s was not launched on the main path" % name)
     require(eval_cold == eval_warm, "two evaluations of the same params differ")
     metrics = parse_metrics(eval_warm)
@@ -420,6 +581,18 @@ def main() -> int:
             consumed = train.indices[train.indptr[uid]:train.indptr[uid + 1]]
             require(not np.intersect1d(row, consumed).size, "consumed item served to user %d" % uid)
     require(clamp_items.shape == (2, I), "k clamp: got %s" % (clamp_items.shape,))
+
+    # the pallas tier (K1's int8 mode), a path of its own
+    with env_vars({"NEUREC_EVAL_PREMASK": "0"}):
+        evaluator_int8 = Evaluator.from_dataset(dataset, conf)
+        _build.reset_launches()
+        eval_int8 = evaluator_int8.evaluate(model.predict, params)
+        paths["serve_int8"] = dict(_build.LAUNCHES)
+    int8_err = max(abs(a - b) for a, b in zip(metrics, parse_metrics(eval_int8)))
+    emit({"phase": "serve_int8", "result": eval_int8, "metric_max_abs_diff": int8_err,
+          "launches": paths["serve_int8"]})
+    require(paths["serve_int8"]["masked_scores"] > 0, "the pallas tier did not launch K1")
+    require(int8_err <= 1e-5, "the pallas tier's metrics differ from the bits tier's by %g" % int8_err)
 
     # -- 5. the same path through the plain versions ------------------------
     with mock.patch.object(k2, "plan_spmm", k2.plan_spmm_reference), \
@@ -445,52 +618,31 @@ def main() -> int:
     # -- 6. the training path, counted --------------------------------------
     _build.reset_launches()
     t = time.perf_counter()
-    trainer, train_result = run.main(os.path.join(REPO, "NeuRec.properties"), cmd_args=TRAIN_ARGS)
+    trainer, train_result = run.main(PROPS, cmd_args=TRAIN_ARGS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
-    train_launches = dict(_build.LAUNCHES)
+    train_launches = paths["train"] = dict(_build.LAUNCHES)
 
     tmodel = trainer.model
-    with open(trainer.logger.path + ".metrics.jsonl") as fin:
-        records = [json.loads(line) for line in fin]
-    losses = [r["loss"] for r in records]
-    epoch_s = [r["time_s"] for r in records]
-    n_evals = sum("metrics" in r for r in records)
-    steps, B = trainer.steps, tmodel.batch_size
+    recs = run_records(trainer)
+    steps = trainer.steps
+    n_evals = sum("metrics" in r for r in recs)
     trained = parse_metrics(train_result)
-    emit({"phase": "train", "epochs": len(records), "steps_per_epoch": steps, "batch_size": B,
-          "train_interactions": trainer.n_positives, "pad_slots": steps * B - trainer.n_instances,
-          "epoch_loss": losses, "epoch_s": epoch_s,
-          "train_examples_per_s": [trainer.n_positives / s for s in epoch_s],
-          "epoch_ms_per_step": [1e3 * s / steps for s in epoch_s],
-          "metrics": evaluator.metrics_info(),
-          "result_after_epoch": [r["metrics"]["values"] for r in records if "metrics" in r],
-          "random_init_result": eval_warm, "run_main_s": train_s, "launches": train_launches})
-    require(len(records) == TRAIN_EPOCHS, "run.main trained %d epochs" % len(records))
-    require(all(np.isfinite(losses)), "non-finite epoch loss: %s" % losses)
-    require(losses[-1] < losses[0], "the epoch-%d loss %g is not below epoch 1's %g"
-            % (len(losses), losses[-1], losses[0]))
+    emit({"phase": "train", **train_summary(trainer, recs, train_s, train_launches),
+          "metrics": evaluator.metrics_info(), "random_init_result": eval_warm})
+    check_training(np, recs, "LightGCN")
     require(trained[0] > metrics[0], "Recall@20 after training %g is not above random weights' %g"
             % (trained[0], metrics[0]))
     n_fwd = tmodel.n_layers * (steps * TRAIN_EPOCHS + n_evals)
     n_bwd = tmodel.n_layers * steps * TRAIN_EPOCHS
-    require(train_launches["plan_spmm"] > 0 and train_launches["plan_spmm_t"] > 0,
-            "K2 was not launched on the training path: %s" % train_launches)
     require((train_launches["plan_spmm"], train_launches["plan_spmm_t"]) == (n_fwd, n_bwd),
-            "K2 launches %s, expected %d forward and %d backward"
-            % (train_launches, n_fwd, n_bwd))
+            "K2 launches %s, expected %d forward and %d backward" % (train_launches, n_fwd, n_bwd))
 
     # -- 7. where a training step's time goes --------------------------------
-    def clone_state():
-        params_c = {k: v.detach().clone().requires_grad_(True) for k, v in trainer.params.items()}
-        opt_c = trainer.tx(params_c.values())
-        opt_c.load_state_dict(copy.deepcopy(trainer.opt_state.state_dict()))
-        return params_c, opt_c
-
     draw_ms = time_ms(torch, lambda: trainer.draw_epoch(trainer.epoch_generator(3)), iters=3, warmup=1)
-    inst, w, negs = trainer.draw_epoch(trainer.epoch_generator(3))
-    params_b, opt_b = clone_state()
-    batch, w0 = trainer._batch(inst[0], negs[0]), w[0]
+    draws = trainer.draw_epoch(trainer.epoch_generator(3))
+    params_b, opt_b = clone_state(trainer)
+    batch, w0 = trainer._batch(draws.inst[0], draws.negs[0]), draws.w[0]
     rows0 = trainer._padded_items[batch["users"]]
     gen = trainer.epoch_generator(4)
 
@@ -499,55 +651,226 @@ def main() -> int:
         tmodel.loss(params_b, batch, w0).backward()
         opt_b.step()
 
-    step_ms = time_ms(torch, step)
+    one_step_ms = time_ms(torch, step)
     forward_ms = time_ms(torch, lambda: tmodel.loss(params_b, batch, w0))
     adam_ms = time_ms(torch, opt_b.step)
-    epoch_steps_ms = time_ms(torch, lambda: trainer.run_epoch(params_b, opt_b, inst, w, negs), iters=2, warmup=1)
-    k2_fwd_ms, k2_bwd_ms = tmodel.n_layers * k2_rec["ms"], tmodel.n_layers * k2t_rec["ms"]
+    epoch_steps_ms = time_ms(torch, lambda: trainer.run_epoch(params_b, opt_b, *draws), iters=2, warmup=1)
+    k2_fwd_ms = tmodel.n_layers * records["plan_spmm"]["ms"]
+    k2_bwd_ms = tmodel.n_layers * records["plan_spmm[bwd]"]["ms"]
     prof = profile_steps(torch, step) if profile else None
     if prof is not None:
         # the profiler slows the host, not the kernels: the device's share
         # of an unprofiled step
-        prof["device_busy_share_of_step"] = prof["device_ms_per_step"] / step_ms
-    emit({"phase": "train_breakdown", "step_ms": step_ms,
+        prof["device_busy_share_of_step"] = prof["device_ms_per_step"] / one_step_ms
+    emit({"phase": "train_breakdown", "step_ms": one_step_ms,
           "run_epoch_ms_per_step": epoch_steps_ms / steps,
           "draw_epoch_ms_per_step": draw_ms / steps,
           "sampler_ms_per_step": time_ms(torch, lambda: sample_negatives(gen, rows0, I, ())),
-          "forward_ms": forward_ms, "backward_ms": step_ms - forward_ms - adam_ms, "adam_ms": adam_ms,
+          "forward_ms": forward_ms, "backward_ms": one_step_ms - forward_ms - adam_ms, "adam_ms": adam_ms,
           "k2_forward_ms": k2_fwd_ms, "k2_backward_ms": k2_bwd_ms,
-          "rest_ms": step_ms - k2_fwd_ms - k2_bwd_ms - adam_ms,
+          "rest_ms": one_step_ms - k2_fwd_ms - k2_bwd_ms - adam_ms,
           "profile": prof if profile else "not run (--profile)"})
 
     # -- 8. training steps through the plain versions ------------------------
-    def some_steps():
-        params_c, opt_c = clone_state()
-        step_losses = []
-        for s in range(PLAIN_STEPS):
-            sl = slice(s, s + 1)
-            step_losses.append(float(trainer.run_epoch(params_c, opt_c, inst[sl], w[sl], negs[sl])[2]))
-        return params_c, step_losses
+    emit({"phase": "train_plain_path", **kernel_vs_plain_steps(
+        torch, trainer, draws, [(k2, "plan_spmm", k2.plan_spmm_reference)])})
 
-    params_k, losses_k = some_steps()
-    with mock.patch.object(k2, "plan_spmm", k2.plan_spmm_reference):
-        params_p, losses_p = some_steps()
+    # -- 9. path A: LightGCN chunk512_pack2 (K3) -----------------------------
+    with env_vars(PACK2_ENV):
+        t0 = time.perf_counter()
+        model_a = get_model("LightGCN")(dataset, conf)  # plans built under the variables
+        plan_a = model_a.adj.plan
+        torch.cuda.synchronize()
+        setup_a_s = time.perf_counter() - t0
+        require(plan_a.rows.shape[1] == 512 and k2.pack_factor(d, 512) == 2,
+                "path A: chunk %d, pack %d" % (plan_a.rows.shape[1], k2.pack_factor(d, plan_a.rows.shape[1])))
+        for pack in (2, 4):
+            for x in (ego, ego.bfloat16()):
+                dt = "" if x.dtype == torch.float32 else ",bf16"
+                spmm_check("plan_spmm_packed[pack%d%s]" % (pack, dt), k3_src, "neurec_tpu/ops/pallas_spmm.py:222",
+                           plan_a, x, pack, csr, ego)
+                require(torch.equal(k2.plan_spmm_packed(plan_a, x, pack), k2.plan_scatter(plan_a, x)),
+                        "K3 (pack %d, %s) and K2 differ over the same plan" % (pack, x.dtype))
+
+        _build.reset_launches()
+        t = time.perf_counter()
+        eval_a = evaluator.evaluate(model_a.predict, params)
+        torch.cuda.synchronize()
+        eval_a_s = time.perf_counter() - t
+        t = time.perf_counter()
+        trainer_a, result_a = run.main(PROPS, cmd_args=TRAIN_ARGS)
+        torch.cuda.synchronize()
+        train_a_s = time.perf_counter() - t
+        launches_a = paths["pack2"] = dict(_build.LAUNCHES)
+
+        recs_a = run_records(trainer_a)
+        emit({"phase": "pack2", "setup_s": setup_a_s, "result": eval_a, "eval_s": eval_a_s,
+              "eval_users_per_s": n_eval / eval_a_s, **train_summary(trainer_a, recs_a, train_a_s, launches_a)})
+        eval_a_err = max(abs(a - b) for a, b in zip(metrics, parse_metrics(eval_a)))
+        require(eval_a_err <= 1e-5, "path A's evaluation differs from phase 4's by %g" % eval_a_err)
+        check_training(np, recs_a, "path A")
+        steps_a = trainer_a.steps
+        n_evals_a = sum("metrics" in r for r in recs_a)
+        want_a = {"plan_spmm_packed": 3 * (1 + steps_a * TRAIN_EPOCHS + n_evals_a),
+                  "plan_spmm_packed_t": 3 * steps_a * TRAIN_EPOCHS, "plan_spmm": 0, "plan_spmm_t": 0}
+        require(all(launches_a[k] == v for k, v in want_a.items()),
+                "path A launches %s, expected %s" % (launches_a, want_a))
+        draws_a = trainer_a.draw_epoch(trainer_a.epoch_generator(3))
+        emit({"phase": "pack2_breakdown", "step_ms": step_ms(torch, trainer_a, draws_a),
+              "k3_forward_ms": 3 * records["plan_spmm_packed[pack2]"]["ms"]})
+        emit({"phase": "pack2_plain_path", **kernel_vs_plain_steps(
+            torch, trainer_a, draws_a, [(k2, "plan_spmm_packed", k2.plan_spmm_packed_reference),
+                                        (k2, "plan_scatter", k2.plan_spmm_reference)])})
+
+        # -- 10. the other variants, each a path ------------------------------
+        some = EpochDraws(*(a[:VARIANT_STEPS] for a in draws_a))
+        for path, pack, dtype in VARIANT_PATHS:
+            with env_vars({"NEUREC_SPMM_PACK": pack, "NEUREC_SPMM_DTYPE": dtype}):
+                params_v, opt_v = clone_state(trainer_a)
+                _build.reset_launches()
+                result_v = evaluator.evaluate(trainer_a.model.predict, params_v)
+                loss_v = float(trainer_a.run_epoch(params_v, opt_v, *some)[2])
+                paths[path] = dict(_build.LAUNCHES)
+            fwd, bwd = ("plan_spmm", "plan_spmm_t") if pack == "1" else ("plan_spmm_packed", "plan_spmm_packed_t")
+            want_v = {k: 0 for k in ("plan_spmm", "plan_spmm_t", "plan_spmm_packed", "plan_spmm_packed_t")}
+            want_v.update({fwd: 3 * (1 + VARIANT_STEPS), bwd: 3 * VARIANT_STEPS})
+            diff_v = max(abs(a - b) for a, b in zip(parse_metrics(result_a), parse_metrics(result_v)))
+            emit({"phase": "variant", "path": path, "pack": pack, "dtype": dtype, "result": result_v,
+                  "metric_max_abs_diff_vs_pack2_f32": diff_v, "step_loss": loss_v, "launches": paths[path]})
+            require(all(paths[path][k] == v for k, v in want_v.items()),
+                    "path %s launches %s, expected %s" % (path, paths[path], want_v))
+            require(np.isfinite(loss_v), "path %s: non-finite loss" % path)
+            if dtype == "f32":  # K3 sums in K2's order: the same bits, the same metrics
+                require(result_v == result_a, "path %s: %s against %s" % (path, result_v, result_a))
+            else:
+                require(diff_v <= BF16_METRIC_ATOL, "path %s: metrics moved by %g" % (path, diff_v))
+
+    # -- 11. path B: NGCF at its published widths -----------------------------
+    t0 = time.perf_counter()
+    conf_b = Config(PROPS, cmd_args=NGCF_ARGS)
+    model_b = get_model("NGCF")(dataset, conf_b)
+    params_b0 = model_b.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    setup_b_s = time.perf_counter() - t0
     with torch.no_grad():
-        param_err = max(float((params_k[n] - params_p[n]).abs().max()) for n in params_k)
-        moved = max(float((params_k[n] - trainer.params[n]).abs().max()) for n in params_k)
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    emit({"phase": "train_plain_path", "steps": PLAIN_STEPS, "losses": losses_k, "plain_losses": losses_p,
-          "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err, "param_max_abs_move": moved,
-          "tol": "params atol %g, losses rtol %g" % (TRAIN_PARAM_ATOL, TRAIN_LOSS_RTOL)})
-    require(all(np.isfinite(losses_k)) and moved > 0, "the kernel steps did not train")
-    require(param_err <= TRAIN_PARAM_ATOL, "params differ from the plain path by %g" % param_err)
-    require(loss_rel <= TRAIN_LOSS_RTOL, "step losses differ from the plain path by %g" % loss_rel)
+        u_tab_b, i_tab_b = model_b.propagate(params_b0)
+    u_b = u_tab_b[users].contiguous()
+    d_b = u_b.shape[1]
+    require(d_b == 256, "NGCF evaluates at width %d" % d_b)
+    check(
+        "masked_scores[d256]", "neurec_tpu_torch/csrc/masked_scores.cu",
+        "neurec_tpu/ops/pallas_kernels.py:37",
+        lambda: k1.masked_scores_bits(u_b, i_tab_b, bits, width, I),
+        lambda: k1.masked_scores_bits_reference(u_b, i_tab_b, bits, width, I),
+        lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u_b, i_tab_b.T)),
+        u_b.numel() * 4 + I * d_b * 4 + bits.numel() + out_bytes, 2.0 * B * I * d_b,
+        {"mode": "bits", "shape": [B, I, d_b]},
+    )
+    # K3's backward over NGCF's norm plan_t, a structure of its own
+    plan_bt = model_b.adj.plan_t
+    csr_bt = adjacency_csr(torch, np, sp, model_b.adj, transpose=True)
+    for pack in (2, 4):
+        for x in (g, g.bfloat16()):
+            dt = "" if x.dtype == torch.float32 else ",bf16"
+            spmm_check("plan_spmm_packed[bwd,pack%d%s]" % (pack, dt), k3_src, "neurec_tpu/ops/pallas_spmm.py:504",
+                       plan_bt, x, pack, csr_bt, g, {"adjacency": "norm, transposed"})
 
-    for rec, name in ((k1_rec, "masked_scores"), (int8_rec, "masked_scores"), (k2_rec, "plan_spmm"),
-                      (k2t_rec, "plan_spmm_t")):
-        rec["launches_by_path"] = {"serve": launches[name], "train": train_launches[name]}
-        rec["launches"] = launches[name] + train_launches[name]
+    _build.reset_launches()
+    t = time.perf_counter()
+    eval_b0 = evaluator.evaluate(model_b.predict, params_b0)
+    torch.cuda.synchronize()
+    eval_b0_s = time.perf_counter() - t
+    t = time.perf_counter()
+    trainer_b, result_b = run.main(PROPS, cmd_args=NGCF_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    train_b_s = time.perf_counter() - t
+    launches_b = paths["ngcf"] = dict(_build.LAUNCHES)
+
+    recs_b = run_records(trainer_b)
+    emit({"phase": "ngcf", "setup_s": setup_b_s, "random_init_result": eval_b0, "eval_s": eval_b0_s,
+          "eval_users_per_s": n_eval / eval_b0_s, "nnz": int((model_b.adj.vals != 0).sum()),
+          **train_summary(trainer_b, recs_b, train_b_s, launches_b)})
+    metrics_b0 = parse_metrics(eval_b0)
+    require(all(np.isfinite(metrics_b0)) and all(0.0 <= m <= 1.0 for m in metrics_b0),
+            "NGCF metrics out of range: %s" % eval_b0)
+    check_training(np, recs_b, "path B")
+    steps_b = trainer_b.steps
+    n_evals_b = sum("metrics" in r for r in recs_b)
+    want_b = {"plan_spmm": 3 * (1 + steps_b * TRAIN_EPOCHS + n_evals_b),
+              "plan_spmm_t": 3 * steps_b * TRAIN_EPOCHS, "plan_spmm_packed": 0, "plan_spmm_packed_t": 0}
+    require(all(launches_b[k] == v for k, v in want_b.items()),
+            "path B launches %s, expected %s" % (launches_b, want_b))
+    require(launches_b["masked_scores"] > 0, "path B did not launch K1")
+    draws_b = trainer_b.draw_epoch(trainer_b.epoch_generator(3))
+    emit({"phase": "ngcf_breakdown", "step_ms": step_ms(torch, trainer_b, draws_b),
+          "k2_forward_ms_on_pre_plan": 3 * records["plan_spmm"]["ms"]})
+    emit({"phase": "ngcf_plain_path", **kernel_vs_plain_steps(
+        torch, trainer_b, draws_b, [(k2, "plan_scatter", k2.plan_spmm_reference)])})
+
+    # -- 12. K4, the copy-rate probe -------------------------------------------
+    _build.reset_launches()
+    t = time.perf_counter()
+    probe = dma_rate.main(["--n", str(PROBE_N), "--repeat", str(PROBE_REPEAT), "--rounds", str(PROBE_ROUNDS)])
+    probe_s = time.perf_counter() - t
+    paths["probe"] = dict(_build.LAUNCHES)
+    emit({"phase": "probe", "seconds": probe_s, "launches": paths["probe"]})
+    offs = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, dma_rate.OUT_ROWS - max(dma_rate.ROWS_LIST), PROBE_N).astype(np.int32)).cuda()
+    n_total = PROBE_N * PROBE_REPEAT
+    lib_buf = dma_rate.new_buffer()
+    for rows in dma_rate.ROWS_LIST:
+        idx = (offs.long()[:, None] + torch.arange(rows, device=offs.device)).reshape(-1)
+        for mode in dma_rate.MODES:
+            name = "dma_rate[%s,%dB]" % (mode, rows * 512)
+            got = dma_rate.dma_copies(offs, n_total, rows, mode, dma_rate.new_buffer())
+            want = dma_rate.dma_copies_reference(offs, n_total, rows)
+            torch.cuda.synchronize()
+            res = probe["%dB_%s" % (rows * 512, mode)]
+            rec = {"name": name, "route": "cuda", "source": "neurec_tpu_torch/csrc/dma_rate.cu",
+                   "replaces": "benchmarks/dma_rate.py:%d" % (51 if mode == "serial" else 75),
+                   "launches": None, "max_abs_err": float((got - want).abs().max()),
+                   "tol": "the same rows written (exact)",
+                   "ms": res["s_per_call_min"] * 1e3,
+                   "plain_ms": time_ms(torch, lambda: dma_rate.dma_copies_reference(offs, n_total, rows),
+                                       iters=5, warmup=1),
+                   "library_ms": time_ms(torch, lambda: lib_buf.index_fill_(0, idx, 1.0), iters=5, warmup=1),
+                   "bound_ms": n_total * rows * 512 / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "dmas_per_s": res["dmas_per_s"], "effective_GBps": res["effective_GBps"],
+                   "floor_ms": res["floor_s"] * 1e3, "n_dmas_per_call": n_total,
+                   "library_call": "index_fill_ of the written rows"}
+            emit({"phase": "kernel", **rec})
+            require(torch.equal(got, want), "%s writes other rows than its plain version" % name)
+            records[name] = rec
+
+    # -- the kernels line ----------------------------------------------------
+    lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
+    entry_paths = {
+        "masked_scores": ("masked_scores", lightgcn_paths),
+        "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
+        "masked_scores[d256]": ("masked_scores", ("ngcf",)),
+        "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf")),
+        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf")),
+        "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),
+        "plan_spmm[bwd,bf16]": ("plan_spmm_t", ("bf16",)),
+    }
+    for pack in (2, 4):
+        for dt, suffix in (("", ""), ("_bf16", ",bf16")):
+            path = "pack%d%s" % (pack, dt)
+            entry_paths["plan_spmm_packed[pack%d%s]" % (pack, suffix)] = ("plan_spmm_packed", (path,))
+            entry_paths["plan_spmm_packed[bwd,pack%d%s]" % (pack, suffix)] = ("plan_spmm_packed_t", (path,))
+    for rows in dma_rate.ROWS_LIST:
+        for mode in dma_rate.MODES:
+            entry_paths["dma_rate[%s,%dB]" % (mode, rows * 512)] = ("dma_rate_" + mode, ("probe",))
+    require(set(entry_paths) == set(records), "kernel records %s" % sorted(set(records) ^ set(entry_paths)))
+    for name, (key, on) in entry_paths.items():
+        rec = records[name]
+        rec["launches_by_path"] = {p: paths[p][key] for p in on}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        require(rec["launches"] > 0, "%s was launched on no path: %s" % (name, rec["launches_by_path"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    emit({"kernels": [{k: rec[k] for k in keys} for rec in (k1_rec, k2_rec, k2t_rec)]})
+    emit({"kernels": [{k: records[n][k] for k in keys} for n in entry_paths]})
+    stack.close()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

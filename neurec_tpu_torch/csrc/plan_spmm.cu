@@ -1,6 +1,7 @@
-// K2: plan SpMM, out = A @ x over the chunked-COO scatter plan, f32, for
-// sm_90a. Over the plan of A^T the same kernel computes the backward
-// A^T @ g (ops/graph.py::PlanSpmm), as the TPU design does.
+// K2: plan SpMM, out = A @ x over the chunked-COO scatter plan, for sm_90a,
+// with x in f32 or bf16 (one template over the x type) and the output f32.
+// Over the plan of A^T the same kernel computes the backward A^T @ g
+// (ops/graph.py::PlanSpmm), as the TPU design does.
 //
 // Replaces the Pallas TPU kernel neurec_tpu/ops/pallas_spmm.py
 // ::_scatter_kernel (driven by scatter_arrays / plan_spmm / make_spmm):
@@ -28,7 +29,13 @@
 // device memory once. Up to four owned edges have their x rows loaded
 // before the adds, to keep several gathers in flight per warp. Zero-valued
 // (padding) edges are skipped.
+//
+// bf16: the TPU kernel casts its selector to the feature type
+// (sel.astype(g.dtype)), so the edge values are rounded to bf16 as well as
+// x; each product of two bf16 values is exact in f32, and the sums and the
+// output stay f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,10 +46,22 @@ constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
 constexpr unsigned FULL = 0xffffffffu;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// an edge value as the products see it: rounded to the feature type
+template <typename T>
+__device__ __forceinline__ float selector(float v) { return v; }
+template <>
+__device__ __forceinline__ float selector<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 plan_spmm_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
                  const float* __restrict__ vals, const int32_t* __restrict__ tile_ptr,
-                 const float* __restrict__ x, float* __restrict__ out, int chunk,
+                 const T* __restrict__ x, float* __restrict__ out, int chunk,
                  int tile_r, int n_rows, int d) {
   extern __shared__ float acc[];  // [tile_r][SLAB]
   const int tile = blockIdx.x;
@@ -61,7 +80,7 @@ plan_spmm_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
     int r = 0, c = 0;
     float v = 0.f;
     if (e < e_end) {
-      v = vals[e];
+      v = selector<T>(vals[e]);
       r = rows[e];
       c = cols[e];
     }
@@ -85,9 +104,9 @@ plan_spmm_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
         rr[q] = __shfl_sync(FULL, r, src[q]);
         const int cc = __shfl_sync(FULL, c, src[q]);
         vv[q] = __shfl_sync(FULL, v, src[q]);
-        const float* xr = x + (long long)cc * d;
-        xa[q] = (q < n && va) ? xr[ca] : 0.f;
-        xb[q] = (q < n && vb) ? xr[cb] : 0.f;
+        const T* xr = x + (long long)cc * d;
+        xa[q] = (q < n && va) ? to_f32(xr[ca]) : 0.f;
+        xb[q] = (q < n && vb) ? to_f32(xr[cb]) : 0.f;
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -108,21 +127,32 @@ plan_spmm_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
   }
 }
 
-}  // namespace
-
-extern "C" int neurec_plan_spmm(const int32_t* rows, const int32_t* cols, const float* vals,
-                                const int32_t* tile_ptr, const float* x, float* out,
-                                int n_tiles, int chunk, int tile_r, int n_rows, int d,
-                                cudaStream_t stream) {
-  if (n_tiles <= 0 || d <= 0) return 0;
+template <typename T>
+int launch(const int32_t* rows, const int32_t* cols, const float* vals, const int32_t* tile_ptr,
+           const void* x, float* out, int n_tiles, int chunk, int tile_r, int n_rows, int d,
+           cudaStream_t stream) {
   const int smem = tile_r * SLAB * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(plan_spmm_kernel,
+  cudaError_t err = cudaFuncSetAttribute(plan_spmm_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_tiles, (d + SLAB - 1) / SLAB);
-  plan_spmm_kernel<<<grid, THREADS, smem, stream>>>(rows, cols, vals, tile_ptr, x, out, chunk,
-                                                    tile_r, n_rows, d);
+  plan_spmm_kernel<T><<<grid, THREADS, smem, stream>>>(
+      rows, cols, vals, tile_ptr, static_cast<const T*>(x), out, chunk, tile_r, n_rows, d);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x_bf16: 0 for f32 features, 1 for bf16 ones
+extern "C" int neurec_plan_spmm(const int32_t* rows, const int32_t* cols, const float* vals,
+                                const int32_t* tile_ptr, const void* x, float* out,
+                                int n_tiles, int chunk, int tile_r, int n_rows, int d,
+                                int x_bf16, cudaStream_t stream) {
+  if (n_tiles <= 0 || d <= 0) return 0;
+  return x_bf16 ? launch<__nv_bfloat16>(rows, cols, vals, tile_ptr, x, out, n_tiles, chunk, tile_r,
+                                        n_rows, d, stream)
+                : launch<float>(rows, cols, vals, tile_ptr, x, out, n_tiles, chunk, tile_r, n_rows,
+                                d, stream);
 }
 
 extern "C" const char* neurec_error_string(int code) {

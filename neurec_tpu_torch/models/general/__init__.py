@@ -1,1 +1,1 @@
-from neurec_tpu_torch.models.general import lightgcn, mf  # noqa: F401  (registers LightGCN, MF)
+from neurec_tpu_torch.models.general import lightgcn, mf, ngcf  # noqa: F401  (registers LightGCN, MF, NGCF)

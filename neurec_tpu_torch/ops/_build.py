@@ -33,6 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "neurec_tpu_torc
 SOURCES = {
     "masked_scores": "masked_scores.cu",
     "plan_spmm": "plan_spmm.cu",
+    "plan_spmm_packed": "plan_spmm_packed.cu",
+    "dma_rate": "dma_rate.cu",
 }
 
 NVCC_FLAGS = [
@@ -44,9 +46,12 @@ NVCC_FLAGS = [
     "-Xcompiler=-fPIC",
 ]
 
-# one count per kernel, plus plan_spmm's launches over a transposed plan
-# (the backward of A @ x), counted apart from its forward ones
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, "plan_spmm_t")}
+# one count per kernel: the SpMM kernels' launches over a transposed plan
+# (the backward of A @ x) apart from their forward ones, the probe's by mode
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "masked_scores", "plan_spmm", "plan_spmm_t", "plan_spmm_packed", "plan_spmm_packed_t",
+    "dma_rate_serial", "dma_rate_pipelined",
+)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -10,12 +10,14 @@ users, U..U+I-1 items; A = [[0, R], [R^T, 0]]. Normalizations:
 * (anything else): D^-1 A + I   — the reference's fallback "mean" adjacency
 
 ``spmm`` has the JAX package's three branches: a dense matmul below
-``DENSE_LIMIT`` entries, the plan SpMM kernel (K2, ``ops/spmm.py``) above
-it, and the sorted COO segment-sum (``index_add_``) when a graph carries
-neither. The plan branch is differentiable through ``PlanSpmm``, whose
-backward runs K2 over the transposed plan (``neurec_tpu/ops/pallas_spmm.py``
-``make_spmm``); the other two keep autograd's own gradient, as JAX's
-``jnp.dot`` and ``segment_sum`` do.
+``DENSE_LIMIT`` entries, the plan SpMM above it (``ops/spmm.py``: K2, or
+K3 under ``NEUREC_SPMM_PACK``, in the dtype ``NEUREC_SPMM_DTYPE`` gives),
+and the sorted COO segment-sum (``index_add_``) when a graph carries
+neither — as after ``with_vals`` (node dropout). The plan branch is
+differentiable through ``PlanSpmm``, whose backward runs the same routing
+over the transposed plan (``neurec_tpu/ops/pallas_spmm.py`` ``make_spmm``);
+the other two keep autograd's own gradient, as JAX's ``jnp.dot`` and
+``segment_sum`` do.
 """
 
 from __future__ import annotations
@@ -77,10 +79,13 @@ def build_norm_adjacency(
     train_matrix: sp.csr_matrix,
     adj_type: str = "pre",
     pad_multiple: int = 1024,
+    self_loops: bool = False,
     device: DeviceLike = None,
 ) -> SparseAdj:
     """Bipartite (U+I)x(U+I) adjacency from the train matrix, normalized,
-    built on the host and placed on ``device``."""
+    built on the host and placed on ``device``. ``self_loops`` adds I
+    before the normalization. The plans' geometry comes from
+    ``NEUREC_SPMM_TILE`` / ``NEUREC_SPMM_CHUNK`` at build time."""
     dev = resolve_device(device)
     num_users, num_items = train_matrix.shape
     coo = train_matrix.tocoo()
@@ -88,6 +93,8 @@ def build_norm_adjacency(
     ratings = np.ones(coo.nnz, dtype=np.float32)
     tmp = sp.csr_matrix((ratings, (coo.row, coo.col + num_users)), shape=(n_nodes, n_nodes))
     adj_mat = tmp + tmp.T
+    if self_loops:
+        adj_mat = adj_mat + sp.eye(n_nodes)
     norm = _normalize(adj_mat, adj_type)
 
     nnz = norm.nnz
@@ -120,18 +127,29 @@ def build_norm_adjacency(
     )
 
 
+def with_vals(adj: SparseAdj, vals: torch.Tensor) -> SparseAdj:
+    """The adjacency with its edge values replaced (NGCF's node dropout).
+    The plans bake the values at build time, so they are dropped and
+    ``spmm`` takes the segment-sum path, as ``neurec_tpu``'s NGCF routes it."""
+    return adj._replace(vals=vals, plan=None, plan_t=None)
+
+
 class PlanSpmm(torch.autograd.Function):
-    """x -> A @ x over ``plan``, with d/dx = A^T @ g over ``plan_t``: K2
-    both ways, as the JAX package's ``make_spmm`` custom VJP. The adjacency
-    values are not trained, so only x gets a gradient.
+    """x -> A @ x over ``plan``, with d/dx = A^T @ g over ``plan_t``, as the
+    JAX package's ``make_spmm`` custom VJP: x (forward) and the incoming
+    gradient (backward) are cast to ``compute_dtype`` (None: f32) before
+    the gather (``NEUREC_SPMM_DTYPE``), and ``plan_spmm`` picks K2 or K3. The adjacency values are
+    not trained, so only x gets a gradient.
 
     ``spmm_ops.plan_spmm`` is looked up at each call, so that replacing it
     (with its plain version, say) reaches the backward too.
     """
 
     @staticmethod
-    def forward(ctx, x, plan, plan_t):
-        ctx.plan_t = plan_t
+    def forward(ctx, x, plan, plan_t, compute_dtype=None):
+        ctx.plan_t, ctx.compute_dtype = plan_t, compute_dtype
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         return spmm_ops.plan_spmm(plan, x)
 
     @staticmethod
@@ -139,7 +157,10 @@ class PlanSpmm(torch.autograd.Function):
         if ctx.plan_t is None:
             raise ValueError("the adjacency carries no transposed plan for the backward")
         # the gradient of a row slice of the output may arrive non-contiguous
-        return spmm_ops.plan_spmm(ctx.plan_t, grad_out.contiguous()), None, None
+        g = grad_out.contiguous()
+        if ctx.compute_dtype is not None:
+            g = g.to(ctx.compute_dtype)
+        return spmm_ops.plan_spmm(ctx.plan_t, g), None, None, None
 
 
 def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
@@ -147,7 +168,7 @@ def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     if adj.dense is not None:
         return torch.matmul(adj.dense, x)
     if adj.plan is not None:
-        return PlanSpmm.apply(x, adj.plan, adj.plan_t)
+        return PlanSpmm.apply(x, adj.plan, adj.plan_t, spmm_ops.spmm_compute_dtype())
     gathered = x[adj.cols.long()] * adj.vals[:, None]
     out = torch.zeros((adj.n_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
     return out.index_add_(0, adj.rows.long(), gathered)

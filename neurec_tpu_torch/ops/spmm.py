@@ -1,27 +1,39 @@
-"""K2: the plan SpMM, A @ x over a chunked-COO scatter plan.
+"""K2 and K3: the plan SpMM, A @ x over a chunked-COO scatter plan.
 
 Port of ``neurec_tpu/ops/pallas_spmm.py``: the same host-built plan
-(``build_spmm_plan`` gives arrays identical to the JAX one) and the same
+(``build_spmm_plan`` gives arrays identical to the JAX one, its geometry
+from ``NEUREC_SPMM_TILE`` / ``NEUREC_SPMM_CHUNK`` as there) and the same
 function, ``out[chunk_tile[i]*tile_r + rows[i,e]] += vals[i,e] * x[cols[i,e]]``.
-On a CUDA tensor ``plan_spmm`` launches the hand-written kernel in
-``csrc/plan_spmm.cu``, which fuses the gather of x that the TPU design
-leaves to XLA; on a CPU tensor it runs ``plan_spmm_reference``.
+
+``plan_spmm`` routes as the JAX one does: ``pack_factor`` picks the
+lane-packed kernel (K3, ``plan_spmm_packed``) or the plain one (K2,
+``plan_scatter``). On a CUDA tensor each launches its hand-written kernel
+(``csrc/plan_spmm.cu``, ``csrc/plan_spmm_packed.cu``), which fuse the
+gather of x that the TPU design leaves to XLA; on a CPU tensor each runs
+its plain version (``plan_spmm_reference``, ``plan_spmm_packed_reference``).
+
+With bf16 features the TPU kernel rounds the selector to bf16 as well
+(``sel.astype(g.dtype)``): ``vals`` are rounded to bf16, the products and
+sums are f32, and the output is f32 — in the kernels and the plain
+versions alike.
 
 The plan also carries ``tile_ptr`` (n_tiles + 1), built once on the host
-from ``chunk_tile``, so that a CUDA block can find its tile's chunks.
+from ``chunk_tile``, so that a CUDA block can find its tile's chunks, and
+a cache of its parity-grouped layouts for K3 (``packed_layout``), built on
+the plan's device once per pack factor.
 
-The backward of A @ x is the same kernel over the transposed plan
+The backward of A @ x is the same function over the transposed plan
 (``build_spmm_plan(cols, rows, vals, n)``, marked ``transposed``), as in the
 JAX package's ``make_spmm``; ``ops/graph.py::PlanSpmm`` wires it into
-autograd. A launch over a transposed plan counts as ``plan_spmm_t``.
-
-Not ported yet: the bf16 feature path and the lane-packed variant (K3).
+autograd. Launches over a transposed plan count as ``plan_spmm_t`` (K2) and
+``plan_spmm_packed_t`` (K3).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Union
+import os
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,16 +60,63 @@ class SpmmPlan(NamedTuple):
     n_rows: int            # logical output rows (<= n_tiles * tile_r)
     tile_r: int
     transposed: bool = False  # the plan of A^T (a backward), counted apart
+    packed: Optional[dict] = None  # pack -> (rows_p, vals_p), see packed_layout
 
     @property
     def n_tiles(self) -> int:
         return -(-self.n_rows // self.tile_r)
 
     def to(self, device) -> "SpmmPlan":
-        return self._replace(**{
+        return self._replace(packed={}, **{
             name: torch.as_tensor(getattr(self, name), device=device)
             for name in ("rows", "cols", "vals", "chunk_tile", "chunk_first", "tile_ptr")
         })
+
+
+# the kernels' shared-memory accumulator holds at most this many rows a tile
+MAX_TILE_R = 512
+
+
+def default_tile_chunk() -> Tuple[int, int]:
+    """(tile_r, chunk) from ``NEUREC_SPMM_TILE`` / ``NEUREC_SPMM_CHUNK``,
+    256 / 256 when unset, read as the JAX package's ``_default_tile_chunk``."""
+    return (
+        int(os.environ.get("NEUREC_SPMM_TILE", 256)),
+        int(os.environ.get("NEUREC_SPMM_CHUNK", 256)),
+    )
+
+
+def pack_factor(d: int, chunk: int) -> int:
+    """Edges per packed gather, from ``NEUREC_SPMM_PACK`` (the JAX
+    package's ``_pack_factor``): "", ``auto``, 0 and 1 give 1; otherwise
+    the factor halves until ``chunk % p == 0`` and ``(d * p) % 128 == 0``."""
+    flag = os.environ.get("NEUREC_SPMM_PACK", "auto")
+    if flag in ("", "auto", "0", "1"):
+        return 1
+    p = int(flag)
+    while p > 1 and (chunk % p != 0 or (d * p) % 128 != 0):
+        p //= 2
+    return max(p, 1)
+
+
+def spmm_compute_dtype() -> Optional[torch.dtype]:
+    """Feature dtype of the SpMM gather and products, from
+    ``NEUREC_SPMM_DTYPE``: ``f32``/``float32`` -> None (f32), ``bf16``/
+    ``bfloat16`` -> ``torch.bfloat16``; anything else but ``auto`` raises.
+
+    ``auto`` is f32 on every device of the port. The JAX package's ``auto``
+    is bf16 on a TPU because the MXU's default precision already rounds f32
+    operands to bf16, so an explicit cast costs no accuracy there; it is f32
+    on the CPU and in interpret mode. The port runs with TF32 off, so on the
+    card f32 is exact, and ``auto`` keeps the port's numbers on the card and
+    on the CPU equal to the JAX package's on the CPU.
+    """
+    flag = os.environ.get("NEUREC_SPMM_DTYPE", "auto")
+    if flag in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if flag in ("f32", "float32", "auto"):
+        return None
+    raise ValueError("NEUREC_SPMM_DTYPE must be 'f32', 'bf16' or 'auto', got %r" % flag)
 
 
 def build_spmm_plan(
@@ -65,14 +124,18 @@ def build_spmm_plan(
     cols: np.ndarray,
     vals: np.ndarray,
     n_rows: int,
-    tile_r: int = 256,
-    chunk: int = 256,
+    tile_r: Optional[int] = None,
+    chunk: Optional[int] = None,
 ) -> SpmmPlan:
     """Partition COO edges into per-row-tile chunk lists (numpy, host).
 
-    Edges are sorted by (dest tile, source col): tile-grouped for the
-    scatter, column-ascending within a tile for gather locality.
+    ``tile_r`` / ``chunk`` default to ``default_tile_chunk()``. Edges are
+    sorted by (dest tile, source col): tile-grouped for the scatter,
+    column-ascending within a tile for gather locality.
     """
+    d_tile, d_chunk = default_tile_chunk()
+    tile_r = d_tile if tile_r is None else tile_r
+    chunk = d_chunk if chunk is None else chunk
     keep = vals != 0.0
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
     tile = rows // tile_r
@@ -119,29 +182,75 @@ def build_spmm_plan(
     )
 
 
+def _selector(vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The edge values as the products see them: rounded to bf16 when x is."""
+    return vals.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else vals
+
+
 def plan_spmm_reference(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: gather, scale, segment-sum."""
+    """Plain PyTorch version of K2: gather, scale, segment-sum (f32 out)."""
     dest = (plan.chunk_tile.long()[:, None] * plan.tile_r + plan.rows.long()).reshape(-1)
-    contrib = x[plan.cols.reshape(-1).long()] * plan.vals.reshape(-1, 1)
+    contrib = x[plan.cols.reshape(-1).long()].float() * _selector(plan.vals, x).reshape(-1, 1)
     out = torch.zeros((plan.n_tiles * plan.tile_r, x.shape[1]), dtype=torch.float32, device=x.device)
     out.index_add_(0, dest, contrib)
     return out[: plan.n_rows]
 
 
-def plan_spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
-    """(n_rows, d) f32 = A @ x for the plan's sparse A (x f32, plan on x's device)."""
-    if x.dtype != torch.float32 or x.dim() != 2:
-        raise TypeError("plan_spmm takes a 2-D float32 x, got %s %s" % (x.dtype, tuple(x.shape)))
+def packed_layout(plan: SpmmPlan, pack: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rows_p, vals_p)``, each ``(n_chunks * pack, chunk // pack)``: row
+    ``i * pack + h`` holds parity group h (edges h, h + pack, ...) of chunk
+    i, as ``plan_spmm_packed`` builds them (``pallas_spmm.py:314-319``).
+    Built on the plan's device once per pack and kept with the plan."""
+    cache = plan.packed
+    if cache is not None and pack in cache:
+        return cache[pack]
+    n_chunks, chunk = plan.rows.shape
+    if chunk % pack:
+        raise ValueError("chunk %d is not a multiple of pack %d" % (chunk, pack))
+
+    def group(a):
+        a = torch.as_tensor(a)
+        return a.reshape(n_chunks, chunk // pack, pack).transpose(1, 2).reshape(n_chunks * pack, chunk // pack).contiguous()
+
+    out = (group(plan.rows), group(plan.vals))
+    if cache is not None:
+        cache[pack] = out
+    return out
+
+
+def plan_spmm_packed_reference(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor:
+    """Plain PyTorch version of K3, over the parity-grouped plan and the
+    packed gather ``x[cols.reshape(-1, pack)]``: for chunk i, group h and
+    packed row j, ``out[chunk_tile[i]*tile_r + rows_p[i*pack+h, j]] +=
+    vals_p[i*pack+h, j] * x[cols[i, j*pack+h]]``."""
+    rows_p, vals_p = packed_layout(plan, pack)
+    n_chunks, chunk = plan.cols.shape
+    cpp, d = chunk // pack, x.shape[1]
+    g = x[plan.cols.reshape(-1, pack).long()].float().reshape(n_chunks, cpp, pack, d)
+    rows_hj = rows_p.reshape(n_chunks, pack, cpp).transpose(1, 2).long()  # (n_chunks, cpp, pack)
+    vals_hj = _selector(vals_p, x).reshape(n_chunks, pack, cpp).transpose(1, 2)
+    dest = plan.chunk_tile.long()[:, None, None] * plan.tile_r + rows_hj
+    out = torch.zeros((plan.n_tiles * plan.tile_r, d), dtype=torch.float32, device=x.device)
+    out.index_add_(0, dest.reshape(-1), (g * vals_hj[..., None]).reshape(-1, d))
+    return out[: plan.n_rows]
+
+
+def _check_launch(plan: SpmmPlan, x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA launch, False for the CPU's plain version; raises on
+    what the kernels do not take."""
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
+        raise TypeError("%s takes a 2-D float32 or bfloat16 x, got %s %s" % (what, x.dtype, tuple(x.shape)))
     for name in ("rows", "cols", "vals", "tile_ptr"):
         if getattr(plan, name).device != x.device:
             raise ValueError("plan.%s is on %s, x on %s" % (name, getattr(plan, name).device, x.device))
     if x.device.type == "cpu":
-        return plan_spmm_reference(plan, x)
+        return False
     if x.device.type != "cuda":
-        raise ValueError("plan_spmm runs on cuda or cpu, not %s" % x.device)
-    if plan.tile_r > 512:
-        raise ValueError("the kernel's tile accumulator holds at most 512 rows")
-    x = x.contiguous()
+        raise ValueError("%s runs on cuda or cpu, not %s" % (what, x.device))
+    if plan.tile_r > MAX_TILE_R:
+        raise ValueError(
+            "tile_r %d: the kernel's tile accumulator holds at most %d rows (NEUREC_SPMM_TILE)"
+            % (plan.tile_r, MAX_TILE_R))
     n_chunks, chunk = plan.rows.shape
     arrays = (plan.rows, plan.cols, plan.vals, plan.tile_ptr)
     dtypes = (torch.int32, torch.int32, torch.float32, torch.int32)
@@ -151,19 +260,75 @@ def plan_spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
         or plan.vals.shape != (n_chunks, chunk)
         or plan.tile_ptr.shape != (plan.n_tiles + 1,)
     ):
-        raise ValueError("malformed plan for the plan_spmm kernel")
+        raise ValueError("malformed plan for the %s kernel" % what)
+    return True
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def plan_scatter(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
+    """K2: (n_rows, d) f32 = A @ x for the plan's sparse A (x f32 or bf16,
+    plan on x's device)."""
+    if not _check_launch(plan, x, "plan_spmm"):
+        return plan_spmm_reference(plan, x)
+    x = x.contiguous()
     out = torch.empty((plan.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
     lib = _build.load("plan_spmm", x.device)
     fn = lib.neurec_plan_spmm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     with torch.cuda.device(x.device):
         code = fn(
             plan.rows.data_ptr(), plan.cols.data_ptr(), plan.vals.data_ptr(),
             plan.tile_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-            plan.n_tiles, chunk, plan.tile_r, plan.n_rows, x.shape[1],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            plan.n_tiles, plan.rows.shape[1], plan.tile_r, plan.n_rows, x.shape[1],
+            int(x.dtype == torch.bfloat16), _stream(x),
         )
     _build.check(lib, code, "plan_spmm")
     _build.LAUNCHES["plan_spmm_t" if plan.transposed else "plan_spmm"] += 1
     return out
+
+
+def plan_spmm_packed(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor:
+    """K3: A @ x with ``pack`` (2 or 4) edges per gathered load, over the
+    parity-grouped plan (``packed_layout``); f32 out, x f32 or bf16."""
+    if pack not in (2, 4):
+        raise ValueError("pack must be 2 or 4, got %d" % pack)
+    rows_p, vals_p = packed_layout(plan, pack)
+    if not _check_launch(plan, x, "plan_spmm_packed"):
+        return plan_spmm_packed_reference(plan, x, pack)
+    d = x.shape[1]
+    if d % (2 * pack):
+        raise ValueError("plan_spmm_packed at pack %d takes d a multiple of %d, got %d" % (pack, 2 * pack, d))
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty((plan.n_rows, d), dtype=torch.float32, device=x.device)
+    lib = _build.load("plan_spmm_packed", x.device)
+    fn = lib.neurec_plan_spmm_packed
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        code = fn(
+            rows_p.data_ptr(), plan.cols.data_ptr(), vals_p.data_ptr(),
+            plan.tile_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
+            plan.n_tiles, plan.rows.shape[1], plan.tile_r, plan.n_rows, d,
+            pack, int(x.dtype == torch.bfloat16), _stream(x),
+        )
+    _build.check(lib, code, "plan_spmm_packed")
+    _build.LAUNCHES["plan_spmm_packed_t" if plan.transposed else "plan_spmm_packed"] += 1
+    return out
+
+
+def plan_spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
+    """(n_rows, d) f32 = A @ x in x's dtype (f32 or bf16; ``PlanSpmm``
+    casts to ``spmm_compute_dtype()`` first), routed as the JAX package's
+    ``plan_spmm``: K3 when ``pack_factor`` gives more than 1, else K2. The
+    module-level wrappers are looked up at each call, so replacing one
+    (with its plain version) reaches here."""
+    pack = pack_factor(x.shape[1], plan.rows.shape[1])
+    if pack > 1:
+        return plan_spmm_packed(plan, x, pack)
+    return plan_scatter(plan, x)

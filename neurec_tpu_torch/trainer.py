@@ -3,12 +3,16 @@
 The JAX package runs a whole epoch as one jitted ``lax.scan``; here an
 epoch is a Python loop of eager steps on the model's device, in two parts:
 
-* ``draw_epoch(generator) -> (inst, w, negs)`` holds all of the epoch's
-  randomness: a permutation of ``steps * B`` instance slots (slots past
-  the instance count take instance 0 with weight 0) and, step by step, one
-  fresh negative per slot from the exclusion sampler (``ops/sampling.py``);
-* ``run_epoch(params, opt_state, inst, w, negs)`` takes the steps: loss,
-  backward, optimizer step; the epoch loss is sum(step losses) / steps.
+* ``draw_epoch(generator) -> (inst, w, negs, seeds)`` holds all of the
+  epoch's randomness: a permutation of ``steps * B`` instance slots (slots
+  past the instance count take instance 0 with weight 0), step by step one
+  fresh negative per slot from the exclusion sampler (``ops/sampling.py``),
+  and last one seed per step for what a model draws inside its loss
+  (NGCF's dropout);
+* ``run_epoch(params, opt_state, inst, w, negs, seeds)`` takes the steps:
+  loss, backward, optimizer step; the epoch loss is sum(step losses) /
+  steps. Step ``s`` gets a device generator seeded with ``seeds[s]`` as
+  ``batch["generator"]``.
 
 A test can therefore hand both packages the same draws. Epoch semantics
 are the JAX package's (pairwise: every train positive once per epoch with
@@ -33,11 +37,12 @@ from __future__ import annotations
 import json
 import time
 from functools import partial
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from neurec_tpu_torch.bridge import map_params, param_leaves
 from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import Evaluator
@@ -48,7 +53,14 @@ from neurec_tpu_torch.ops.sampling import sample_negatives
 # sampler to its pair Bloom filter, which the port does not have yet
 _EXCL_TABLE_BUDGET = 64 * 1024 * 1024
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
+
+
+class EpochDraws(NamedTuple):
+    inst: torch.Tensor   # (steps, B) int32
+    w: torch.Tensor      # (steps, B) f32
+    negs: torch.Tensor   # (steps, B) int32
+    seeds: torch.Tensor  # (steps,) int64, on the host
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -102,6 +114,55 @@ class OptaxRMSprop(torch.optim.Optimizer):
                 p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.adam`` with optax's f32 arithmetic: mu = (1 - b1) g + b1 mu,
+    nu = (1 - b2) g^2 + b2 nu, bias corrections ``1 - b^t`` in f32 from an
+    f32 ``b``, ``mu_hat / (sqrt(nu_hat) + eps)``, then
+    ``p + (-lr) * update``. (``torch.optim.Adam`` computes ``1 - b^t`` in
+    float64, ~2e-5 of a step away at t = 3.) The state keys are
+    ``torch.optim.Adam``'s (``step``, ``exp_avg``, ``exp_avg_sq``), which
+    ``bridge.adam_state_from_numpy`` / ``adam_state_to_numpy`` read and write.
+    One ``torch._foreach_*`` call per operation over the group's tensors."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
+                                     "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+            states = [self.state[p] for p in params]
+            steps = {int(s["step"]) for s in states}
+            if len(steps) != 1:
+                raise ValueError("Adam state steps differ across parameters: %s" % sorted(steps))
+            t = steps.pop() + 1
+            b1, b2 = np.float32(group["b1"]), np.float32(group["b2"])
+            bc1 = float(np.float32(1.0) - b1 ** np.float32(t))
+            bc2 = float(np.float32(1.0) - b2 ** np.float32(t))
+            grads = [p.grad for p in params]
+            mus = [s["exp_avg"] for s in states]
+            nus = [s["exp_avg_sq"] for s in states]
+            torch._foreach_mul_(mus, group["b1"])
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - group["b1"]))
+            torch._foreach_mul_(nus, group["b2"])
+            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - group["b2"]))
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_add_(params, update)
+            for s in states:
+                s["step"] += 1
+
+
 def make_optimizer(
     learner: str, learning_rate: float, momentum: float = 0.9
 ) -> Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]:
@@ -117,8 +178,8 @@ def make_optimizer(
     elif ln == "rmsprop":
         return partial(OptaxRMSprop, lr=learning_rate)
     elif ln == "adam":
-        # b1 .9, b2 .999, eps 1e-8 outside the sqrt, bias-corrected: optax.adam
-        return partial(torch.optim.Adam, lr=learning_rate)
+        # b1 .9, b2 .999, eps 1e-8 outside the sqrt, bias-corrected in f32
+        return partial(OptaxAdam, lr=learning_rate)
     elif ln == "gd":
         return partial(torch.optim.SGD, lr=learning_rate)
     elif ln == "momentum":
@@ -193,10 +254,13 @@ class Trainer:
         seed = int(np.random.SeedSequence([self.seed + 1, epoch]).generate_state(1)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def draw_epoch(self, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def draw_epoch(self, generator: torch.Generator) -> EpochDraws:
         """All of one epoch's randomness: ``inst`` (steps, B) int32 instance
-        ids, ``w`` (steps, B) f32 weights (0 on pad slots) and ``negs``
-        (steps, B) int32, one fresh negative per slot, drawn step by step."""
+        ids, ``w`` (steps, B) f32 weights (0 on pad slots), ``negs``
+        (steps, B) int32, one fresh negative per slot, drawn step by step,
+        and ``seeds`` (steps,) int64 on the host, one per step for the
+        randomness a model draws inside its loss (dropout). The seeds are
+        drawn last, so the first three do not depend on them."""
         B, steps = self.model.batch_size, self.steps
         perm = torch.randperm(steps * B, generator=generator, device=self.device)
         valid = perm < self.n_instances
@@ -207,7 +271,8 @@ class Trainer:
             sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
             for s in range(steps)
         ])
-        return inst, w, negs
+        seeds = torch.randint(0, 2**62, (steps,), generator=generator, device=self.device).cpu()
+        return EpochDraws(inst, w, negs, seeds)
 
     def _base(self, inst: torch.Tensor) -> torch.Tensor:
         return (inst if self._pairwise else inst % self.n_positives).long()
@@ -220,13 +285,20 @@ class Trainer:
         is_pos = inst < self.n_positives
         return {"users": users, "items": torch.where(is_pos, pos, negs), "labels": is_pos.to(torch.float32)}
 
-    def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs):
+    def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs, seeds=None):
         """One step per row of ``inst`` / ``w`` / ``negs``; returns
         ``(params, opt_state, mean step loss)``. ``opt_state`` is the
-        optimizer over the tensors of ``params``, which it updates in place."""
+        optimizer over the tensors of ``params``, which it updates in place.
+        With ``seeds``, step ``s`` hands the model a ``torch.Generator`` on
+        the device seeded with ``seeds[s]``, as ``batch["generator"]`` (the
+        JAX package's per-step ``batch["rng"]``); without, the batch has
+        none and a model draws nothing (no dropout)."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
+        step_gen = None if seeds is None else torch.Generator(device=self.device)
         for s in range(inst.shape[0]):
             batch = self._batch(inst[s], negs[s])
+            if step_gen is not None:
+                batch["generator"] = step_gen.manual_seed(int(seeds[s]))
             opt_state.zero_grad(set_to_none=True)
             loss = self.model.loss(params, batch, w[s])
             loss.backward()
@@ -237,11 +309,8 @@ class Trainer:
     # -- epochs, logs and evaluation ---------------------------------------
     def initialize(self):
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.params = {
-            name: value.detach().requires_grad_(True)
-            for name, value in self.model.init_params(generator).items()
-        }
-        self.opt_state = self.tx(self.params.values())
+        self.params = map_params(lambda v: v.detach().requires_grad_(True), self.model.init_params(generator))
+        self.opt_state = self.tx([p for _, p in param_leaves(self.params)])
 
     def train(self) -> str:
         if self.params is None:

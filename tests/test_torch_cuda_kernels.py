@@ -116,3 +116,83 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k1.masked_scores_bits(u, torch.zeros(10, 8, device=cuda),
                               torch.zeros(4, 128, dtype=torch.uint8), 1024, 10)
+
+
+PACKED_CASES = [  # (n_rows, n_src, nnz, tile_r, chunk, empty_tail)
+    (997, 773, 6000, 128, 128, 0),
+    (1000, 700, 4000, 256, 512, 500),
+    (512, 100, 300, 512, 64, 400),
+]
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_plan_spmm_bf16_kernel_matches_reference(cuda, case, d):
+    """K2 with bf16 features (edge values rounded to bf16, f32 sums) against
+    its plain version fed the same bf16 inputs."""
+    plan = _random_plan(3, *case).to(cuda)
+    x = torch.randn(case[1], d, generator=torch.Generator().manual_seed(1)).to(cuda).bfloat16()
+    got = spmm.plan_scatter(plan, x)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, spmm.plan_spmm_reference(plan, x), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, spmm.plan_scatter(plan, x))
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_spmm_packed_kernel_matches_reference(cuda, case, pack, d, dtype):
+    """K3 against its plain version; its sum order is K2's, so the two
+    kernels give the same bits over the same plan."""
+    plan = _random_plan(5, *case).to(cuda)
+    x = torch.randn(case[1], d, generator=torch.Generator().manual_seed(2)).to(cuda).to(dtype)
+    before = dict(_build.LAUNCHES)
+    got = spmm.plan_spmm_packed(plan, x, pack)
+    torch.testing.assert_close(got, spmm.plan_spmm_packed_reference(plan, x, pack), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, spmm.plan_spmm_packed(plan, x, pack))
+    assert torch.equal(got, spmm.plan_scatter(plan, x))
+    assert _build.LAUNCHES["plan_spmm_packed"] == before["plan_spmm_packed"] + 2
+
+
+def test_plan_spmm_packed_backward_over_the_transposed_plan(cuda, monkeypatch):
+    """Under NEUREC_SPMM_PACK=2 both directions of PlanSpmm run K3 (the
+    backward over the ``norm`` plan_t, counted as plan_spmm_packed_t)."""
+    from neurec_tpu_torch.data.synthetic import random_dataset
+    from neurec_tpu_torch.ops import graph
+
+    monkeypatch.setenv("NEUREC_SPMM_PACK", "2")
+    ds = random_dataset(num_users=6000, num_items=3000, seed=4)
+    adj = graph.build_norm_adjacency(ds.train_matrix, "norm", device=cuda)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(adj.n_nodes, 64, generator=gen).to(cuda).requires_grad_(True)
+    g = torch.randn(adj.n_nodes, 64, generator=gen).to(cuda)
+    before = dict(_build.LAUNCHES)
+    out = graph.spmm(adj, x)
+    (out * g).sum().backward()
+    torch.testing.assert_close(out, spmm.plan_spmm_reference(adj.plan, x.detach()), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(x.grad, spmm.plan_spmm_reference(adj.plan_t, g), atol=1e-5, rtol=1e-5)
+    assert _build.LAUNCHES["plan_spmm_packed"] == before["plan_spmm_packed"] + 1
+    assert _build.LAUNCHES["plan_spmm_packed_t"] == before["plan_spmm_packed_t"] + 1
+    assert _build.LAUNCHES["plan_spmm"] == before["plan_spmm"]
+
+
+def test_plan_kernels_refuse_tiles_above_512_rows(cuda):
+    plan = _random_plan(1, 2000, 50, 300, 1024, 64, 0).to(cuda)
+    x = torch.zeros(50, 64, device=cuda)
+    with pytest.raises(ValueError, match="NEUREC_SPMM_TILE"):
+        spmm.plan_scatter(plan, x)
+    with pytest.raises(ValueError, match="NEUREC_SPMM_TILE"):
+        spmm.plan_spmm_packed(plan, x, 2)
+
+
+@pytest.mark.parametrize("mode", ["serial", "pipelined"])
+@pytest.mark.parametrize("rows", [1, 4, 16])
+def test_dma_rate_kernel_writes_the_plain_versions_rows(cuda, mode, rows):
+    from neurec_tpu_torch.benchmarks import dma_rate
+
+    offs = torch.from_numpy(np.random.RandomState(rows).randint(0, dma_rate.OUT_ROWS - rows, 5000)
+                            .astype(np.int32)).to(cuda)
+    for n_dma in (1, 4999, 12345):
+        got = dma_rate.dma_copies(offs, n_dma, rows, mode, dma_rate.new_buffer(cuda))
+        assert torch.equal(got, dma_rate.dma_copies_reference(offs, n_dma, rows))

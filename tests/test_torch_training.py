@@ -174,7 +174,7 @@ def test_epoch_with_injected_jax_draws_matches_jax(conf):
 def test_draw_epoch_follows_the_epoch_contract(conf):
     _, ds, _, model = _both(conf, seed=6)
     trainer = Trainer(model, ds, DictConfig(conf), logger=SilentLogger(), device="cpu")
-    inst, w, negs = trainer.draw_epoch(trainer.epoch_generator(1))
+    inst, w, negs, seeds = trainer.draw_epoch(trainer.epoch_generator(1))
     B, N = model.batch_size, trainer.n_positives
     n_inst = trainer.n_instances
     assert n_inst == (N if conf["is_pairwise"] else 3 * N)
@@ -188,8 +188,10 @@ def test_draw_epoch_follows_the_epoch_contract(conf):
         assert 0 <= n < model.num_items and train[u, n] == 0
     again = trainer.draw_epoch(trainer.epoch_generator(1))
     other = trainer.draw_epoch(trainer.epoch_generator(2))
-    assert all(torch.equal(a, b) for a, b in zip((inst, w, negs), again))
+    assert all(torch.equal(a, b) for a, b in zip((inst, w, negs, seeds), again))
     assert not torch.equal(inst, other[0])
+    assert seeds.shape == (inst.shape[0],) and seeds.device.type == "cpu"
+    assert len(set(seeds.tolist())) == len(seeds)  # one seed per step
 
 
 def test_train_writes_the_reference_log_lines(tmp_path):
@@ -285,9 +287,39 @@ def test_plan_branch_training_moves_params_through_the_transposed_plan(monkeypat
 
     monkeypatch.setattr(spmm, "plan_spmm", spy)
     before = {k: v.detach().clone() for k, v in trainer.params.items()}
-    inst, w, negs = trainer.draw_epoch(trainer.epoch_generator(1))
+    inst, w, negs, _ = trainer.draw_epoch(trainer.epoch_generator(1))
     _, _, loss = trainer.run_epoch(trainer.params, trainer.opt_state, inst[:2], w[:2], negs[:2])
     assert seen == [False] * 3 + [True] * 3 + [False] * 3 + [True] * 3
     assert np.isfinite(float(loss))
     for k in before:
         assert not torch.equal(before[k], trainer.params[k])
+
+
+@pytest.mark.parametrize("conf", [MF_PAIR, LIGHTGCN], ids=["mf", "lightgcn"])
+def test_step_seeds_leave_the_epoch_draws_as_they_were(conf):
+    """The per-step seeds are drawn after the permutation and the
+    negatives, which come out as before; MF and LightGCN ignore the step
+    generator, so an epoch with the seeds equals one without."""
+    from neurec_tpu_torch.ops.sampling import sample_negatives
+
+    _, ds, _, model = _both(conf, seed=12)
+    trainer = Trainer(model, ds, DictConfig(conf), logger=SilentLogger(), device="cpu")
+    inst, w, negs, seeds = trainer.draw_epoch(trainer.epoch_generator(5))
+    gen = trainer.epoch_generator(5)  # the draws without the seeds, in their order
+    B, steps = model.batch_size, trainer.steps
+    perm = torch.randperm(steps * B, generator=gen)
+    assert torch.equal(inst, torch.where(perm < trainer.n_instances, perm, 0).to(torch.int32).reshape(steps, B))
+    assert torch.equal(w, (perm < trainer.n_instances).to(torch.float32).reshape(steps, B))
+    users = trainer._users_flat[trainer._base(inst)]
+    want = torch.stack([sample_negatives(gen, trainer._padded_items[users[s]], model.num_items, ())
+                        for s in range(steps)])
+    assert torch.equal(negs, want)
+
+    def epoch(with_seeds):
+        params = {k: v.requires_grad_(True) for k, v in params_from_numpy(_numpy_params(model, 13), "cpu").items()}
+        _, _, loss = trainer.run_epoch(params, trainer.tx(params.values()), inst, w, negs,
+                                       seeds if with_seeds else None)
+        return float(loss), params
+
+    (loss_a, pa), (loss_b, pb) = epoch(True), epoch(False)
+    assert loss_a == loss_b and all(torch.equal(pa[k], pb[k]) for k in pa)
