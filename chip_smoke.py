@@ -16,7 +16,20 @@ failure exits non-zero before the result line):
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them, with time, roofline bound, plain-version time
    and a library call's time: K1 in both mask modes, K2 over the plan of A
-   (forward) and of A^T (``plan_spmm[bwd]``), in f32 and bf16;
+   (forward) and of A^T (``plan_spmm[bwd]``), in f32 and bf16. A SpMM call
+   is a few hundredths of a millisecond, so its records also carry the
+   device time from ``torch.profiler`` (``phase: kernel_device``, by
+   kernel), which a back-to-back loop paced by the host does not show,
+   and the host's time to issue a call (``host_ms``);
+   ``schedule_bytes`` and ``scratch_bytes`` are what the kernels move
+   beyond the bound's bytes. Before them,
+   the skew of each plan (``phase: skew``: its tiles, the heaviest tile's
+   and the heaviest warp's edges under a row-tile split with 16 warps
+   owning ``row % 16``, and the spans of the edge-balanced schedule that
+   K2 and K3 walk); after them, K2 and K3 on a power-law graph with a hub
+   row cut across spans and on a ``NEUREC_SPMM_TILE=1024`` plan of the
+   north star (``phase: kernel_case``): against their plain versions, the
+   same bits twice, K3 == K2, and the tile-1024 plan == the tile-256 one;
 4. the serving path, with every launch count set to 0 just before and
    read just after: full evaluation of every test user (twice: cold, then
    warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
@@ -29,8 +42,9 @@ failure exits non-zero before the result line):
    north star (batch 2048, lr 0.001, reg 1e-4, Adam) for 2 epochs with an
    evaluation after each. It fails on a non-finite loss, an epoch-2 loss
    not below epoch 1's, a trained Recall@20 not above phase 4's random
-   weights, or K2 launch counts other than 3 forward + 3 backward per step
-   and 3 forward per evaluation;
+   weights, K2 launch counts other than 3 forward + 3 backward per step
+   and 3 forward per evaluation, or losses and Recall@20 more than
+   ``RECORDED_RTOL`` from the values recorded with the row-owning kernels;
 7. where a training step's time goes: CUDA-event times of the step, its
    forward, Adam and one step's negative draw (``--profile`` adds a
    ``torch.profiler`` table of device time per kernel);
@@ -43,7 +57,9 @@ failure exits non-zero before the result line):
    and bf16, the same bits as K2), one full evaluation of phase 2's
    weights, ``run.main`` for 2 epochs; exactly 3 K3 forward per step and
    per evaluation, 3 K3 backward per step, no K2; the loss checks of phase
-   6 and the 5 steps of phase 8 against K3's plain version;
+   6, losses and metrics equal to phase 6's digit for digit (the schedule
+   does not depend on the chunk, and K3 sums in K2's order), and the 5
+   steps of phase 8 against K3's plain version;
 10. the other SpMM variants as paths of their own, each one evaluation and
    2 training steps from path A's trained state: pack 4, pack 2 in bf16,
    pack 4 in bf16, and K2 in bf16 (``NEUREC_SPMM_DTYPE=bf16``);
@@ -63,7 +79,8 @@ failure exits non-zero before the result line):
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
 
-The last lines: ``{"kernels": [...]}`` (every kernel and variant, with
+The last lines: ``{"kernels": [...]}`` (every kernel and variant, with the
+``device_ms`` of the SpMM kernels and
 ``launches_by_path``), the ``nvidia-smi`` name/power-limit line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +160,18 @@ NGCF_TRAIN_ARGS = NGCF_ARGS + [
 
 PROBE_N, PROBE_REPEAT, PROBE_ROUNDS = 65536, 8, 3
 
+# 2-epoch losses and Recall@20 recorded in PERF.md with the kernels whose
+# warps owned whole rows (one fmaf chain per row). The edge-balanced
+# schedule sums a hub row as pieces, so rounding may move these, no more.
+RECORDED_RTOL = 1e-4
+RECORDED_NORTHSTAR = {"loss": [1347.209839, 964.667725], "recall20": [0.08464802, 0.08635982]}
+RECORDED_NGCF_LOSS = [699.8136, 652.5689]
+# the row-tile split the skew phase reports beside the schedule: 16 warps
+# a tile, warp w owning the rows with row % 16 == w
+SKEW_WARPS = 16
+# the hub-graph case: nodes, Zipf exponent, degree cap, the hub's degree
+HUB_NODES, HUB_ZIPF, HUB_CAP, HUB_DEGREE = 20000, 1.8, 200, 3000
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -198,6 +227,28 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n=20):
+    """``(total, by_kernel)``: the device time of one call of ``fn``, the
+    summed time of its CUDA kernels under ``torch.profiler``, and each
+    kernel's share, per call; ``(None, {})`` where the profiler shows no
+    kernel. Unlike ``time_ms`` it leaves out the host's time, which sets a
+    back-to-back loop's pace when a call's kernels are shorter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {e.key.split("<")[0].split("(")[0][-40:]: e.self_device_time_total / n / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
+    total = sum(by_kernel.values())
+    return (total, by_kernel) if total else (None, {})
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -238,6 +289,39 @@ def adjacency_csr(torch, np, sp, adj, transpose=False):
     rows, cols, vals = (t.cpu().numpy() for t in (adj.rows, adj.cols, adj.vals))
     m = sp.csr_matrix((vals, (rows, cols)), shape=(adj.n_nodes,) * 2)
     return sparse_csr(torch, np, m.T.tocsr() if transpose else m)
+
+
+def plan_skew(torch, k2, label, p):
+    """How the plan's edges fall on a row-tile split (one block per tile,
+    warps owning ``row % SKEW_WARPS``) and on the schedule's spans."""
+    real = p.vals != 0
+    tile = p.chunk_tile.long()[:, None].expand_as(p.rows)[real]
+    warp = tile * SKEW_WARPS + p.rows[real].long() % SKEW_WARPS
+    sched = k2.spmm_schedule(p)
+    span_edges = (sched.spans[:, 1] - sched.spans[:, 0]).float()
+    pieces = int((sched.split[:, 2] - sched.split[:, 1]).sum())
+    out = {"phase": "skew", "plan": label, "tile_r": p.tile_r, "chunk": int(p.rows.shape[1]),
+           "tiles": p.n_tiles, "edges": int(real.sum()), "rows": p.n_rows,
+           "heaviest_tile_edges": int(torch.bincount(tile, minlength=p.n_tiles).max()),
+           "heaviest_warp_edges": int(torch.bincount(warp, minlength=p.n_tiles * SKEW_WARPS).max()),
+           "max_row_degree": int((sched.row_ptr[1:] - sched.row_ptr[:-1]).max()),
+           "spans": int(sched.spans.shape[0]), "span_size": k2.SPAN,
+           "span_mean_edges": float(span_edges.mean()), "span_max_edges": int(span_edges.max()),
+           "cut_rows": int(sched.split.shape[0]), "cut_pieces": pieces, "schedule_bytes": sched.nbytes}
+    emit(out)
+
+
+def hub_coo(np):
+    """A square power-law graph made from the seed: Zipf row degrees capped
+    at HUB_CAP, one hub row of HUB_DEGREE edges (~94 spans), values
+    N(0, 1/degree) as a normalized adjacency scales a hub's."""
+    rng = np.random.default_rng(SEED)
+    deg = np.minimum(rng.zipf(HUB_ZIPF, HUB_NODES), HUB_CAP)
+    deg[HUB_NODES // 3] = HUB_DEGREE
+    rows = np.repeat(np.arange(HUB_NODES), deg).astype(np.int32)
+    cols = rng.integers(0, HUB_NODES, rows.size).astype(np.int32)
+    vals = (rng.standard_normal(rows.size) / np.sqrt(deg[rows])).astype(np.float32)
+    return rows, cols, vals
 
 
 def profile_steps(torch, step, n=10):
@@ -441,15 +525,15 @@ def main() -> int:
 
     records = {}
 
-    def check(name, source, replaces, run_fn, plain, library, n_bytes, n_flops, extra=None):
+    def check(name, source, replaces, run_fn, plain, library, n_bytes, n_flops, extra=None, iters=20):
         got, want = run_fn(), plain()
         torch.cuda.synchronize()
         err, ok = compare(torch, got, want)
         rec = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": err, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
-            "ms": time_ms(torch, run_fn), "plain_ms": time_ms(torch, plain),
-            "library_ms": time_ms(torch, library) if library is not None else None,
+            "ms": time_ms(torch, run_fn, iters=iters, warmup=iters // 2), "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library, iters=iters, warmup=iters // 2) if library is not None else None,
         }
         rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_flops)
         rec.update(extra or {})
@@ -481,27 +565,50 @@ def main() -> int:
     )
     csr = adjacency_csr(torch, np, sp, model.adj)
     csr_t = adjacency_csr(torch, np, sp, model.adj, transpose=True)
+    plan_skew(torch, k2, "pre", model.adj.plan)
+    plan_skew(torch, k2, "pre_t", model.adj.plan_t)
 
     def plan_bytes(p, pack=1):
         if pack > 1:
             rows_p, vals_p = k2.packed_layout(p, pack)
-            return sum(t.numel() * 4 for t in (rows_p, p.cols, vals_p, p.tile_ptr))
-        return sum(t.numel() * 4 for t in (p.rows, p.cols, p.vals, p.tile_ptr))
+            return sum(t.numel() * 4 for t in (rows_p, p.cols, vals_p, p.chunk_tile))
+        return sum(t.numel() * 4 for t in (p.rows, p.cols, p.vals, p.chunk_tile))
 
     def spmm_check(name, source, replaces, p, x, pack, lib_csr, lib_x, extra=None):
         """A plan SpMM kernel (K2 at pack 1, K3 above) against its plain
         version on the same (f32 or bf16) input."""
         nnz = int((p.vals != 0).sum())
+        sched = k2.spmm_schedule(p)
+        pieces = int((sched.split[:, 2] - sched.split[:, 1]).sum())
+        # beyond the bound's bytes: the schedule, and each piece of a cut
+        # row written to scratch and read back by the fix-up
+        extra = dict({"schedule_bytes": sched.nbytes, "scratch_bytes": 2 * pieces * x.shape[1] * 4}, **(extra or {}))
         if pack > 1:
             run_fn, plain = (lambda: k2.plan_spmm_packed(p, x, pack)), (lambda: k2.plan_spmm_packed_reference(p, x, pack))
         else:
             run_fn, plain = (lambda: k2.plan_scatter(p, x)), (lambda: k2.plan_spmm_reference(p, x))
-        rec = check(name, source, replaces, run_fn, plain, lambda: torch.sparse.mm(lib_csr, lib_x),
+        library = lambda: torch.sparse.mm(lib_csr, lib_x)  # noqa: E731
+        # a call is ~0.04 ms of kernels: 100 back to back, after 50, so
+        # that the card's clocks have risen; device_ms beside, from the
+        # profiler, as the host can set the pace of such a loop
+        rec = check(name, source, replaces, run_fn, plain, library,
                     plan_bytes(p, pack) + x.numel() * x.element_size() + p.n_rows * x.shape[1] * 4,
                     2.0 * nnz * x.shape[1],
                     dict({"shape": [p.n_rows, int(p.rows.shape[0]), int(p.rows.shape[1]), x.shape[1]],
                           "nnz": nnz, "pack": pack, "dtype": str(x.dtype).replace("torch.", ""),
-                          "library_call": "torch.sparse.mm, CSR, float32"}, **(extra or {})))
+                          "library_call": "torch.sparse.mm, CSR, float32"}, **(extra or {})), iters=100)
+        rec["device_ms"], rec["device_ms_by_kernel"] = device_ms(torch, run_fn)
+        rec["library_device_ms"] = device_ms(torch, library)[0]
+        # the host's time to issue one call (50 calls, no wait: the device
+        # runs behind them or idles)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            run_fn()
+        rec["host_ms"] = (time.perf_counter() - t) / 50 * 1e3
+        torch.cuda.synchronize()
+        emit({"phase": "kernel_device", "name": name, **{k: rec[k] for k in (
+            "ms", "device_ms", "device_ms_by_kernel", "host_ms", "library_ms", "library_device_ms")}})
         require(torch.equal(run_fn(), run_fn()), "%s is not deterministic" % name)
         return rec
 
@@ -520,6 +627,42 @@ def main() -> int:
                csr, ego)
     spmm_check("plan_spmm[bwd,bf16]", k2_src, "neurec_tpu/ops/pallas_spmm.py:504", plan_t, g.bfloat16(), 1,
                csr_t, g)
+
+    def kernel_case(case, p, x, same_as=None):
+        """K2 and K3 (pack 2, 4) against their plain versions, the same bits
+        twice, K3 == K2, and (``same_as``) K2's bits over another plan."""
+        got = k2.plan_scatter(p, x)
+        err, ok = compare(torch, got, k2.plan_spmm_reference(p, x))
+        require(ok, "%s: K2 disagrees with its plain version: max_abs_err %g" % (case, err))
+        require(torch.equal(got, k2.plan_scatter(p, x)), "%s: K2 is not deterministic" % case)
+        errs = {"plan_spmm": err}
+        for pack in (2, 4):
+            got3 = k2.plan_spmm_packed(p, x, pack)
+            err3, ok3 = compare(torch, got3, k2.plan_spmm_packed_reference(p, x, pack))
+            require(ok3, "%s: K3 pack %d disagrees with its plain version: %g" % (case, pack, err3))
+            require(torch.equal(got3, k2.plan_spmm_packed(p, x, pack)) and torch.equal(got3, got),
+                    "%s: K3 pack %d is not deterministic or not K2's bits" % (case, pack))
+            errs["plan_spmm_packed[pack%d]" % pack] = err3
+        if same_as is not None:
+            require(torch.equal(got, same_as), "%s: K2's bits differ from the tile-256 plan's" % case)
+        emit({"phase": "kernel_case", "case": case, "dtype": str(x.dtype).replace("torch.", ""),
+              "shape": [p.n_rows, int(p.rows.shape[0]), int(p.rows.shape[1]), x.shape[1]],
+              "tile_r": p.tile_r, "max_abs_err": errs, "tol": "atol %g + rtol %g" % (ATOL, RTOL),
+              "cut_rows": int(k2.spmm_schedule(p).split.shape[0]),
+              "plan_spmm_ms": time_ms(torch, lambda: k2.plan_scatter(p, x))})
+
+    hub_rows, hub_cols, hub_vals = hub_coo(np)
+    x_hub = torch.from_numpy(np.random.RandomState(SEED + 2).standard_normal((HUB_NODES, d)).astype(np.float32)).cuda()
+    for label, (r_, c_) in (("hub", (hub_rows, hub_cols)), ("hub_t", (hub_cols, hub_rows))):
+        p_hub = k2.build_spmm_plan(r_, c_, hub_vals, HUB_NODES).to("cuda")
+        plan_skew(torch, k2, label, p_hub)
+        require(label == "hub_t" or k2.spmm_schedule(p_hub).split.shape[0] > 0, "the hub row was not cut")
+        for x in (x_hub, x_hub.bfloat16()):
+            kernel_case(label, p_hub, x)
+    adj_rows, adj_cols, adj_vals = (t.cpu().numpy() for t in (model.adj.rows, model.adj.cols, model.adj.vals))
+    plan_1024 = k2.build_spmm_plan(adj_rows, adj_cols, adj_vals, model.adj.n_nodes, tile_r=1024).to("cuda")
+    for x in (ego, ego.bfloat16()):
+        kernel_case("tile1024", plan_1024, x, same_as=k2.plan_scatter(plan, x))
     # where an eval batch and a serving request spend their time besides
     # the kernels: the lowest-id-first top-K (a stable sort of each row)
     masked = k1.masked_scores_bits(u, item_table, bits, width, I)
@@ -633,6 +776,12 @@ def main() -> int:
     check_training(np, recs, "LightGCN")
     require(trained[0] > metrics[0], "Recall@20 after training %g is not above random weights' %g"
             % (trained[0], metrics[0]))
+    recalls = [float(r["metrics"]["values"][0]) for r in recs if "metrics" in r]
+    recorded_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        [r["loss"] for r in recs] + recalls, RECORDED_NORTHSTAR["loss"] + RECORDED_NORTHSTAR["recall20"]))
+    emit({"phase": "train_vs_recorded", "losses": [r["loss"] for r in recs], "recall20": recalls,
+          "recorded": RECORDED_NORTHSTAR, "max_rel_diff": recorded_rel, "tol": RECORDED_RTOL})
+    require(recorded_rel <= RECORDED_RTOL, "north star moved from its recorded results by %g" % recorded_rel)
     n_fwd = tmodel.n_layers * (steps * TRAIN_EPOCHS + n_evals)
     n_bwd = tmodel.n_layers * steps * TRAIN_EPOCHS
     require((train_launches["plan_spmm"], train_launches["plan_spmm_t"]) == (n_fwd, n_bwd),
@@ -684,6 +833,8 @@ def main() -> int:
         setup_a_s = time.perf_counter() - t0
         require(plan_a.rows.shape[1] == 512 and k2.pack_factor(d, 512) == 2,
                 "path A: chunk %d, pack %d" % (plan_a.rows.shape[1], k2.pack_factor(d, plan_a.rows.shape[1])))
+        plan_skew(torch, k2, "pre_chunk512", plan_a)
+        plan_skew(torch, k2, "pre_t_chunk512", model_a.adj.plan_t)
         for pack in (2, 4):
             for x in (ego, ego.bfloat16()):
                 dt = "" if x.dtype == torch.float32 else ",bf16"
@@ -709,6 +860,9 @@ def main() -> int:
         eval_a_err = max(abs(a - b) for a, b in zip(metrics, parse_metrics(eval_a)))
         require(eval_a_err <= 1e-5, "path A's evaluation differs from phase 4's by %g" % eval_a_err)
         check_training(np, recs_a, "path A")
+        require([r["loss"] for r in recs_a] == [r["loss"] for r in recs] and result_a == train_result,
+                "path A's losses %s and metrics %s differ from phase 6's %s, %s"
+                % ([r["loss"] for r in recs_a], result_a, [r["loss"] for r in recs], train_result))
         steps_a = trainer_a.steps
         n_evals_a = sum("metrics" in r for r in recs_a)
         want_a = {"plan_spmm_packed": 3 * (1 + steps_a * TRAIN_EPOCHS + n_evals_a),
@@ -768,6 +922,8 @@ def main() -> int:
     )
     # K3's backward over NGCF's norm plan_t, a structure of its own
     plan_bt = model_b.adj.plan_t
+    plan_skew(torch, k2, "norm", model_b.adj.plan)
+    plan_skew(torch, k2, "norm_t", plan_bt)
     csr_bt = adjacency_csr(torch, np, sp, model_b.adj, transpose=True)
     for pack in (2, 4):
         for x in (g, g.bfloat16()):
@@ -794,6 +950,10 @@ def main() -> int:
     require(all(np.isfinite(metrics_b0)) and all(0.0 <= m <= 1.0 for m in metrics_b0),
             "NGCF metrics out of range: %s" % eval_b0)
     check_training(np, recs_b, "path B")
+    ngcf_rel = max(abs(r["loss"] - b) / b for r, b in zip(recs_b, RECORDED_NGCF_LOSS))
+    emit({"phase": "ngcf_vs_recorded", "losses": [r["loss"] for r in recs_b], "recorded": RECORDED_NGCF_LOSS,
+          "max_rel_diff": ngcf_rel, "tol": RECORDED_RTOL})
+    require(ngcf_rel <= RECORDED_RTOL, "NGCF moved from its recorded losses by %g" % ngcf_rel)
     steps_b = trainer_b.steps
     n_evals_b = sum("metrics" in r for r in recs_b)
     want_b = {"plan_spmm": 3 * (1 + steps_b * TRAIN_EPOCHS + n_evals_b),
@@ -869,7 +1029,10 @@ def main() -> int:
         require(rec["launches"] > 0, "%s was launched on no path: %s" % (name, rec["launches_by_path"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    emit({"kernels": [{k: records[n][k] for k in keys} for n in entry_paths]})
+    # device times where they were taken (the SpMM kernels), None elsewhere
+    extra_keys = ("device_ms", "host_ms", "library_device_ms")
+    emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})
+                      for n in entry_paths]})
     stack.close()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from neurec_tpu_torch.ops import masked_scores as k1
-from neurec_tpu_torch.ops.masked_scores import bits_expand
+from neurec_tpu_torch.ops.masked_scores import bits_expand, wrap_ids
 from neurec_tpu_torch.ops.topk import top_k
 
 # Prebuilt per-eval-user bits tables larger than this are streamed (packed
@@ -198,8 +198,9 @@ def make_scatter_topk(K: int, num_items: int):
         ext = torch.cat(
             [scores, torch.zeros((B, 1), dtype=torch.float32, device=scores.device)], dim=1
         )
-        rows = train_rows.long()
-        keep = (rows >= 0) & (rows <= num_items)  # ids past the dump column drop
+        # as JAX's .at[] over the num_items + 1 columns: negative ids wrap,
+        # ids past the dump column drop
+        rows, keep = wrap_ids(train_rows, num_items + 1)
         slot = torch.arange(B, device=scores.device)[:, None].expand_as(rows)
         ext[slot[keep], rows[keep]] = float("-inf")
         return top_k(ext[:, :num_items], K)[1]

@@ -4,10 +4,10 @@ Each source is compiled on its own into a shared library with a plain C
 interface (``nvcc -shared``, no PyTorch headers, so a build takes seconds
 rather than minutes), all sources at once in parallel, into
 ``build/neurec_tpu_torch/`` beside the package (git-ignored). A library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused. Wrappers pass raw pointers and
-PyTorch's current stream; each C entry point returns the launch's
-``cudaGetLastError()`` code.
+file name carries a hash of its source, the headers under ``csrc/`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. Wrappers pass raw pointers and PyTorch's current stream; each C
+entry point returns the launch's ``cudaGetLastError()`` code.
 
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -71,8 +71,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as fin:
-        digest = hashlib.sha256(fin.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the flags and
+    every header under ``csrc/`` (a source may include any of them)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fin:
+            digest.update(fin.read())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 

@@ -85,7 +85,8 @@ def build_norm_adjacency(
     """Bipartite (U+I)x(U+I) adjacency from the train matrix, normalized,
     built on the host and placed on ``device``. ``self_loops`` adds I
     before the normalization. The plans' geometry comes from
-    ``NEUREC_SPMM_TILE`` / ``NEUREC_SPMM_CHUNK`` at build time."""
+    ``NEUREC_SPMM_TILE`` / ``NEUREC_SPMM_CHUNK`` at build time; their
+    schedules (``spmm_ops.spmm_schedule``) are built here too."""
     dev = resolve_device(device)
     num_users, num_items = train_matrix.shape
     coo = train_matrix.tocoo()
@@ -116,6 +117,8 @@ def build_norm_adjacency(
     else:
         plan = spmm_ops.build_spmm_plan(rows, cols, vals, n_nodes).to(dev)
         plan_t = spmm_ops.build_spmm_plan(cols, rows, vals, n_nodes)._replace(transposed=True).to(dev)
+        for p in (plan, plan_t):  # the kernels' schedules, with the rest of the set-up
+            spmm_ops.spmm_schedule(p)
     return SparseAdj(
         rows=torch.from_numpy(rows).to(dev),
         cols=torch.from_numpy(cols).to(dev),

@@ -4,7 +4,7 @@ Port of ``neurec_tpu/ops/pallas_kernels.py``. The mask builders give
 bytes identical to the JAX ones:
 
 * ``build_train_mask``: (B, I) int8 membership from padded train rows
-  (pad ids >= I are dropped);
+  (pad ids >= I are dropped, ids in [-I, 0) wrap as JAX's ``.at[]``);
 * ``pack_train_bits`` / ``pack_mask_bits``: bit-plane bytes — within item
   block ``blk`` of P items, item ``c*(P/8) + j`` sits in byte
   ``blk*(P/8) + j``, bit ``c``.
@@ -25,21 +25,39 @@ On CPU tensors both run their plain versions (``*_reference``).
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from neurec_tpu_torch.ops import _build
 
 _NEG_INF = float("-inf")
+# K1's item block in the JAX package (``masked_scores(block_items=512)``): its
+# int8 mask spans num_items rounded up to it, so a negative id wraps into
+# that width (into a pad column unless num_items is a multiple of 512)
+_MASK_BLOCK = 512
+
+
+def _mask_width(num_items: int) -> int:
+    return num_items + (-num_items) % _MASK_BLOCK
+
+
+def wrap_ids(ids: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ids, keep)`` as JAX's ``.at[ids]`` indexes an axis of ``n``: ids
+    in [-n, 0) wrap to ``id + n``, and ``keep`` is False where the id lies
+    outside [-n, n) (a scatter drops those)."""
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    return ids, (ids >= 0) & (ids < n)
 
 
 def build_train_mask(train_rows: torch.Tensor, num_items: int) -> torch.Tensor:
-    """(B, num_items) int8 membership mask from padded train rows; ids
-    outside [0, num_items) are dropped."""
+    """(B, num_items) int8 membership mask from padded train rows; ids in
+    [-num_items, 0) wrap and ids outside [-num_items, num_items) are
+    dropped, as the JAX package's ``.at[].set(mode="drop")``."""
     B = train_rows.shape[0]
     mask = torch.zeros((B, num_items), dtype=torch.int8, device=train_rows.device)
-    rows = train_rows.long()
-    keep = (rows >= 0) & (rows < num_items)
+    rows, keep = wrap_ids(train_rows, num_items)
     slot = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
     mask[slot[keep], rows[keep]] = 1
     return mask
@@ -75,7 +93,8 @@ def masked_scores_reference(
     u: torch.Tensor, items: torch.Tensor, train_rows: torch.Tensor
 ) -> torch.Tensor:
     scores = torch.matmul(u, items.T)
-    mask = build_train_mask(train_rows, items.shape[0])
+    num_items = items.shape[0]
+    mask = build_train_mask(train_rows, _mask_width(num_items))[:, :num_items]
     return torch.where(mask != 0, _NEG_INF, scores)
 
 
@@ -140,8 +159,8 @@ def masked_scores(
         raise ValueError("train_rows must be (B, L), got %s" % (tuple(train_rows.shape),))
     if u.device.type == "cpu":
         return masked_scores_reference(u, items, train_rows)
-    mask = build_train_mask(train_rows, num_items)
-    return _launch(u, items, mask, num_items, num_items, 1, mode=0)
+    mask = build_train_mask(train_rows, _mask_width(num_items))
+    return _launch(u, items, mask, num_items, mask.shape[1], 1, mode=0)
 
 
 def masked_scores_bits(

@@ -17,10 +17,14 @@ With bf16 features the TPU kernel rounds the selector to bf16 as well
 sums are f32, and the output is f32 — in the kernels and the plain
 versions alike.
 
-The plan also carries ``tile_ptr`` (n_tiles + 1), built once on the host
-from ``chunk_tile``, so that a CUDA block can find its tile's chunks, and
-a cache of its parity-grouped layouts for K3 (``packed_layout``), built on
-the plan's device once per pack factor.
+The plan also carries a cache of what the kernels derive from it on its
+device: the parity-grouped layouts of K3 (``packed_layout``, once per pack
+factor) and the edge-balanced schedule that both kernels walk
+(``spmm_schedule``, once per plan). The schedule lists the real edges by
+(row, plan order) and cuts them into spans of at most ``SPAN`` edges and
+rows, one per warp, so that no warp waits on a hub; it does not depend on
+the plan's chunk or padding, so every plan of one graph sums each row in
+the same order.
 
 The backward of A @ x is the same function over the transposed plan
 (``build_spmm_plan(cols, rows, vals, n)``, marked ``transposed``), as in the
@@ -31,9 +35,10 @@ autograd. Launches over a transposed plan count as ``plan_spmm_t`` (K2) and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,25 +61,29 @@ class SpmmPlan(NamedTuple):
     vals: ArrayLike        # (n_chunks, chunk) float32 — 0.0 on padding
     chunk_tile: ArrayLike  # (n_chunks,) int32 — non-decreasing out-tile index
     chunk_first: ArrayLike  # (n_chunks,) int32 — 1 iff first chunk of its tile
-    tile_ptr: ArrayLike    # (n_tiles + 1,) int32 — tile t owns chunks [ptr[t], ptr[t+1])
     n_rows: int            # logical output rows (<= n_tiles * tile_r)
     tile_r: int
     transposed: bool = False  # the plan of A^T (a backward), counted apart
-    packed: Optional[dict] = None  # pack -> (rows_p, vals_p), see packed_layout
+    # derived on the plan's device: pack -> (rows_p, vals_p) (packed_layout),
+    # "schedule" -> SpmmSchedule (spmm_schedule), "checked_on" -> the device
+    # a launch last validated the plan for (_check_launch)
+    cache: Optional[dict] = None
 
     @property
     def n_tiles(self) -> int:
         return -(-self.n_rows // self.tile_r)
 
     def to(self, device) -> "SpmmPlan":
-        return self._replace(packed={}, **{
+        return self._replace(cache={}, **{
             name: torch.as_tensor(getattr(self, name), device=device)
-            for name in ("rows", "cols", "vals", "chunk_tile", "chunk_first", "tile_ptr")
+            for name in ("rows", "cols", "vals", "chunk_tile", "chunk_first")
         })
 
 
-# the kernels' shared-memory accumulator holds at most this many rows a tile
-MAX_TILE_R = 512
+# Edges, and rows, one warp of K2/K3 takes (csrc/plan_spmm_core.cuh SPAN):
+# one edge a lane when the warp reads its span's (col, val), and 32 x rows
+# of 256 B in flight per warp. Rows of more edges are cut into pieces.
+SPAN = 32
 
 
 def default_tile_chunk() -> Tuple[int, int]:
@@ -169,14 +178,12 @@ def build_spmm_plan(
     if ci != n_chunks:
         raise AssertionError("plan chunk count mismatch")
 
-    tile_ptr = np.searchsorted(chunk_tile, np.arange(n_tiles + 1)).astype(np.int32)
     return SpmmPlan(
         rows=r,
         cols=c,
         vals=v,
         chunk_tile=chunk_tile,
         chunk_first=chunk_first,
-        tile_ptr=tile_ptr,
         n_rows=n_rows,
         tile_r=tile_r,
     )
@@ -201,7 +208,7 @@ def packed_layout(plan: SpmmPlan, pack: int) -> Tuple[torch.Tensor, torch.Tensor
     ``i * pack + h`` holds parity group h (edges h, h + pack, ...) of chunk
     i, as ``plan_spmm_packed`` builds them (``pallas_spmm.py:314-319``).
     Built on the plan's device once per pack and kept with the plan."""
-    cache = plan.packed
+    cache = plan.cache
     if cache is not None and pack in cache:
         return cache[pack]
     n_chunks, chunk = plan.rows.shape
@@ -216,6 +223,96 @@ def packed_layout(plan: SpmmPlan, pack: int) -> Tuple[torch.Tensor, torch.Tensor
     if cache is not None:
         cache[pack] = out
     return out
+
+
+
+class SpmmSchedule(NamedTuple):
+    """A plan's edge-balanced schedule (``spmm_schedule``), on its device.
+
+    Row r's real edges are ``perm[row_ptr[r]:row_ptr[r+1]]``, in plan
+    order, and ``cols`` holds their source columns in the same order, so
+    that a warp reads its span's columns coalesced. Span s, one warp's
+    work, sums the edges ``perm[e0:e1]`` into the rows ``r0 .. r1-1``
+    (``spans[s] = (e0, e1, r0, r1)``): whole rows, each
+    row without edges counting as one edge, at most ``SPAN`` edges and
+    ``SPAN`` rows. A row of more than ``SPAN`` edges is cut into pieces of
+    ``SPAN`` edges, each at the start of its own span (the last piece's span
+    may go on with the next rows); ``split`` lists those rows as ``(row, s0,
+    s1)``, pieces in spans ``s0 .. s1-1``, which the kernels add in span
+    order.
+    """
+
+    perm: torch.Tensor     # (n_edges,) int32 — plan positions, flat over (n_chunks, chunk)
+    cols: torch.Tensor     # (n_edges,) int32 — plan.cols at perm
+    row_ptr: torch.Tensor  # (n_rows + 1,) int32
+    spans: torch.Tensor    # (n_spans, 4) int32 — (e0, e1, r0, r1)
+    split: torch.Tensor    # (n_split, 3) int32 — (row, s0, s1)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+
+def _cut_spans(deg: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy cut of rows with ``deg`` edges each into spans (see
+    ``SpmmSchedule``): ``(spans (n_spans, 4), split (n_split, 3))``."""
+    spans, split = [], []
+    cur, fill, e = None, 0, 0  # the open span [e0, e1, r0, r1], its cost, row r's first edge
+    for r, n in enumerate(deg.tolist()):
+        if n > SPAN:  # full pieces in spans of their own; the last piece opens a span
+            if cur is not None:
+                spans.append(cur)
+            pieces = -(-n // SPAN)
+            split.append([r, len(spans), len(spans) + pieces])
+            spans.extend([e + k * SPAN, e + (k + 1) * SPAN, r, r + 1] for k in range(pieces - 1))
+            cur = [e + (pieces - 1) * SPAN, e + n, r, r + 1]
+            fill = cur[1] - cur[0]
+        else:
+            if cur is None or fill + max(n, 1) > SPAN:
+                if cur is not None:
+                    spans.append(cur)
+                cur, fill = [e, e, r, r], 0
+            cur[1], cur[3] = e + n, r + 1
+            fill += max(n, 1)
+        e += n
+    if cur is not None:
+        spans.append(cur)
+    return (np.asarray(spans, dtype=np.int32).reshape(-1, 4),
+            np.asarray(split, dtype=np.int32).reshape(-1, 3))
+
+
+def spmm_schedule(plan: SpmmPlan) -> SpmmSchedule:
+    """The plan's edge-balanced schedule, which K2 and K3 walk: its real
+    (non-zero) edges by (row, plan order), cut into spans. Built on the
+    plan's device once per plan and kept with it; the degrees go through
+    the host for the cut.
+
+    It does not depend on the plan's chunk or padding: two plans of one
+    graph differ only in ``perm`` (their positions): ``vals[perm]``,
+    ``cols``, ``row_ptr``, ``spans`` and ``split`` are equal.
+    """
+    cache = plan.cache
+    if cache is not None and "schedule" in cache:
+        return cache["schedule"]
+    vals = torch.as_tensor(plan.vals)
+    dev, chunk = vals.device, vals.shape[1]
+    pos = torch.nonzero(vals.reshape(-1) != 0).squeeze(1)
+    first_row = torch.as_tensor(plan.chunk_tile, device=dev).long() * plan.tile_r
+    rows = first_row[pos // chunk] + torch.as_tensor(plan.rows, device=dev).reshape(-1)[pos].long()
+    rows, order = torch.sort(rows, stable=True)  # plan order within a row
+    deg = torch.bincount(rows, minlength=plan.n_rows)
+    row_ptr = torch.zeros(plan.n_rows + 1, dtype=torch.int64, device=dev)
+    row_ptr[1:] = torch.cumsum(deg, 0)
+    spans, split = _cut_spans(deg.cpu().numpy())
+    perm = pos[order]
+    sched = SpmmSchedule(
+        perm=perm.int(), cols=torch.as_tensor(plan.cols, device=dev).reshape(-1)[perm].contiguous(),
+        row_ptr=row_ptr.int(),
+        spans=torch.from_numpy(spans).to(dev), split=torch.from_numpy(split).to(dev),
+    )
+    if cache is not None:
+        cache["schedule"] = sched
+    return sched
 
 
 def plan_spmm_packed_reference(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor:
@@ -237,87 +334,97 @@ def plan_spmm_packed_reference(plan: SpmmPlan, x: torch.Tensor, pack: int) -> to
 
 def _check_launch(plan: SpmmPlan, x: torch.Tensor, what: str) -> bool:
     """True for a CUDA launch, False for the CPU's plain version; raises on
-    what the kernels do not take."""
+    what the kernels do not take. The plan's own checks run once per device
+    the plan is used on (the verdict is kept in its cache): they are most
+    of the host time of a launch."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
         raise TypeError("%s takes a 2-D float32 or bfloat16 x, got %s %s" % (what, x.dtype, tuple(x.shape)))
-    for name in ("rows", "cols", "vals", "tile_ptr"):
-        if getattr(plan, name).device != x.device:
-            raise ValueError("plan.%s is on %s, x on %s" % (name, getattr(plan, name).device, x.device))
-    if x.device.type == "cpu":
+    dev = x.device
+    if plan.cache is None or plan.cache.get("checked_on") != dev:
+        for name in ("rows", "cols", "vals", "chunk_tile"):
+            if getattr(plan, name).device != dev:
+                raise ValueError("plan.%s is on %s, x on %s" % (name, getattr(plan, name).device, dev))
+        n_chunks, chunk = plan.rows.shape
+        arrays = (plan.rows, plan.cols, plan.vals, plan.chunk_tile)
+        dtypes = (torch.int32, torch.int32, torch.float32, torch.int32)
+        if dev.type == "cuda" and (
+            any(a.dtype != t or not a.is_contiguous() for a, t in zip(arrays, dtypes))
+            or plan.cols.shape != (n_chunks, chunk)
+            or plan.vals.shape != (n_chunks, chunk)
+            or plan.chunk_tile.shape != (n_chunks,)
+            or plan.rows.numel() >= 2 ** 31  # positions are int32
+        ):
+            raise ValueError("malformed plan for the %s kernel" % what)
+        if plan.cache is not None:
+            plan.cache["checked_on"] = dev
+    if dev.type == "cpu":
         return False
-    if x.device.type != "cuda":
-        raise ValueError("%s runs on cuda or cpu, not %s" % (what, x.device))
-    if plan.tile_r > MAX_TILE_R:
-        raise ValueError(
-            "tile_r %d: the kernel's tile accumulator holds at most %d rows (NEUREC_SPMM_TILE)"
-            % (plan.tile_r, MAX_TILE_R))
-    n_chunks, chunk = plan.rows.shape
-    arrays = (plan.rows, plan.cols, plan.vals, plan.tile_ptr)
-    dtypes = (torch.int32, torch.int32, torch.float32, torch.int32)
-    if (
-        any(a.dtype != t or not a.is_contiguous() for a, t in zip(arrays, dtypes))
-        or plan.cols.shape != (n_chunks, chunk)
-        or plan.vals.shape != (n_chunks, chunk)
-        or plan.tile_ptr.shape != (plan.n_tiles + 1,)
-    ):
-        raise ValueError("malformed plan for the %s kernel" % what)
+    if dev.type != "cuda":
+        raise ValueError("%s runs on cuda or cpu, not %s" % (what, dev))
+    if x.dtype == torch.bfloat16 and x.shape[1] % 2:
+        raise ValueError("%s copies x in units of 4 bytes: a bfloat16 x needs an even d, got %d"
+                         % (what, x.shape[1]))
     return True
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+# kernel name -> (library, entry point with its argument types set)
+_ENTRIES: Dict[str, Tuple[ctypes.CDLL, Any]] = {}
+
+
+def _launch(name: str, plan: SpmmPlan, x: torch.Tensor, vals: torch.Tensor, *ints: int) -> torch.Tensor:
+    """Run kernel ``name`` (K2 ``plan_spmm`` or K3 ``plan_spmm_packed``)
+    along the plan's schedule; ``ints`` are the entry point's own integer
+    arguments before ``x_bf16``."""
+    sched = spmm_schedule(plan)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    d = x.shape[1]
+    out = torch.empty((plan.n_rows, d), dtype=torch.float32, device=x.device)
+    n_spans, n_split = sched.spans.shape[0], sched.split.shape[0]
+    # one scratch row per span; the spans that hold a piece of a cut row write theirs
+    partial = torch.empty((n_spans, d), dtype=torch.float32, device=x.device) if n_split else None
+    if name not in _ENTRIES:
+        lib = _build.load(name, x.device)
+        fn = getattr(lib, "neurec_" + name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * (2 + len(ints) + 1) + [ctypes.c_void_p]
+        _ENTRIES[name] = (lib, fn)
+    lib, fn = _ENTRIES[name]
+    switch = x.device.index != torch.cuda.current_device()
+    with torch.cuda.device(x.device) if switch else contextlib.nullcontext():
+        code = fn(
+            sched.perm.data_ptr(), sched.cols.data_ptr(), sched.row_ptr.data_ptr(), sched.spans.data_ptr(),
+            sched.split.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            n_spans, n_split, *ints, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, code, name)
+    return out
 
 
 def plan_scatter(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
     """K2: (n_rows, d) f32 = A @ x for the plan's sparse A (x f32 or bf16,
-    plan on x's device)."""
+    plan on x's device). A launch is the span kernel, plus a fix-up kernel
+    where the schedule cut rows."""
     if not _check_launch(plan, x, "plan_spmm"):
         return plan_spmm_reference(plan, x)
-    x = x.contiguous()
-    out = torch.empty((plan.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
-    lib = _build.load("plan_spmm", x.device)
-    fn = lib.neurec_plan_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        code = fn(
-            plan.rows.data_ptr(), plan.cols.data_ptr(), plan.vals.data_ptr(),
-            plan.tile_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-            plan.n_tiles, plan.rows.shape[1], plan.tile_r, plan.n_rows, x.shape[1],
-            int(x.dtype == torch.bfloat16), _stream(x),
-        )
-    _build.check(lib, code, "plan_spmm")
+    out = _launch("plan_spmm", plan, x, plan.vals, x.shape[1])
     _build.LAUNCHES["plan_spmm_t" if plan.transposed else "plan_spmm"] += 1
     return out
 
 
 def plan_spmm_packed(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor:
-    """K3: A @ x with ``pack`` (2 or 4) edges per gathered load, over the
-    parity-grouped plan (``packed_layout``); f32 out, x f32 or bf16."""
+    """K3: A @ x with ``pack`` (2 or 4) edges' rows fetched per load
+    instruction, reading the edge values from the parity-grouped plan
+    (``packed_layout``); f32 out, x f32 or bf16, K2's bits."""
     if pack not in (2, 4):
         raise ValueError("pack must be 2 or 4, got %d" % pack)
-    rows_p, vals_p = packed_layout(plan, pack)
+    _, vals_p = packed_layout(plan, pack)
     if not _check_launch(plan, x, "plan_spmm_packed"):
         return plan_spmm_packed_reference(plan, x, pack)
-    d = x.shape[1]
-    if d % (2 * pack):
-        raise ValueError("plan_spmm_packed at pack %d takes d a multiple of %d, got %d" % (pack, 2 * pack, d))
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    out = torch.empty((plan.n_rows, d), dtype=torch.float32, device=x.device)
-    lib = _build.load("plan_spmm_packed", x.device)
-    fn = lib.neurec_plan_spmm_packed
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        code = fn(
-            rows_p.data_ptr(), plan.cols.data_ptr(), vals_p.data_ptr(),
-            plan.tile_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
-            plan.n_tiles, plan.rows.shape[1], plan.tile_r, plan.n_rows, d,
-            pack, int(x.dtype == torch.bfloat16), _stream(x),
-        )
-    _build.check(lib, code, "plan_spmm_packed")
+    out = _launch("plan_spmm_packed", plan, x, vals_p, plan.rows.shape[1], x.shape[1], pack)
     _build.LAUNCHES["plan_spmm_packed_t" if plan.transposed else "plan_spmm_packed"] += 1
     return out
 

@@ -112,6 +112,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         spmm.plan_spmm(plan, torch.zeros(50, 8, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         spmm.plan_spmm(plan, torch.zeros(50, 8))  # x on the cpu, plan on the card
+    with pytest.raises(ValueError, match="even d"):
+        spmm.plan_scatter(plan, torch.zeros(50, 7, dtype=torch.bfloat16, device=cuda))
     u = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError):
         k1.masked_scores_bits(u, torch.zeros(10, 8, device=cuda),
@@ -177,13 +179,57 @@ def test_plan_spmm_packed_backward_over_the_transposed_plan(cuda, monkeypatch):
     assert _build.LAUNCHES["plan_spmm"] == before["plan_spmm"]
 
 
-def test_plan_kernels_refuse_tiles_above_512_rows(cuda):
-    plan = _random_plan(1, 2000, 50, 300, 1024, 64, 0).to(cuda)
-    x = torch.zeros(50, 64, device=cuda)
-    with pytest.raises(ValueError, match="NEUREC_SPMM_TILE"):
-        spmm.plan_scatter(plan, x)
-    with pytest.raises(ValueError, match="NEUREC_SPMM_TILE"):
-        spmm.plan_spmm_packed(plan, x, 2)
+def _hub_coo(seed, n=5000, hub_degree=1500):
+    """A square power-law graph: Zipf row degrees (capped at 200) and one
+    hub row of ``hub_degree`` edges, longer than many spans. Values
+    N(0, 1/degree), as a normalized adjacency scales a hub's, so that every
+    row's sum is O(1) and f32 noise stays below the tolerance."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.8, n), 200)
+    deg[n // 3] = hub_degree
+    rows = np.repeat(np.arange(n), deg).astype(np.int32)
+    cols = rng.integers(0, n, rows.size).astype(np.int32)
+    vals = (rng.standard_normal(rows.size) / np.sqrt(deg[rows])).astype(np.float32)
+    return rows, cols, vals, n
+
+
+@pytest.mark.parametrize("graph", ["hub", "tile1024"])
+@pytest.mark.parametrize("direction", ["plan", "plan_t"])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_kernels_on_hub_rows_and_wide_tiles(cuda, monkeypatch, graph, direction, d, dtype):
+    """K2 and K3 (pack 2 and 4) over the plan and the transposed plan of a
+    graph with a hub row cut across spans, and of a NEUREC_SPMM_TILE=1024
+    plan (no tile limit): each against its plain version, the same bits
+    twice, and K3 == K2 bit for bit."""
+    if graph == "tile1024":
+        monkeypatch.setenv("NEUREC_SPMM_TILE", "1024")
+    rows, cols, vals, n = _hub_coo(11)
+    if direction == "plan_t":
+        rows, cols = cols, rows
+    plan = spmm.build_spmm_plan(rows, cols, vals, n)._replace(transposed=direction == "plan_t").to(cuda)
+    assert plan.tile_r == (1024 if graph == "tile1024" else 256)
+    if direction == "plan":
+        assert spmm.spmm_schedule(plan).split.shape[0] > 0  # the hub row is cut
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(d)).to(cuda).to(dtype)
+    k2 = spmm.plan_scatter(plan, x)
+    torch.testing.assert_close(k2, spmm.plan_spmm_reference(plan, x), atol=1e-5, rtol=1e-5)
+    assert torch.equal(k2, spmm.plan_scatter(plan, x))
+    for pack in (2, 4):
+        k3 = spmm.plan_spmm_packed(plan, x, pack)
+        torch.testing.assert_close(k3, spmm.plan_spmm_packed_reference(plan, x, pack), atol=1e-5, rtol=1e-5)
+        assert torch.equal(k3, spmm.plan_spmm_packed(plan, x, pack))
+        assert torch.equal(k3, k2)
+
+
+def test_plan_kernels_give_every_chunk_the_same_bits(cuda):
+    """The schedule does not depend on the chunk: K2 over a chunk-256 plan
+    and K3 over a chunk-512 plan of one graph give the same bits."""
+    rows, cols, vals, n = _hub_coo(12)
+    x = torch.randn(n, 64, generator=torch.Generator().manual_seed(3)).to(cuda)
+    p256 = spmm.build_spmm_plan(rows, cols, vals, n, chunk=256).to(cuda)
+    p512 = spmm.build_spmm_plan(rows, cols, vals, n, chunk=512).to(cuda)
+    assert torch.equal(spmm.plan_scatter(p256, x), spmm.plan_spmm_packed(p512, x, 2))
 
 
 @pytest.mark.parametrize("mode", ["serial", "pipelined"])

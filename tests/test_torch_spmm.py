@@ -47,13 +47,6 @@ def test_plan_builder_array_identical(n_rows, n_src, nnz, tile_r, chunk, empty_t
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert (got.n_rows, got.tile_r) == (want.n_rows, want.tile_r)
-    # tile_ptr: tile t owns the chunks tile_ptr[t] .. tile_ptr[t+1]-1, >= 1 each
-    ptr = got.tile_ptr
-    assert ptr.shape == (got.n_tiles + 1,) and ptr[0] == 0 and ptr[-1] == len(got.chunk_tile)
-    for t in range(got.n_tiles):
-        assert ptr[t + 1] > ptr[t]
-        assert (got.chunk_tile[ptr[t]:ptr[t + 1]] == t).all()
-        assert got.chunk_first[ptr[t]] == 1
 
 
 @pytest.mark.parametrize("n_rows,n_src,nnz,tile_r,chunk,empty_tail", PLAN_CASES)

@@ -138,7 +138,7 @@ def test_packed_layout_is_the_jax_parity_grouping():
         np.testing.assert_array_equal(rows_p.numpy(), want_r)
         np.testing.assert_array_equal(vals_p.numpy(), want_v)
         assert spmm.packed_layout(plan, pack)[0] is rows_p  # built once, kept with the plan
-    assert plan.to("cpu").packed == {}  # a new placement starts its own cache
+    assert plan.to("cpu").cache == {}  # a new placement starts its own cache
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
