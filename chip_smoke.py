@@ -16,7 +16,15 @@ failure exits non-zero before the result line):
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them, with time, roofline bound, plain-version time
    and a library call's time: K1 in both mask modes, K2 over the plan of A
-   (forward) and of A^T (``plan_spmm[bwd]``), in f32 and bf16. A SpMM call
+   (forward) and of A^T (``plan_spmm[bwd]``), in f32 and bf16. K1's records
+   also carry its device time, its tensor-core bound (three TF32 products,
+   or the bytes) beside the f32 bound (``bound_f32_ms``), its largest error
+   scaled by |u_b| |item_i| and each side's distance from the f64 product
+   (the kernel's may be no larger); the int8 row's library call builds its
+   mask from the train rows as K1 does, and the record splits K1's mask
+   build (``mask_build_ms``) from its launch (``kernel_ms``). K1 also runs
+   at a ragged d and at a bit-plane width whose tiles straddle two planes
+   (``phase: kernel_case``). A SpMM call
    is a few hundredths of a millisecond, so its records also carry the
    device time from ``torch.profiler`` (``phase: kernel_device``, by
    kernel), which a back-to-back loop paced by the host does not show,
@@ -70,8 +78,9 @@ failure exits non-zero before the result line):
    backward over the non-symmetric ``plan_t`` against their plain
    versions, a full evaluation of random weights, ``run.main`` for 2
    epochs; 3 K2 forward and 3 K2 backward per step, 3 K2 forward per
-   evaluation; the loss checks and 5 steps against the plain path, with
-   the same seeded dropout draws;
+   evaluation; the loss checks, the trained model's evaluation through
+   K1's plain version (metrics within ``NGCF_EVAL_ATOL``), and 5 steps
+   against the plain path, with the same seeded dropout draws;
 12. K4, the copy-rate probe (``python -m neurec_tpu_torch.benchmarks.dma_rate``,
    65,536 offsets, repeat 8, 3 rounds), then each mode and size against its
    plain version: the rows written must be the same.
@@ -102,6 +111,9 @@ PROPS = os.path.join(REPO, "NeuRec.properties")
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+# K1 forms each product from three TF32 products (a 3xTF32 split)
+K1_TF32_PRODUCTS = 3
 
 SEED = 2024
 EVAL_USERS_PER_BATCH = 2048
@@ -147,6 +159,11 @@ VARIANT_PATHS = (("pack4", "4", "f32"), ("pack2_bf16", "2", "bf16"),
 VARIANT_STEPS = 2
 # bf16 features move the metrics by rounding, not by a fault
 BF16_METRIC_ATOL = 1e-2
+# the trained NGCF's evaluation through K1 and through its plain version:
+# at d = 256 the two f32 orders differ by ~1e-6 of a score, which reorders
+# near-ties at the 20th place of a few users (~1e-5 of Recall@20 each); a
+# masking fault would move the metrics by orders of magnitude more
+NGCF_EVAL_ATOL = 1e-3
 
 # path B: NGCF's published settings (Wang et al., SIGIR 2019, "Parameter Settings")
 NGCF_ARGS = ["--recommender=NGCF"] + DATA_ARGS + [
@@ -249,9 +266,32 @@ def device_ms(torch, fn, n=20):
     return (total, by_kernel) if total else (None, {})
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bounds(n_bytes: float, n_flops: float):
+    """K1's bound on the tensor cores (three TF32 products, or the bytes),
+    and beside it the f32 bound of the earlier design."""
+    ms, by = bound_ms(n_bytes, K1_TF32_PRODUCTS * n_flops, PEAK_TF32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by, "bound_f32_ms": bound_ms(n_bytes, n_flops)[0]}
+
+
+def k1_errors(torch, got, u, items):
+    """K1's error beside its plain version: the largest difference scaled
+    by |u_b| |item_i|, and the largest distance of each from the f64
+    product (finite entries)."""
+    want = u @ items.T
+    exact = u.double() @ items.double().T
+    finite = torch.isfinite(got)
+    scale = u.norm(dim=1)[:, None] * items.norm(dim=1)[None, :]
+    scaled = ((got - want).abs() / scale.clamp_min(1e-30))[finite]
+    out = {"max_scaled_err": float(scaled.max()) if scaled.numel() else 0.0,
+           "err_vs_f64": float((got.double() - exact)[finite].abs().max()),
+           "plain_err_vs_f64": float((want.double() - exact)[finite].abs().max())}
+    del exact
+    return out
 
 
 def compare(torch, got, want):
@@ -544,25 +584,70 @@ def main() -> int:
 
     out_bytes = B * I * 4
     factor_bytes = u.numel() * 4 + I * d * 4
-    k1_flops = 2.0 * B * I * d
-    check(
-        "masked_scores", "neurec_tpu_torch/csrc/masked_scores.cu",
-        "neurec_tpu/ops/pallas_kernels.py:37",
+
+    def k1_check(name, run_fn, plain, library, n_bytes, uu, items, extra):
+        """K1 against its plain version: time, bounds, device time from the
+        profiler, errors scaled and against f64, the same bits twice."""
+        n_flops = 2.0 * uu.shape[0] * items.shape[0] * uu.shape[1]
+        rec = check(name, "neurec_tpu_torch/csrc/masked_scores.cu", "neurec_tpu/ops/pallas_kernels.py:37",
+                    run_fn, plain, library, n_bytes, n_flops, dict(extra, **k1_bounds(n_bytes, n_flops)))
+        got = run_fn()
+        rec.update(k1_errors(torch, got, uu, items))
+        rec["device_ms"], rec["device_ms_by_kernel"] = device_ms(torch, run_fn)
+        rec["library_device_ms"] = device_ms(torch, library)[0]
+        emit({"phase": "kernel_device", "name": name, **{k: rec.get(k) for k in (
+            "ms", "device_ms", "device_ms_by_kernel", "library_ms", "library_device_ms", "max_scaled_err",
+            "err_vs_f64", "plain_err_vs_f64", "mask_build_ms", "kernel_ms")}})
+        require(torch.equal(got, run_fn()), "%s is not deterministic" % name)
+        require(rec["err_vs_f64"] <= rec["plain_err_vs_f64"] or rec["max_abs_err"] == 0.0,
+                "%s is farther from the f64 product than its plain version" % name)
+        return rec
+
+    k1_check(
+        "masked_scores",
         lambda: k1.masked_scores_bits(u, item_table, bits, width, I),
         lambda: k1.masked_scores_bits_reference(u, item_table, bits, width, I),
         lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u, item_table.T)),
-        factor_bytes + bits.numel() + out_bytes, k1_flops,
-        {"mode": "bits", "shape": [B, I, d]},
+        factor_bytes + bits.numel() + out_bytes, u, item_table,
+        {"mode": "bits", "shape": [B, I, d], "library_call": "matmul + where on a prebuilt int8 mask"},
     )
-    check(
-        "masked_scores[int8]", "neurec_tpu_torch/csrc/masked_scores.cu",
-        "neurec_tpu/ops/pallas_kernels.py:37",
+    # K1's own function from train_rows: the library call builds its mask
+    # too; the record splits the kernel's mask build from its launch
+    mask_w = k1._mask_width(I)
+    mask_prebuilt = k1.build_train_mask(train_rows, mask_w)
+    k1_check(
+        "masked_scores[int8]",
         lambda: k1.masked_scores(u, item_table, train_rows),
         lambda: k1.masked_scores_reference(u, item_table, train_rows),
-        lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u, item_table.T)),
-        factor_bytes + train_rows.numel() * 4 + out_bytes, k1_flops,
-        {"mode": "int8", "shape": [B, I, d]},
+        lambda: torch.where(k1.build_train_mask(train_rows, I) != 0, float("-inf"),
+                            torch.matmul(u, item_table.T)),
+        factor_bytes + train_rows.numel() * 4 + out_bytes, u, item_table,
+        {"mode": "int8", "shape": [B, I, d], "library_call": "build_train_mask + matmul + where",
+         "mask_build_ms": time_ms(torch, lambda: k1.build_train_mask(train_rows, mask_w)),
+         "kernel_ms": time_ms(torch, lambda: k1._launch(u, item_table, mask_prebuilt, I, mask_w, 1, mode=0))},
     )
+    del mask_prebuilt
+
+    # K1 off the main path's shapes: a ragged d (4-byte copies, a partial
+    # slab) and a bit-plane width W/8 = 4825 bytes, not a multiple of the
+    # 128-item tile, so tiles straddle two planes
+    for case, d_c, w_c in (("ragged_d", 33, width), ("straddling_w", d, width - 8 * 39)):
+        rng_c = np.random.RandomState(SEED + 3)
+        u_c = torch.from_numpy(rng_c.standard_normal((B, d_c)).astype(np.float32)).cuda()
+        i_c = torch.from_numpy(rng_c.standard_normal((I, d_c)).astype(np.float32)).cuda()
+        bits_c = k1.pack_train_bits(train_rows, I, block_items=w_c)
+        got_c = k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I)
+        err_c, ok_c = compare(torch, got_c, k1.masked_scores_bits_reference(u_c, i_c, bits_c, w_c, I))
+        got8_c = k1.masked_scores(u_c, i_c, train_rows)
+        err8_c, ok8_c = compare(torch, got8_c, k1.masked_scores_reference(u_c, i_c, train_rows))
+        emit({"phase": "kernel_case", "case": "masked_scores[%s]" % case, "shape": [B, I, d_c],
+              "width": w_c, "plane_bytes": w_c // 8, "max_abs_err": {"bits": err_c, "int8": err8_c},
+              "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
+              "same_bits_twice": bool(torch.equal(got_c, k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))),
+              "path": "cp.async", "ms": time_ms(torch, lambda: k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))})
+        require(ok_c and ok8_c, "K1 %s disagrees with its plain version: %g, %g" % (case, err_c, err8_c))
+        require(torch.equal(got_c, k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I)),
+                "K1 %s is not deterministic" % case)
     csr = adjacency_csr(torch, np, sp, model.adj)
     csr_t = adjacency_csr(torch, np, sp, model.adj, transpose=True)
     plan_skew(torch, k2, "pre", model.adj.plan)
@@ -911,14 +996,13 @@ def main() -> int:
     u_b = u_tab_b[users].contiguous()
     d_b = u_b.shape[1]
     require(d_b == 256, "NGCF evaluates at width %d" % d_b)
-    check(
-        "masked_scores[d256]", "neurec_tpu_torch/csrc/masked_scores.cu",
-        "neurec_tpu/ops/pallas_kernels.py:37",
+    k1_check(
+        "masked_scores[d256]",
         lambda: k1.masked_scores_bits(u_b, i_tab_b, bits, width, I),
         lambda: k1.masked_scores_bits_reference(u_b, i_tab_b, bits, width, I),
         lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u_b, i_tab_b.T)),
-        u_b.numel() * 4 + I * d_b * 4 + bits.numel() + out_bytes, 2.0 * B * I * d_b,
-        {"mode": "bits", "shape": [B, I, d_b]},
+        u_b.numel() * 4 + I * d_b * 4 + bits.numel() + out_bytes, u_b, i_tab_b,
+        {"mode": "bits", "shape": [B, I, d_b], "library_call": "matmul + where on a prebuilt int8 mask"},
     )
     # K3's backward over NGCF's norm plan_t, a structure of its own
     plan_bt = model_b.adj.plan_t
@@ -961,6 +1045,12 @@ def main() -> int:
     require(all(launches_b[k] == v for k, v in want_b.items()),
             "path B launches %s, expected %s" % (launches_b, want_b))
     require(launches_b["masked_scores"] > 0, "path B did not launch K1")
+    with mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+        eval_b_plain = evaluator.evaluate(trainer_b.model.predict, trainer_b.params)
+    ngcf_eval_err = max(abs(a - b) for a, b in zip(parse_metrics(result_b), parse_metrics(eval_b_plain)))
+    emit({"phase": "ngcf_plain_eval", "result": result_b, "plain_result": eval_b_plain,
+          "metric_max_abs_diff": ngcf_eval_err, "tol": NGCF_EVAL_ATOL})
+    require(ngcf_eval_err <= NGCF_EVAL_ATOL, "NGCF's metrics differ from K1's plain version by %g" % ngcf_eval_err)
     draws_b = trainer_b.draw_epoch(trainer_b.epoch_generator(3))
     emit({"phase": "ngcf_breakdown", "step_ms": step_ms(torch, trainer_b, draws_b),
           "k2_forward_ms_on_pre_plan": 3 * records["plan_spmm"]["ms"]})
@@ -1030,7 +1120,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     # device times where they were taken (the SpMM kernels), None elsewhere
-    extra_keys = ("device_ms", "host_ms", "library_device_ms")
+    extra_keys = ("device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
+                  "err_vs_f64", "plain_err_vs_f64", "mask_build_ms", "kernel_ms")
     emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})
                       for n in entry_paths]})
     stack.close()

@@ -1,8 +1,11 @@
-// K1: fused full-catalogue score + train-item mask, f32, for sm_90a.
+// K1: fused full-catalogue score + train-item mask, f32 in and out, for
+// sm_90a.
 //
 // Replaces the Pallas TPU kernel neurec_tpu/ops/pallas_kernels.py
 // ::_masked_scores_kernel (driven by masked_scores): out[b, i] =
-// u[b] . items[i], or -inf where user b's mask marks item i.
+// u[b] . items[i], or -inf where user b's mask marks item i. u is (B, d)
+// and items (I, d), both row-major; out is (B, I), each real column written
+// exactly once.
 //
 // Mask formats (template parameter MODE):
 //   0  int8 membership, mask[b * mask_stride + i] != 0 (the Pallas
@@ -11,110 +14,781 @@
 //      global block of width W: item i sits in byte i % (W/8), bit
 //      i / (W/8) of row b (plane_bytes = W/8).
 //
-// What bounds it on the H100: at the eval shapes (B=2048, I=38,546, d=64)
-// the product is 10.1 GFLOP, 0.15 ms at the 67 TFLOP/s f32 (non-tensor)
-// peak, against 336 MB of traffic (the (B, I) f32 output dominates),
-// 0.10 ms at 3.35 TB/s — so f32 operations bound it, narrowly. The port
-// computes in exact f32, as the JAX package does on the CPU, so no TF32
-// tensor cores.
+// What bounds it on the H100. At the eval shapes (B 2048, I 38,546) the
+// (B, I) f32 output alone is 315.8 MB: 0.094 ms at 3.35 TB/s. The product
+// is 10.1 GFLOP at d 64 and 40.4 GFLOP at d 256, 0.15 / 0.60 ms at the
+// 67 TFLOP/s of f32 outside the tensor cores, so the tensor cores do it.
 //
-// Design: a classic shared-memory tiled SGEMM. Each 256-thread block owns a
-// 64x64 output tile; u and items tiles are staged transposed through shared
-// memory 16 deep along d (zero-filled past B, I and d, so ragged shapes and
-// any d work); each thread keeps a 4x4 accumulator in registers, its rows
-// and columns 16 apart so that a half-warp stores 16 consecutive floats.
-// The epilogue reads the mask byte, applies -inf and writes each of the I
-// real columns exactly once — the (B, I) scores never round-trip through
-// device memory unmasked. Simple and right first: wgmma/TMA and larger
-// register tiles are later work.
+// Tensor cores at f32 accuracy: a 3xTF32 split. The port keeps TF32 off
+// for every f32 product (a one-pass TF32 product keeps ~3 decimal digits).
+// Each operand x is split in registers into hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds. Each depth-8 step forms a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi with three mma.sync.m16n8k8 into a fresh partial, small terms
+// first, and an f32 add takes the partial into the accumulator. hi + lo
+// carries 22 of x's 24 significant bits and every TF32 product is exact, so
+// what is lost is the a_lo*b_lo term and the lo parts' rounding, ~2^-21 of
+// a product. The partial matters: the tensor cores do not round their sums
+// to nearest, and a first version that chained every step through one
+// accumulator missed the 1e-5 bar against the plain f32 product at d 64
+// (randn factors); partials of 8 products keep that error small, and the
+// adds round to nearest. Three products at 495 TFLOP/s dense TF32: 0.061 /
+// 0.245 ms, so at d 64 the store bounds the kernel and at d 256 the
+// products do. Non-finite factors give NaN where the plain product may give
+// +-inf (the lo part of an inf is inf - inf).
+//
+// Two paths, one arithmetic (mma.sync, not wgmma: a first design for the
+// card's tensor cores). Each warp owns a 32 x 64 sub-tile of a 128 x 128
+// output tile (2 x 8 m16n8 tiles, 64 accumulators) and walks 32-deep k
+// slabs; both operands are K-major as they lie, and ldmatrix (8 rows of 16
+// bytes = a TF32 fragment's 8 x 4 block) loads every fragment free of bank
+// conflicts. No atomics: each output is one thread's fixed chain of steps,
+// the same bits on every run, and the same bits on either path.
+//
+//  - The TMA path (16-byte operand rows, whole mask tiles: every evaluator
+//    call). One block a SM, warp-specialized: a producer warp keeps TMA
+//    loads of the u and item slabs (128-byte swizzled rows) and each tile's
+//    mask bytes in flight through a ring of 3 stages and 2 mask slots; 8
+//    compute warps take the slabs as they land; 4 store warps stream each
+//    finished tile out of a staging buffer while the compute warps go on.
+//    With cp.async, the loads and the stores shared the load/store units,
+//    and a block's store burst stalled its next loads; here they overlap.
+//  - The cp.async path (any d, any alignment, any W): two blocks of 8 warps
+//    a SM, two stages of 16-byte copies where d % 4 == 0 and the operands
+//    are 16-byte aligned, 4-byte copies otherwise, zero-filled past B, I
+//    and d (rows padded to 36 floats); the tile's epilogue reuses the stage.
+//    A mask the tile copy cannot take (unaligned, or W/8 not a multiple of
+//    128) is read from global memory.
+//
+// Common to both:
+//  - A persistent grid walks the tiles in row bands: consecutive tiles run
+//    along the items of one band of 128 users, so the tiles in flight cover
+//    about one band: its mask rows (622 KB of the 10 MB bits table) are read
+//    from DRAM once and from L2 by the 8 planes' tiles that share each byte,
+//    and neighbouring tiles write the two halves of each 32-byte sector
+//    their rows share at about the same time. No limit on B or I beyond int
+//    indices.
+//  - The mask is decoded once per tile: W is a multiple of 1024 in the
+//    evaluator (tiers.global_bits_width), so W/8 is a multiple of 128 and a
+//    128-aligned item tile lies inside one bit plane: one plane index and
+//    one base byte per tile, one shift per byte, two bytes (two columns) a
+//    read. Any W that is a multiple of 8 is right: an item past the tile's
+//    plane takes the division.
+//  - The epilogue stages the masked rows in shared memory, each row shifted
+//    by its misalignment in the output, so that every lane writes 16
+//    aligned bytes and a half warp 256 contiguous bytes (I is odd in
+//    general, so rows start at any float). The stores stream past L2
+//    (st.global.cs): the output is far larger than L2.
+//
+// What holds it back (PERF.md): the products. The 3xTF32 step spends ~7
+// integer and float operations per operand value beside its three mma, and
+// two compute warps a scheduler do not hide the mma chains' latency. wgmma,
+// reading both operands' hi and lo parts from shared memory, is the next
+// design.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;   // users per block tile
-constexpr int BN = 64;   // items per block tile
-constexpr int BK = 16;   // depth staged per step
-constexpr int THREADS = 256;
+constexpr int BM = 128;             // users per tile
+constexpr int BN = 128;             // items per tile
+constexpr int BK = 32;              // depth per stage
+constexpr int STAGES = 2;
+constexpr int LDK = BK + 4;         // padded row of a staged slab (floats)
+constexpr int WARPS = 8;            // 4 along users x 2 along items
+constexpr int THREADS = WARPS * 32;
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int WM = 32, WN = 64;     // a warp's sub-tile
+constexpr int MT = WM / 16, NT = WN / 8;
+constexpr int EPI_ROWS = 16;        // epilogue rows a warp stages at once
+constexpr int EPI_LD = WN + 4;      // room for a shift of up to 3 floats
+constexpr int EPI_SLOTS = WN / 4 + 1;  // 16-byte slots a shifted row spans
+constexpr int MASK_TILE = BM * BN;  // mask bytes of a tile, one per item
+constexpr int SLAB_FLOATS = (BM + BN) * LDK;  // a staged u slab and item slab
+// a stage: the slabs, and on a tile's last slab the tile's mask bytes
+constexpr int STAGE_FLOATS = SLAB_FLOATS + MASK_TILE / 4;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+static_assert(WARPS * EPI_ROWS * EPI_LD <= SLAB_FLOATS, "the epilogue reuses a stage's slabs");
+constexpr int MAX_DEVICES = 16;
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-masked_scores_kernel(const float* __restrict__ u, const float* __restrict__ items,
-                     const uint8_t* __restrict__ mask, float* __restrict__ out,
-                     int B, int I, int d, long long mask_stride, int plane_bytes) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+struct Args {
+  const float* u;
+  const float* items;
+  const uint8_t* mask;
+  float* out;
+  int B, I, d;
+  long long mask_stride;
+  int plane_bytes;
+  int m_tiles, n_tiles;
+  int mask_tiles;  // whole mask tiles copied to shared memory (aligned, one plane a tile)
+};
 
-  float acc[4][4];
+// Round to TF32 (10 mantissa bits), nearest, ties away from zero, as
+// cvt.rna.tf32.f32 does on every value but NaN: add half of the dropped 13
+// bits' range to the magnitude's bits and clear them (the carry takes the
+// largest finite floats to inf). Two integer operations. Only the hi part
+// needs a guard, which keeps inf and NaN (the instruction would clear a
+// NaN's low payload bits, and a NaN with no other payload becomes inf):
+// x - hi is finite wherever x is.
+__device__ __forceinline__ uint32_t rna_tf32(uint32_t x) { return (x + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return isfinite(x) ? rna_tf32(__float_as_uint(x)) : __float_as_uint(x);
+}
+
+__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(__uint_as_float(x));
+  lo = rna_tf32(__float_as_uint(__uint_as_float(x) - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c = a * b, from a zero accumulator
+__device__ __forceinline__ void mma_tf32_first(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// four 8 x 4 f32 blocks (8 rows of 16 bytes), one register each; lanes
+// 8m..8m+7 give block m's row addresses
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const float* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// cp.async of UNIT bytes; src_bytes 0 zero-fills the destination
+template <int UNIT>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (UNIT == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Where a thread's copies of a tile's slabs come from: its first u row and
+// item row (the others ROW_STEP rows apart), and which of them exist.
+template <int UNIT>
+struct Source {
+  static constexpr int PER_ROW = BK * 4 / UNIT;  // copies per staged row
+  static constexpr int ROW_STEP = THREADS / PER_ROW;
+  static constexpr int EACH = BM / ROW_STEP;      // copies per thread and operand
+  static_assert(BM == BN, "one loop stages both operands");
+  const float* u;
+  const float* items;
+  uint32_t u_ok, i_ok;  // bit i: row i exists
+
+  __device__ __forceinline__ void at(const Args& a, int m0, int n0) {
+    const int row = (int)threadIdx.x / PER_ROW, kc = ((int)threadIdx.x % PER_ROW) * (UNIT / 4);
+    u = a.u + (size_t)min(m0 + row, a.B - 1) * a.d + kc;
+    items = a.items + (size_t)min(n0 + row, a.I - 1) * a.d + kc;
+    u_ok = i_ok = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int m = e / BK, k = e % BK;
-      const int gk = k0 + k;
-      const int gr = row0 + m, gc = col0 + m;
-      As[k][m] = (gr < B && gk < d) ? u[(long long)gr * d + gk] : 0.f;
-      Bs[k][m] = (gc < I && gk < d) ? items[(long long)gc * d + gk] : 0.f;
+    for (int i = 0; i < EACH; ++i) {
+      u_ok |= (uint32_t)(m0 + row + i * ROW_STEP < a.B) << i;
+      i_ok |= (uint32_t)(n0 + row + i * ROW_STEP < a.I) << i;
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
+  // k slab k0 of the tile into a stage's slabs
+  __device__ __forceinline__ void load(const Args& a, float* As, float* Bs, int k0) const {
+    const int row = (int)threadIdx.x / PER_ROW, kc = ((int)threadIdx.x % PER_ROW) * (UNIT / 4);
+    const bool k_ok = k0 + kc < a.d;  // UNIT 16 only when d % 4 == 0
+    const size_t step = (size_t)ROW_STEP * a.d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= B) continue;
-    const uint8_t* mrow = mask + (long long)r * mask_stride;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= I) continue;
-      bool masked;
-      if (MODE == 0) {
-        masked = mrow[c] != 0;
-      } else {
-        masked = (mrow[c % plane_bytes] >> (c / plane_bytes)) & 1;
-      }
-      out[(long long)r * I + c] = masked ? -INFINITY : acc[i][j];
+    for (int i = 0; i < EACH; ++i) {
+      const int off = (row + i * ROW_STEP) * LDK + kc;
+      const bool uo = k_ok && (u_ok >> i & 1), io = k_ok && (i_ok >> i & 1);
+      cp_async<UNIT>(As + off, uo ? u + i * step + k0 : a.u, uo ? UNIT : 0);
+      cp_async<UNIT>(Bs + off, io ? items + i * step + k0 : a.items, io ? UNIT : 0);
     }
+  }
+};
+
+// A tile's mask bytes, 128 a row from byte `off0` of each mask row (the
+// tile's first item, or its first byte in the plane).
+__device__ __forceinline__ void load_mask_tile(const Args& a, uint8_t* Ms, int m0, int off0) {
+#pragma unroll
+  for (int i = 0; i < MASK_TILE / 16 / THREADS; ++i) {
+    const int c = (int)threadIdx.x + i * THREADS;
+    const int row = c / (BN / 16), ch = (c % (BN / 16)) * 16;
+    const bool ok = m0 + row < a.B;
+    cp_async<16>(Ms + row * BN + ch, ok ? a.mask + (m0 + row) * a.mask_stride + off0 + ch : a.mask,
+                 ok ? 16 : 0);
+  }
+}
+
+// Is item c of row r marked, read from global memory? For the layouts that
+// the tile copy does not take. `plane0` and `pb = plane0 * P` are the tile's
+// plane and its first byte; an item past that plane takes the division.
+template <int MODE>
+__device__ __forceinline__ bool marked_global(const Args& a, int r, int c, int plane0, int pb) {
+  const uint8_t* mrow = a.mask + (long long)r * a.mask_stride;
+  if (MODE == 0) return mrow[c] != 0;
+  const int P = a.plane_bytes;
+  const int off = c - pb;
+  if (off < P) return (mrow[off] >> plane0) & 1;
+  const int p = c / P;
+  return (mrow[c - p * P] >> p) & 1;
+}
+
+// One 16-byte slot of an output row, `o` at column c_first (16-byte
+// aligned): the columns in [lo, hi) only, as one vector store where the
+// slot lies inside, else column by column (a row's ragged ends).
+__device__ __forceinline__ void store_slot(float* o, int c_first, const float4& v, int lo, int hi) {
+  if (c_first >= lo && c_first + 4 <= hi) {
+    __stcs(reinterpret_cast<float4*>(o), v);
+    return;
+  }
+  if (c_first >= lo && c_first < hi) __stcs(o, v.x);
+  if (c_first + 1 >= lo && c_first + 1 < hi) __stcs(o + 1, v.y);
+  if (c_first + 2 >= lo && c_first + 2 < hi) __stcs(o + 2, v.z);
+  if (c_first + 3 >= lo && c_first + 3 < hi) __stcs(o + 3, v.w);
+}
+
+// A staged mask byte as a mark: int8 membership, or the tile's bit plane
+template <int MODE>
+__device__ __forceinline__ bool byte_marks(uint32_t byte, int plane0) {
+  return MODE == 0 ? (byte & 0xffu) != 0 : (byte >> plane0) & 1u;
+}
+
+// Where the step loop stands: tile j of this block, k slab k, at (m0, n0).
+// Tiles run in row bands: tile t covers users t / n_tiles, items t % n_tiles.
+struct Cursor {
+  int j, k, m0, n0;
+
+  __device__ __forceinline__ void at_tile(const Args& a) {
+    const int t = (int)blockIdx.x + j * (int)gridDim.x;
+    const int m = t / a.n_tiles;
+    m0 = m * BM;
+    n0 = (t - m * a.n_tiles) * BN;
+  }
+
+  __device__ __forceinline__ void next(const Args& a, int KS) {
+    if (++k < KS) return;
+    k = 0;
+    ++j;
+    at_tile(a);
+  }
+};
+
+template <int MODE, int UNIT>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) masked_scores_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 3) * WM, wn = (warp >> 2) * WN;
+  // ldmatrix row addresses: block lane / 8 of a fragment, row lane % 8
+  const int lm = lane >> 3, lr = lane & 7;
+  const int a_row = wm + lr + (lm & 1) * 8, a_col = (lm >> 1) * 4;  // a0..a3
+  const int b_row = wn + lr + (lm >> 1) * 8, b_col = (lm & 1) * 4;  // b0, b1 of two n tiles
+
+  const int KS = (a.d + BK - 1) / BK;
+  const int tiles = a.m_tiles * a.n_tiles;
+  const int my_tiles = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int steps = my_tiles * KS;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  Cursor ld{0, 0, 0, 0};  // the next slab to load
+  ld.at_tile(a);
+  Cursor cur = ld;        // the slab to compute
+  Source<UNIT> src;
+  src.at(a, ld.m0, ld.n0);
+  auto issue = [&](int s) {  // step s's slab, and on a tile's last slab its mask
+    if (s < steps) {
+      float* As = smem + (s % STAGES) * STAGE_FLOATS;
+      src.load(a, As, As + BM * LDK, ld.k * BK);
+      if (ld.k == KS - 1 && a.mask_tiles)
+        load_mask_tile(a, reinterpret_cast<uint8_t*>(As + SLAB_FLOATS), ld.m0,
+                       MODE == 0 ? ld.n0 : ld.n0 % a.plane_bytes);
+      ld.next(a, KS);
+      if (ld.k == 0 && s + 1 < steps) src.at(a, ld.m0, ld.n0);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  issue(0);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // step s has landed; every warp is done with step s - 1's stage
+    issue(s + 1);
+
+    const float* As = smem + (s % STAGES) * STAGE_FLOATS;
+    const float* Bs = As + BM * LDK;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t x[4];
+        ldmatrix_x4(x, As + (a_row + 16 * i) * LDK + kk + a_col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(x[e], ah[i][e], al[i][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t x[4];
+        ldmatrix_x4(x, Bs + (b_row + 8 * j) * LDK + kk + b_col);
+        split(x[0], bh[j][0], bl[j][0]);
+        split(x[1], bh[j][1], bl[j][1]);
+        split(x[2], bh[j + 1][0], bl[j + 1][0]);
+        split(x[3], bh[j + 1][1], bl[j + 1][1]);
+      }
+      // each m16n8 tile: a fresh partial of the three products, small
+      // terms first, then one f32 add into the accumulator
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float t[4];
+          mma_tf32_first(t, al[i], bh[j]);
+          mma_tf32(t, ah[i], bl[j]);
+          mma_tf32(t, ah[i], bh[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
+    }
+
+    const int m0 = cur.m0, n0 = cur.n0;
+    const bool last = cur.k == KS - 1;
+    cur.next(a, KS);
+    if (!last) continue;
+    // -- epilogue of the tile: mask the accumulators, stage them by rows in
+    // this stage's slabs (once every warp is done with them), then 16-byte
+    // streaming stores
+    __syncthreads();
+    float* eb = smem + (s % STAGES) * STAGE_FLOATS + warp * EPI_ROWS * EPI_LD;
+    const uint8_t* Ms = reinterpret_cast<const uint8_t*>(As + SLAB_FLOATS);
+    const int cw0 = n0 + wn;
+    const int cw_end = min(cw0 + WN, a.I);
+    const int plane0 = MODE == 1 ? n0 / a.plane_bytes : 0;
+    const int pb = plane0 * a.plane_bytes;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r_base = m0 + wm + 16 * i;
+      if (cw0 < a.I && r_base < a.B) {  // warp-uniform
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = g + 8 * h, r = r_base + rr;
+          // the row's first column sits (r * I + cw0) % 4 floats past a
+          // 16-byte boundary: shift the staged row by as much
+          const int sh = ((r & 3) * (a.I & 3) + cw0) & 3;
+          float* dst = eb + rr * EPI_LD + sh + 2 * tq;
+          const uint8_t* mt = Ms + (wm + 16 * i + rr) * BN + wn + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            bool m_a, m_b;
+            if (a.mask_tiles) {
+              const uint32_t pair = *reinterpret_cast<const uint16_t*>(mt + 8 * j);
+              m_a = byte_marks<MODE>(pair, plane0);
+              m_b = byte_marks<MODE>(pair >> 8, plane0);
+            } else {
+              const int c = cw0 + 8 * j + 2 * tq;
+              m_a = r < a.B && c < a.I && marked_global<MODE>(a, r, c, plane0, pb);
+              m_b = r < a.B && c + 1 < a.I && marked_global<MODE>(a, r, c + 1, plane0, pb);
+            }
+            dst[8 * j] = m_a ? -INFINITY : acc[i][j][2 * h];
+            dst[8 * j + 1] = m_b ? -INFINITY : acc[i][j][2 * h + 1];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int it = 0; it < (EPI_ROWS * EPI_SLOTS + 31) / 32; ++it) {
+          const int idx = lane + 32 * it;
+          const int rr = idx / EPI_SLOTS, q = idx - rr * EPI_SLOTS;
+          const int r = r_base + rr;
+          if (idx < EPI_ROWS * EPI_SLOTS && r < a.B) {
+            const int c_first = cw0 - (((r & 3) * (a.I & 3) + cw0) & 3) + 4 * q;
+            store_slot(a.out + (long long)r * a.I + c_first, c_first,
+                       *reinterpret_cast<const float4*>(eb + rr * EPI_LD + 4 * q), cw0, cw_end);
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+}
+
+// -- the TMA path ------------------------------------------------------------
+// Warp-specialized: a producer warp keeps TMA loads of the u and item slabs
+// (and each tile's mask bytes) in flight through a ring of stages, 8
+// compute warps take the slabs as they land, and 4 store warps stream each
+// finished tile from a staging buffer while the compute warps go on to the
+// next tile. The loads leave the load/store units to the copy engine, and
+// the stores overlap the products instead of stalling them.
+
+constexpr int T_STAGES = 3;
+constexpr int T_SLAB_BYTES = BM * BK * 4;           // one operand's slab, 128-byte rows
+constexpr int T_STAGE_BYTES = 2 * T_SLAB_BYTES;     // u slab, then item slab
+constexpr int T_MASK_SLOTS = 2;
+constexpr int T_STG_LD = BN + 4;                    // a staged output row (floats)
+constexpr int T_STORE_WARPS = 4;
+constexpr int T_THREADS = (WARPS + T_STORE_WARPS + 1) * 32;  // compute, store, producer
+constexpr int T_MASK_OFF = T_STAGES * T_STAGE_BYTES;
+constexpr int T_STG_OFF = T_MASK_OFF + T_MASK_SLOTS * MASK_TILE;
+constexpr int T_BAR_OFF = T_STG_OFF + BM * T_STG_LD * 4;
+constexpr int T_BARS = 2 * T_STAGES + 2 * T_MASK_SLOTS + 2;
+constexpr int T_SMEM_BYTES = T_BAR_OFF + T_BARS * 8 + 1024;  // + alignment of the base
+static_assert(BK * 4 == 128 && BN == 128, "128-byte swizzled rows");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a box of the tensor map at (x, y) into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], "
+      "[%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled
+// box (the TMA's SWIZZLE_128B: chunk index XOR row % 8)
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(T_THREADS, 1)
+masked_scores_tma_kernel(const Args a, const __grid_constant__ CUtensorMap tm_u,
+                         const __grid_constant__ CUtensorMap tm_items,
+                         const __grid_constant__ CUtensorMap tm_mask) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzled boxes: 1024-aligned
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bars = base + T_BAR_OFF;
+  auto full = [&](int s) { return bars + 8 * s; };                 // a stage has landed
+  auto empty = [&](int s) { return bars + 8 * (T_STAGES + s); };   // the compute warps are done with it
+  auto mask_full = [&](int m) { return bars + 8 * (2 * T_STAGES + m); };
+  auto mask_empty = [&](int m) { return bars + 8 * (2 * T_STAGES + T_MASK_SLOTS + m); };
+  const uint32_t stg_full = bars + 8 * (T_BARS - 2), stg_empty = bars + 8 * (T_BARS - 1);
+  float* stg = reinterpret_cast<float*>(smem + T_STG_OFF);
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    for (int m = 0; m < T_MASK_SLOTS; ++m) {
+      mbar_init(mask_full(m), 1);
+      mbar_init(mask_empty(m), WARPS);
+    }
+    mbar_init(stg_full, WARPS);
+    mbar_init(stg_empty, T_STORE_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int KS = (a.d + BK - 1) / BK;
+  const int tiles = a.m_tiles * a.n_tiles;
+  const int my_tiles = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  Cursor tile{0, 0, 0, 0};
+  tile.at_tile(a);
+
+  if (warp == WARPS + T_STORE_WARPS) {  // -- the producer ----------------------
+    if (lane != 0) return;
+    int it = 0;
+    for (int j = 0; j < my_tiles; ++j, tile.next(a, 1)) {
+      const int m = j % T_MASK_SLOTS;
+      mbar_wait(mask_empty(m), ((j / T_MASK_SLOTS) & 1) ^ 1);
+      mbar_expect_tx(mask_full(m), MASK_TILE);
+      tma_load(base + T_MASK_OFF + m * MASK_TILE, &tm_mask, MODE == 0 ? tile.n0 : tile.n0 % a.plane_bytes,
+               tile.m0, mask_full(m));
+      for (int k = 0; k < KS; ++k, ++it) {
+        const int s = it % T_STAGES;
+        mbar_wait(empty(s), ((it / T_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), T_STAGE_BYTES);
+        const uint32_t st = base + s * T_STAGE_BYTES;
+        tma_load(st, &tm_u, k * BK, tile.m0, full(s));
+        tma_load(st + T_SLAB_BYTES, &tm_items, k * BK, tile.n0, full(s));
+      }
+    }
+    return;
+  }
+
+  if (warp >= WARPS) {  // -- the store warps: 32 rows of each tile each -------
+    const int row0 = (warp - WARPS) * (BM / T_STORE_WARPS);
+    constexpr int SLOTS = BN / 4 + 1;  // 16-byte slots a shifted row spans
+    for (int j = 0; j < my_tiles; ++j, tile.next(a, 1)) {
+      mbar_wait(stg_full, j & 1);
+      const int cw_end = min(tile.n0 + BN, a.I);
+#pragma unroll 4
+      for (int idx = lane; idx < (BM / T_STORE_WARPS) * SLOTS; idx += 32) {
+        const int rr = row0 + idx / SLOTS, q = idx % SLOTS;
+        const int r = tile.m0 + rr;
+        if (r >= a.B) continue;
+        const int c_first = tile.n0 - (((r & 3) * (a.I & 3) + tile.n0) & 3) + 4 * q;
+        if (c_first >= cw_end) continue;
+        store_slot(a.out + (long long)r * a.I + c_first, c_first,
+                   *reinterpret_cast<const float4*>(stg + rr * T_STG_LD + 4 * q), tile.n0, cw_end);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(stg_empty);
+    }
+    return;
+  }
+
+  // -- the compute warps --------------------------------------------------------
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 3) * WM, wn = (warp >> 2) * WN;
+  // ldmatrix rows: block lane / 8 of a fragment, row lane % 8 (so row % 8 is
+  // lane % 8 in every fragment, the swizzle's XOR)
+  const int lm = lane >> 3, lr = lane & 7;
+  const int a_row = wm + lr + (lm & 1) * 8, a_chunk = lm >> 1;  // a0..a3
+  const int b_row = wn + lr + (lm >> 1) * 8, b_chunk = lm & 1;  // b0, b1 of two n tiles
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  int it = 0;
+  for (int jt = 0; jt < my_tiles; ++jt, tile.next(a, 1)) {
+    for (int k = 0; k < KS; ++k, ++it) {
+      const int s = it % T_STAGES;
+      mbar_wait(full(s), (it / T_STAGES) & 1);
+      const uint8_t* As = smem + s * T_STAGE_BYTES;
+      const uint8_t* Bs = As + T_SLAB_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          uint32_t x[4];
+          ldmatrix_x4(x, reinterpret_cast<const float*>(As + swz(a_row + 16 * i, kk / 4 + a_chunk)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(x[e], ah[i][e], al[i][e]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t x[4];
+          ldmatrix_x4(x, reinterpret_cast<const float*>(Bs + swz(b_row + 8 * j, kk / 4 + b_chunk)));
+          split(x[0], bh[j][0], bl[j][0]);
+          split(x[1], bh[j][1], bl[j][1]);
+          split(x[2], bh[j + 1][0], bl[j + 1][0]);
+          split(x[3], bh[j + 1][1], bl[j + 1][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            float t[4];
+            mma_tf32_first(t, al[i], bh[j]);
+            mma_tf32(t, ah[i], bl[j]);
+            mma_tf32(t, ah[i], bh[j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+          }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // -- the tile's epilogue: mask the accumulators into the staging buffer
+    const int m = jt % T_MASK_SLOTS;
+    mbar_wait(mask_full(m), (jt / T_MASK_SLOTS) & 1);
+    mbar_wait(stg_empty, (jt & 1) ^ 1);
+    const uint8_t* Ms = smem + T_MASK_OFF + m * MASK_TILE;
+    const int plane0 = MODE == 1 ? tile.n0 / a.plane_bytes : 0;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = wm + 16 * i + g + 8 * h, r = tile.m0 + rr;
+        // the row's first column sits (r * I + n0) % 4 floats past a
+        // 16-byte boundary: shift the staged row by as much
+        float* dst = stg + rr * T_STG_LD + (((r & 3) * (a.I & 3) + tile.n0) & 3) + wn + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = wn + 8 * j + 2 * tq;
+          const uint32_t pair = *reinterpret_cast<const uint16_t*>(Ms + swz(rr, c / 16) + c % 16);
+          dst[8 * j] = byte_marks<MODE>(pair, plane0) ? -INFINITY : acc[i][j][2 * h];
+          dst[8 * j + 1] = byte_marks<MODE>(pair >> 8, plane0) ? -INFINITY : acc[i][j][2 * h + 1];
+          acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+        }
+      }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(mask_empty(m));
+      mbar_arrive(stg_full);
+    }
+  }
+}
+
+// A 2D tensor map over rows of `row_bytes` (a row stride of `stride`
+// bytes), boxes of 128 rows by 128 bytes, 128-byte swizzle; false if the
+// driver refuses it.
+static bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner,
+                       uint64_t rows, uint64_t stride, uint32_t box_inner) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      encode = nullptr;
+    if (encode == nullptr) return false;
+  }
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_inner, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The TMA path; returns -1 where a tensor map cannot be encoded (the caller
+// takes the cp.async path).
+template <int MODE>
+int launch_tma(const Args& a, cudaStream_t stream) {
+  static int sms[MAX_DEVICES], attr_set[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  CUtensorMap tm_u, tm_items, tm_mask;
+  if (!encode_map(&tm_u, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.u, a.d, a.B, (uint64_t)a.d * 4, BK) ||
+      !encode_map(&tm_items, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.items, a.d, a.I, (uint64_t)a.d * 4, BK) ||
+      !encode_map(&tm_mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.mask, a.mask_stride, a.B, a.mask_stride, BN))
+    return -1;
+  auto kernel = masked_scores_tma_kernel<MODE>;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM_BYTES);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = 1;
+  }
+  const long long tiles = (long long)a.m_tiles * a.n_tiles;
+  const int grid = (int)(tiles < sms[dev] ? tiles : sms[dev]);
+  kernel<<<grid, T_THREADS, T_SMEM_BYTES, stream>>>(a, tm_u, tm_items, tm_mask);
+  return (int)cudaGetLastError();
+}
+
+// blocks a SM and SMs of each device, found once per kernel and device
+template <int MODE, int UNIT>
+int launch(const Args& a, cudaStream_t stream) {
+  static int blocks_per_sm[MAX_DEVICES], sms[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  auto kernel = masked_scores_kernel<MODE, UNIT>;
+  if (blocks_per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm[dev], kernel, THREADS,
+                                                          SMEM_BYTES);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks_per_sm[dev] == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long tiles = (long long)a.m_tiles * a.n_tiles;
+  const long long fit = (long long)blocks_per_sm[dev] * sms[dev];
+  const int grid = (int)(tiles < fit ? tiles : fit);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the card's own rounding instruction, which rna_tf32 reproduces on every
+// value but NaN
+__global__ void round_tf32_kernel(const float* __restrict__ x, float* __restrict__ y, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x[i]));
+    y[i] = __uint_as_float(r);
   }
 }
 
 }  // namespace
 
+// vec16: d % 4 == 0 and u, items 16-byte aligned (16-byte cp.async)
 extern "C" int neurec_masked_scores(const float* u, const float* items, const uint8_t* mask,
                                     float* out, int B, int I, int d, long long mask_stride,
-                                    int plane_bytes, int mode, cudaStream_t stream) {
+                                    int plane_bytes, int mode, int vec16, cudaStream_t stream) {
   if (B <= 0 || I <= 0) return 0;
-  const dim3 grid((I + BN - 1) / BN, (B + BM - 1) / BM);
-  if (mode == 0) {
-    masked_scores_kernel<0><<<grid, THREADS, 0, stream>>>(u, items, mask, out, B, I, d,
-                                                           mask_stride, plane_bytes);
-  } else {
-    masked_scores_kernel<1><<<grid, THREADS, 0, stream>>>(u, items, mask, out, B, I, d,
-                                                           mask_stride, plane_bytes);
+  Args a{u, items, mask, out, B, I, d, mask_stride, plane_bytes,
+         (B + BM - 1) / BM, (I + BN - 1) / BN, 0};
+  const bool aligned = reinterpret_cast<uintptr_t>(mask) % 16 == 0 && mask_stride % 16 == 0;
+  // the int8 mask spans the items rounded up to 512 (ops/masked_scores.py),
+  // so a tile's 128 bytes stay in the row; bit planes of W/8 % 128 == 0
+  // bytes hold whole tiles
+  a.mask_tiles = aligned && (mode == 0 ? mask_stride >= (long long)a.n_tiles * BN : plane_bytes % BN == 0);
+  if (vec16 && a.mask_tiles) {  // the TMA path takes 16-byte rows and whole mask tiles
+    const int code = mode == 0 ? launch_tma<0>(a, stream) : launch_tma<1>(a, stream);
+    if (code != -1) return code;
   }
+  if (mode == 0) return vec16 ? launch<0, 16>(a, stream) : launch<0, 4>(a, stream);
+  return vec16 ? launch<1, 16>(a, stream) : launch<1, 4>(a, stream);
+}
+
+// cvt.rna.tf32.f32 over n floats, for the tests that hold K1's rounding
+// (and its plain version, round_tf32_reference) to the instruction.
+extern "C" int neurec_round_tf32(const float* x, float* y, long long n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  round_tf32_kernel<<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, stream>>>(x, y, n);
   return (int)cudaGetLastError();
 }
 

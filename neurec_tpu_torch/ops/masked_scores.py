@@ -19,7 +19,10 @@ templated on the mask format:
   ``bits`` tier (one global block of width W: item i in byte i % (W/8),
   bit i // (W/8)).
 
-On CPU tensors both run their plain versions (``*_reference``).
+On CPU tensors both run their plain versions (``*_reference``). The kernel
+computes in f32 on the tensor cores through a 3xTF32 split (see the
+source); ``round_tf32`` is the TF32 rounding it applies to each operand,
+for the tests of the split's numbers.
 """
 
 from __future__ import annotations
@@ -56,11 +59,16 @@ def build_train_mask(train_rows: torch.Tensor, num_items: int) -> torch.Tensor:
     [-num_items, 0) wrap and ids outside [-num_items, num_items) are
     dropped, as the JAX package's ``.at[].set(mode="drop")``."""
     B = train_rows.shape[0]
-    mask = torch.zeros((B, num_items), dtype=torch.int8, device=train_rows.device)
+    n = B * num_items
     rows, keep = wrap_ids(train_rows, num_items)
-    slot = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
-    mask[slot[keep], rows[keep]] = 1
-    return mask
+    # one fill over every slot, no boolean index (no host sync on the card)
+    # and no sort (index_put_ sorts its indices on the card): a dropped id
+    # sets the byte past the mask; every write is 1, so repeated ids give
+    # the same bytes in any order
+    flat = torch.zeros(n + 1, dtype=torch.int8, device=train_rows.device)
+    slot = torch.arange(B, device=rows.device)[:, None] * num_items
+    flat.index_fill_(0, torch.where(keep, slot + rows, n).reshape(-1), 1)
+    return flat[:n].view(B, num_items)
 
 
 def pack_mask_bits(mask: torch.Tensor, block_items: int) -> torch.Tensor:
@@ -87,6 +95,39 @@ def bits_expand(bits: torch.Tensor, width: int) -> torch.Tensor:
     """(B, width/8) uint8 -> (B, width) 0/1 membership, plane-major."""
     planes = torch.arange(8, dtype=torch.uint8, device=bits.device)
     return ((bits[:, None, :] >> planes[None, :, None]) & 1).reshape(bits.shape[0], width)
+
+
+def round_tf32_reference(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 as K1 rounds its operands (nearest, ties away from zero,
+    10 mantissa bits), returned as f32: add half of the dropped 13 bits'
+    range to the magnitude's bits and clear them. A carry rounds the largest
+    finite floats to inf and the largest subnormals up to normals. That is
+    ``cvt.rna.tf32.f32`` on every value but NaN: inf and NaN pass through,
+    where the instruction clears a NaN's low 13 payload bits."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """TF32 rounding of an f32 tensor; on a CUDA tensor the card's own
+    ``cvt.rna.tf32.f32``, which K1's integer rounding reproduces on every
+    value but NaN (see ``round_tf32_reference``)."""
+    if x.dtype != torch.float32:
+        raise TypeError("round_tf32 takes float32, got %s" % x.dtype)
+    if x.device.type == "cpu":
+        return round_tf32_reference(x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load("masked_scores", x.device)
+    fn = lib.neurec_round_tf32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "round_tf32")
+    _build.LAUNCHES["round_tf32"] += 1
+    return out
 
 
 def masked_scores_reference(
@@ -124,20 +165,20 @@ def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
         raise ValueError("the masked-scores kernel runs on cuda, not %s" % u.device)
     if mask.device != u.device or not mask.is_contiguous():
         raise ValueError("mask must be a contiguous tensor on %s" % u.device)
-    B = u.shape[0]
-    if B > 65535 * 64:
-        raise ValueError("batch of %d users is above the kernel's grid limit" % B)
+    B, d = u.shape
     u, items = u.contiguous(), items.contiguous()
     out = torch.empty((B, num_items), dtype=torch.float32, device=u.device)
+    # 16-byte copies need 16-byte rows and bases; 4-byte copies otherwise
+    vec16 = int(d % 4 == 0 and u.data_ptr() % 16 == 0 and items.data_ptr() % 16 == 0)
     lib = _build.load("masked_scores", u.device)
     fn = lib.neurec_masked_scores
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     with torch.cuda.device(u.device):
         code = fn(
             u.data_ptr(), items.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, num_items, u.shape[1], mask_stride, plane_bytes, mode,
+            B, num_items, d, mask_stride, plane_bytes, mode, vec16,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(lib, code, "masked_scores")

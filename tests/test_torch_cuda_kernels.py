@@ -7,7 +7,9 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 
 Tolerance: atol/rtol 1e-5 — both sides compute in f32, with another
-summation order.
+summation order (K1 on the tensor cores through a 3xTF32 split). At d = 256
+with randn factors no two f32 orders agree to 1e-5, so there K1 is held to
+be no farther from the f64 product than the plain f32 product is.
 """
 
 import numpy as np
@@ -54,6 +56,124 @@ def test_masked_scores_kernel_matches_reference(cuda, B, I, d):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     assert _build.LAUNCHES["masked_scores"] == before + 2
+
+
+def _finite_err(got, exact):
+    finite = torch.isfinite(got)
+    return float((got.double() - exact)[finite].abs().max())
+
+
+def test_masked_scores_kernel_at_d256_no_farther_from_f64_than_f32(cuda):
+    """At d = 256 with randn factors no two f32 summation orders agree to
+    1e-5; the kernel's 3xTF32 product must be no farther from the f64
+    product than the plain f32 one is, in both mask modes."""
+    B, I, d = 2048, 38546, 256
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(9, B, I, d, 64))
+    exact = u.double() @ items.double().T
+    width = global_bits_width(I)
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    for got, want in ((k1.masked_scores(u, items, rows), k1.masked_scores_reference(u, items, rows)),
+                      (k1.masked_scores_bits(u, items, bits, width, I),
+                       k1.masked_scores_bits_reference(u, items, bits, width, I))):
+        assert torch.equal(torch.isinf(got), torch.isinf(want)) and not torch.isnan(got).any()
+        assert _finite_err(got, exact) <= _finite_err(want, exact)
+
+
+def _check_both_modes(u, items, rows, width=None):
+    """Both entry points against their plain versions (1e-5, -inf at the
+    same places) and the same bits on a second call."""
+    I = items.shape[0]
+    width = global_bits_width(I) if width is None else width
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    runs = (
+        (lambda: k1.masked_scores(u, items, rows), k1.masked_scores_reference(u, items, rows)),
+        (lambda: k1.masked_scores_bits(u, items, bits, width, I),
+         k1.masked_scores_bits_reference(u, items, bits, width, I)),
+    )
+    for run, want in runs:
+        got = run()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        assert torch.equal(got, run())
+
+
+@pytest.mark.parametrize("B,I", [(1, 130), (65, 129), (129, 65), (130, 1), (130, 130)])
+@pytest.mark.parametrize("d", [4, 20, 33])
+def test_masked_scores_kernel_ragged_shapes(cuda, B, I, d):
+    """B and I not multiples of the 128 x 128 tile, d not a multiple of the
+    32-deep slab (33: 4-byte copies)."""
+    _check_both_modes(*(torch.from_numpy(a).to(cuda) for a in _scores_inputs(B * I + d, B, I, d, 40)))
+
+
+@pytest.mark.parametrize("I,width", [(1000, 1000), (3000, 3008), (65, 72), (700, 2048)])
+def test_masked_scores_bits_tiles_straddling_planes(cuda, I, width):
+    """W a multiple of 8 but not of 1024: item tiles straddle bit planes
+    (W/8 = 125, 376 and 9 bytes), and a W far above I."""
+    _check_both_modes(*(torch.from_numpy(a).to(cuda) for a in _scores_inputs(I, 300, I, 64, 80)), width=width)
+
+
+def test_masked_scores_all_masked_and_unmasked_rows(cuda):
+    B, I, d = 140, 300, 64
+    u, items, rows = _scores_inputs(3, B, I, d, I)
+    rows[0] = np.arange(I)            # every item masked
+    rows[1] = I                       # none
+    rows[2, ::2] = np.arange(0, I, 2)[: (I + 1) // 2]
+    rows = torch.from_numpy(rows).to(cuda)
+    _check_both_modes(torch.from_numpy(u).to(cuda), torch.from_numpy(items).to(cuda), rows)
+    got = k1.masked_scores(torch.from_numpy(u).to(cuda), torch.from_numpy(items).to(cuda), rows)
+    assert torch.isinf(got[0]).all() and torch.isfinite(got[1]).all()
+
+
+def test_masked_scores_misaligned_operands_take_4_byte_copies(cuda):
+    """d % 4 == 0 but u and items 4 bytes off a 16-byte boundary: the
+    cp.async path, which gives the TMA path's bits on the same values."""
+    B, I, d = 300, 1000, 64
+    u, items, rows = _scores_inputs(6, B, I, d, 50)
+    u_buf = torch.empty(B * d + 1, device=cuda)
+    i_buf = torch.empty(I * d + 1, device=cuda)
+    u_off = u_buf[1:].view(B, d).copy_(torch.from_numpy(u))
+    i_off = i_buf[1:].view(I, d).copy_(torch.from_numpy(items))
+    assert u_off.data_ptr() % 16 and i_off.data_ptr() % 16
+    rows = torch.from_numpy(rows).to(cuda)
+    _check_both_modes(u_off, i_off, rows)
+    assert torch.equal(k1.masked_scores(u_off, i_off, rows),
+                       k1.masked_scores(u_off.clone(), i_off.clone(), rows))
+
+
+def test_masked_scores_non_finite_factors(cuda):
+    """A NaN factor gives NaN scores and an inf factor non-finite ones (NaN
+    where the plain product may give +-inf: the lo part of an inf is
+    inf - inf); masked items stay -inf and the other rows hold 1e-5."""
+    B, I, d = 8, 300, 64
+    u, items, rows = _scores_inputs(12, B, I, d, 30)
+    u[0, 3], u[1, 5] = np.nan, np.inf
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in (u, items, rows))
+    width = global_bits_width(I)
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    marked = k1.build_train_mask(rows, I) != 0
+    want = k1.masked_scores_reference(u, items, rows)
+    for got in (k1.masked_scores(u, items, rows), k1.masked_scores_bits(u, items, bits, width, I)):
+        assert (got[marked] == float("-inf")).all()
+        assert torch.isnan(got[0][~marked[0]]).all()
+        assert not torch.isfinite(got[1][~marked[1]]).any()
+        torch.testing.assert_close(got[2:], want[2:], rtol=1e-5, atol=1e-5)
+
+
+def test_round_tf32_kernel_is_the_cpu_rounding(cuda):
+    """The card's cvt.rna.tf32.f32 against round_tf32_reference, bit for
+    bit on every value but NaN, on edge values and random bit patterns. The
+    instruction clears a NaN's low 13 payload bits (a NaN with no other
+    payload becomes inf); K1 and the helper keep every NaN."""
+    edges = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 2.0 ** -149, 2.0 ** -137, -(2.0 ** -137),
+                      2.0 ** -126 - 2.0 ** -149, 0.0, -0.0, 3.4028234663852886e38, -3.4028234663852886e38,
+                      np.inf, -np.inf, np.nan], dtype=np.float32)
+    rand = np.random.RandomState(0).randint(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(np.concatenate([edges, rand.view(np.float32)]))
+    got = k1.round_tf32(x.to(cuda)).cpu()
+    want = k1.round_tf32_reference(x)
+    nan = torch.isnan(x)
+    assert torch.isnan(want[nan]).all()
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
 
 
 def _random_plan(seed, n_rows, n_src, nnz, tile_r, chunk, empty_tail):
