@@ -37,7 +37,11 @@ failure exits non-zero before the result line):
    K2 and K3 walk); after them, K2 and K3 on a power-law graph with a hub
    row cut across spans and on a ``NEUREC_SPMM_TILE=1024`` plan of the
    north star (``phase: kernel_case``): against their plain versions, the
-   same bits twice, K3 == K2, and the tile-1024 plan == the tile-256 one;
+   same bits twice, K3 == K2, and the tile-1024 plan == the tile-256 one.
+   Last, the top-K at the evaluation shape (2048 x 38,546, k 20):
+   ``ops/topk.py`` (``torch.topk`` and the tie fix-up) and the stable sort
+   it replaced, timed in the same call, with equal ids and values, also on
+   rows where ranks 10-39 are set to the 20th value (``phase: breakdown``);
 4. the serving path, with every launch count set to 0 just before and
    read just after: full evaluation of every test user (twice: cold, then
    warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
@@ -76,14 +80,47 @@ failure exits non-zero before the result line):
    adjacency, message dropout 0.1, batch 1024, lr 1e-4, reg 1e-5, Adam;
    no node dropout) on the same gowalla split: K1 at d = 256 and K3's
    backward over the non-symmetric ``plan_t`` against their plain
-   versions, a full evaluation of random weights, ``run.main`` for 2
-   epochs; 3 K2 forward and 3 K2 backward per step, 3 K2 forward per
-   evaluation; the loss checks, the trained model's evaluation through
-   K1's plain version (metrics within ``NGCF_EVAL_ATOL``), and 5 steps
-   against the plain path, with the same seeded dropout draws;
+   versions, a full evaluation of random weights, ``run.main`` for
+   ``NGCF_EPOCHS`` (5) epochs; 3 K2 forward and 3 K2 backward per step, 3
+   K2 forward per evaluation; the loss checks (the first 2 epochs against
+   the recorded losses), the trained model's evaluation through K1's plain
+   version (metrics within ``NGCF_EVAL_ATOL``), the band check (the same
+   ``run.main`` through K2's and K1's plain versions, on the same draws:
+   Recall@20 and NDCG@20 after every epoch within ``NGCF_BAND``,
+   ``phase: ngcf_band``), and 5 steps against the plain path, with the
+   same seeded dropout draws;
 12. K4, the copy-rate probe (``python -m neurec_tpu_torch.benchmarks.dma_rate``,
    65,536 offsets, repeat 8, 3 rounds), then each mode and size against its
-   plain version: the rows written must be the same.
+   plain version: the rows written must be the same;
+13. path C, NeuMF at the widths of ``conf/NeuMF.properties`` (embedding 16,
+   layers [64, 32, 16], pointwise cross_entropy, num_neg 4, batch 256, Adam
+   at lr 0.001) on the same split, through ``Trainer``: an MF at embedding
+   16 and an MLP at ``conf/MLP.properties`` train ``PRETRAIN_STEPS`` steps
+   each and are written with ``pretrain.save_pretrain`` (under
+   ``build/pretrained``); NeuMF loads both ("load pretrained params
+   successful!"), trains ``NEUMF_STEPS`` steps and evaluates all test users
+   on the ``bits`` predict tier. It fails on a non-finite loss, a
+   Recall@20 not above the same model's with random weights, or a chunked
+   ``predict`` more than ``ATOL`` from an unchunked one;
+14. path D, the other seven models at their ``conf/*.properties`` widths,
+   each through ``Trainer`` for ``ZOO_STEPS`` steps and one evaluation:
+   APR (K1 at d 64) and FISM (K1 at d 17, its bias folded in: the cp.async
+   path) evaluate all test users with exactly one K1 launch a batch, again
+   through K1's plain version (metrics within 1e-5), and K1 is held to
+   its plain version at their own factors (FISM's a kernel record,
+   ``masked_scores[d17]``); NAIS and DeepICF warm-start from FISM's
+   pickle, ConvNCF from an MF's at embedding 64; they and DMF evaluate the
+   first ``ZOO_EVAL_USERS`` test users;
+15. ``run.main`` (``python -m neurec_tpu_torch.run``) on the card for each
+   model of paths C and D (``RUN_MODELS``): one epoch and an evaluation at
+   its ``conf/*.properties`` widths on a rating file made from the seed
+   (``RUN_USERS`` x ``RUN_ITEMS``, under ``build/run_main``).
+
+Cuts, against a real run: the north star and path A train 2 epochs (the
+JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
+NeuMF 300 (an epoch is 3,670); path D trains 20-100 steps of its models'
+first epochs, and NAIS, DeepICF (1,024 users), ConvNCF (32) and DMF
+(2,048) evaluate a subset of the 14,821 test users.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -99,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -114,6 +152,10 @@ PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 # K1 forms each product from three TF32 products (a 3xTF32 split)
 K1_TF32_PRODUCTS = 3
+# the split keeps 22 of f32's 24 significand bits of each operand and drops
+# lo * lo: each term of a score is off by at most 3 * 2^-22 of |u_k i_k|,
+# and K1 adds the d terms in f32 (d * 2^-24 of sum |u_k i_k|)
+K1_SPLIT_REL = 3 * 2.0 ** -22
 
 SEED = 2024
 EVAL_USERS_PER_BATCH = 2048
@@ -165,17 +207,48 @@ BF16_METRIC_ATOL = 1e-2
 # masking fault would move the metrics by orders of magnitude more
 NGCF_EVAL_ATOL = 1e-3
 
+# path B's band check: NGCF trained through the kernels and through their
+# plain versions on the same draws, its Recall@20 and NDCG@20 after every
+# epoch held to NGCF_BAND of each other. The band is twice the largest gap
+# two runs showed (1.3e-3 of Recall@20, ~6% of it at epochs 3-5): f32
+# rounding alone moves the trained metrics that far, since the plain
+# path's index_add_ sums in another order on every run (its own two runs
+# were 6.7e-4 apart) while the kernels give the same bits each time; a
+# masking or SpMM fault moves them by ~2e-2
+NGCF_EPOCHS = 5
+NGCF_BAND = 2.5e-3
 # path B: NGCF's published settings (Wang et al., SIGIR 2019, "Parameter Settings")
 NGCF_ARGS = ["--recommender=NGCF"] + DATA_ARGS + [
     "--embedding_size=64", "--layer_size=[64,64,64]", "--adj_type=norm", "--alg_type=ngcf",
     "--mess_dropout_ratio=0.1", "--node_dropout_flag=False",
 ]
 NGCF_TRAIN_ARGS = NGCF_ARGS + [
-    "--epochs=%d" % TRAIN_EPOCHS, "--verbose=1", "--learner=adam",
+    "--epochs=%d" % NGCF_EPOCHS, "--verbose=1", "--learner=adam",
     "--batch_size=1024", "--learning_rate=0.0001", "--reg=1e-5",
 ]
 
 PROBE_N, PROBE_REPEAT, PROBE_ROUNDS = 65536, 8, 3
+
+
+# path C: NeuMF at conf/NeuMF.properties (embedding 16, layers [64, 32, 16],
+# pointwise cross_entropy, num_neg 4, batch 256, Adam at lr 0.001), warm-started
+# from an MF at embedding 16 and an MLP at conf/MLP.properties, each trained
+# PRETRAIN_STEPS steps; NeuMF then trains NEUMF_STEPS of its 3,670 a epoch
+PRETRAIN_STEPS = 200
+NEUMF_STEPS = 300
+# users of the chunked-against-unchunked predict check
+CHUNK_CHECK_USERS = 8
+# path D: the other models at their conf/*.properties, each for a few steps
+# of its first epoch; NAIS, DeepICF, ConvNCF and DMF evaluate the first
+# ZOO_EVAL_USERS test users (their predict is per pair or per user: ConvNCF
+# ~3 MFLOP a pair, NAIS ~49 TFLOP of attention for all 14,821 users)
+ZOO_STEPS = {"APR": 50, "FISM": 100, "NAIS": 30, "DeepICF": 30, "MF": 50, "ConvNCF": 20, "DMF": 20}
+ZOO_EVAL_USERS = {"NAIS": 1024, "DeepICF": 1024, "ConvNCF": 32, "DMF": 2048}
+# the run entry point for each model of paths C and D, one epoch at its
+# conf/*.properties widths on a rating file made from the seed (an epoch of
+# gowalla is 3,670 steps for the pointwise models)
+RUN_MODELS = ("MLP", "NeuMF", "APR", "FISM", "NAIS", "DeepICF", "DMF", "ConvNCF")
+RUN_USERS, RUN_ITEMS = 300, 400
 
 # 2-epoch losses and Recall@20 recorded in PERF.md with the kernels whose
 # warps owned whole rows (one fmaf chain per row). The edge-balanced
@@ -207,7 +280,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``at_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -280,17 +360,20 @@ def k1_bounds(n_bytes: float, n_flops: float):
 
 def k1_errors(torch, got, u, items):
     """K1's error beside its plain version: the largest difference scaled
-    by |u_b| |item_i|, and the largest distance of each from the f64
-    product (finite entries)."""
+    by |u_b| |item_i|, the largest distance of each from the f64 product
+    (finite entries), and K1's distance from it over the split's error
+    bound, (K1_SPLIT_REL + d 2^-24) sum_k |u_bk i_ik| (at most 1)."""
     want = u @ items.T
     exact = u.double() @ items.double().T
     finite = torch.isfinite(got)
     scale = u.norm(dim=1)[:, None] * items.norm(dim=1)[None, :]
     scaled = ((got - want).abs() / scale.clamp_min(1e-30))[finite]
+    bound = (K1_SPLIT_REL + u.shape[1] * 2.0 ** -24) * (u.double().abs() @ items.double().abs().T)
     out = {"max_scaled_err": float(scaled.max()) if scaled.numel() else 0.0,
            "err_vs_f64": float((got.double() - exact)[finite].abs().max()),
-           "plain_err_vs_f64": float((want.double() - exact)[finite].abs().max())}
-    del exact
+           "plain_err_vs_f64": float((want.double() - exact)[finite].abs().max()),
+           "err_over_split_bound": float(((got.double() - exact).abs() / bound.clamp_min(1e-300))[finite].max())}
+    del exact, bound
     return out
 
 
@@ -402,10 +485,10 @@ def profile_steps(torch, step, n=10):
 
 def clone_state(trainer):
     """A copy of the trainer's params and optimizer state."""
-    from neurec_tpu_torch.bridge import map_params, param_leaves
+    from neurec_tpu_torch.bridge import map_params
 
     params_c = map_params(lambda v: v.detach().clone().requires_grad_(True), trainer.params)
-    opt_c = trainer.tx([p for _, p in param_leaves(params_c)])
+    opt_c = trainer.init_opt_state(params_c)
     opt_c.load_state_dict(copy.deepcopy(trainer.opt_state.state_dict()))
     return params_c, opt_c
 
@@ -415,10 +498,10 @@ def run_records(trainer):
         return [json.loads(line) for line in fin]
 
 
-def check_training(np, records, what):
+def check_training(np, records, what, epochs=TRAIN_EPOCHS):
     """The loss checks of a run.main training: finite, falling."""
     losses = [r["loss"] for r in records]
-    require(len(records) == TRAIN_EPOCHS, "%s: run.main trained %d epochs" % (what, len(records)))
+    require(len(records) == epochs, "%s: run.main trained %d epochs" % (what, len(records)))
     require(all(np.isfinite(losses)), "%s: non-finite epoch loss: %s" % (what, losses))
     require(losses[-1] < losses[0], "%s: the epoch-%d loss %g is not below epoch 1's %g"
             % (what, len(losses), losses[-1], losses[0]))
@@ -479,6 +562,18 @@ def step_ms(torch, trainer, draws):
                                                     draws.negs[sl], draws.seeds[sl]), iters=10)
 
 
+class LogLines(logging.Handler):
+    """Collects the messages of a logger (the warm starts' "load pretrained
+    params successful!" lines)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
 def main() -> int:
     import torch
 
@@ -495,7 +590,7 @@ def main() -> int:
     import numpy as np
     import scipy.sparse as sp
 
-    from neurec_tpu_torch import run
+    from neurec_tpu_torch import pretrain, run
     from neurec_tpu_torch.benchmarks import dma_rate
     from neurec_tpu_torch.bridge import params_from_numpy
     from neurec_tpu_torch.config import Config
@@ -508,8 +603,9 @@ def main() -> int:
     from neurec_tpu_torch.ops import spmm as k2
     from neurec_tpu_torch.ops.sampling import sample_negatives
     from neurec_tpu_torch.ops.topk import top_k
+    from neurec_tpu_torch.pretrain import save_pretrain
     from neurec_tpu_torch.recommend import batch_topk
-    from neurec_tpu_torch.trainer import EpochDraws
+    from neurec_tpu_torch.trainer import EpochDraws, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -597,10 +693,14 @@ def main() -> int:
         rec["library_device_ms"] = device_ms(torch, library)[0]
         emit({"phase": "kernel_device", "name": name, **{k: rec.get(k) for k in (
             "ms", "device_ms", "device_ms_by_kernel", "library_ms", "library_device_ms", "max_scaled_err",
-            "err_vs_f64", "plain_err_vs_f64", "mask_build_ms", "kernel_ms")}})
+            "err_vs_f64", "plain_err_vs_f64", "err_over_split_bound", "mask_build_ms", "kernel_ms")}})
         require(torch.equal(got, run_fn()), "%s is not deterministic" % name)
-        require(rec["err_vs_f64"] <= rec["plain_err_vs_f64"] or rec["max_abs_err"] == 0.0,
-                "%s is farther from the f64 product than its plain version" % name)
+        # no farther from the f64 product than the plain f32 product (d 64,
+        # 256), or, where f32's own error is smaller than the split's (FISM's
+        # d 17), within the split's bound
+        require(rec["err_vs_f64"] <= rec["plain_err_vs_f64"] or rec["max_abs_err"] == 0.0
+                or rec["err_over_split_bound"] <= 1.0,
+                "%s is farther from the f64 product than its plain version and its split's bound" % name)
         return rec
 
     k1_check(
@@ -749,12 +849,31 @@ def main() -> int:
     for x in (ego, ego.bfloat16()):
         kernel_case("tile1024", plan_1024, x, same_as=k2.plan_scatter(plan, x))
     # where an eval batch and a serving request spend their time besides
-    # the kernels: the lowest-id-first top-K (a stable sort of each row)
+    # the kernels: the lowest-id-first top-K, torch.topk with the tie fix-up
+    # (ops/topk.py) against the stable sort of each row it replaced, in one
+    # call; the same ids and values, also where ties are forced across the
+    # K-th place (ranks 10-39 of every row set to the 20th value)
     masked = k1.masked_scores_bits(u, item_table, bits, width, I)
-    emit({"phase": "breakdown",
-          "eval_batch_topk_ms": time_ms(torch, lambda: top_k(masked, SERVING_K)),
+
+    def stable_sort_topk(x, k):
+        values, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+        return values[:, :k], ids[:, :k]
+
+    tied = masked.clone()
+    order = torch.sort(tied, dim=-1, descending=True, stable=True)[1]
+    tied.scatter_(1, order[:, 10:40], tied.gather(1, order[:, SERVING_K - 1 : SERVING_K]).expand(-1, 30))
+    for x in (masked, tied):
+        (v_new, i_new), (v_old, i_old) = top_k(x, SERVING_K), stable_sort_topk(x, SERVING_K)
+        require(torch.equal(i_new, i_old) and torch.equal(v_new, v_old),
+                "top_k and the stable sort disagree on %d rows" % int((i_new != i_old).any(1).sum()))
+    emit({"phase": "breakdown", "shape": [B, I], "k": SERVING_K, "ids_equal_to_stable_sort": True,
+          "tied_rows": B, "eval_batch_topk_ms": time_ms(torch, lambda: top_k(masked, SERVING_K)),
+          "eval_batch_sort_ms": time_ms(torch, lambda: stable_sort_topk(masked, SERVING_K)),
+          "eval_batch_topk_tied_ms": time_ms(torch, lambda: top_k(tied, SERVING_K)),
           "serving_batch_topk_ms": time_ms(torch, lambda: top_k(masked[:SERVING_USERS], SERVING_K)),
+          "serving_batch_sort_ms": time_ms(torch, lambda: stable_sort_topk(masked[:SERVING_USERS], SERVING_K)),
           "serving_batch_scores_ms": time_ms(torch, lambda: u[:SERVING_USERS] @ item_table.T)})
+    del tied, order
 
     # -- 4. the main path, counted ------------------------------------------
     users_all = rng.choice(dataset.num_users, SERVING_REQUESTS * SERVING_USERS, replace=False)
@@ -1033,15 +1152,15 @@ def main() -> int:
     metrics_b0 = parse_metrics(eval_b0)
     require(all(np.isfinite(metrics_b0)) and all(0.0 <= m <= 1.0 for m in metrics_b0),
             "NGCF metrics out of range: %s" % eval_b0)
-    check_training(np, recs_b, "path B")
+    check_training(np, recs_b, "path B", NGCF_EPOCHS)
     ngcf_rel = max(abs(r["loss"] - b) / b for r, b in zip(recs_b, RECORDED_NGCF_LOSS))
     emit({"phase": "ngcf_vs_recorded", "losses": [r["loss"] for r in recs_b], "recorded": RECORDED_NGCF_LOSS,
           "max_rel_diff": ngcf_rel, "tol": RECORDED_RTOL})
     require(ngcf_rel <= RECORDED_RTOL, "NGCF moved from its recorded losses by %g" % ngcf_rel)
     steps_b = trainer_b.steps
     n_evals_b = sum("metrics" in r for r in recs_b)
-    want_b = {"plan_spmm": 3 * (1 + steps_b * TRAIN_EPOCHS + n_evals_b),
-              "plan_spmm_t": 3 * steps_b * TRAIN_EPOCHS, "plan_spmm_packed": 0, "plan_spmm_packed_t": 0}
+    want_b = {"plan_spmm": 3 * (1 + steps_b * NGCF_EPOCHS + n_evals_b),
+              "plan_spmm_t": 3 * steps_b * NGCF_EPOCHS, "plan_spmm_packed": 0, "plan_spmm_packed_t": 0}
     require(all(launches_b[k] == v for k, v in want_b.items()),
             "path B launches %s, expected %s" % (launches_b, want_b))
     require(launches_b["masked_scores"] > 0, "path B did not launch K1")
@@ -1051,6 +1170,26 @@ def main() -> int:
     emit({"phase": "ngcf_plain_eval", "result": result_b, "plain_result": eval_b_plain,
           "metric_max_abs_diff": ngcf_eval_err, "tol": NGCF_EVAL_ATOL})
     require(ngcf_eval_err <= NGCF_EVAL_ATOL, "NGCF's metrics differ from K1's plain version by %g" % ngcf_eval_err)
+    # the band check: the same run.main through K2's and K1's plain versions,
+    # on the same draws (the same seeds), the metrics after every epoch
+    t = time.perf_counter()
+    with mock.patch.object(k2, "plan_scatter", k2.plan_spmm_reference), \
+            mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+        trainer_bp, _ = run.main(PROPS, cmd_args=NGCF_TRAIN_ARGS)
+    plain_b_s = time.perf_counter() - t
+    recs_bp = run_records(trainer_bp)
+    curve = {name: [[float(r["metrics"]["values"][i]) for r in recs if "metrics" in r] for recs in (recs_b, recs_bp)]
+             for i, name in enumerate(("recall20", "ndcg20"))}
+    band_diff = max(abs(a - b) for name in curve for a, b in zip(*curve[name]))
+    emit({"phase": "ngcf_band", "epochs": NGCF_EPOCHS, "kernels": {k: v[0] for k, v in curve.items()},
+          "plain": {k: v[1] for k, v in curve.items()}, "losses": [r["loss"] for r in recs_b],
+          "plain_losses": [r["loss"] for r in recs_bp], "max_abs_diff": band_diff, "band": NGCF_BAND,
+          "plain_run_s": plain_b_s})
+    check_training(np, recs_bp, "path B, plain", NGCF_EPOCHS)
+    require(len(curve["recall20"][0]) == len(curve["recall20"][1]) == NGCF_EPOCHS, "path B: evaluations missing")
+    require(band_diff <= NGCF_BAND, "NGCF's kernel and plain runs left the band: %g" % band_diff)
+    del trainer_bp
+
     draws_b = trainer_b.draw_epoch(trainer_b.epoch_generator(3))
     emit({"phase": "ngcf_breakdown", "step_ms": step_ms(torch, trainer_b, draws_b),
           "k2_forward_ms_on_pre_plan": 3 * records["plan_spmm"]["ms"]})
@@ -1092,10 +1231,182 @@ def main() -> int:
             require(torch.equal(got, want), "%s writes other rows than its plain version" % name)
             records[name] = rec
 
+    # -- 13. path C: NeuMF at full width, warm-started from MF and MLP pickles ----
+    said = LogLines()
+    pretrain.log.addHandler(said)
+    pre_dir = os.path.join(REPO, "build", "pretrained")
+    eval_users = evaluator.evaluator.test_users
+
+    def zoo_trainer(name, args, steps):
+        """A model at conf/<name>.properties (and ``args``) through Trainer:
+        initialized, then the first ``steps`` steps of its first epoch."""
+        conf_z = Config(PROPS, cmd_args=["--recommender=%s" % name] + DATA_ARGS + args)
+        trainer_z = Trainer(get_model(name)(dataset, conf_z), dataset, conf_z)
+        trainer_z.initialize()
+        draws_z = trainer_z.draw_epoch(trainer_z.epoch_generator(1))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer_z.params, trainer_z.opt_state, loss_z = trainer_z.run_epoch(
+            trainer_z.params, trainer_z.opt_state, *(a[:steps] for a in draws_z), epoch=1)
+        loss_z = float(loss_z)
+        train_z_s = time.perf_counter() - t
+        require(np.isfinite(loss_z), "%s: non-finite loss %g" % (name, loss_z))
+        return trainer_z, {"model": name, "steps": steps, "steps_per_epoch": trainer_z.steps,
+                           "batch_size": trainer_z.model.batch_size, "loss": loss_z, "train_s": train_z_s,
+                           "ms_per_step": 1e3 * train_z_s / steps}
+
+    def zoo_eval(trainer_z, params_z, n_users=None):
+        """``(result, seconds)`` of one evaluation of all test users, or of
+        the first ``n_users``; fails on metrics outside [0, 1]."""
+        users_z = None if n_users is None else eval_users[:n_users]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result_z = trainer_z.evaluator.evaluator.evaluate(trainer_z.model.predict, params_z, users_z)
+        torch.cuda.synchronize()
+        values = parse_metrics(result_z)
+        require(all(np.isfinite(values)) and all(0.0 <= m <= 1.0 for m in values),
+                "%s: metrics out of range: %s" % (trainer_z.model.name, result_z))
+        return result_z, time.perf_counter() - t
+
+    def warm_started(path):
+        return any(line.startswith("load pretrained params successful!") and path in line for line in said.lines)
+
+    mf_path, mlp_path = os.path.join(pre_dir, "gowalla_mf16.pkl"), os.path.join(pre_dir, "gowalla_mlp.pkl")
+    _build.reset_launches()
+    trainer_mf, rec_mf = zoo_trainer("MF", ["--embedding_size=16"], PRETRAIN_STEPS)
+    save_pretrain("MF", trainer_mf.params, mf_path)
+    trainer_mlp, rec_mlp = zoo_trainer("MLP", [], PRETRAIN_STEPS)
+    save_pretrain("MLP", trainer_mlp.params, mlp_path)
+    del trainer_mf, trainer_mlp
+    # the same NeuMF with random weights (no warm start), the quality bar
+    conf_c = Config(PROPS, cmd_args=["--recommender=NeuMF"] + DATA_ARGS + ["--mf_pretrain=", "--mlp_pretrain="])
+    model_r = get_model("NeuMF")(dataset, conf_c)
+    params_r = model_r.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    t = time.perf_counter()
+    result_r = evaluator.evaluate(model_r.predict, params_r)
+    torch.cuda.synchronize()
+    random_c_s = time.perf_counter() - t
+    del model_r, params_r
+    trainer_c, rec_c = zoo_trainer("NeuMF", ["--mf_pretrain=%s" % mf_path, "--mlp_pretrain=%s" % mlp_path],
+                                   NEUMF_STEPS)
+    require(warm_started(mf_path) and warm_started(mlp_path), "NeuMF did not load its pretrain pickles")
+    result_c, eval_c_s = zoo_eval(trainer_c, trainer_c.params)
+    paths["neumf"] = dict(_build.LAUNCHES)
+    model_c = trainer_c.model
+    few = torch.from_numpy(eval_users[:CHUNK_CHECK_USERS]).long().cuda()
+    with torch.no_grad():
+        chunked = model_c.predict(trainer_c.params, few)
+        model_c.predict_chunk = I
+        whole = model_c.predict(trainer_c.params, few)
+        model_c.predict_chunk = 4096
+    chunk_err = float((chunked - whole).abs().max())
+    emit({"phase": "neumf", "pretrain": [rec_mf, rec_mlp], **rec_c, "widths": {
+              "embedding_size": model_c.embedding_size, "layers": model_c.layers,
+              "loss_function": model_c.loss_function, "num_neg": model_c.num_negatives},
+          "warm_start": [line for line in said.lines if "successful" in line], "result": result_c,
+          "eval_s": eval_c_s, "eval_users_per_s": n_eval / eval_c_s, "random_init_result": result_r,
+          "random_init_eval_s": random_c_s, "chunked_vs_unchunked_max_abs_diff": chunk_err,
+          "launches": paths["neumf"]})
+    require(parse_metrics(result_c)[0] > parse_metrics(result_r)[0],
+            "NeuMF's Recall@20 after training %s is not above random weights' %s" % (result_c, result_r))
+    require(chunk_err <= ATOL, "NeuMF's chunked predict differs from the unchunked one by %g" % chunk_err)
+    del trainer_c, chunked, whole
+
+    # -- 14. path D: the other seven models on the same split -----------------
+    def factorized_path(name, record):
+        """APR and FISM: steps, a full evaluation with one K1 launch a batch,
+        again through K1's plain version (metrics within 1e-5), and K1 at
+        the model's own factors against its plain version."""
+        _build.reset_launches()
+        trainer_z, rec_z = zoo_trainer(name, [], ZOO_STEPS[name])
+        result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params)
+        paths[name.lower()] = dict(_build.LAUNCHES)
+        n_batches = -(-n_eval // EVAL_USERS_PER_BATCH)
+        require(paths[name.lower()]["masked_scores"] == n_batches,
+                "%s: %d K1 launches for %d eval batches" % (name, paths[name.lower()]["masked_scores"], n_batches))
+        with mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+            result_p, _ = zoo_eval(trainer_z, trainer_z.params)
+        diff = max(abs(a - b) for a, b in zip(parse_metrics(result_z), parse_metrics(result_p)))
+        with torch.no_grad():
+            u_z, items_z = trainer_z.model.eval_embeddings(trainer_z.params, users)
+        d_z = u_z.shape[1]
+        if record is None:
+            got = k1.masked_scores_bits(u_z, items_z, bits, width, I)
+            err_z, ok_z = compare(torch, got, k1.masked_scores_bits_reference(u_z, items_z, bits, width, I))
+            emit({"phase": "kernel_case", "case": "masked_scores[%s]" % name.lower(), "shape": [B, I, d_z],
+                  "max_abs_err": err_z, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL)})
+            require(ok_z, "K1 at %s's factors disagrees with its plain version: %g" % (name, err_z))
+        else:
+            k1_check(record, lambda: k1.masked_scores_bits(u_z, items_z, bits, width, I),
+                     lambda: k1.masked_scores_bits_reference(u_z, items_z, bits, width, I),
+                     lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u_z, items_z.T)),
+                     u_z.numel() * 4 + items_z.numel() * 4 + bits.numel() + out_bytes, u_z, items_z,
+                     {"mode": "bits", "shape": [B, I, d_z], "model": name,
+                      "library_call": "matmul + where on a prebuilt int8 mask"})
+        emit({"phase": name.lower(), **rec_z, "eval_width": d_z, "result": result_z, "eval_s": eval_z_s,
+              "eval_users_per_s": n_eval / eval_z_s, "plain_result": result_p, "metric_max_abs_diff": diff,
+              "k1_launches_per_batch": paths[name.lower()]["masked_scores"] / n_batches,
+              "launches": paths[name.lower()]})
+        require(diff <= 1e-5, "%s: metrics differ from K1's plain version by %g" % (name, diff))
+        return trainer_z
+
+    factorized_path("APR", None)
+    trainer_f = factorized_path("FISM", "masked_scores[d17]")
+    require(trainer_f.model.embedding_size + 1 == records["masked_scores[d17]"]["shape"][2],
+            "FISM evaluates at d %d" % records["masked_scores[d17]"]["shape"][2])
+    fism_path = os.path.join(pre_dir, "gowalla_fism.pkl")
+    save_pretrain("FISM", trainer_f.params, fism_path)
+    del trainer_f
+    mf64_path = os.path.join(pre_dir, "gowalla_mf64.pkl")
+    trainer_mf, rec_mf64 = zoo_trainer("MF", [], ZOO_STEPS["MF"])
+    save_pretrain("MF", trainer_mf.params, mf64_path)
+    del trainer_mf
+    for name, args, warm in (("NAIS", ["--pretrain_file=%s" % fism_path], fism_path),
+                             ("DeepICF", ["--pretrain_file=%s" % fism_path], fism_path),
+                             ("ConvNCF", ["--mf_pretrain=%s" % mf64_path], mf64_path),
+                             ("DMF", [], None)):
+        _build.reset_launches()
+        trainer_z, rec_z = zoo_trainer(name, args, ZOO_STEPS[name])
+        result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params, ZOO_EVAL_USERS[name])
+        paths[name.lower()] = dict(_build.LAUNCHES)
+        emit({"phase": name.lower(), **rec_z, "warm_start": warm, "eval_users": ZOO_EVAL_USERS[name],
+              "result": result_z, "eval_s": eval_z_s, "eval_users_per_s": ZOO_EVAL_USERS[name] / eval_z_s,
+              "launches": paths[name.lower()],
+              **({"warm_start_from_mf": rec_mf64} if name == "ConvNCF" else {})})
+        require(warm is None or warm_started(warm), "%s did not load %s" % (name, warm))
+        del trainer_z
+    pretrain.log.removeHandler(said)
+
+    # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
+    run_dir = os.path.join(REPO, "build", "run_main")
+    os.makedirs(run_dir, exist_ok=True)
+    rng_r = np.random.RandomState(SEED)
+    with open(os.path.join(run_dir, "synthetic.rating"), "w") as fout:
+        fout.write("".join("%d,%d,%d\n" % (u, i, rng_r.randint(1, 6)) for u in range(RUN_USERS)
+                           for i in rng_r.choice(RUN_ITEMS, rng_r.randint(5, 30), replace=False)))
+    run_args = ["--config_dir=%s" % os.path.join(REPO, "conf"), "--data.input.path=%s" % run_dir,
+                "--data.cache.path=%s" % run_dir, "--data.input.dataset=synthetic", "--data.column.format=UIR",
+                "--data.convert.separator=','", "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]", "--epochs=1",
+                "--pretrain_file=", "--mf_pretrain=", "--mlp_pretrain="]
+    for name in RUN_MODELS:
+        t = time.perf_counter()
+        trainer_r, result_r = run.main(PROPS, cmd_args=["--recommender=%s" % name] + run_args)
+        torch.cuda.synchronize()
+        recs_r = run_records(trainer_r)
+        values = parse_metrics(result_r)
+        emit({"phase": "run_main", "model": name, "device": str(trainer_r.device), "steps": trainer_r.steps,
+              "loss": recs_r[-1]["loss"], "result": result_r, "seconds": time.perf_counter() - t})
+        require(trainer_r.device.type == "cuda" and len(recs_r) == 1 and np.isfinite(recs_r[0]["loss"]),
+                "run.main %s: %s on %s" % (name, recs_r, trainer_r.device))
+        require(all(np.isfinite(values)) and all(0.0 <= m <= 1.0 for m in values),
+                "run.main %s: metrics out of range: %s" % (name, result_r))
+        del trainer_r
+
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
-        "masked_scores": ("masked_scores", lightgcn_paths),
+        "masked_scores": ("masked_scores", lightgcn_paths + ("apr",)),
+        "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf")),
@@ -1121,7 +1432,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     # device times where they were taken (the SpMM kernels), None elsewhere
     extra_keys = ("device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
-                  "err_vs_f64", "plain_err_vs_f64", "mask_build_ms", "kernel_ms")
+                  "err_vs_f64", "plain_err_vs_f64", "err_over_split_bound", "mask_build_ms", "kernel_ms")
     emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})
                       for n in entry_paths]})
     stack.close()

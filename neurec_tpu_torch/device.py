@@ -2,6 +2,11 @@
 
 There is no silent fallback: an entry point called with ``device=None`` on
 a machine without a CUDA device raises instead of running on the CPU.
+
+The card set-up: a CUDA device resolved here runs f32 products in full
+f32. TF32 is off for cuBLAS and for cuDNN (which PyTorch lets take TF32 by
+default), so no f32 matmul or convolution of the port runs as one TF32
+pass, whichever entry point reached the card.
 """
 
 from __future__ import annotations
@@ -27,4 +32,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r (cuda or cpu)" % (device,))
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -68,6 +68,12 @@ class Recommender:
         )
 
 
+def chunks(n: int, size: int):
+    """``slice``s of at most ``size`` covering ``range(n)`` (the item or user
+    chunks of a full-catalogue ``predict``)."""
+    return [slice(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
 _REGISTRY: Dict[str, Type[Recommender]] = {}
 
 _FAMILIES = ("general",)

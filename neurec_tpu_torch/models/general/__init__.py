@@ -1,1 +1,13 @@
-from neurec_tpu_torch.models.general import lightgcn, mf, ngcf  # noqa: F401  (registers LightGCN, MF, NGCF)
+from neurec_tpu_torch.models.general import (  # noqa: F401  (registers each model)
+    apr,
+    convncf,
+    deepicf,
+    dmf,
+    fism,
+    lightgcn,
+    mf,
+    mlp,
+    nais,
+    neumf,
+    ngcf,
+)

@@ -1,0 +1,93 @@
+"""DeepICF — deep item-based CF (Xue et al., IJCAI 2018): NAIS attention and
+a deep MLP over the attended interaction vector.
+
+Port of ``neurec_tpu/models/general/deepicf.py`` (model/general_recommender/
+DeepICF.py:100-175):
+
+* the attended p (NAIS attention, beta-smoothed), scaled by n^alpha;
+* a deep tower over p * q_i: dense + optional batch norm + relu per layer,
+  a scalar output + the item bias, sigmoid -> probability;
+* loss = log loss (mean over the weights) + lambda * l2(Q) + gamma *
+  l2(Q_set) + eta * l2(W), over the FULL tables (DeepICF.py:172-175);
+* pointwise FISM feeds only; a FISM ``pretrain_file`` warm-starts Q_set, Q
+  and bias (NAIS's path; the reference's broken two-pickle leg is not kept).
+
+Mirrored deviation: batch norm uses the statistics of the call (the
+reference keeps moving averages for inference): over all leading axes, so
+over the batch in ``loss`` and over one user's whole catalogue in
+``predict``, which runs one user at a time (``lax.map`` in the JAX
+package) and so never mixes users' statistics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neurec_tpu_torch.models.base import register
+from neurec_tpu_torch.models.general.nais import NAIS
+from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.ops.losses import l2_loss
+
+
+@register("DeepICF")
+class DeepICF(NAIS):
+    def __init__(self, dataset, config, device=None):
+        super().__init__(dataset, config, device)
+        self.n_hidden = list(config.get("layers", [64, 32, 16]))
+        self.use_batch_norm = bool(config.get("batch_norm", False))
+        self.is_pairwise = False
+        self.data_kind = "pointwise"
+
+    def init_params(self, generator: torch.Generator):
+        params = super().init_params(generator)
+        w_init = get_initializer(self.weight_init_method, self.stddev)
+        normal = get_initializer("normal", 1.0)
+        dims = [self.embedding_size] + self.n_hidden
+        params["deep_w"], params["deep_b"], params["bn"] = [], [], []
+        for i, n in enumerate(self.n_hidden):
+            params["deep_w"].append(w_init(generator, (dims[i], dims[i + 1])).to(self.device))
+            params["deep_b"].append(normal(generator, (n,)).to(self.device))
+            params["bn"].append({"gamma": torch.ones((n,), device=self.device),
+                                 "beta": torch.zeros((n,), device=self.device)})
+        params["out_w"] = w_init(generator, (self.n_hidden[-1], 1)).to(self.device)
+        params["out_b"] = normal(generator, (1,)).to(self.device)
+        return params
+
+    def _tower(self, params, x):
+        """x (..., d) -> (...,) through dense + batch norm + relu layers."""
+        for i in range(len(self.n_hidden)):
+            x = x @ params["deep_w"][i] + params["deep_b"][i]
+            if self.use_batch_norm:
+                axes = tuple(range(x.ndim - 1))
+                mean = torch.mean(x, dim=axes, keepdim=True)
+                var = torch.var(x, dim=axes, keepdim=True, correction=0)
+                x = params["bn"][i]["gamma"] * (x - mean) * torch.rsqrt(var + 1e-3) + params["bn"][i]["beta"]
+            x = torch.relu(x)
+        return (x @ params["out_w"] + params["out_b"])[..., 0]
+
+    def _prob(self, params, p_scaled, q, items):
+        return torch.sigmoid(self._tower(params, p_scaled * q) + params["bias"][items])
+
+    def loss(self, params, batch, weights):
+        items, labels = batch["items"], batch["labels"]
+        p, n, _, q = self._attended(params, batch["users"], items, labels)
+        coeff = torch.pow(torch.clamp(torch.where(labels > 0, n, n + 1.0), min=1.0), self.alpha)[:, None]
+        prob = torch.clamp(self._prob(params, coeff * p, q, items), 1e-7, 1 - 1e-7)
+        ce = -(labels * torch.log(prob) + (1 - labels) * torch.log(1 - prob))
+        denom = torch.clamp(torch.sum(weights), min=1.0)
+        return torch.sum(ce * weights) / denom + (
+            self.lambda_bilinear * l2_loss(params["Q"])
+            + self.gamma_bilinear * l2_loss(params["Q_set"])
+            + self.eta_bilinear * l2_loss(params["W"]))
+
+    def predict(self, params, users):
+        set_table = self._set_table(params)
+        Q = params["Q"]
+        all_items = torch.arange(self.num_items, device=Q.device)
+        out = []
+        for row, n in self._user_rows(users):
+            p = self._attend_catalogue(params, set_table, row)
+            coeff = torch.pow(torch.clamp(n, min=1.0), self.alpha)
+            # the tower's batch norm reduces over this user's catalogue only
+            out.append(self._prob(params, coeff * p, Q, all_items))
+        return torch.stack(out)

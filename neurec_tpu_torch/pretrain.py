@@ -1,17 +1,25 @@
-"""Pretrain pickles for a model's warm start (port of the loading half of
-``neurec_tpu/pretrain.py``).
+"""Pretrain pickles for the warm starts (port of ``neurec_tpu/pretrain.py``).
 
 A pretrain file is a pickle of a list of numpy arrays in the consumer's
-layout (NGCF's ``pretrain_file``: ``[user_emb, item_emb]``, the MF layout
-``neurec_tpu.pretrain.save_pretrain`` writes). The outcome is logged as the
-reference does ("load pretrained params successful!/unsuccessful!").
+layout. ``save_pretrain`` writes it from a producing model's params,
+keyed by that model's param names (``_LAYOUTS``); ``try_load`` reads it
+for the consumer and logs the outcome as the reference does ("load
+pretrained params successful!/unsuccessful!"). The files are the JAX
+package's: either package reads what the other writes, to the same arrays.
+
+    save_pretrain("MF", trainer.params, "pretrained/gowalla_mf.pkl")
+    # then: python -m neurec_tpu_torch.run --recommender=NeuMF --mf_pretrain=...
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 import sys
+
+import numpy as np
+import torch
 
 log = logging.getLogger("neurec_tpu_torch.pretrain")
 if not log.handlers:
@@ -20,6 +28,46 @@ if not log.handlers:
     log.addHandler(_handler)
     log.setLevel(logging.INFO)
     log.propagate = False
+
+# model name -> param keys pickled, in the order the consumer indexes them
+_LAYOUTS = {
+    # NeuMF.mf_pretrain / ConvNCF.mf_pretrain / NGCF.pretrain_file
+    "MF": ("user_emb", "item_emb"),
+    "GMF": ("user_emb", "item_emb"),
+    # NeuMF.mlp_pretrain
+    "MLP": ("mlp_user", "mlp_item"),
+    # NAIS.pretrain_file / DeepICF.pretrain_file ([c1, embedding_Q, bias])
+    "FISM": ("Q_set", "Q", "bias"),
+    # IRGAN.pretrain_file (generator [user_emb, item_emb, bias])
+    "IRGAN": ("gen.user_emb", "gen.item_emb", "gen.item_bias"),
+}
+
+
+def _resolve(params, dotted: str):
+    node = params
+    for part in dotted.split("."):
+        node = node[part]
+    return node
+
+
+def _as_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def save_pretrain(model_name: str, params: dict, path: str) -> None:
+    """Pickle the warm-start arrays of ``model_name`` in consumer layout."""
+    try:
+        keys = _LAYOUTS[model_name]
+    except KeyError:
+        raise ValueError(
+            "no pretrain layout for %r (have: %s)" % (model_name, ", ".join(sorted(_LAYOUTS)))
+        ) from None
+    payload = [_as_numpy(_resolve(params, k)) for k in keys]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as fout:
+        pickle.dump(payload, fout)
 
 
 def load_pretrain(path: str):
@@ -44,3 +92,8 @@ def try_load(*paths):
         return None
     log.info("load pretrained params successful! (%s)" % ", ".join(paths))
     return out
+
+
+def as_tensor(array, device) -> torch.Tensor:
+    """A loaded array as an f32 tensor on ``device``, a copy."""
+    return torch.tensor(np.asarray(array), dtype=torch.float32, device=device)

@@ -9,10 +9,13 @@ epoch is a Python loop of eager steps on the model's device, in two parts:
   fresh negative per slot from the exclusion sampler (``ops/sampling.py``),
   and last one seed per step for what a model draws inside its loss
   (NGCF's dropout);
-* ``run_epoch(params, opt_state, inst, w, negs, seeds)`` takes the steps:
-  loss, backward, optimizer step; the epoch loss is sum(step losses) /
-  steps. Step ``s`` gets a device generator seeded with ``seeds[s]`` as
-  ``batch["generator"]``.
+* ``run_epoch(params, opt_state, inst, w, negs, seeds, epoch)`` takes the
+  steps: loss, backward, optimizer step; the epoch loss is sum(step
+  losses) / steps. Step ``s`` gets a device generator seeded with
+  ``seeds[s]`` as ``batch["generator"]`` (NGCF's and ConvNCF's dropout,
+  APR's random perturbation) and the epoch number as ``batch["epoch"]``
+  (APR's ``adv_epoch`` switch), as the JAX package's steps get ``rng`` and
+  ``epoch``.
 
 A test can therefore hand both packages the same draws. Epoch semantics
 are the JAX package's (pairwise: every train positive once per epoch with
@@ -20,6 +23,10 @@ one negative; pointwise: ``1 + num_negatives`` instances per positive,
 instance ``i`` being positive ``i % N`` and labelled 1 when ``i < N``). The
 log lines ("[iter %d : loss : %f, time: %f]", "epoch %d:\\t<results>") and
 the ``.metrics.jsonl`` records are kept.
+
+The optimizer is the configured learner's, or the model's own where it
+defines ``make_optimizer`` (ConvNCF's two Adagrads) or ``init_opt_state``,
+as in the JAX trainer: ``Trainer.init_opt_state(params)`` builds it.
 
 Random streams: parameters are drawn from a generator seeded with
 ``seed``, epoch ``e`` from one seeded with ``(seed + 1, e)``. They are
@@ -37,7 +44,7 @@ from __future__ import annotations
 import json
 import time
 from functools import partial
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Union
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,7 +60,7 @@ from neurec_tpu_torch.ops.sampling import sample_negatives
 # sampler to its pair Bloom filter, which the port does not have yet
 _EXCL_TABLE_BUDGET = 64 * 1024 * 1024
 
-Params = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
+Params = Dict[str, object]  # a tree of dicts and lists of tensors (bridge.py)
 
 
 class EpochDraws(NamedTuple):
@@ -233,7 +240,12 @@ class Trainer:
         self.seed = seed
         self.logger = logger or run_logger(config, dataset.dataset_name)
         self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device)
-        self.tx = make_optimizer(model.learner, model.learning_rate)
+        # the optimizer factory: over the tensors of params (the learner's),
+        # or over params itself (a model's make_optimizer); see init_opt_state
+        if hasattr(model, "make_optimizer"):
+            self.tx = model.make_optimizer()
+        else:
+            self.tx = make_optimizer(model.learner, model.learning_rate)
 
         users, pos = _flat_interactions(dataset.get_user_train_dict())
         self._users_flat = torch.from_numpy(users).long().to(self.device)
@@ -285,18 +297,21 @@ class Trainer:
         is_pos = inst < self.n_positives
         return {"users": users, "items": torch.where(is_pos, pos, negs), "labels": is_pos.to(torch.float32)}
 
-    def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs, seeds=None):
+    def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs, seeds=None,
+                  epoch: int = 1):
         """One step per row of ``inst`` / ``w`` / ``negs``; returns
         ``(params, opt_state, mean step loss)``. ``opt_state`` is the
         optimizer over the tensors of ``params``, which it updates in place.
         With ``seeds``, step ``s`` hands the model a ``torch.Generator`` on
         the device seeded with ``seeds[s]``, as ``batch["generator"]`` (the
         JAX package's per-step ``batch["rng"]``); without, the batch has
-        none and a model draws nothing (no dropout)."""
+        none and a model draws nothing (no dropout). Every batch carries
+        ``epoch`` (1-based) as ``batch["epoch"]``."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         step_gen = None if seeds is None else torch.Generator(device=self.device)
         for s in range(inst.shape[0]):
             batch = self._batch(inst[s], negs[s])
+            batch["epoch"] = epoch
             if step_gen is not None:
                 batch["generator"] = step_gen.manual_seed(int(seeds[s]))
             opt_state.zero_grad(set_to_none=True)
@@ -310,7 +325,18 @@ class Trainer:
     def initialize(self):
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.params = map_params(lambda v: v.detach().requires_grad_(True), self.model.init_params(generator))
-        self.opt_state = self.tx([p for _, p in param_leaves(self.params)])
+        self.opt_state = self.init_opt_state(self.params)
+
+    def init_opt_state(self, params: Params) -> torch.optim.Optimizer:
+        """A fresh optimizer over the tensors of ``params``: the model's
+        ``init_opt_state(params)``, else ``make_optimizer()``'s factory
+        applied to ``params``, else the configured learner's over its leaves
+        (``neurec_tpu/trainer.py:133-136,486-487``)."""
+        if hasattr(self.model, "init_opt_state"):
+            return self.model.init_opt_state(params)
+        if hasattr(self.model, "make_optimizer"):
+            return self.tx(params)
+        return self.tx([p for _, p in param_leaves(params)])
 
     def train(self) -> str:
         if self.params is None:
@@ -328,7 +354,7 @@ class Trainer:
         for epoch in range(1, model.epochs + 1):
             t0 = time.time()
             draws = self.draw_epoch(self.epoch_generator(epoch))
-            self.params, self.opt_state, loss = self.run_epoch(self.params, self.opt_state, *draws)
+            self.params, self.opt_state, loss = self.run_epoch(self.params, self.opt_state, *draws, epoch=epoch)
             loss = float(loss)
             elapsed = time.time() - t0
             self.logger.info("[iter %d : loss : %f, time: %f]" % (epoch, loss, elapsed))

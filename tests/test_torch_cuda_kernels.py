@@ -362,3 +362,40 @@ def test_dma_rate_kernel_writes_the_plain_versions_rows(cuda, mode, rows):
     for n_dma in (1, 4999, 12345):
         got = dma_rate.dma_copies(offs, n_dma, rows, mode, dma_rate.new_buffer(cuda))
         assert torch.equal(got, dma_rate.dma_copies_reference(offs, n_dma, rows))
+
+
+@pytest.mark.parametrize("d", [17, 64])
+def test_masked_scores_kernel_at_the_factorized_models_widths(cuda, d):
+    """K1 at the evaluation shape of FISM (d 17: 16 factors and the folded
+    item bias, the cp.async path) and APR (d 64, the TMA path), bits and
+    int8 masks, against its plain version."""
+    B, I = 2048, 38546
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(21 + d, B, I, d, 64))
+    _check_both_modes(u, items, rows)
+
+
+def _stable_sort_topk(x, k):
+    values, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[:, :k], ids[:, :k]
+
+
+@pytest.mark.parametrize("k", [1, 20, 700])
+def test_top_k_on_the_card_matches_the_stable_sort(cuda, k):
+    """``top_k`` (``torch.topk`` and a tie fix-up) gives the stable sort's
+    ids and values at the evaluation shape: masked -inf items, rows with
+    ties forced across the K-th place, rows of one value."""
+    from neurec_tpu_torch.ops.topk import top_k
+
+    g = torch.Generator(device=cuda).manual_seed(k)
+    B, I = 2048, 38546
+    x = torch.randn(B, I, generator=g, device=cuda)
+    x[torch.rand(B, I, generator=g, device=cuda) < 0.01] = float("-inf")
+    kth = torch.sort(x[:64], dim=-1, descending=True)[0][:, k - 1 : k]
+    x[:64] = torch.where((x[:64] - kth).abs() < 0.05, kth, x[:64])  # ties across the K-th place
+    x[64:72] = 0.5
+    x[72:80] = float("-inf")
+    x[80:88] = torch.randint(0, 3, (8, I), generator=g, device=cuda).float()
+    got_v, got_i = top_k(x, k)
+    want_v, want_i = _stable_sort_topk(x, k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v, want_v)
