@@ -20,7 +20,9 @@ failure exits non-zero before the result line):
    also carry its device time, its tensor-core bound (three TF32 products,
    or the bytes) beside the f32 bound (``bound_f32_ms``), its largest error
    scaled by |u_b| |item_i| and each side's distance from the f64 product
-   (the kernel's may be no larger); the int8 row's library call builds its
+   (the kernel's may be no larger), and the time of cuBLAS's product alone,
+   without the mask (``matmul_ms``, ``matmul_device_ms``); the int8 row's
+   library call builds its
    mask from the train rows as K1 does, and the record splits K1's mask
    build (``mask_build_ms``) from its launch (``kernel_ms``). K1 also runs
    at a ragged d and at a bit-plane width whose tiles straddle two planes
@@ -30,7 +32,11 @@ failure exits non-zero before the result line):
    kernel), which a back-to-back loop paced by the host does not show,
    and the host's time to issue a call (``host_ms``);
    ``schedule_bytes`` and ``scratch_bytes`` are what the kernels move
-   beyond the bound's bytes. Before them,
+   beyond the bound's bytes. K1 takes f32 FMAs up to d = 40 and the 3xTF32
+   split above (``path``): on the f32 path each score must lie within
+   d 2^-24 sum |u_k i_k| of the f64 product (``err_over_f32_bound`` <= 1),
+   and its bound is the bytes or the f32 FMAs. K1 also runs at d 40 on randn
+   factors (``masked_scores[d40]``, the f32 path's edge, on no path). Before them,
    the skew of each plan (``phase: skew``: its tiles, the heaviest tile's
    and the heaviest warp's edges under a row-tile split with 16 warps
    owning ``row % 16``, and the spans of the edge-balanced schedule that
@@ -112,15 +118,37 @@ failure exits non-zero before the result line):
    pickle, ConvNCF from an MF's at embedding 64; they and DMF evaluate the
    first ``ZOO_EVAL_USERS`` test users;
 15. ``run.main`` (``python -m neurec_tpu_torch.run``) on the card for each
-   model of paths C and D (``RUN_MODELS``): one epoch and an evaluation at
-   its ``conf/*.properties`` widths on a rating file made from the seed
-   (``RUN_USERS`` x ``RUN_ITEMS``, under ``build/run_main``).
+   model of paths C to F (``RUN_MODELS``): one epoch (Pop and ItemKNN: none)
+   and an evaluation at its ``conf/*.properties`` widths on a rating file
+   made from the seed (``RUN_USERS`` x ``RUN_ITEMS``, under
+   ``build/run_main``);
+16. path E, the rest of the general zoo at their ``conf/*.properties``
+   widths on the same split, each through ``Trainer``: Pop and ItemKNN
+   evaluate only, WRMF takes 2 ALS epochs, MultiDAE, MultiVAE, DAE, CDAE,
+   JCA, CFGAN and IRGAN the first ``ZOO_STEPS`` steps of an epoch (IRGAN's
+   generator warm-started from an MF at 20 factors, written by
+   ``save_pretrain`` in IRGAN's layout). The models K1 ranks (Pop at d 1,
+   MultiDAE and MultiVAE at 33, CDAE at 65, WRMF at 16, IRGAN at 21)
+   evaluate all test users with one K1 launch a batch, again through K1's
+   plain version (metrics within 1e-5), and give K1's record at their
+   width; ItemKNN, DAE, CFGAN (all users) and JCA (``ZOO_EVAL_USERS``) rank
+   on the bits predict tier with no K1 launch. It fails on a non-finite
+   loss, WRMF's epoch-2 loss not below epoch 1's, Pop's or WRMF's Recall@20
+   not above phase 4's random weights', or IRGAN's warm start not logged;
+17. path F, SpectralCF at its ``conf`` widths (embedding 100, 2 layers,
+   BPR, batch 256) on a rating set made from the seed at ml-100k's shape
+   (``ML_USERS`` x ``ML_ITEMS``, ``ML_RATINGS``, ratio 0.8 split, under
+   ``build/ml100k_seeded``): ``ZOO_STEPS`` steps, a full evaluation through
+   K1 at d 300 (one launch) and through K1's plain version (within 1e-5),
+   and K1's record at that shape.
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
 NeuMF 300 (an epoch is 3,670); path D trains 20-100 steps of its models'
 first epochs, and NAIS, DeepICF (1,024 users), ConvNCF (32) and DMF
-(2,048) evaluate a subset of the 14,821 test users.
+(2,048) evaluate a subset of the 14,821 test users; path E trains 59-200
+steps (WRMF 2 of its 300 epochs) and JCA evaluates 2,048 users; path F
+trains 100 of 315 steps of one epoch of its 300.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -156,6 +184,9 @@ K1_TF32_PRODUCTS = 3
 # lo * lo: each term of a score is off by at most 3 * 2^-22 of |u_k i_k|,
 # and K1 adds the d terms in f32 (d * 2^-24 of sum |u_k i_k|)
 K1_SPLIT_REL = 3 * 2.0 ** -22
+# K1's f32 path (d <= 40): one fmaf chain a score, within d * 2^-24 of
+# sum |u_k i_k| of the exact product
+K1_F32_REL = 2.0 ** -24
 
 SEED = 2024
 EVAL_USERS_PER_BATCH = 2048
@@ -242,12 +273,41 @@ CHUNK_CHECK_USERS = 8
 # of its first epoch; NAIS, DeepICF, ConvNCF and DMF evaluate the first
 # ZOO_EVAL_USERS test users (their predict is per pair or per user: ConvNCF
 # ~3 MFLOP a pair, NAIS ~49 TFLOP of attention for all 14,821 users)
-ZOO_STEPS = {"APR": 50, "FISM": 100, "NAIS": 30, "DeepICF": 30, "MF": 50, "ConvNCF": 20, "DMF": 20}
-ZOO_EVAL_USERS = {"NAIS": 1024, "DeepICF": 1024, "ConvNCF": 32, "DMF": 2048}
-# the run entry point for each model of paths C and D, one epoch at its
+# path E: the rest of the general zoo at their conf/*.properties, a few steps
+# each (None: the whole epoch; each pass of a custom epoch is cut alike:
+# CFGAN's D and G sub-epochs, IRGAN's D batches and G users); WRMF takes 2
+# whole ALS epochs, Pop and ItemKNN train nothing; JCA evaluates the first
+# 2,048 test users (its predict runs the (I, U) item decoder every batch)
+ZOO_STEPS = {"APR": 50, "FISM": 100, "NAIS": 30, "DeepICF": 30, "MF": 50, "ConvNCF": 20, "DMF": 20,
+             "MultiDAE": 59, "MultiVAE": 59, "DAE": 117, "CDAE": 100, "JCA": 100, "CFGAN": 100, "IRGAN": 200,
+             "SpectralCF": 100}
+ZOO_EVAL_USERS = {"NAIS": 1024, "DeepICF": 1024, "ConvNCF": 32, "DMF": 2048, "JCA": 2048}
+# (model, K1 record at its width, epochs) of the path-E models K1 ranks; the
+# others rank on the bits predict tier
+E_FACTORIZED = (("Pop", "masked_scores[d1]", 1), ("MultiDAE", "masked_scores[d33]", 1), ("MultiVAE", None, 1),
+                ("CDAE", "masked_scores[d65]", 1), ("WRMF", "masked_scores[d16]", 2),
+                ("IRGAN", "masked_scores[d21]", 1))
+E_PREDICT = ("ItemKNN", "DAE", "JCA", "CFGAN")
+# IRGAN's generator warm-starts from an MF at its conf's 20 factors
+IRGAN_FACTORS = 20
+# K1's f32 path at its widest d, on randn factors: a record on no path
+K1_EDGE_D = 40
+# path F: a rating set at ml-100k's published shape (GroupLens MovieLens 100K:
+# 943 users, 1,682 items, 100,000 ratings), made from the seed; gowalla's
+# 68,404 nodes are past SpectralCF's 20,000-node eigendecomposition guard
+ML_USERS, ML_ITEMS, ML_RATINGS = 943, 1682, 100_000
+ML_DIR = os.path.join(REPO, "build", "ml100k_seeded")
+ML_ARGS = [
+    "--config_dir=%s" % os.path.join(REPO, "conf"), "--data.input.path=%s" % ML_DIR,
+    "--data.cache.path=%s" % ML_DIR, "--data.input.dataset=ml100k_seeded", "--data.column.format=UIR",
+    "--data.convert.separator=','", "--splitter=ratio", "--ratio=0.8", "--by_time=False", "--topk=[20]",
+    "--metric=[\"Recall\",\"NDCG\"]", "--test_batch_size=%d" % EVAL_USERS_PER_BATCH,
+]
+# the run entry point for each model of paths C to F, one epoch at its
 # conf/*.properties widths on a rating file made from the seed (an epoch of
 # gowalla is 3,670 steps for the pointwise models)
-RUN_MODELS = ("MLP", "NeuMF", "APR", "FISM", "NAIS", "DeepICF", "DMF", "ConvNCF")
+RUN_MODELS = ("MLP", "NeuMF", "APR", "FISM", "NAIS", "DeepICF", "DMF", "ConvNCF", "Pop", "ItemKNN", "MultiDAE",
+              "MultiVAE", "DAE", "CDAE", "SpectralCF", "WRMF", "JCA", "CFGAN", "IRGAN")
 RUN_USERS, RUN_ITEMS = 300, 400
 
 # 2-epoch losses and Recall@20 recorded in PERF.md with the kernels whose
@@ -351,29 +411,39 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bounds(n_bytes: float, n_flops: float):
-    """K1's bound on the tensor cores (three TF32 products, or the bytes),
-    and beside it the f32 bound of the earlier design."""
-    ms, by = bound_ms(n_bytes, K1_TF32_PRODUCTS * n_flops, PEAK_TF32_FLOPS)
-    return {"bound_ms": ms, "bound_by": by, "bound_f32_ms": bound_ms(n_bytes, n_flops)[0]}
+def k1_bounds(k1, n_bytes: float, n_flops: float, d: int):
+    """K1's bound for the path width ``d`` takes: the bytes or the f32
+    FMAs (f32 path), the bytes or three TF32 products on the tensor cores
+    (split path); beside it the f32 bound."""
+    f32 = bound_ms(n_bytes, n_flops)
+    if k1.k1_path(d) == "fma":
+        ms, by = f32
+    else:
+        ms, by = bound_ms(n_bytes, K1_TF32_PRODUCTS * n_flops, PEAK_TF32_FLOPS)
+    return {"path": k1.k1_path(d), "bound_ms": ms, "bound_by": by, "bound_f32_ms": f32[0]}
 
 
 def k1_errors(torch, got, u, items):
     """K1's error beside its plain version: the largest difference scaled
     by |u_b| |item_i|, the largest distance of each from the f64 product
-    (finite entries), and K1's distance from it over the split's error
-    bound, (K1_SPLIT_REL + d 2^-24) sum_k |u_bk i_ik| (at most 1)."""
+    (finite entries), and K1's distance from it over the f32 path's bound,
+    d 2^-24 sum_k |u_bk i_ik|, and over the split's, (K1_SPLIT_REL +
+    d 2^-24) sum_k |u_bk i_ik| (at most 1 on the path that ran)."""
     want = u @ items.T
     exact = u.double() @ items.double().T
     finite = torch.isfinite(got)
     scale = u.norm(dim=1)[:, None] * items.norm(dim=1)[None, :]
     scaled = ((got - want).abs() / scale.clamp_min(1e-30))[finite]
-    bound = (K1_SPLIT_REL + u.shape[1] * 2.0 ** -24) * (u.double().abs() @ items.double().abs().T)
+    abs_sum = u.double().abs() @ items.double().abs().T
+    err = (got.double() - exact).abs()
+    d = u.shape[1]
     out = {"max_scaled_err": float(scaled.max()) if scaled.numel() else 0.0,
-           "err_vs_f64": float((got.double() - exact)[finite].abs().max()),
+           "err_vs_f64": float(err[finite].max()),
            "plain_err_vs_f64": float((want.double() - exact)[finite].abs().max()),
-           "err_over_split_bound": float(((got.double() - exact).abs() / bound.clamp_min(1e-300))[finite].max())}
-    del exact, bound
+           "err_over_f32_bound": float((err / (d * K1_F32_REL * abs_sum).clamp_min(1e-300))[finite].max()),
+           "err_over_split_bound": float(
+               (err / ((K1_SPLIT_REL + d * K1_F32_REL) * abs_sum).clamp_min(1e-300))[finite].max())}
+    del exact, abs_sum, err
     return out
 
 
@@ -686,21 +756,32 @@ def main() -> int:
         profiler, errors scaled and against f64, the same bits twice."""
         n_flops = 2.0 * uu.shape[0] * items.shape[0] * uu.shape[1]
         rec = check(name, "neurec_tpu_torch/csrc/masked_scores.cu", "neurec_tpu/ops/pallas_kernels.py:37",
-                    run_fn, plain, library, n_bytes, n_flops, dict(extra, **k1_bounds(n_bytes, n_flops)))
+                    run_fn, plain, library, n_bytes, n_flops, dict(extra, **k1_bounds(k1, n_bytes, n_flops,
+                                                                                   uu.shape[1])))
         got = run_fn()
         rec.update(k1_errors(torch, got, uu, items))
         rec["device_ms"], rec["device_ms_by_kernel"] = device_ms(torch, run_fn)
         rec["library_device_ms"] = device_ms(torch, library)[0]
+        # cuBLAS's product alone, no mask: less work than K1's function
+        product = lambda: torch.matmul(uu, items.T)  # noqa: E731
+        rec["matmul_ms"] = time_ms(torch, product, iters=20, warmup=10)
+        rec["matmul_device_ms"] = device_ms(torch, product)[0]
         emit({"phase": "kernel_device", "name": name, **{k: rec.get(k) for k in (
-            "ms", "device_ms", "device_ms_by_kernel", "library_ms", "library_device_ms", "max_scaled_err",
-            "err_vs_f64", "plain_err_vs_f64", "err_over_split_bound", "mask_build_ms", "kernel_ms")}})
+            "path", "ms", "device_ms", "device_ms_by_kernel", "library_ms", "library_device_ms", "matmul_ms",
+            "matmul_device_ms", "max_scaled_err",
+            "err_vs_f64", "plain_err_vs_f64", "err_over_f32_bound", "err_over_split_bound", "mask_build_ms",
+            "kernel_ms")}})
         require(torch.equal(got, run_fn()), "%s is not deterministic" % name)
-        # no farther from the f64 product than the plain f32 product (d 64,
-        # 256), or, where f32's own error is smaller than the split's (FISM's
-        # d 17), within the split's bound
-        require(rec["err_vs_f64"] <= rec["plain_err_vs_f64"] or rec["max_abs_err"] == 0.0
-                or rec["err_over_split_bound"] <= 1.0,
-                "%s is farther from the f64 product than its plain version and its split's bound" % name)
+        if rec["path"] == "fma":
+            # f32 FMAs: every score within d 2^-24 sum |u_k i_k| of the f64 product
+            require(rec["err_over_f32_bound"] <= 1.0,
+                    "%s is %g of the f32 bound from the f64 product" % (name, rec["err_over_f32_bound"]))
+        else:
+            # the split: no farther from the f64 product than the plain f32
+            # product (d 64, 256), or within the split's own bound
+            require(rec["err_vs_f64"] <= rec["plain_err_vs_f64"] or rec["max_abs_err"] == 0.0
+                    or rec["err_over_split_bound"] <= 1.0,
+                    "%s is farther from the f64 product than its plain version and its split's bound" % name)
         return rec
 
     k1_check(
@@ -744,10 +825,23 @@ def main() -> int:
               "width": w_c, "plane_bytes": w_c // 8, "max_abs_err": {"bits": err_c, "int8": err8_c},
               "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
               "same_bits_twice": bool(torch.equal(got_c, k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))),
-              "path": "cp.async", "ms": time_ms(torch, lambda: k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))})
+              "path": "f32" if k1.k1_path(d_c) == "fma" else "split, cp.async",
+              "ms": time_ms(torch, lambda: k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))})
         require(ok_c and ok8_c, "K1 %s disagrees with its plain version: %g, %g" % (case, err_c, err8_c))
         require(torch.equal(got_c, k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I)),
                 "K1 %s is not deterministic" % case)
+    # K1 at the f32 path's widest d, 40, on randn factors: a width no model
+    # of the repo evaluates at (a record on no path)
+    rng_40 = np.random.RandomState(SEED + 4)
+    u_40, i_40 = (torch.from_numpy(rng_40.standard_normal((n, K1_EDGE_D)).astype(np.float32)).cuda()
+                  for n in (B, I))
+    k1_check("masked_scores[d40]", lambda: k1.masked_scores_bits(u_40, i_40, bits, width, I),
+             lambda: k1.masked_scores_bits_reference(u_40, i_40, bits, width, I),
+             lambda: torch.where(mask8 != 0, float("-inf"), torch.matmul(u_40, i_40.T)),
+             (B + I) * K1_EDGE_D * 4 + bits.numel() + out_bytes, u_40, i_40,
+             {"mode": "bits", "shape": [B, I, K1_EDGE_D], "factors": "randn",
+              "library_call": "matmul + where on a prebuilt int8 mask"})
+    del u_40, i_40
     csr = adjacency_csr(torch, np, sp, model.adj)
     csr_t = adjacency_csr(torch, np, sp, model.adj, transpose=True)
     plan_skew(torch, k2, "pre", model.adj.plan)
@@ -1237,28 +1331,34 @@ def main() -> int:
     pre_dir = os.path.join(REPO, "build", "pretrained")
     eval_users = evaluator.evaluator.test_users
 
-    def zoo_trainer(name, args, steps):
+    def zoo_trainer(name, args, steps, epochs=1, data=None):
         """A model at conf/<name>.properties (and ``args``) through Trainer:
-        initialized, then the first ``steps`` steps of its first epoch."""
+        initialized, then ``epochs`` epochs cut to their first ``steps``
+        steps (a custom epoch: each of its passes; ``None``: whole). A
+        ``none`` model trains nothing."""
+        data = data or dataset
         conf_z = Config(PROPS, cmd_args=["--recommender=%s" % name] + DATA_ARGS + args)
-        trainer_z = Trainer(get_model(name)(dataset, conf_z), dataset, conf_z)
+        trainer_z = Trainer(get_model(name)(data, conf_z), data, conf_z)
         trainer_z.initialize()
-        draws_z = trainer_z.draw_epoch(trainer_z.epoch_generator(1))
+        kind = trainer_z.model.data_kind
+        losses = []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        trainer_z.params, trainer_z.opt_state, loss_z = trainer_z.run_epoch(
-            trainer_z.params, trainer_z.opt_state, *(a[:steps] for a in draws_z), epoch=1)
-        loss_z = float(loss_z)
+        for epoch in range(1, epochs + 1 if kind != "none" else 1):
+            trainer_z.params, trainer_z.opt_state, loss_z = trainer_z.train_epoch(epoch, max_steps=steps)
+            losses.append(float(loss_z))
+        torch.cuda.synchronize()
         train_z_s = time.perf_counter() - t
-        require(np.isfinite(loss_z), "%s: non-finite loss %g" % (name, loss_z))
-        return trainer_z, {"model": name, "steps": steps, "steps_per_epoch": trainer_z.steps,
-                           "batch_size": trainer_z.model.batch_size, "loss": loss_z, "train_s": train_z_s,
-                           "ms_per_step": 1e3 * train_z_s / steps}
+        require(all(np.isfinite(losses)), "%s: non-finite loss %s" % (name, losses))
+        return trainer_z, {"model": name, "data_kind": kind, "steps": steps, "epochs": len(losses),
+                           "steps_per_epoch": trainer_z.steps, "batch_size": trainer_z.model.batch_size,
+                           "loss": losses[-1] if losses else None, "epoch_losses": losses, "train_s": train_z_s,
+                           "ms_per_step": 1e3 * train_z_s / steps / len(losses) if steps and losses else None}
 
     def zoo_eval(trainer_z, params_z, n_users=None):
         """``(result, seconds)`` of one evaluation of all test users, or of
         the first ``n_users``; fails on metrics outside [0, 1]."""
-        users_z = None if n_users is None else eval_users[:n_users]
+        users_z = None if n_users is None else trainer_z.evaluator.evaluator.test_users[:n_users]
         torch.cuda.synchronize()
         t = time.perf_counter()
         result_z = trainer_z.evaluator.evaluator.evaluate(trainer_z.model.predict, params_z, users_z)
@@ -1313,12 +1413,13 @@ def main() -> int:
     del trainer_c, chunked, whole
 
     # -- 14. path D: the other seven models on the same split -----------------
-    def factorized_path(name, record):
-        """APR and FISM: steps, a full evaluation with one K1 launch a batch,
-        again through K1's plain version (metrics within 1e-5), and K1 at
-        the model's own factors against its plain version."""
+    def factorized_path(name, record, args=(), epochs=1):
+        """A model K1 ranks (APR, FISM; path E's Pop, MultiDAE, MultiVAE,
+        CDAE, WRMF, IRGAN): steps, a full evaluation with one K1 launch a
+        batch, again through K1's plain version (metrics within 1e-5), and
+        K1 at the model's own factors against its plain version."""
         _build.reset_launches()
-        trainer_z, rec_z = zoo_trainer(name, [], ZOO_STEPS[name])
+        trainer_z, rec_z = zoo_trainer(name, list(args), ZOO_STEPS.get(name), epochs)
         result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params)
         paths[name.lower()] = dict(_build.LAUNCHES)
         n_batches = -(-n_eval // EVAL_USERS_PER_BATCH)
@@ -1343,15 +1444,15 @@ def main() -> int:
                      u_z.numel() * 4 + items_z.numel() * 4 + bits.numel() + out_bytes, u_z, items_z,
                      {"mode": "bits", "shape": [B, I, d_z], "model": name,
                       "library_call": "matmul + where on a prebuilt int8 mask"})
-        emit({"phase": name.lower(), **rec_z, "eval_width": d_z, "result": result_z, "eval_s": eval_z_s,
-              "eval_users_per_s": n_eval / eval_z_s, "plain_result": result_p, "metric_max_abs_diff": diff,
-              "k1_launches_per_batch": paths[name.lower()]["masked_scores"] / n_batches,
+        emit({"phase": name.lower(), **rec_z, "eval_width": d_z, "k1_path": k1.k1_path(d_z), "result": result_z,
+              "eval_s": eval_z_s, "eval_users_per_s": n_eval / eval_z_s, "plain_result": result_p,
+              "metric_max_abs_diff": diff, "k1_launches_per_batch": paths[name.lower()]["masked_scores"] / n_batches,
               "launches": paths[name.lower()]})
         require(diff <= 1e-5, "%s: metrics differ from K1's plain version by %g" % (name, diff))
-        return trainer_z
+        return trainer_z, rec_z, result_z
 
     factorized_path("APR", None)
-    trainer_f = factorized_path("FISM", "masked_scores[d17]")
+    trainer_f = factorized_path("FISM", "masked_scores[d17]")[0]
     require(trainer_f.model.embedding_size + 1 == records["masked_scores[d17]"]["shape"][2],
             "FISM evaluates at d %d" % records["masked_scores[d17]"]["shape"][2])
     fism_path = os.path.join(pre_dir, "gowalla_fism.pkl")
@@ -1375,7 +1476,86 @@ def main() -> int:
               **({"warm_start_from_mf": rec_mf64} if name == "ConvNCF" else {})})
         require(warm is None or warm_started(warm), "%s did not load %s" % (name, warm))
         del trainer_z
+
+    # -- 16. path E: the rest of the general zoo on the same split -------------
+    random_recall = metrics[0]  # phase 4: LightGCN with random weights
+    gen_path = os.path.join(pre_dir, "gowalla_irgan_gen.pkl")
+    trainer_mf, rec_mf20 = zoo_trainer("MF", ["--embedding_size=%d" % IRGAN_FACTORS], PRETRAIN_STEPS)
+    mf = trainer_mf.params
+    save_pretrain("IRGAN", {"gen": {"user_emb": mf["user_emb"], "item_emb": mf["item_emb"],
+                                    "item_bias": torch.zeros(I, device="cuda")}}, gen_path)
+    del trainer_mf, mf
+    zoo_e = {}
+    for name, record, epochs in E_FACTORIZED:
+        args = ["--pretrain_file=%s" % gen_path] if name == "IRGAN" else []
+        _, rec_z, result_z = factorized_path(name, record, args, epochs)
+        zoo_e[name] = (rec_z, parse_metrics(result_z))
+    wrmf_losses = zoo_e["WRMF"][0]["epoch_losses"]
+    require(len(wrmf_losses) == 2 and wrmf_losses[1] < wrmf_losses[0], "WRMF's ALS losses do not fall: %s"
+            % wrmf_losses)
+    for name in ("Pop", "WRMF"):
+        require(zoo_e[name][1][0] > random_recall, "%s's Recall@20 %g is not above random weights' %g"
+                % (name, zoo_e[name][1][0], random_recall))
+    require(warm_started(gen_path), "IRGAN did not load its generator pickle")
+    emit({"phase": "path_e_checks", "random_recall20": random_recall, "wrmf_epoch_losses": wrmf_losses,
+          "recall20": {k: v[1][0] for k, v in zoo_e.items()}, "irgan_warm_start": gen_path,
+          "irgan_generator_from_mf": rec_mf20})
+    for name in E_PREDICT:
+        _build.reset_launches()
+        trainer_z, rec_z = zoo_trainer(name, [], ZOO_STEPS.get(name))
+        n_z = ZOO_EVAL_USERS.get(name)
+        result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params, n_z)
+        paths[name.lower()] = dict(_build.LAUNCHES)
+        emit({"phase": name.lower(), **rec_z, "eval_users": n_z or n_eval, "result": result_z, "eval_s": eval_z_s,
+              "eval_users_per_s": (n_z or n_eval) / eval_z_s, "launches": paths[name.lower()]})
+        require(paths[name.lower()]["masked_scores"] == 0, "%s ranks on the predict tier, yet K1 ran" % name)
+        del trainer_z
     pretrain.log.removeHandler(said)
+
+    # -- 17. path F: SpectralCF at ml-100k's shape -----------------------------
+    os.makedirs(ML_DIR, exist_ok=True)
+    rng_m = np.random.RandomState(SEED)
+    cells = rng_m.choice(ML_USERS * ML_ITEMS, ML_RATINGS, replace=False)
+    with open(os.path.join(ML_DIR, "ml100k_seeded.rating"), "w") as fout:
+        fout.write("".join("%d,%d,%d\n" % (c // ML_ITEMS, c % ML_ITEMS, r)
+                           for c, r in zip(cells, rng_m.randint(1, 6, ML_RATINGS))))
+    t = time.perf_counter()
+    dataset_m = Dataset(Config(PROPS, cmd_args=["--recommender=SpectralCF"] + ML_ARGS))
+    require((dataset_m.num_users, dataset_m.num_items) == (ML_USERS, ML_ITEMS),
+            "path F: %d users, %d items" % (dataset_m.num_users, dataset_m.num_items))
+    trainer_m, rec_m = zoo_trainer("SpectralCF", [], ZOO_STEPS["SpectralCF"], data=dataset_m)
+    setup_m_s = time.perf_counter() - t - rec_m["train_s"]
+    ev_m = trainer_m.evaluator.evaluator
+    _build.reset_launches()
+    result_m, eval_m_s = zoo_eval(trainer_m, trainer_m.params)
+    paths["spectralcf"] = dict(_build.LAUNCHES)
+    n_batches_m = -(-len(ev_m.test_users) // EVAL_USERS_PER_BATCH)
+    require(paths["spectralcf"]["masked_scores"] == n_batches_m, "SpectralCF: %d K1 launches for %d eval batches"
+            % (paths["spectralcf"]["masked_scores"], n_batches_m))
+    with mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+        result_mp, _ = zoo_eval(trainer_m, trainer_m.params)
+    diff_m = max(abs(a - b) for a, b in zip(parse_metrics(result_m), parse_metrics(result_mp)))
+    # K1 at d 300 (the split) at path F's evaluation shape, on the trained tables
+    I_m = dataset_m.num_items
+    width_m = global_bits_width(I_m)
+    with torch.no_grad():
+        u_tab_m, i_tab_m = trainer_m.model.eval_tables(trainer_m.params)
+    u_m = u_tab_m[torch.from_numpy(ev_m.test_users).long().cuda()].contiguous()
+    bits_m = ev_m._get_bits_table(width_m, width_m)
+    mask8_m = k1.build_train_mask(torch.from_numpy(ev_m._host_rows(ev_m.test_users)).cuda(), I_m)
+    k1_check("masked_scores[d300]", lambda: k1.masked_scores_bits(u_m, i_tab_m, bits_m, width_m, I_m),
+             lambda: k1.masked_scores_bits_reference(u_m, i_tab_m, bits_m, width_m, I_m),
+             lambda: torch.where(mask8_m != 0, float("-inf"), torch.matmul(u_m, i_tab_m.T)),
+             (u_m.numel() + i_tab_m.numel()) * 4 + bits_m.numel() + u_m.shape[0] * I_m * 4, u_m, i_tab_m,
+             {"mode": "bits", "shape": [u_m.shape[0], I_m, u_m.shape[1]], "model": "SpectralCF",
+              "library_call": "matmul + where on a prebuilt int8 mask"})
+    emit({"phase": "spectralcf", **rec_m, "setup_s": setup_m_s, "num_users": ML_USERS, "num_items": ML_ITEMS,
+          "train_nnz": int(dataset_m.train_matrix.nnz), "eval_users": len(ev_m.test_users),
+          "eval_width": u_m.shape[1], "result": result_m, "eval_s": eval_m_s, "plain_result": result_mp,
+          "metric_max_abs_diff": diff_m, "launches": paths["spectralcf"]})
+    require(diff_m <= 1e-5, "SpectralCF: metrics differ from K1's plain version by %g" % diff_m)
+    require(u_m.shape[1] == 300, "SpectralCF evaluates at width %d" % u_m.shape[1])
+    del trainer_m, u_tab_m, i_tab_m, u_m, bits_m, mask8_m
 
     # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
     run_dir = os.path.join(REPO, "build", "run_main")
@@ -1392,12 +1572,14 @@ def main() -> int:
         t = time.perf_counter()
         trainer_r, result_r = run.main(PROPS, cmd_args=["--recommender=%s" % name] + run_args)
         torch.cuda.synchronize()
-        recs_r = run_records(trainer_r)
+        trains = trainer_r.model.data_kind != "none"  # Pop and ItemKNN evaluate only
+        recs_r = run_records(trainer_r) if trains else []
         values = parse_metrics(result_r)
         emit({"phase": "run_main", "model": name, "device": str(trainer_r.device), "steps": trainer_r.steps,
-              "loss": recs_r[-1]["loss"], "result": result_r, "seconds": time.perf_counter() - t})
-        require(trainer_r.device.type == "cuda" and len(recs_r) == 1 and np.isfinite(recs_r[0]["loss"]),
-                "run.main %s: %s on %s" % (name, recs_r, trainer_r.device))
+              "loss": recs_r[-1]["loss"] if recs_r else None, "result": result_r,
+              "seconds": time.perf_counter() - t})
+        require(trainer_r.device.type == "cuda" and (not trains or (len(recs_r) == 1 and np.isfinite(
+            recs_r[0]["loss"]))), "run.main %s: %s on %s" % (name, recs_r, trainer_r.device))
         require(all(np.isfinite(values)) and all(0.0 <= m <= 1.0 for m in values),
                 "run.main %s: metrics out of range: %s" % (name, result_r))
         del trainer_r
@@ -1409,6 +1591,13 @@ def main() -> int:
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
+        "masked_scores[d1]": ("masked_scores", ("pop",)),
+        "masked_scores[d16]": ("masked_scores", ("wrmf",)),
+        "masked_scores[d21]": ("masked_scores", ("irgan",)),
+        "masked_scores[d33]": ("masked_scores", ("multidae", "multivae")),
+        "masked_scores[d40]": ("masked_scores", ()),
+        "masked_scores[d65]": ("masked_scores", ("cdae",)),
+        "masked_scores[d300]": ("masked_scores", ("spectralcf",)),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf")),
         "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf")),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),
@@ -1427,12 +1616,13 @@ def main() -> int:
         rec = records[name]
         rec["launches_by_path"] = {p: paths[p][key] for p in on}
         rec["launches"] = sum(rec["launches_by_path"].values())
-        require(rec["launches"] > 0, "%s was launched on no path: %s" % (name, rec["launches_by_path"]))
+        require(rec["launches"] > 0 or not on, "%s was launched on no path: %s" % (name, rec["launches_by_path"]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     # device times where they were taken (the SpMM kernels), None elsewhere
-    extra_keys = ("device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
-                  "err_vs_f64", "plain_err_vs_f64", "err_over_split_bound", "mask_build_ms", "kernel_ms")
+    extra_keys = ("path", "device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
+                  "err_vs_f64", "plain_err_vs_f64", "err_over_f32_bound", "err_over_split_bound", "matmul_ms",
+                  "matmul_device_ms", "mask_build_ms", "kernel_ms")
     emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})
                       for n in entry_paths]})
     stack.close()

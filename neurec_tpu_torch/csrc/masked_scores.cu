@@ -85,6 +85,21 @@
 // two compute warps a scheduler do not hide the mma chains' latency. wgmma,
 // reading both operands' hi and lo parts from shared memory, is the next
 // design.
+//
+// The f32 path (d <= FMA_MAX_D, chosen by neurec_masked_scores from d alone;
+// ops/masked_scores.py::k1_path states the same choice for the tests). The
+// split keeps 22 of 24 significand bits of each operand, ~2^-21 of each
+// product, while f32 FMAs add d * 2^-24 of sum |u_k i_k| at most: at small d
+// the split is farther from the exact product than f32 itself. There each
+// score is one fmaf chain over k in order, on the CUDA cores: the products
+// cost 2 B I d / 67 TFLOP/s, under the output's bytes (B I 4 / 3.35 TB/s)
+// for every d <= 2 * 67 / 3.35 = 40. One 128 x 128 tile a block, the whole
+// depth copied to shared memory k-major by cp.async, 16 x 4 outputs a
+// thread: a warp owns 16 rows, a lane every 32nd column, so each store is
+// 128 contiguous bytes of a row (plain stores, not st.global.cs: a sector
+// one store leaves partial is finished by the next store or the next
+// tile's block). The mask is read from global memory (through L1 and L2),
+// all of a thread's marks before its first store.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
 #include <cudaTypedefs.h>
@@ -751,6 +766,99 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -- the f32 path --------------------------------------------------------------
+constexpr int FMA_MAX_D = 40;   // ops/masked_scores.py K1_FMA_MAX_D
+constexpr int F_THREADS = 256;  // 8 warps, each 16 rows of the tile
+constexpr int F_TM = 16;        // rows a thread (its warp's)
+constexpr int F_TN = 4;         // columns a thread: lane + 32 j
+constexpr int F_LD = BM + 4;    // a staged k row (floats), 16-byte aligned
+static_assert(BM == (F_THREADS / 32) * F_TM && BN == 32 * F_TN, "8 warps x 32 lanes cover a tile");
+
+template <int MODE>
+__global__ void __launch_bounds__(F_THREADS) masked_scores_fma_kernel(const Args a) {
+  __shared__ __align__(16) float Us[FMA_MAX_D][F_LD];
+  __shared__ __align__(16) float Is[FMA_MAX_D][F_LD];
+  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
+  const int lane = (int)threadIdx.x & 31, row0 = ((int)threadIdx.x >> 5) * F_TM;
+  const int d = a.d;
+  // both operand tiles k-major, zero-filled past B and I: a warp copies a
+  // row at a time, lane k its depth k (one coalesced read of the row's d
+  // floats), as 4-byte cp.async, all in flight at once (a load into a
+  // register, then a store, would wait out each load's latency in turn)
+  for (int r = (int)threadIdx.x >> 5; r < BM; r += F_THREADS / 32) {
+    const bool u_ok = m0 + r < a.B, i_ok = n0 + r < a.I;
+    for (int k = lane; k < d; k += 32) {
+      cp_async<4>(&Us[k][r], u_ok ? a.u + (size_t)(m0 + r) * d + k : a.u, u_ok ? 4 : 0);
+      cp_async<4>(&Is[k][r], i_ok ? a.items + (size_t)(n0 + r) * d + k : a.items, i_ok ? 4 : 0);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // rows row0 + i, columns lane + 32 j: one store or mask read of a warp is
+  // 32 consecutive columns of one row
+  float acc[F_TM][F_TN];
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+  for (int k = 0; k < d; ++k) {
+    float uv[F_TM], iv[F_TN];
+#pragma unroll
+    for (int q = 0; q < F_TM / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(&Us[k][row0 + 4 * q]);  // a broadcast
+      uv[4 * q] = v.x, uv[4 * q + 1] = v.y, uv[4 * q + 2] = v.z, uv[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) iv[j] = Is[k][lane + 32 * j];
+#pragma unroll
+    for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(uv[i], iv[j], acc[i][j]);
+  }
+
+  // the marks of the thread's outputs, all read before the first store: a
+  // store to out may alias the mask, so a load after it would wait for it.
+  // Where the tile's mask bytes are in bounds (the int8 mask spans the
+  // items rounded up to the tile; a bit-plane tile inside one plane) a
+  // mark is one byte read; elsewhere marked_global takes the division
+  const int plane0 = MODE == 1 ? n0 / a.plane_bytes : 0;
+  const int pb = plane0 * a.plane_bytes;
+  const bool direct = MODE == 0 ? a.mask_stride >= (long long)a.n_tiles * BN : n0 - pb + BN <= a.plane_bytes;
+  uint64_t marks = 0;  // bit i * F_TN + j
+  static_assert(F_TM * F_TN <= 64, "a thread's marks fit 64 bits");
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i) {
+    const int r = min(m0 + row0 + i, a.B - 1);
+    const uint8_t* mrow = a.mask + (long long)r * a.mask_stride + (MODE == 0 ? 0 : -pb);
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) {
+      const int c = n0 + lane + 32 * j;
+      const bool m = direct ? byte_marks<MODE>(mrow[c], plane0)
+                            : c < a.I && marked_global<MODE>(a, r, c, plane0, pb);
+      marks |= (uint64_t)m << (i * F_TN + j);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < F_TM; ++i) {
+    const int r = m0 + row0 + i;
+    if (r >= a.B) break;
+    float* orow = a.out + (long long)r * a.I;
+#pragma unroll
+    for (int j = 0; j < F_TN; ++j) {
+      const int c = n0 + lane + 32 * j;
+      if (c < a.I) orow[c] = (marks >> (i * F_TN + j)) & 1 ? -INFINITY : acc[i][j];
+    }
+  }
+}
+
+template <int MODE>
+int launch_fma(const Args& a, cudaStream_t stream) {
+  masked_scores_fma_kernel<MODE><<<dim3(a.n_tiles, a.m_tiles), F_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // the card's own rounding instruction, which rna_tf32 reproduces on every
 // value but NaN
 __global__ void round_tf32_kernel(const float* __restrict__ x, float* __restrict__ y, long long n) {
@@ -764,13 +872,15 @@ __global__ void round_tf32_kernel(const float* __restrict__ x, float* __restrict
 
 }  // namespace
 
-// vec16: d % 4 == 0 and u, items 16-byte aligned (16-byte cp.async)
+// vec16: d % 4 == 0 and u, items 16-byte aligned (16-byte cp.async). The
+// f32 path takes d <= FMA_MAX_D, the 3xTF32 split every wider d.
 extern "C" int neurec_masked_scores(const float* u, const float* items, const uint8_t* mask,
                                     float* out, int B, int I, int d, long long mask_stride,
                                     int plane_bytes, int mode, int vec16, cudaStream_t stream) {
   if (B <= 0 || I <= 0) return 0;
   Args a{u, items, mask, out, B, I, d, mask_stride, plane_bytes,
          (B + BM - 1) / BM, (I + BN - 1) / BN, 0};
+  if (d <= FMA_MAX_D) return mode == 0 ? launch_fma<0>(a, stream) : launch_fma<1>(a, stream);
   const bool aligned = reinterpret_cast<uintptr_t>(mask) % 16 == 0 && mask_stride % 16 == 0;
   // the int8 mask spans the items rounded up to 512 (ops/masked_scores.py),
   // so a tile's 128 bytes stay in the row; bit planes of W/8 % 128 == 0

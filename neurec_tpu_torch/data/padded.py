@@ -7,8 +7,10 @@
                pad never equals a candidate in ``[0, num_items)``;
 * ``lengths``: (num_users,) int32 count of valid entries.
 
-It is the sampler's exclusion table (``ops/sampling.py``). The time-ordered
-variant (``build_padded_bytime``) comes with the sequential models.
+It is the sampler's exclusion table (``ops/sampling.py``) and the source
+of the dense interaction rows of the autoencoders (``dense_rows``). The
+time-ordered variant (``build_padded_bytime``) comes with the sequential
+models.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 from scipy.sparse import csr_matrix
 
 
@@ -52,3 +55,12 @@ def build_padded_positives(
         if hi > lo:
             items[u, : hi - lo] = np.sort(indices[lo:hi])
     return PaddedUserItems(items=items, lengths=lengths, num_items=num_items)
+
+
+def dense_rows(rows: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """(B, n_cols) float32 0/1 rows from (B, L) padded ids (pad ``n_cols``):
+    one scatter into a dump column past the last id, then the dump column
+    dropped. No host sync (no boolean index)."""
+    out = torch.zeros((rows.shape[0], n_cols + 1), dtype=torch.float32, device=rows.device)
+    out.scatter_(1, rows.long(), 1.0)
+    return out[:, :n_cols]

@@ -1,0 +1,190 @@
+"""IRGAN — minimax IR GAN for item recommendation (Wang et al., SIGIR 2017).
+
+Port of ``neurec_tpu/models/general/irgan.py`` (model/general_recommender/
+IRGAN.py:15-250):
+
+* generator G and discriminator D are both MF-with-bias scorers; G may be
+  warm-started from a ``[user_emb, item_emb, bias]`` pickle
+  (``pretrain_file``, written by ``pretrain.save_pretrain("IRGAN", ...)``);
+  D starts random;
+* D pass: per user, |pos| negatives drawn from softmax(G logits / d_tau);
+  pointwise sigmoid cross-entropy on the (pos, 1) / (neg, 0) pairs in
+  shuffled batches, SGD at lr; pad slots weigh 0, and the reference's
+  regularization quirk is kept (its scalar L2 term is broadcast over the
+  unreduced batch loss, so the effective weight is the count of real
+  instances times d_reg);
+* G pass: per user in turn, 2 |pos| items drawn from the importance
+  distribution pn = 0.8 softmax(G) + 0.2 uniform(pos); REINFORCE with the
+  reward 2 (sigmoid(D) - 0.5) prob / pn, an SGD step per user;
+* the evaluation uses G's factors (K1 at factors_num + 1, the bias folded in).
+
+Every draw (the D pass's negatives and permutation, the G pass's samples)
+comes from the epoch's generator: the same distributions as the JAX
+package's, not its draws. The softmax samples take ``torch.multinomial``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from neurec_tpu_torch.data.padded import build_padded_positives
+from neurec_tpu_torch.device import DeviceLike
+from neurec_tpu_torch.models.base import Recommender, chunks, register
+from neurec_tpu_torch.pretrain import as_tensor, try_load
+
+# users of one (users, I) softmax block of the D pass's negatives
+_NEG_CHUNK = 2048
+
+
+@register("IRGAN")
+class IRGAN(Recommender):
+    data_kind = "custom"
+
+    def __init__(self, dataset, config, device: DeviceLike = None):
+        super().__init__(dataset, config, device)
+        self.factors_num = int(config.get("factors_num", 20))
+        self.lr = float(config.get("lr", 0.001))
+        self.g_reg = float(config.get("g_reg", 0.0))
+        self.d_reg = float(config.get("d_reg", 0.1 / 16))
+        self.g_epoch = int(config.get("g_epoch", 1))
+        self.d_epoch = int(config.get("d_epoch", 1))
+        self.d_tau = float(config.get("d_tau", 0.2))
+        self.pretrain_file = config.get("pretrain_file", "")
+        self.sample_lambda = 0.2
+        padded = build_padded_positives(dataset.train_matrix)
+        self._rows = torch.from_numpy(padded.items).long().to(self.device)  # (U, L), pad = I
+        self._lens = torch.from_numpy(padded.lengths).to(self.device)
+        self._train_users = torch.nonzero(self._lens > 0)[:, 0]
+        self.L = padded.items.shape[1]
+
+    def init_opt_state(self, params):
+        return {}  # both players take plain SGD steps in their passes
+
+    def init_params(self, generator: torch.Generator):
+        def mf_init():
+            def uniform(shape):
+                u = torch.rand(shape, generator=generator, device=generator.device)
+                return ((2.0 * u - 1.0) * 0.05).to(self.device)
+
+            return {"user_emb": uniform((self.num_users, self.factors_num)),
+                    "item_emb": uniform((self.num_items, self.factors_num)),
+                    "item_bias": torch.zeros((self.num_items,), device=self.device)}
+
+        gen, dis = mf_init(), mf_init()
+        loaded = try_load(self.pretrain_file)
+        if loaded is not None:
+            p = loaded[0]
+            gen = {"user_emb": as_tensor(p[0], self.device), "item_emb": as_tensor(p[1], self.device),
+                   "item_bias": as_tensor(p[2], self.device)}
+        return {"gen": gen, "dis": dis}
+
+    @staticmethod
+    def _logits(mf, u):
+        return mf["user_emb"][u] @ mf["item_emb"].T + mf["item_bias"]
+
+    @staticmethod
+    def _categorical(generator, logits, n):
+        """(rows, n) draws of each row's softmax(logits), with replacement."""
+        return torch.multinomial(torch.softmax(logits, dim=-1), n, replacement=True, generator=generator)
+
+    @staticmethod
+    def _perm(generator, n):
+        return torch.randperm(n, generator=generator, device=generator.device)
+
+    def _sgd_step(self, tree, loss):
+        """tree - lr * grad(loss), a fresh leaf for each tensor."""
+        grads = torch.autograd.grad(loss, list(tree.values()))
+        return {k: (p - self.lr * g).detach().requires_grad_(True) for (k, p), g in zip(tree.items(), grads)}
+
+    def d_pass(self, params, generator, max_steps=None):
+        """One discriminator sub-epoch; returns (params, mean step loss)."""
+        users, L, I, B = self._train_users, self.L, self.num_items, self.batch_size
+        nU = users.shape[0]
+        with torch.no_grad():
+            negs = torch.cat([self._categorical(generator, self._logits(params["gen"], users[sl]) / self.d_tau, L)
+                              for sl in chunks(nU, _NEG_CHUNK)])                   # (nU, L)
+        pos_rows = self._rows[users]
+        slot_valid = (pos_rows < I).float()
+        flat_users = torch.repeat_interleave(users, 2 * L)
+        flat_items = torch.cat([torch.clamp(pos_rows, max=I - 1), negs], dim=1).reshape(-1)
+        flat_labels = torch.cat([torch.ones((nU, L), device=users.device),
+                                 torch.zeros((nU, L), device=users.device)], dim=1).reshape(-1)
+        flat_w = torch.cat([slot_valid, slot_valid], dim=1).reshape(-1)
+        N = flat_users.shape[0]
+        steps = -(-N // B)
+        perm = self._perm(generator, steps * B)
+        idx = torch.where(perm < N, perm, 0).reshape(steps, B)
+        # tail slots alias instance 0: they weigh 0
+        tail_w = (perm < N).float().reshape(steps, B)
+        dis = {k: v.detach().requires_grad_(True) for k, v in params["dis"].items()}
+        total = torch.zeros((), device=users.device)
+        n_steps = steps if max_steps is None else min(steps, max_steps)
+        for s in range(n_steps):
+            bi = idx[s]
+            u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * tail_w[s]
+            logits = torch.sum(dis["user_emb"][u] * dis["item_emb"][i], dim=-1) + dis["item_bias"][i]
+            ce = torch.clamp(logits, min=0.0) - logits * lbl + F.softplus(-torch.abs(logits))
+            # the reference's quirk (IRGAN.py:103-107): the scalar d_reg * l2 is
+            # broadcast over the (B,) loss and TF minimizes its sum
+            reg = self.d_reg * torch.sum(w) * 0.5 * (
+                torch.sum(torch.square(dis["user_emb"][u] * w[:, None]))
+                + torch.sum(torch.square(dis["item_emb"][i] * w[:, None]))
+                + torch.sum(torch.square(dis["item_bias"][i] * w)))
+            loss = torch.sum(ce * w) + reg
+            dis = self._sgd_step(dis, loss)
+            total += loss.detach()
+        return dict(params, dis={k: v.detach() for k, v in dis.items()}), total / n_steps
+
+    def g_pass(self, params, generator, max_steps=None):
+        """One generator sub-epoch: a REINFORCE step per train user, in turn."""
+        users, I = self._train_users, self.num_items
+        S = 2 * self.L
+        gen = {k: v.detach().requires_grad_(True) for k, v in params["gen"].items()}
+        d = {k: v.detach() for k, v in params["dis"].items()}
+        total = torch.zeros((), device=users.device)
+        n_steps = users.shape[0] if max_steps is None else min(users.shape[0], max_steps)
+        for u in users[:n_steps]:
+            with torch.no_grad():
+                n_pos = torch.clamp(self._lens[u].float(), min=1.0)
+                prob = torch.softmax(self._logits(gen, u), dim=-1)
+                pn = torch.cat([(1.0 - self.sample_lambda) * prob, prob.new_zeros(1)])
+                pn = pn.index_add(0, self._rows[u], (self.sample_lambda / n_pos).expand(self._rows.shape[1]))[:I]
+                sample = self._categorical(generator, torch.log(pn + 1e-24)[None, :], S)[0]
+                samp_w = (torch.arange(S, device=users.device, dtype=torch.float32) < 2.0 * n_pos).float()
+                d_logits = torch.sum(d["user_emb"][u] * d["item_emb"][sample], dim=-1) + d["item_bias"][sample]
+                reward = 2.0 * (torch.sigmoid(d_logits) - 0.5) * prob[sample] / torch.clamp(pn[sample], min=1e-24)
+            log_sm = torch.log_softmax(self._logits(gen, u), dim=-1)
+            gan = -torch.sum(log_sm[sample] * reward * samp_w) / torch.clamp(torch.sum(samp_w), min=1.0)
+            reg = self.g_reg * 0.5 * (torch.sum(torch.square(gen["user_emb"][u]))
+                                      + torch.sum(torch.square(gen["item_emb"][sample] * samp_w[:, None]))
+                                      + torch.sum(torch.square(gen["item_bias"][sample] * samp_w)))
+            loss = gan + reg
+            gen = self._sgd_step(gen, loss)
+            total += loss.detach()
+        return dict(params, gen={k: v.detach() for k, v in gen.items()}), total / n_steps
+
+    def run_epoch(self, params, generator, max_steps=None):
+        loss = torch.zeros((), device=self.device)
+        for _ in range(self.d_epoch):
+            params, loss = self.d_pass(params, generator, max_steps)
+        for _ in range(self.g_epoch):
+            params, loss = self.g_pass(params, generator, max_steps)
+        return params, loss
+
+    def build_epoch(self, trainer):
+        def epoch(params, opt_state, generator, epoch, max_steps=None):
+            params, loss = self.run_epoch(params, generator, max_steps)
+            return params, opt_state, loss
+
+        return epoch
+
+    def loss(self, params, batch, weights):
+        raise RuntimeError("IRGAN uses build_epoch (data_kind='custom')")
+
+    def predict(self, params, users):
+        return self._logits(params["gen"], users)
+
+    def eval_embeddings(self, params, users):
+        gen = params["gen"]
+        return self._affine_eval(gen["user_emb"][users], gen["item_emb"], gen["item_bias"])

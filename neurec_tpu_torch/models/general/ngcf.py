@@ -30,18 +30,13 @@ import torch.nn.functional as F
 
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
+from neurec_tpu_torch.ops.activations import l2_normalize
 from neurec_tpu_torch.ops.graph import SparseAdj, build_norm_adjacency, spmm, with_vals
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, log_loss
 from neurec_tpu_torch.pretrain import try_load
 
 _SLOPE = 0.01  # jax.nn.leaky_relu's default
-
-
-def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """x * rsqrt(max(sum(x^2), eps)) per row — the clamp is on the squared
-    norm, where ``F.normalize`` clamps the norm."""
-    return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=1, keepdim=True), min=eps))
 
 
 def _keep_mask(generator: torch.Generator, shape, keep: float, device) -> torch.Tensor:
@@ -124,7 +119,7 @@ class NGCF(Recommender):
                 sum_emb = F.leaky_relu(side @ params["W_gc"][k] + params["b_gc"][k], _SLOPE)
                 bi = F.leaky_relu((h * side) @ params["W_bi"][k] + params["b_bi"][k], _SLOPE)
                 h = self._mess_dropout(sum_emb + bi, generator, training)
-                outs.append(_l2norm(h))
+                outs.append(l2_normalize(h, dim=1))
             elif self.alg_type == "gcn":
                 h = F.leaky_relu(side @ params["W_gc"][k] + params["b_gc"][k], _SLOPE)
                 h = self._mess_dropout(h, generator, training)

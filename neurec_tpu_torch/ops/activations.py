@@ -1,6 +1,7 @@
 """Activation registry (port of ``neurec_tpu/ops/activations.py``,
 util/tool.py:10-34): the named activations the configs resolve by string,
-case-insensitive, plus ``softplus``."""
+case-insensitive, plus ``softplus``; and the row L2 normalisation of the
+autoencoders' inputs and NGCF's layers."""
 
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ _ACTIVATIONS = {
     "selu": F.selu,
     "softplus": F.softplus,
 }
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """x * rsqrt(max(sum(x^2), eps)) along ``dim``: the clamp is on the
+    squared norm, where ``F.normalize`` clamps the norm."""
+    return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=dim, keepdim=True), min=eps))
 
 
 def activation_function(name: str):

@@ -20,9 +20,11 @@ templated on the mask format:
   bit i // (W/8)).
 
 On CPU tensors both run their plain versions (``*_reference``). The kernel
-computes in f32 on the tensor cores through a 3xTF32 split (see the
-source); ``round_tf32`` is the TF32 rounding it applies to each operand,
-for the tests of the split's numbers.
+has two arithmetic paths, chosen by the width alone (``k1_path``): f32 FMAs
+on the CUDA cores, one chain per score over k in order, for
+d <= ``K1_FMA_MAX_D``; above it a 3xTF32 split on the tensor cores (see the
+source). ``round_tf32`` is the TF32 rounding the split applies to each
+operand, for the tests of the split's numbers.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ _NEG_INF = float("-inf")
 # int8 mask spans num_items rounded up to it, so a negative id wraps into
 # that width (into a pad column unless num_items is a multiple of 512)
 _MASK_BLOCK = 512
+# K1's f32 path takes d up to here: the kernel's entry picks its path from d
+# against csrc/masked_scores.cu FMA_MAX_D, which this mirrors. At the
+# evaluation shape the output's bytes bound K1; f32 FMAs stay under that
+# time while 2 B I d / 67 TFLOP/s <= 4 B I / 3.35 TB/s, i.e. d <= 40, and at
+# such d f32 is nearer the exact product than the split (22 of 24 bits)
+K1_FMA_MAX_D = 40
+
+
+def k1_path(d: int) -> str:
+    """K1's arithmetic at width ``d``, as the kernel's entry chooses it:
+    ``"fma"`` (f32 FMAs, one chain a score) for d <= ``K1_FMA_MAX_D``,
+    ``"split"`` (3xTF32) above."""
+    return "fma" if d <= K1_FMA_MAX_D else "split"
 
 
 def _mask_width(num_items: int) -> int:

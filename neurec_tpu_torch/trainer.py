@@ -24,6 +24,23 @@ instance ``i`` being positive ``i % N`` and labelled 1 when ``i < N``). The
 log lines ("[iter %d : loss : %f, time: %f]", "epoch %d:\\t<results>") and
 the ``.metrics.jsonl`` records are kept.
 
+The other epochs (``neurec_tpu/trainer.py:138-160,425-475,507``):
+
+* ``dense_row`` (the autoencoders): the instances are the users with train
+  items, in sorted order; ``draw_epoch`` permutes ``steps * B`` slots and
+  draws the step seeds (``negs`` is empty), and step ``s`` of ``run_epoch``
+  hands the model ``{"users", "rows", "generator", "step"}``: the users'
+  dense 0/1 train rows (the model's ``make_rows``) and the global step
+  ``(epoch - 1) * steps + s`` (MultiVAE's KL anneal);
+* ``custom``: the model's ``build_epoch(trainer)`` returns its epoch,
+  ``epoch(params, opt_state, generator, epoch, max_steps=None) -> (params,
+  opt_state, loss)`` (WRMF's ALS, JCA's block grid, the GANs' sub-epochs);
+* ``none``, as ``epochs == 0``: one evaluation, no training.
+
+``Trainer.train_epoch(epoch, max_steps)`` runs one epoch from the trainer's
+state; ``max_steps`` cuts it (a custom epoch: each of its passes) to its
+first steps, for a short run at full width.
+
 The optimizer is the configured learner's, or the model's own where it
 defines ``make_optimizer`` (ConvNCF's two Adagrads) or ``init_opt_state``,
 as in the JAX trainer: ``Trainer.init_opt_state(params)`` builds it.
@@ -35,8 +52,8 @@ in distribution, not draw for draw. ``scan_unroll`` has no meaning without
 a scan and is ignored.
 
 Not ported yet (``NotImplementedError``): the pair Bloom sampler (an
-exclusion table above ``_EXCL_TABLE_BUDGET``), the ``time_*``,
-``dense_row``, ``custom`` and ``none`` epochs, and ``trace_dir``.
+exclusion table above ``_EXCL_TABLE_BUDGET`` on a sampled epoch), the
+``time_*`` epochs, and ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -63,10 +80,13 @@ _EXCL_TABLE_BUDGET = 64 * 1024 * 1024
 Params = Dict[str, object]  # a tree of dicts and lists of tensors (bridge.py)
 
 
+_SAMPLED = ("pairwise", "pointwise")
+
+
 class EpochDraws(NamedTuple):
     inst: torch.Tensor   # (steps, B) int32
     w: torch.Tensor      # (steps, B) f32
-    negs: torch.Tensor   # (steps, B) int32
+    negs: torch.Tensor   # (steps, B) int32; (steps, 0) on a dense_row epoch
     seeds: torch.Tensor  # (steps,) int64, on the host
 
 
@@ -224,12 +244,12 @@ class Trainer:
         if get_raw("trace_dir", None):
             raise _not_ported("trace_dir (a device trace)", "checkpoint, profiling and native")
         kind = model.data_kind
-        if kind not in ("pairwise", "pointwise"):
-            raise _not_ported("the %r epoch" % kind, "the rest of the zoo")
+        if kind not in _SAMPLED + ("dense_row", "custom", "none"):
+            raise _not_ported("the %r epoch" % kind, "the sequential family")
         lens = np.diff(dataset.train_matrix.indptr)
         l_max = max(int(lens.max()) if len(lens) else 0, 8)
         padded_bytes = 4 * model.num_users * (l_max + (-l_max) % 8)
-        if padded_bytes > _EXCL_TABLE_BUDGET:
+        if kind in _SAMPLED and padded_bytes > _EXCL_TABLE_BUDGET:
             raise _not_ported(
                 "an exclusion table of %.1f MB (the pair Bloom sampler)" % (padded_bytes / 2**20),
                 "Bloom sampler",
@@ -247,18 +267,29 @@ class Trainer:
         else:
             self.tx = make_optimizer(model.learner, model.learning_rate)
 
-        users, pos = _flat_interactions(dataset.get_user_train_dict())
-        self._users_flat = torch.from_numpy(users).long().to(self.device)
-        self._pos_flat = torch.from_numpy(pos).long().to(self.device)
-        padded = build_padded_positives(dataset.train_matrix)
-        self._padded_items = torch.from_numpy(padded.items).to(self.device)
         self._pairwise = kind == "pairwise"
-        self.n_positives = len(users)
-        # pointwise epochs visit each positive (1 + num_negatives) times
-        self.n_instances = self.n_positives * (1 if self._pairwise else 1 + model.num_negatives)
-        self.steps = _cdiv(self.n_instances, model.batch_size)
+        self._dense_row = kind == "dense_row"
+        self.n_positives = self.n_instances = self.steps = 0
+        if kind in _SAMPLED + ("dense_row",):
+            user_dict = dataset.get_user_train_dict()
+            if self._dense_row:
+                # the instances are the users with train items, sorted
+                users = np.asarray(sorted(user_dict.keys()), dtype=np.int32)
+                self.n_instances = len(users)
+            else:
+                users, pos = _flat_interactions(user_dict)
+                self._pos_flat = torch.from_numpy(pos).long().to(self.device)
+                self.n_positives = len(users)
+                # pointwise epochs visit each positive (1 + num_negatives) times
+                self.n_instances = self.n_positives * (1 if self._pairwise else 1 + model.num_negatives)
+                # the sampler's exclusion table
+                padded = build_padded_positives(dataset.train_matrix)
+                self._padded_items = torch.from_numpy(padded.items).to(self.device)
+            self._users_flat = torch.from_numpy(users).long().to(self.device)
+            self.steps = _cdiv(self.n_instances, model.batch_size)
         self.params: Optional[Params] = None
-        self.opt_state: Optional[torch.optim.Optimizer] = None
+        self.opt_state = None
+        self._epoch_fn: Optional[Callable] = None
 
     # -- one epoch ----------------------------------------------------------
     def epoch_generator(self, epoch: int) -> torch.Generator:
@@ -272,25 +303,32 @@ class Trainer:
         (steps, B) int32, one fresh negative per slot, drawn step by step,
         and ``seeds`` (steps,) int64 on the host, one per step for the
         randomness a model draws inside its loss (dropout). The seeds are
-        drawn last, so the first three do not depend on them."""
+        drawn last, so the first three do not depend on them. A dense_row
+        epoch draws no negatives: ``negs`` is (steps, 0)."""
         B, steps = self.model.batch_size, self.steps
         perm = torch.randperm(steps * B, generator=generator, device=self.device)
         valid = perm < self.n_instances
         inst = torch.where(valid, perm, torch.zeros_like(perm)).to(torch.int32).reshape(steps, B)
         w = valid.to(torch.float32).reshape(steps, B)
-        users = self._users_flat[self._base(inst)]
-        negs = torch.stack([
-            sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
-            for s in range(steps)
-        ])
+        if self._dense_row:
+            negs = torch.zeros((steps, 0), dtype=torch.int32, device=self.device)
+        else:
+            users = self._users_flat[self._base(inst)]
+            negs = torch.stack([
+                sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
+                for s in range(steps)
+            ])
         seeds = torch.randint(0, 2**62, (steps,), generator=generator, device=self.device).cpu()
         return EpochDraws(inst, w, negs, seeds)
 
     def _base(self, inst: torch.Tensor) -> torch.Tensor:
-        return (inst if self._pairwise else inst % self.n_positives).long()
+        return (inst if self._pairwise or self._dense_row else inst % self.n_positives).long()
 
     def _batch(self, inst: torch.Tensor, negs: torch.Tensor) -> Dict[str, torch.Tensor]:
         base = self._base(inst)
+        if self._dense_row:
+            users = self._users_flat[base]
+            return {"users": users, "rows": self.model.make_rows(users)}
         users, pos, negs = self._users_flat[base], self._pos_flat[base], negs.long()
         if self._pairwise:
             return {"users": users, "pos_items": pos, "neg_items": negs}
@@ -306,12 +344,15 @@ class Trainer:
         the device seeded with ``seeds[s]``, as ``batch["generator"]`` (the
         JAX package's per-step ``batch["rng"]``); without, the batch has
         none and a model draws nothing (no dropout). Every batch carries
-        ``epoch`` (1-based) as ``batch["epoch"]``."""
+        ``epoch`` (1-based) as ``batch["epoch"]``, and on a dense_row epoch
+        the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         step_gen = None if seeds is None else torch.Generator(device=self.device)
         for s in range(inst.shape[0]):
             batch = self._batch(inst[s], negs[s])
             batch["epoch"] = epoch
+            if self._dense_row:
+                batch["step"] = (epoch - 1) * self.steps + s
             if step_gen is not None:
                 batch["generator"] = step_gen.manual_seed(int(seeds[s]))
             opt_state.zero_grad(set_to_none=True)
@@ -324,8 +365,22 @@ class Trainer:
     # -- epochs, logs and evaluation ---------------------------------------
     def initialize(self):
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.params = map_params(lambda v: v.detach().requires_grad_(True), self.model.init_params(generator))
+        # index tables among the params (ItemKNN's neighbour ids) take no gradient
+        self.params = map_params(lambda v: v.detach().requires_grad_(v.is_floating_point()),
+                                 self.model.init_params(generator))
         self.opt_state = self.init_opt_state(self.params)
+        if self.model.data_kind == "custom":
+            self._epoch_fn = self.model.build_epoch(self)
+
+    def train_epoch(self, epoch: int, max_steps: Optional[int] = None):
+        """One epoch from the trainer's state: ``(params, opt_state, loss)``.
+        ``max_steps`` cuts it to its first steps (a custom epoch: each of
+        its passes); ``None`` runs it whole."""
+        generator = self.epoch_generator(epoch)
+        if self._epoch_fn is not None:
+            return self._epoch_fn(self.params, self.opt_state, generator, epoch, max_steps=max_steps)
+        draws = self.draw_epoch(generator)
+        return self.run_epoch(self.params, self.opt_state, *(a[:max_steps] for a in draws), epoch=epoch)
 
     def init_opt_state(self, params: Params) -> torch.optim.Optimizer:
         """A fresh optimizer over the tensors of ``params``: the model's
@@ -343,7 +398,7 @@ class Trainer:
             self.initialize()
         model = self.model
         self.logger.info(self.evaluator.metrics_info())
-        if model.epochs == 0:
+        if model.data_kind == "none" or model.epochs == 0:
             result = self.evaluate()
             self.logger.info("result:\t%s" % result)
             return result
@@ -353,8 +408,7 @@ class Trainer:
             jsonl_path = self.logger.path + ".metrics.jsonl"
         for epoch in range(1, model.epochs + 1):
             t0 = time.time()
-            draws = self.draw_epoch(self.epoch_generator(epoch))
-            self.params, self.opt_state, loss = self.run_epoch(self.params, self.opt_state, *draws, epoch=epoch)
+            self.params, self.opt_state, loss = self.train_epoch(epoch)
             loss = float(loss)
             elapsed = time.time() - t0
             self.logger.info("[iter %d : loss : %f, time: %f]" % (epoch, loss, elapsed))

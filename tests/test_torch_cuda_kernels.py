@@ -7,7 +7,8 @@ on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 
 Tolerance: atol/rtol 1e-5 — both sides compute in f32, with another
-summation order (K1 on the tensor cores through a 3xTF32 split). At d = 256
+summation order (K1 in f32 FMAs up to d = 40, above on the tensor cores
+through a 3xTF32 split). At d = 256
 with randn factors no two f32 orders agree to 1e-5, so there K1 is held to
 be no farther from the f64 product than the plain f32 product is.
 """
@@ -364,14 +365,25 @@ def test_dma_rate_kernel_writes_the_plain_versions_rows(cuda, mode, rows):
         assert torch.equal(got, dma_rate.dma_copies_reference(offs, n_dma, rows))
 
 
-@pytest.mark.parametrize("d", [17, 64])
+@pytest.mark.parametrize("d", [1, 16, 17, 21, 33, 40, 41, 64, 65])
 def test_masked_scores_kernel_at_the_factorized_models_widths(cuda, d):
-    """K1 at the evaluation shape of FISM (d 17: 16 factors and the folded
-    item bias, the cp.async path) and APR (d 64, the TMA path), bits and
-    int8 masks, against its plain version."""
+    """K1 at the evaluation shape and the widths the models give it (Pop 1,
+    WRMF 16, FISM 17, IRGAN 21, MultiDAE and MultiVAE 33, APR 64, CDAE 65,
+    and the f32 path's edges 40 and 41), bits and int8 masks, against its
+    plain version. Where the f32 path runs (d <= 40) each score is within
+    d 2^-24 sum_k |u_k i_k| of the f64 product."""
     B, I = 2048, 38546
     u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(21 + d, B, I, d, 64))
     _check_both_modes(u, items, rows)
+    if k1.k1_path(d) != "fma":
+        return
+    exact = u.double() @ items.double().T
+    bound = d * 2.0 ** -24 * (u.double().abs() @ items.double().abs().T)
+    width = global_bits_width(I)
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    for got in (k1.masked_scores(u, items, rows), k1.masked_scores_bits(u, items, bits, width, I)):
+        finite = torch.isfinite(got)
+        assert bool(((got.double() - exact).abs() <= bound)[finite].all())
 
 
 def _stable_sort_topk(x, k):
