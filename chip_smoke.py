@@ -121,7 +121,9 @@ failure exits non-zero before the result line):
    model of paths C to F (``RUN_MODELS``): one epoch (Pop and ItemKNN: none)
    and an evaluation at its ``conf/*.properties`` widths on a rating file
    made from the seed (``RUN_USERS`` x ``RUN_ITEMS``, under
-   ``build/run_main``);
+   ``build/run_main``), then for each sequential model (``RUN_SEQ_MODELS``)
+   on a timestamped one (``RUN_SEQ_USERS`` x ``RUN_SEQ_ITEMS``, under
+   ``build/run_main_seq``), split by time (loo);
 16. path E, the rest of the general zoo at their ``conf/*.properties``
    widths on the same split, each through ``Trainer``: Pop and ItemKNN
    evaluate only, WRMF takes 2 ALS epochs, MultiDAE, MultiVAE, DAE, CDAE,
@@ -140,7 +142,24 @@ failure exits non-zero before the result line):
    (``ML_USERS`` x ``ML_ITEMS``, ``ML_RATINGS``, ratio 0.8 split, under
    ``build/ml100k_seeded``): ``ZOO_STEPS`` steps, a full evaluation through
    K1 at d 300 (one launch) and through K1's plain version (within 1e-5),
-   and K1's record at that shape.
+   and K1's record at that shape;
+18. path G, the sequential family, on a timestamped rating set made from
+   the seed at ml-1m's published shape (``ML1M_USERS`` x ``ML1M_ITEMS``,
+   ``ML1M_RATINGS``, at least 20 a user; each user's items a Markov walk
+   without repeats over seeded successors and a Zipf-like popularity;
+   under ``build/ml1m_seeded``), split by time (loo): each model of
+   ``SEQ_MODELS`` at its ``conf/*.properties`` widths through ``Trainer``
+   for its cut, a full evaluation of the 6,040 test users, the step's
+   device time from the profiler. The models K1 ranks (FPMC at d 32,
+   Fossil 17, HRM 16, NPE 64, SASRec 50, Caser 100, GRU4Rec and GRU4RecPlus
+   101) take one K1 launch a batch, give the same metrics through K1's
+   plain version (within 1e-5) and top-20 ids agreeing in >= 99.9% of
+   positions on the first batch, and K1's record at their width and the
+   first batch's factors; FPMCplus, TransRec and SRGNN rank on the bits
+   predict tier with no K1 launch. It fails on a non-finite loss, FPMC's
+   (on its pairwise BPR form, see ``SEQ_MODELS``), SASRec's or GRU4Rec's
+   Recall@20 not above its random weights', or a GRU4Rec pad step (no
+   valid entry) that changes the params or Adam.
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -148,7 +167,9 @@ NeuMF 300 (an epoch is 3,670); path D trains 20-100 steps of its models'
 first epochs, and NAIS, DeepICF (1,024 users), ConvNCF (32) and DMF
 (2,048) evaluate a subset of the 14,821 test users; path E trains 59-200
 steps (WRMF 2 of its 300 epochs) and JCA evaluates 2,048 users; path F
-trains 100 of 315 steps of one epoch of its 300.
+trains 100 of 315 steps of one epoch of its 300; path G trains 200-2,000
+steps of epochs of thousands (SASRec 8 epochs of 48 steps; GRU4Rec's cut
+in steps of its schedule).
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -309,6 +330,52 @@ ML_ARGS = [
 RUN_MODELS = ("MLP", "NeuMF", "APR", "FISM", "NAIS", "DeepICF", "DMF", "ConvNCF", "Pop", "ItemKNN", "MultiDAE",
               "MultiVAE", "DAE", "CDAE", "SpectralCF", "WRMF", "JCA", "CFGAN", "IRGAN")
 RUN_USERS, RUN_ITEMS = 300, 400
+
+# path G: a timestamped rating set at ml-1m's published shape (GroupLens
+# MovieLens 1M: 6,040 users, 3,706 rated items, 1,000,209 ratings, at least
+# 20 a user; the data of the SASRec and Caser papers), made from the seed.
+# Each user's items are a Markov walk without repeats: every item has
+# ML1M_SUCCESSORS seeded successors, one taken with probability
+# ML1M_FOLLOW, else an item drawn by a Zipf-like popularity (rank^-ML1M_ZIPF)
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS, ML1M_MIN_PER_USER = 6040, 3706, 1_000_209, 20
+ML1M_MAX_PER_USER = 2314  # ml-1m's most active user
+ML1M_SUCCESSORS, ML1M_FOLLOW, ML1M_ZIPF = 4, 0.5, 0.9
+ML1M_DIR = os.path.join(REPO, "build", "ml1m_seeded")
+ML1M_ARGS = [
+    "--config_dir=%s" % os.path.join(REPO, "conf"), "--data.input.path=%s" % ML1M_DIR,
+    "--data.cache.path=%s" % ML1M_DIR, "--data.input.dataset=ml1m_seeded", "--data.column.format=UIRT",
+    "--data.convert.separator=','", "--splitter=loo", "--by_time=True", "--user_min=0", "--item_min=0",
+    "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]", "--test_batch_size=%d" % EVAL_USERS_PER_BATCH,
+]
+# each sequential model at its conf/*.properties widths on path G: (path,
+# model, flags over its conf, steps of an epoch, epochs, K1's
+# record at its evaluation width (None: the predict tier), whether its
+# Recall@20 must beat its random weights'). FPMC's conf (pointwise, the mean
+# cross-entropy against reg_mf 0.01 summed over the batch's lookups) decays
+# its factors to zero on this data, the L2 gradient ~10x the data's: its
+# order is learned on its pairwise BPR form (the model's default, and the
+# form of the JAX package's test_fpmc_learns) at the same widths. FPMC's
+# epoch is 9,650 steps (1,930 pairwise), SASRec's 48 (6,040 users, batch
+# 128), GRU4Rec's schedule ~3,900; its cut is in schedule steps
+SEQ_MODELS = (
+    ("fpmc", "FPMC", [], 200, 1, "masked_scores[d32]", False),
+    ("fpmc_bpr", "FPMC", ["--is_pairwise=True", "--loss_function=bpr"], 1000, 1, "masked_scores[d32]", True),
+    ("fpmcplus", "FPMCplus", [], 200, 1, None, False),
+    ("transrec", "TransRec", [], 200, 1, None, False),
+    ("fossil", "Fossil", [], 200, 1, "masked_scores[d17,ml1m]", False),
+    ("hrm", "HRM", [], 200, 1, "masked_scores[d16,ml1m]", False),
+    ("npe", "NPE", [], 200, 1, "masked_scores[d64,ml1m]", False),
+    ("sasrec", "SASRec", [], 48, 8, "masked_scores[d50]", True),
+    ("caser", "Caser", [], 200, 1, "masked_scores[d100]", False),
+    ("gru4rec", "GRU4Rec", [], 2000, 1, "masked_scores[d101]", True),
+    ("gru4recplus", "GRU4RecPlus", [], 200, 1, "masked_scores[d101]", False),
+    ("srgnn", "SRGNN", [], 200, 1, None, False),
+)
+# the run entry point for each sequential model, one epoch on a small
+# timestamped rating file made from the seed, split by time (loo)
+RUN_SEQ_MODELS = ("FPMC", "FPMCplus", "TransRec", "Fossil", "HRM", "NPE", "SASRec", "Caser", "GRU4Rec",
+                  "GRU4RecPlus", "SRGNN")
+RUN_SEQ_USERS, RUN_SEQ_ITEMS = 300, 400
 
 # 2-epoch losses and Recall@20 recorded in PERF.md with the kernels whose
 # warps owned whole rows (one fmaf chain per row). The edge-balanced
@@ -632,6 +699,46 @@ def step_ms(torch, trainer, draws):
                                                     draws.negs[sl], draws.seeds[sl]), iters=10)
 
 
+def ml1m_seeded_rows(np):
+    """Path G's rating rows ``(users, items, ratings, times)``: per-user
+    counts of a log-normal tail from ML1M_MIN_PER_USER to ML1M_MAX_PER_USER
+    summing to ML1M_RATINGS, each user's items a seeded Markov walk without
+    repeats (see ML1M_FOLLOW), times increasing along the walk."""
+    rng = np.random.RandomState(SEED)
+    U, I, R = ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS
+    raw = rng.lognormal(0.0, 1.2, U)
+    counts = np.minimum(ML1M_MIN_PER_USER + np.floor(raw / raw.sum() * (R - ML1M_MIN_PER_USER * U)).astype(np.int64),
+                        ML1M_MAX_PER_USER)
+    while counts.sum() < R:  # the floors' remainder, to users below the cap
+        room = np.flatnonzero(counts < ML1M_MAX_PER_USER)
+        counts[rng.choice(room, min(int(R - counts.sum()), len(room)), replace=False)] += 1
+    cdf = np.cumsum(1.0 / np.arange(1, I + 1) ** ML1M_ZIPF)
+    item_of_rank = rng.permutation(I)
+    successors = rng.randint(0, I, (I, ML1M_SUCCESSORS))
+    pool = item_of_rank[np.searchsorted(cdf / cdf[-1], rng.rand(8 * R))].tolist()
+    follow = (rng.rand(R) < ML1M_FOLLOW).tolist()
+    pick = rng.randint(0, ML1M_SUCCESSORS, R).tolist()
+    succ = successors.tolist()
+    seen = [-1] * I
+    items, p, k = [], 0, 0
+    for u, n in enumerate(counts.tolist()):
+        cur = -1
+        for _ in range(n):
+            nxt = succ[cur][pick[k]] if cur >= 0 and follow[k] else -1
+            k += 1
+            while nxt < 0 or seen[nxt] == u:  # a popularity draw, not yet in the walk
+                if p == len(pool):
+                    pool, p = item_of_rank[np.searchsorted(cdf / cdf[-1], rng.rand(R))].tolist(), 0
+                nxt = pool[p]
+                p += 1
+            seen[nxt] = u
+            items.append(nxt)
+            cur = nxt
+    users = np.repeat(np.arange(U), counts)
+    times = 978_300_000 + np.arange(R)
+    return users, np.asarray(items), rng.randint(1, 6, R), times
+
+
 class LogLines(logging.Handler):
     """Collects the messages of a logger (the warm starts' "load pretrained
     params successful!" lines)."""
@@ -662,7 +769,7 @@ def main() -> int:
 
     from neurec_tpu_torch import pretrain, run
     from neurec_tpu_torch.benchmarks import dma_rate
-    from neurec_tpu_torch.bridge import params_from_numpy
+    from neurec_tpu_torch.bridge import param_leaves, params_from_numpy
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
     from neurec_tpu_torch.eval import Evaluator
@@ -1557,6 +1664,138 @@ def main() -> int:
     require(u_m.shape[1] == 300, "SpectralCF evaluates at width %d" % u_m.shape[1])
     del trainer_m, u_tab_m, i_tab_m, u_m, bits_m, mask8_m
 
+    # -- 18. path G: the sequential family at ml-1m's shape ---------------------
+    os.makedirs(ML1M_DIR, exist_ok=True)
+    t = time.perf_counter()
+    cols_g = ml1m_seeded_rows(np)
+    with open(os.path.join(ML1M_DIR, "ml1m_seeded.rating"), "w") as fout:
+        fout.write("".join("%d,%d,%d,%d\n" % row for row in zip(*(c.tolist() for c in cols_g))))
+    gen_g_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dataset_g = Dataset(Config(PROPS, cmd_args=["--recommender=FPMC"] + ML1M_ARGS))
+    load_g_s = time.perf_counter() - t
+    require((dataset_g.num_users, dataset_g.num_items, dataset_g.num_ratings) == (ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS),
+            "path G: %d users, %d items, %d ratings" % (dataset_g.num_users, dataset_g.num_items,
+                                                         dataset_g.num_ratings))
+    emit({"phase": "ml1m_seeded", "generate_s": gen_g_s, "load_s": load_g_s, "users": dataset_g.num_users,
+          "items": dataset_g.num_items, "ratings": dataset_g.num_ratings, "train_nnz": int(dataset_g.train_matrix.nnz),
+          "test_nnz": int(dataset_g.test_matrix.nnz),
+          "per_user": [int(x) for x in np.percentile(np.bincount(cols_g[0]), [0, 50, 99, 100])]})
+    del cols_g
+    I_g = dataset_g.num_items
+    width_g = global_bits_width(I_g)
+    seq_results, not_learned = {}, []
+    for key, name, flags, steps, epochs, record, must_learn in SEQ_MODELS:
+        conf_g = Config(PROPS, cmd_args=["--recommender=%s" % name] + ML1M_ARGS + flags)
+        t = time.perf_counter()
+        trainer_g = Trainer(get_model(name)(dataset_g, conf_g), dataset_g, conf_g)
+        trainer_g.initialize()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        model_g, ev_g = trainer_g.model, trainer_g.evaluator.evaluator
+        n_eval_g = len(ev_g.test_users)
+        random_result = zoo_eval(trainer_g, trainer_g.params)[0] if must_learn else None
+        losses, n_steps = [], 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for epoch in range(1, epochs + 1):
+            trainer_g.params, trainer_g.opt_state, loss_g = trainer_g.train_epoch(epoch, max_steps=steps)
+            losses.append(float(loss_g))
+            n_steps += steps
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        require(all(np.isfinite(losses)), "%s: non-finite loss %s" % (name, losses))
+        _build.reset_launches()
+        result_g, eval_g_s = zoo_eval(trainer_g, trainer_g.params)
+        paths[key] = dict(_build.LAUNCHES)
+        n_batches_g = -(-n_eval_g // EVAL_USERS_PER_BATCH)
+        rec_g = {"phase": key, "model": name, "flags": flags, "setup_s": setup_s, "data_kind": model_g.data_kind, "steps": n_steps, "epochs": epochs,
+                 "batch_size": model_g.batch_size, "epoch_losses": losses, "train_s": train_s,
+                 "ms_per_step": 1e3 * train_s / n_steps, "result": result_g, "eval_users": n_eval_g,
+                 "eval_s": eval_g_s, "eval_users_per_s": n_eval_g / eval_g_s, "random_init_result": random_result,
+                 "launches": paths[key]}
+        if record is None:
+            require(paths[key]["masked_scores"] == 0, "%s ranks on the predict tier, yet K1 ran" % name)
+        else:
+            require(paths[key]["masked_scores"] == n_batches_g, "%s: %d K1 launches for %d eval batches"
+                    % (name, paths[key]["masked_scores"], n_batches_g))
+            with mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+                result_p, _ = zoo_eval(trainer_g, trainer_g.params)
+            diff = max(abs(a - b) for a, b in zip(parse_metrics(result_g), parse_metrics(result_p)))
+            # K1 at the model's own factors, the first eval batch, against its plain version
+            users_g = torch.from_numpy(ev_g.test_users[:EVAL_USERS_PER_BATCH]).long().cuda()
+            with torch.no_grad():
+                u_g, items_g = model_g.eval_embeddings(trainer_g.params, users_g)
+            u_g, items_g = u_g.detach().contiguous(), items_g.detach().contiguous()
+            d_g = u_g.shape[1]
+            bits_g = ev_g._get_bits_table(width_g, width_g)[: u_g.shape[0]]
+            mask8_g = k1.build_train_mask(torch.from_numpy(ev_g._host_rows(ev_g.test_users[: u_g.shape[0]])).cuda(),
+                                          I_g)
+            got_g = k1.masked_scores_bits(u_g, items_g, bits_g, width_g, I_g)
+            want_g = k1.masked_scores_bits_reference(u_g, items_g, bits_g, width_g, I_g)
+            (v_k, i_k), (v_p, i_p) = top_k(got_g, 20), top_k(want_g, 20)
+            differ = (i_k != i_p).cpu().numpy()
+            agree = 1.0 - differ.mean()
+            near_tie = float((v_k - v_p).abs().max())
+            if record in records:  # a width an earlier model of the path gave K1
+                err_g, ok_g = compare(torch, got_g, want_g)
+                emit({"phase": "kernel_case", "case": "%s[%s]" % (record, key), "shape": [u_g.shape[0], I_g, d_g],
+                      "max_abs_err": err_g, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL)})
+                require(ok_g, "K1 at %s's factors disagrees with its plain version: %g" % (name, err_g))
+            else:
+                k1_check(record, lambda: k1.masked_scores_bits(u_g, items_g, bits_g, width_g, I_g),
+                         lambda: k1.masked_scores_bits_reference(u_g, items_g, bits_g, width_g, I_g),
+                         lambda: torch.where(mask8_g != 0, float("-inf"), torch.matmul(u_g, items_g.T)),
+                         (u_g.numel() + items_g.numel()) * 4 + bits_g.numel() + u_g.shape[0] * I_g * 4, u_g, items_g,
+                         {"mode": "bits", "shape": [u_g.shape[0], I_g, d_g], "model": name,
+                          "library_call": "matmul + where on a prebuilt int8 mask"})
+            rec_g.update({"eval_width": d_g, "k1_path": k1.k1_path(d_g), "plain_result": result_p,
+                          "metric_max_abs_diff": diff, "top20_id_agreement": agree,
+                          "max_top20_value_diff": near_tie})
+            require(diff <= 1e-5, "%s: metrics differ from K1's plain version by %g" % (name, diff))
+            require(agree >= 0.999, "%s: top-20 ids agree in only %.5f of positions" % (name, agree))
+            del u_g, items_g, bits_g, mask8_g, got_g, want_g
+        if must_learn:
+            rec_g["learned_order"] = {"recall20": parse_metrics(result_g)[0],
+                                      "random_recall20": parse_metrics(random_result)[0]}
+            if parse_metrics(result_g)[0] <= parse_metrics(random_result)[0]:
+                not_learned.append("%s: Recall@20 after training %s, random weights' %s"
+                                   % (key, result_g, random_result))
+        # one step's device time (the profiler) and wall time, over 5 steps
+        if model_g.data_kind == "custom":
+            prof = profile_steps(torch, lambda: trainer_g.train_epoch(epochs + 1, max_steps=5), n=1)
+        else:
+            draws_g = trainer_g.draw_epoch(trainer_g.epoch_generator(epochs + 1))
+            params_c, opt_c = clone_state(trainer_g)
+            prof = profile_steps(torch, lambda: trainer_g.run_epoch(params_c, opt_c, *(a[:5] for a in draws_g)), n=1)
+            del draws_g, params_c, opt_c
+        require(prof is not None, "%s: the profiler shows no kernel" % name)
+        rec_g.update({"device_ms_per_step": prof["device_ms_per_step"] / 5,
+                      "wall_ms_per_step_profiled": prof["wall_ms_per_step_profiled"] / 5,
+                      "kernel_launches_per_step": prof["kernel_launches_per_step"] / 5,
+                      "top_kernels": prof["kernels"][:5]})
+        if name == "GRU4Rec":
+            # a pad step (no valid entry) leaves the params and Adam as they were
+            B_g = model_g.batch_size
+            pad = (np.zeros((1, B_g), np.int32), np.zeros((1, B_g), np.int32), np.ones((1, B_g), bool),
+                   np.zeros((1, B_g), bool))
+            before = {path: p.detach().clone() for path, p in param_leaves(trainer_g.params)}
+            adam_steps = {int(st["step"]) for st in trainer_g.opt_state.state.values()}
+            _, _, pad_loss = model_g.run_schedule(trainer_g.params, trainer_g.opt_state, *pad,
+                                                  torch.Generator(device="cuda"))
+            same = all(torch.equal(p, before[path]) for path, p in param_leaves(trainer_g.params))
+            rec_g["pad_step"] = {"params_bit_equal": same, "loss": float(pad_loss), "adam_steps": sorted(adam_steps)}
+            require(same and {int(st["step"]) for st in trainer_g.opt_state.state.values()} == adam_steps,
+                    "GRU4Rec's pad step changed the params or the optimizer")
+        emit(rec_g)
+        seq_results[key] = rec_g
+        del trainer_g, model_g, ev_g
+    emit({"phase": "path_g_checks", "learned_order": {k: v["learned_order"] for k, v in seq_results.items()
+                                                      if "learned_order" in v},
+          "eval_widths": {k: v.get("eval_width") for k, v in seq_results.items()}})
+    require(not not_learned, "path G: not above random weights: %s" % "; ".join(not_learned))
+    del dataset_g
+
     # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
     run_dir = os.path.join(REPO, "build", "run_main")
     os.makedirs(run_dir, exist_ok=True)
@@ -1568,9 +1807,19 @@ def main() -> int:
                 "--data.cache.path=%s" % run_dir, "--data.input.dataset=synthetic", "--data.column.format=UIR",
                 "--data.convert.separator=','", "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]", "--epochs=1",
                 "--pretrain_file=", "--mf_pretrain=", "--mlp_pretrain="]
-    for name in RUN_MODELS:
+    run_seq_dir = os.path.join(REPO, "build", "run_main_seq")
+    os.makedirs(run_seq_dir, exist_ok=True)
+    rng_s = np.random.RandomState(SEED + 1)
+    with open(os.path.join(run_seq_dir, "synthetic_seq.rating"), "w") as fout:
+        fout.write("".join("%d,%d,%d,%d\n" % (u, i, rng_s.randint(1, 6), 1000 + t) for u in range(RUN_SEQ_USERS)
+                           for t, i in enumerate(rng_s.choice(RUN_SEQ_ITEMS, rng_s.randint(10, 40), replace=False))))
+    run_seq_args = ["--config_dir=%s" % os.path.join(REPO, "conf"), "--data.input.path=%s" % run_seq_dir,
+                    "--data.cache.path=%s" % run_seq_dir, "--data.input.dataset=synthetic_seq",
+                    "--data.column.format=UIRT", "--data.convert.separator=','", "--splitter=loo", "--by_time=True",
+                    "--user_min=0", "--item_min=0", "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]", "--epochs=1"]
+    for name, args in [(m, run_args) for m in RUN_MODELS] + [(m, run_seq_args) for m in RUN_SEQ_MODELS]:
         t = time.perf_counter()
-        trainer_r, result_r = run.main(PROPS, cmd_args=["--recommender=%s" % name] + run_args)
+        trainer_r, result_r = run.main(PROPS, cmd_args=["--recommender=%s" % name] + args)
         torch.cuda.synchronize()
         trains = trainer_r.model.data_kind != "none"  # Pop and ItemKNN evaluate only
         recs_r = run_records(trainer_r) if trains else []
@@ -1598,6 +1847,13 @@ def main() -> int:
         "masked_scores[d40]": ("masked_scores", ()),
         "masked_scores[d65]": ("masked_scores", ("cdae",)),
         "masked_scores[d300]": ("masked_scores", ("spectralcf",)),
+        "masked_scores[d32]": ("masked_scores", ("fpmc", "fpmc_bpr")),
+        "masked_scores[d17,ml1m]": ("masked_scores", ("fossil",)),
+        "masked_scores[d16,ml1m]": ("masked_scores", ("hrm",)),
+        "masked_scores[d64,ml1m]": ("masked_scores", ("npe",)),
+        "masked_scores[d50]": ("masked_scores", ("sasrec",)),
+        "masked_scores[d100]": ("masked_scores", ("caser",)),
+        "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus")),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf")),
         "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf")),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),

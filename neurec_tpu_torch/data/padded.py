@@ -8,9 +8,9 @@
 * ``lengths``: (num_users,) int32 count of valid entries.
 
 It is the sampler's exclusion table (``ops/sampling.py``) and the source
-of the dense interaction rows of the autoencoders (``dense_rows``). The
-time-ordered variant (``build_padded_bytime``) comes with the sequential
-models.
+of the dense interaction rows of the autoencoders (``dense_rows``).
+``build_padded_bytime`` orders each row by timestamp instead (the
+sequential models' histories).
 """
 
 from __future__ import annotations
@@ -54,6 +54,34 @@ def build_padded_positives(
         lo, hi = indptr[u], indptr[u + 1]
         if hi > lo:
             items[u, : hi - lo] = np.sort(indices[lo:hi])
+    return PaddedUserItems(items=items, lengths=lengths, num_items=num_items)
+
+
+def build_padded_bytime(
+    time_matrix: csr_matrix,
+    train_matrix: csr_matrix,
+    pad_multiple: int = 8,
+    min_len: int = 8,
+) -> PaddedUserItems:
+    """Padded per-user item rows ordered by interaction timestamp (a stable
+    sort: equal times keep their CSR order), padded with ``num_items``.
+
+    The rows are in time order, not sorted by id: never use them for
+    membership. ``train_matrix`` is not read; it is kept for the JAX
+    package's signature.
+    """
+    num_users, num_items = time_matrix.shape
+    indptr, indices, times = time_matrix.indptr, time_matrix.indices, time_matrix.data
+    lengths = np.diff(indptr).astype(np.int32)
+    max_len = max(int(lengths.max()) if num_users else 0, min_len)
+    max_len = _round_up(max_len, pad_multiple)
+
+    items = np.full((num_users, max_len), num_items, dtype=np.int32)
+    for u in range(num_users):
+        lo, hi = indptr[u], indptr[u + 1]
+        if hi > lo:
+            order = np.argsort(times[lo:hi], kind="stable")
+            items[u, : hi - lo] = indices[lo:hi][order]
     return PaddedUserItems(items=items, lengths=lengths, num_items=num_items)
 
 

@@ -12,8 +12,10 @@ JAX package's params:
   are user-independent (the evaluator computes them once per call);
 * ``loss(params, batch, weights) -> scalar`` — the per-batch training loss,
   differentiable in ``params``; ``batch`` keys depend on ``data_kind``:
-    - "pairwise":  users, pos_items, neg_items
-    - "pointwise": users, items, labels
+    - "pairwise":       users, pos_items, neg_items
+    - "pointwise":      users, items, labels
+    - "time_pairwise":  users, recent_items, pos_items, neg_items
+    - "time_pointwise": users, recent_items, items, labels
   ``weights`` masks padded instances (1 real / 0 pad).
 
 A model lives on one device, chosen at construction (``device=None`` means
@@ -76,7 +78,7 @@ def chunks(n: int, size: int):
 
 _REGISTRY: Dict[str, Type[Recommender]] = {}
 
-_FAMILIES = ("general",)
+_FAMILIES = ("general", "sequential")
 
 
 def register(name: str):

@@ -20,7 +20,11 @@ epoch is a Python loop of eager steps on the model's device, in two parts:
 A test can therefore hand both packages the same draws. Epoch semantics
 are the JAX package's (pairwise: every train positive once per epoch with
 one negative; pointwise: ``1 + num_negatives`` instances per positive,
-instance ``i`` being positive ``i % N`` and labelled 1 when ``i < N``). The
+instance ``i`` being positive ``i % N`` and labelled 1 when ``i < N``).
+The ``time_pairwise`` / ``time_pointwise`` epochs are the same over the
+time-order instances (``_time_order_instances``, data/sampler.py:42-68:
+the user, the ``high_order`` items before a position and the item at it),
+and their batches also carry ``recent_items`` (B, high_order). The
 log lines ("[iter %d : loss : %f, time: %f]", "epoch %d:\\t<results>") and
 the ``.metrics.jsonl`` records are kept.
 
@@ -52,8 +56,8 @@ in distribution, not draw for draw. ``scan_unroll`` has no meaning without
 a scan and is ignored.
 
 Not ported yet (``NotImplementedError``): the pair Bloom sampler (an
-exclusion table above ``_EXCL_TABLE_BUDGET`` on a sampled epoch), the
-``time_*`` epochs, and ``trace_dir``.
+exclusion table above ``_EXCL_TABLE_BUDGET`` on a sampled epoch, the
+``time_*`` ones included) and ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ import torch
 
 from neurec_tpu_torch.bridge import map_params, param_leaves
 from neurec_tpu_torch.data.padded import build_padded_positives
+from neurec_tpu_torch.data.sequences import user_seq_windows
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import Evaluator
 from neurec_tpu_torch.logging import Logger, run_logger
@@ -80,7 +85,7 @@ _EXCL_TABLE_BUDGET = 64 * 1024 * 1024
 Params = Dict[str, object]  # a tree of dicts and lists of tensors (bridge.py)
 
 
-_SAMPLED = ("pairwise", "pointwise")
+_SAMPLED = ("pairwise", "pointwise", "time_pairwise", "time_pointwise")
 
 
 class EpochDraws(NamedTuple):
@@ -227,6 +232,15 @@ def _flat_interactions(user_dict):
     return np.asarray(users, dtype=np.int32), np.asarray(items, dtype=np.int32)
 
 
+def _time_order_instances(user_dict, high_order: int):
+    """(user, recent[high_order], target) instances in the dict's order
+    (data/sampler.py:42-68): each position ``idx >= high_order`` of a
+    user's time-ordered items, with the ``high_order`` items before it."""
+    keys = np.fromiter(user_dict.keys(), dtype=np.int32, count=len(user_dict))
+    idx, recents, targets = user_seq_windows(list(user_dict.values()), high_order)
+    return keys[idx], recents.reshape(len(idx), high_order), targets
+
+
 class Trainer:
     def __init__(
         self,
@@ -245,7 +259,7 @@ class Trainer:
             raise _not_ported("trace_dir (a device trace)", "checkpoint, profiling and native")
         kind = model.data_kind
         if kind not in _SAMPLED + ("dense_row", "custom", "none"):
-            raise _not_ported("the %r epoch" % kind, "the sequential family")
+            raise ValueError("Trainer does not handle data_kind=%r" % kind)
         lens = np.diff(dataset.train_matrix.indptr)
         l_max = max(int(lens.max()) if len(lens) else 0, 8)
         padded_bytes = 4 * model.num_users * (l_max + (-l_max) % 8)
@@ -267,17 +281,23 @@ class Trainer:
         else:
             self.tx = make_optimizer(model.learner, model.learning_rate)
 
-        self._pairwise = kind == "pairwise"
+        self._pairwise = kind in ("pairwise", "time_pairwise")
         self._dense_row = kind == "dense_row"
+        self._recent_flat = None
         self.n_positives = self.n_instances = self.steps = 0
         if kind in _SAMPLED + ("dense_row",):
-            user_dict = dataset.get_user_train_dict()
+            time_order = kind.startswith("time_")
+            user_dict = dataset.get_user_train_dict(by_time=time_order)
             if self._dense_row:
                 # the instances are the users with train items, sorted
                 users = np.asarray(sorted(user_dict.keys()), dtype=np.int32)
                 self.n_instances = len(users)
             else:
-                users, pos = _flat_interactions(user_dict)
+                if time_order:
+                    users, recent, pos = _time_order_instances(user_dict, getattr(model, "high_order", 1))
+                    self._recent_flat = torch.from_numpy(recent).long().to(self.device)
+                else:
+                    users, pos = _flat_interactions(user_dict)
                 self._pos_flat = torch.from_numpy(pos).long().to(self.device)
                 self.n_positives = len(users)
                 # pointwise epochs visit each positive (1 + num_negatives) times
@@ -331,9 +351,13 @@ class Trainer:
             return {"users": users, "rows": self.model.make_rows(users)}
         users, pos, negs = self._users_flat[base], self._pos_flat[base], negs.long()
         if self._pairwise:
-            return {"users": users, "pos_items": pos, "neg_items": negs}
-        is_pos = inst < self.n_positives
-        return {"users": users, "items": torch.where(is_pos, pos, negs), "labels": is_pos.to(torch.float32)}
+            batch = {"users": users, "pos_items": pos, "neg_items": negs}
+        else:
+            is_pos = inst < self.n_positives
+            batch = {"users": users, "items": torch.where(is_pos, pos, negs), "labels": is_pos.to(torch.float32)}
+        if self._recent_flat is not None:
+            batch["recent_items"] = self._recent_flat[base]
+        return batch
 
     def run_epoch(self, params: Params, opt_state: torch.optim.Optimizer, inst, w, negs, seeds=None,
                   epoch: int = 1):

@@ -411,3 +411,36 @@ def test_top_k_on_the_card_matches_the_stable_sort(cuda, k):
     want_v, want_i = _stable_sort_topk(x, k)
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_v, want_v)
+
+
+@pytest.mark.parametrize("d", [16, 17, 32, 50, 64, 100, 101])
+def test_masked_scores_kernel_at_the_sequential_models_widths(cuda, d):
+    """K1 at the sequential models' evaluation shape (ml-1m: 3,706 items,
+    eval batch 2048) and widths (HRM 16, Fossil 17, FPMC 32, SASRec 50, NPE
+    64, Caser 100, GRU4Rec and GRU4RecPlus 101: f32 FMAs at 16, 17 and 32,
+    the split's cp.async path at the ragged 50 and 101, its TMA path at 64
+    and 100), both masks: -inf where the plain version has it, the same bits
+    twice, and every score within the bound of the path it takes from the
+    f64 product, d 2^-24 sum_k |u_k i_k| on the f32 path and
+    (3 2^-22 + d 2^-24) sum_k |u_k i_k| on the split. Up to d 64 the scores
+    are also within 1e-5 of the plain f32 product; at d 100 and 101 on randn
+    factors two f32 orders differ by more (1.3e-5 at d 101: the plain
+    product's own rounding), so there, as at d 256, K1 is held to be no
+    farther from the f64 product than the plain product or within its
+    path's bound."""
+    B, I = 2048, 3706
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(50 + d, B, I, d, 64))
+    if d <= 64:
+        _check_both_modes(u, items, rows)
+    rel = d * 2.0 ** -24 + (0.0 if k1.k1_path(d) == "fma" else 3 * 2.0 ** -22)
+    exact = u.double() @ items.double().T
+    bound = rel * (u.double().abs() @ items.double().abs().T)
+    width = global_bits_width(I)
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    for run, want in ((lambda: k1.masked_scores(u, items, rows), k1.masked_scores_reference(u, items, rows)),
+                      (lambda: k1.masked_scores_bits(u, items, bits, width, I),
+                       k1.masked_scores_bits_reference(u, items, bits, width, I))):
+        got = run()
+        finite = torch.isfinite(got)
+        assert torch.equal(torch.isinf(got), torch.isinf(want)) and torch.equal(got, run())
+        assert bool(((got.double() - exact).abs() <= bound)[finite].all())

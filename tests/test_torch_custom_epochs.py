@@ -296,8 +296,8 @@ def test_exclusion_table_budget_binds_the_sampled_epochs_only(monkeypatch):
     _, ds, _, model = build_both(CONFS["spectralcf"])
     with pytest.raises(NotImplementedError, match="Bloom"):
         Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
-    model.data_kind = "time_pairwise"
-    with pytest.raises(NotImplementedError, match="sequential"):
+    model.data_kind = "time_pairwise"  # the time-order epochs are sampled epochs too
+    with pytest.raises(NotImplementedError, match="Bloom"):
         Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
 
 

@@ -254,9 +254,6 @@ def test_outside_the_slice_raises_not_implemented():
     model = get_model("MF")(ds, DictConfig(MF_PAIR), device="cpu")
     with pytest.raises(NotImplementedError, match="trace_dir"):
         Trainer(model, ds, DictConfig(dict(MF_PAIR, trace_dir="/tmp/t")), device="cpu")
-    model.data_kind = "time_pairwise"
-    with pytest.raises(NotImplementedError, match="sequential family"):
-        Trainer(model, ds, DictConfig(MF_PAIR), device="cpu")
     # a row long enough to put the padded exclusion table above 64 MB
     wide = sp.csr_matrix(np.ones((1, 80), np.float32))
     big = InMemoryDataset(sp.vstack([wide] + [sp.csr_matrix((1, 80), dtype=np.float32)] * 209_999).tocsr(),
