@@ -159,7 +159,37 @@ failure exits non-zero before the result line):
    predict tier with no K1 launch. It fails on a non-finite loss, FPMC's
    (on its pairwise BPR form, see ``SEQ_MODELS``), SASRec's or GRU4Rec's
    Recall@20 not above its random weights', or a GRU4Rec pad step (no
-   valid entry) that changes the params or Adam.
+   valid entry) that changes the params or Adam;
+19. path H, the social family on the gowalla split, over a friendship
+   graph made from the seed (``social_graph``: power-law degrees with
+   SNAP loc-Gowalla's mean, capped at ``SOCIAL_MAX_DEGREE``, every edge
+   both ways, under ``build/social``): SBPR and DiffNet at their
+   ``conf/*.properties`` widths through ``Trainer``, each a full
+   evaluation of random weights, ``SOCIAL_STEPS`` steps, a full evaluation
+   with exactly one K1 launch (d 16) a batch, the same evaluation through
+   K1's plain version (the same metric string, and the top-20 ids of every
+   test user in every position), K1 at the model's factors against its
+   plain version, the step's device time from the profiler, SBPR's
+   ``max_s`` and table bytes (equal to those reckoned from ``max_s``). It
+   fails on a non-finite loss or SBPR's Recall@20 not above its random
+   weights';
+20. the sampled-candidates protocol: gowalla with ``rec.evaluate.neg=99``
+   (the generation's seconds), the north star's trained LightGCN and path
+   D's MF evaluated on each test user's positives and 99 negatives, and
+   again with the same scores ranked on the host (the CPU path): metrics
+   within 1e-6; no bits table built;
+21. the streamed bits tier: ``NEUREC_EVAL_BITS_BUDGET`` one byte below the
+   gowalla table, the trained LightGCN evaluated twice (cold, warm) with
+   one K1 launch a batch: the metric string and the top-20 ids of every
+   batch identical to the resident table's;
+22. path I, the Bloom sampler: a rating set at ml-10m's published shape
+   (``ML10M_USERS`` x ``ML10M_ITEMS``, ``ML10M_RATINGS``, made on the card
+   in memory, ``ml10m_seeded``), MF at its conf through ``Trainer`` on the
+   pair Bloom filter (the padded table would be 2.06 GB): the epoch's
+   pre-draw, ``BLOOM_STEPS`` steps, and every negative of the epoch
+   checked on the card against the train CSR: the train positives among
+   them at most the ``BLOOM_TAIL`` upper quantile of a Poisson at their
+   expected count, sum over the draws of (d + 0.031)^R d / (d + 0.031).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -169,7 +199,9 @@ first epochs, and NAIS, DeepICF (1,024 users), ConvNCF (32) and DMF
 steps (WRMF 2 of its 300 epochs) and JCA evaluates 2,048 users; path F
 trains 100 of 315 steps of one epoch of its 300; path G trains 200-2,000
 steps of epochs of thousands (SASRec 8 epochs of 48 steps; GRU4Rec's cut
-in steps of its schedule).
+in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
+DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
+path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -177,7 +209,8 @@ JAX package on the CPU.
 The last lines: ``{"kernels": [...]}`` (every kernel and variant, with the
 ``device_ms`` of the SpMM kernels and
 ``launches_by_path``), the ``nvidia-smi`` name/power-limit line, and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``run.main`` (phase 15) also runs
+SBPR and DiffNet on the seeded rating file with a seeded friendship file.
 """
 
 from __future__ import annotations
@@ -376,6 +409,41 @@ SEQ_MODELS = (
 RUN_SEQ_MODELS = ("FPMC", "FPMCplus", "TransRec", "Fossil", "HRM", "NPE", "SASRec", "Caser", "GRU4Rec",
                   "GRU4RecPlus", "SRGNN")
 RUN_SEQ_USERS, RUN_SEQ_ITEMS = 300, 400
+# the social models' run entry point: one epoch on the rating file of
+# RUN_MODELS with a friendship file made from the seed (5 friends a user)
+RUN_SOCIAL_MODELS = ("SBPR", "DiffNet")
+
+# path H: the social family on gowalla at their conf/*.properties widths
+# (embedding 16, batch 512, Adam at lr 0.001; reg_mf 0.01 / 1e-5; DiffNet
+# pointwise with 10 negatives and no feature file, as its conf's files are
+# not in the repo), each for SOCIAL_STEPS steps of its first epoch, over a
+# friendship graph made from the seed: each user's degree from a discrete
+# power law on [1, SOCIAL_MAX_DEGREE] whose mean is SNAP loc-Gowalla's
+# (950,327 undirected edges over 196,591 users, Cho et al., KDD 2011: 9.67
+# friends a user), the degrees wired by a configuration model (stubs paired
+# at random, self-loops and repeated pairs dropped), every edge written
+# both ways as SNAP's edge file lists it. (path, model, flags, whether its
+# Recall@20 must beat its random weights')
+SOCIAL_EDGES, SOCIAL_NODES, SOCIAL_MAX_DEGREE = 950_327, 196_591, 1000
+SOCIAL_STEPS = 300
+SOCIAL_DIR = os.path.join(REPO, "build", "social")
+SOCIAL_MODELS = (("sbpr", "SBPR", [], True), ("diffnet", "DiffNet", [], False))
+# the sampled-candidates phase: gowalla with rec.evaluate.neg = CAND_NEG
+# (the NCF papers' protocol: each test user's items against 99 negatives)
+CAND_NEG = 99
+# path I: a rating set at ml-10m's published shape (GroupLens MovieLens 10M:
+# 69,878 users that rated, 10,677 items, 10,000,054 ratings, at least 20 a
+# user, the most active 7,359), made on the card from the seed: user counts
+# a log-normal tail as path G's, each user's items drawn without repeats by
+# a Zipf-like popularity (Gumbel top-k over rank^-ML10M_ZIPF), 80% of each
+# user's items to train. Its padded exclusion table is 4 B x 69,878 x 7,360
+# (2.06 GB), over the 64 MB budget: MF trains on the Bloom sampler.
+ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS, ML10M_MIN_PER_USER = 69_878, 10_677, 10_000_054, 20
+ML10M_MAX_PER_USER, ML10M_ZIPF = 7359, 0.9
+BLOOM_STEPS = 300
+# the Bloom contract: train positives among the epoch's negatives at most
+# the 1e-6 upper quantile of a Poisson at their expected count
+BLOOM_TAIL = 1e-6
 
 # 2-epoch losses and Recall@20 recorded in PERF.md with the kernels whose
 # warps owned whole rows (one fmaf chain per row). The edge-balanced
@@ -451,26 +519,56 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n=20):
+def traced(torch, fn, n, activities=("CPU", "CUDA")):
+    """``(profiler, wall ms)``: ``torch.profiler`` over ``n`` calls of
+    ``fn``, after a warm-up step of ``n`` calls that it traces and drops
+    (its schedule's ``warmup``, as the profiler's documentation advises);
+    the wall time is the counted step's."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [getattr(ProfilerActivity, a) for a in activities]
+    torch.cuda.synchronize()
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            prof.step()
+    return prof, wall_ms
+
+
+def device_ms(torch, fn, n=20, tries=6):
     """``(total, by_kernel)``: the device time of one call of ``fn``, the
-    summed time of its CUDA kernels under ``torch.profiler``, and each
-    kernel's share, per call; ``(None, {})`` where the profiler shows no
-    kernel. Unlike ``time_ms`` it leaves out the host's time, which sets a
-    back-to-back loop's pace when a call's kernels are shorter."""
+    summed time of its CUDA kernels under ``torch.profiler`` (``traced``),
+    and each kernel's share, per call; ``(None, {})`` where no window was
+    whole. Unlike ``time_ms`` it leaves out the host's time, which sets a
+    back-to-back loop's pace when a call's kernels are shorter.
+
+    On the card a window now and then keeps the host's events and loses
+    some or all of its kernels' records (17 of 20 K1 launches, or none; how
+    often varies from run to run, and why is not known), so a window is
+    kept only when every kernel in it ran a whole number of times a call.
+    Another is opened otherwise, up to ``tries``, and each one dropped is
+    reported (``phase: profiler_window``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel = {e.key.split("<")[0].split("(")[0][-40:]: e.self_device_time_total / n / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
-    total = sum(by_kernel.values())
-    return (total, by_kernel) if total else (None, {})
+    for attempt in range(tries):
+        events = traced(torch, fn, n)[0].key_averages()
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        if kernels and all(e.count % n == 0 for e in kernels):
+            by_kernel = {}
+            for e in kernels:
+                name = e.key.split("<")[0].split("(")[0][-40:]
+                by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / n / 1e3
+            return sum(by_kernel.values()), by_kernel
+        emit({"phase": "profiler_window", "dropped": True, "attempt": attempt, "calls": n,
+              "kernels": {e.key[:60]: e.count for e in kernels},
+              "host_events": {e.key[:40]: e.count for e in list(events) if e.device_type != DeviceType.CUDA}})
+    return None, {}
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -585,20 +683,13 @@ def hub_coo(np):
 
 
 def profile_steps(torch, step, n=10):
-    """``torch.profiler`` over ``n`` calls of ``step``: device time per
-    kernel (their sum is the device's busy time; one stream, so kernels do
-    not overlap) and host time per operator, per step, the largest first.
-    None where the profiler shows no kernel."""
+    """``torch.profiler`` over ``n`` calls of ``step`` (``traced``): device
+    time per kernel (their sum is the device's busy time; one stream, so
+    kernels do not overlap) and host time per operator, per step, the
+    largest first. None where the profiler shows no kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    prof, wall_ms = traced(torch, step, n)
     kernels, ops = [], []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -706,12 +797,7 @@ def ml1m_seeded_rows(np):
     repeats (see ML1M_FOLLOW), times increasing along the walk."""
     rng = np.random.RandomState(SEED)
     U, I, R = ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS
-    raw = rng.lognormal(0.0, 1.2, U)
-    counts = np.minimum(ML1M_MIN_PER_USER + np.floor(raw / raw.sum() * (R - ML1M_MIN_PER_USER * U)).astype(np.int64),
-                        ML1M_MAX_PER_USER)
-    while counts.sum() < R:  # the floors' remainder, to users below the cap
-        room = np.flatnonzero(counts < ML1M_MAX_PER_USER)
-        counts[rng.choice(room, min(int(R - counts.sum()), len(room)), replace=False)] += 1
+    counts = lognormal_counts(np, rng, U, R, ML1M_MIN_PER_USER, ML1M_MAX_PER_USER)
     cdf = np.cumsum(1.0 / np.arange(1, I + 1) ** ML1M_ZIPF)
     item_of_rank = rng.permutation(I)
     successors = rng.randint(0, I, (I, ML1M_SUCCESSORS))
@@ -737,6 +823,74 @@ def ml1m_seeded_rows(np):
     users = np.repeat(np.arange(U), counts)
     times = 978_300_000 + np.arange(R)
     return users, np.asarray(items), rng.randint(1, 6, R), times
+
+
+def lognormal_counts(np, rng, users, ratings, low, high):
+    """Per-user rating counts of a log-normal tail from ``low`` to ``high``
+    summing to ``ratings`` (path G's draw)."""
+    raw = rng.lognormal(0.0, 1.2, users)
+    counts = np.minimum(low + np.floor(raw / raw.sum() * (ratings - low * users)).astype(np.int64), high)
+    while counts.sum() < ratings:  # the floors' remainder, to users below the cap
+        room = np.flatnonzero(counts < high)
+        counts[rng.choice(room, min(int(ratings - counts.sum()), len(room)), replace=False)] += 1
+    return counts
+
+
+def social_graph(np, user_keys):
+    """Path H's friendship edges over ``user_keys``, both ways: degrees from
+    a discrete power law on [1, SOCIAL_MAX_DEGREE] with loc-Gowalla's mean,
+    its exponent found by bisection, wired by a configuration model."""
+    k = np.arange(1, SOCIAL_MAX_DEGREE + 1, dtype=np.float64)
+    target = 2.0 * SOCIAL_EDGES / SOCIAL_NODES
+    lo, hi = 1.0, 4.0
+    for _ in range(60):
+        alpha = (lo + hi) / 2
+        p = k ** -alpha
+        lo, hi = (alpha, hi) if (k * p).sum() / p.sum() > target else (lo, alpha)
+    rng = np.random.RandomState(SEED)
+    deg = rng.choice(k.astype(np.int64), size=len(user_keys), p=p / p.sum())
+    stubs = rng.permutation(np.repeat(np.arange(len(user_keys)), deg))
+    pairs = stubs[: len(stubs) // 2 * 2].reshape(-1, 2)
+    pairs = np.unique(np.sort(pairs[pairs[:, 0] != pairs[:, 1]], axis=1), axis=0)
+    keys = np.asarray(user_keys)
+    both = np.concatenate([pairs, pairs[:, ::-1]])
+    realized = np.bincount(both[:, 0], minlength=len(user_keys))
+    return keys[both[:, 0]], keys[both[:, 1]], {
+        "alpha": alpha, "target_mean_degree": target, "drawn_mean_degree": float(deg.mean()),
+        "mean_degree": float(realized.mean()), "max_degree": int(realized.max()),
+        "undirected_edges": int(len(pairs)), "lines": int(len(both))}
+
+
+def ml10m_seeded(torch, np, sp, device="cuda"):
+    """Path I's (train, test) CSR matrices, made on the card in chunks of
+    users: Gumbel top-k over the items' log-popularity draws each user's
+    items without repeats, a second uniform key takes 80% of them (rounded
+    up) to train."""
+    rng = np.random.RandomState(SEED)
+    U, I = ML10M_USERS, ML10M_ITEMS
+    counts = lognormal_counts(np, rng, U, ML10M_RATINGS, ML10M_MIN_PER_USER, ML10M_MAX_PER_USER)
+    logp = torch.from_numpy(-ML10M_ZIPF * np.log(np.arange(1, I + 1))[rng.permutation(I)]).float().to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    parts = {True: [], False: []}
+    for lo in range(0, U, 2048):
+        c = torch.from_numpy(counts[lo:lo + 2048]).to(device)
+        n = c.shape[0]
+        gumbel = -torch.log(-torch.log(torch.rand((n, I), generator=gen, device=device).clamp_min(1e-30)))
+        order = torch.argsort(logp + gumbel, dim=1, descending=True)
+        chosen = torch.arange(I, device=device)[None, :] < c[:, None]
+        r2 = torch.where(chosen, torch.rand((n, I), generator=gen, device=device), 2.0)
+        rank2 = torch.argsort(torch.argsort(r2, dim=1), dim=1)
+        train = rank2 < torch.ceil(0.8 * c.double()).long()[:, None]
+        users = torch.arange(lo, lo + n, device=device)[:, None].expand(n, I)
+        for flag, sel in ((True, chosen & train), (False, chosen & ~train)):
+            parts[flag].append((users[sel].cpu().numpy(), order[sel].cpu().numpy()))
+
+    def csr(flag):
+        rows = np.concatenate([r for r, _ in parts[flag]])
+        cols = np.concatenate([c for _, c in parts[flag]])
+        return sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=(U, I))
+
+    return csr(True), csr(False), counts
 
 
 class LogLines(logging.Handler):
@@ -772,7 +926,8 @@ def main() -> int:
     from neurec_tpu_torch.bridge import param_leaves, params_from_numpy
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
-    from neurec_tpu_torch.eval import Evaluator
+    from neurec_tpu_torch.data.synthetic import InMemoryDataset
+    from neurec_tpu_torch.eval import Evaluator, tiers
     from neurec_tpu_torch.eval.tiers import global_bits_width
     from neurec_tpu_torch.models import get_model
     from neurec_tpu_torch.ops import _build
@@ -1566,9 +1721,9 @@ def main() -> int:
     save_pretrain("FISM", trainer_f.params, fism_path)
     del trainer_f
     mf64_path = os.path.join(pre_dir, "gowalla_mf64.pkl")
-    trainer_mf, rec_mf64 = zoo_trainer("MF", [], ZOO_STEPS["MF"])
-    save_pretrain("MF", trainer_mf.params, mf64_path)
-    del trainer_mf
+    # kept for the sampled-candidates phase
+    trainer_mf64, rec_mf64 = zoo_trainer("MF", [], ZOO_STEPS["MF"])
+    save_pretrain("MF", trainer_mf64.params, mf64_path)
     for name, args, warm in (("NAIS", ["--pretrain_file=%s" % fism_path], fism_path),
                              ("DeepICF", ["--pretrain_file=%s" % fism_path], fism_path),
                              ("ConvNCF", ["--mf_pretrain=%s" % mf64_path], mf64_path),
@@ -1796,6 +1951,262 @@ def main() -> int:
     require(not not_learned, "path G: not above random weights: %s" % "; ".join(not_learned))
     del dataset_g
 
+    # -- 19. path H: the social family on gowalla -------------------------------
+    os.makedirs(SOCIAL_DIR, exist_ok=True)
+    t = time.perf_counter()
+    src, dst, graph_h = social_graph(np, list(dataset.userids))
+    social_path = os.path.join(SOCIAL_DIR, "gowalla_seeded.uu")
+    with open(social_path, "w") as fout:
+        fout.write("".join("%s,%s\n" % e for e in zip(src.tolist(), dst.tolist())))
+    emit({"phase": "social_graph", **graph_h, "users": len(dataset.userids), "generate_s": time.perf_counter() - t})
+    del src, dst
+    n_batches = -(-n_eval // EVAL_USERS_PER_BATCH)
+    for key, name, flags, must_learn in SOCIAL_MODELS:
+        conf_h = Config(PROPS, cmd_args=["--recommender=%s" % name] + DATA_ARGS
+                        + ["--social_file=%s" % social_path] + flags)
+        t = time.perf_counter()
+        trainer_h = Trainer(get_model(name)(dataset, conf_h), dataset, conf_h)
+        trainer_h.initialize()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        model_h, ev_h = trainer_h.model, trainer_h.evaluator.evaluator
+        random_result = zoo_eval(trainer_h, trainer_h.params)[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer_h.params, trainer_h.opt_state, loss_h = trainer_h.train_epoch(1, max_steps=SOCIAL_STEPS)
+        loss_h = float(loss_h)
+        train_s = time.perf_counter() - t
+        require(np.isfinite(loss_h), "%s: non-finite loss %g" % (name, loss_h))
+        _build.reset_launches()
+        result_h, eval_h_s = zoo_eval(trainer_h, trainer_h.params)
+        paths[key] = dict(_build.LAUNCHES)
+        require(paths[key]["masked_scores"] == n_batches, "%s: %d K1 launches for %d eval batches"
+                % (name, paths[key]["masked_scores"], n_batches))
+        with mock.patch.object(k1, "masked_scores_bits", k1.masked_scores_bits_reference):
+            result_p, _ = zoo_eval(trainer_h, trainer_h.params)
+        # the top-20 ids of every test user through K1 and its plain version
+        with torch.no_grad():
+            tables = model_h.eval_tables(trainer_h.params) if hasattr(model_h, "eval_tables") else None
+            bits_h = ev_h._get_bits_table(width, width)
+            differ = 0
+            for lo in range(0, n_eval, EVAL_USERS_PER_BATCH):
+                users_h = torch.from_numpy(ev_h.test_users[lo:lo + EVAL_USERS_PER_BATCH]).long().cuda()
+                u_h, items_h = (tables[0][users_h], tables[1]) if tables is not None else \
+                    model_h.eval_embeddings(trainer_h.params, users_h)
+                u_h, items_h = u_h.contiguous(), items_h.contiguous()
+                bits_b = bits_h[lo:lo + EVAL_USERS_PER_BATCH]
+                got_h = k1.masked_scores_bits(u_h, items_h, bits_b, width, I)
+                want_h = k1.masked_scores_bits_reference(u_h, items_h, bits_b, width, I)
+                differ += int((top_k(got_h, 20)[1] != top_k(want_h, 20)[1]).sum())
+                if lo == 0:
+                    err_h, ok_h = compare(torch, got_h, want_h)
+                    d_h = u_h.shape[1]
+            del tables, got_h, want_h
+        emit({"phase": "kernel_case", "case": "masked_scores[d16][%s]" % key, "shape": [EVAL_USERS_PER_BATCH, I, d_h],
+              "max_abs_err": err_h, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL)})
+        require(ok_h, "K1 at %s's factors disagrees with its plain version: %g" % (name, err_h))
+        # one step's device time (the profiler) and wall time, over 5 steps
+        if model_h.data_kind == "custom":
+            prof = profile_steps(torch, lambda: trainer_h.train_epoch(2, max_steps=5), n=1)
+        else:
+            draws_h = trainer_h.draw_epoch(trainer_h.epoch_generator(2))
+            params_c, opt_c = clone_state(trainer_h)
+            prof = profile_steps(torch, lambda: trainer_h.run_epoch(params_c, opt_c, *(a[:5] for a in draws_h)), n=1)
+            del draws_h, params_c, opt_c
+        require(prof is not None, "%s: the profiler shows no kernel" % name)
+        rec_h = {"phase": key, "model": name, "setup_s": setup_s, "data_kind": model_h.data_kind,
+                 "embedding_size": model_h.embedding_size, "batch_size": model_h.batch_size,
+                 "steps": SOCIAL_STEPS, "loss": loss_h, "train_s": train_s,
+                 "ms_per_step": 1e3 * train_s / SOCIAL_STEPS,
+                 "device_ms_per_step": prof["device_ms_per_step"] / 5,
+                 "wall_ms_per_step_profiled": prof["wall_ms_per_step_profiled"] / 5,
+                 "kernel_launches_per_step": prof["kernel_launches_per_step"] / 5, "top_kernels": prof["kernels"][:5],
+                 "result": result_h, "plain_result": result_p, "random_init_result": random_result,
+                 "eval_users": n_eval, "eval_s": eval_h_s, "eval_users_per_s": n_eval / eval_h_s,
+                 "eval_width": d_h, "k1_path": k1.k1_path(d_h), "top20_ids_differing": differ,
+                 "launches": paths[key]}
+        if name == "SBPR":
+            tb = model_h.table_bytes
+            l_max_h = max(int(np.diff(dataset.train_matrix.indptr).max()), 8)
+            l_pad = l_max_h + (-l_max_h) % 8
+            reckoned = {"soc": 4 * dataset.num_users * model_h.max_s, "suk": 4 * dataset.num_users * model_h.max_s,
+                        "excl": 4 * dataset.num_users * (l_pad + model_h.max_s)}
+            rec_h.update({"max_s": model_h.max_s, "table_bytes": tb, "table_bytes_reckoned": reckoned,
+                          "table_gb": sum(tb.values()) / 1e9, "positives_with_social": int(model_h._users_flat.shape[0]),
+                          "steps_per_epoch": -(-int(model_h._users_flat.shape[0]) // model_h.batch_size)})
+            require(tb == reckoned, "SBPR's tables hold %s bytes, reckoned %s" % (tb, reckoned))
+        else:
+            rec_h.update({"social_edges": int(model_h._soc_edges.cols.shape[0]), "steps_per_epoch": trainer_h.steps,
+                          "item_features": bool(model_h._has_item_feat)})
+        emit(rec_h)
+        require(result_h == result_p, "%s: metrics %s through K1, %s through its plain version"
+                % (name, result_h, result_p))
+        require(differ == 0, "%s: %d top-20 ids differ from K1's plain version" % (name, differ))
+        if must_learn:
+            require(parse_metrics(result_h)[0] > parse_metrics(random_result)[0],
+                    "%s: Recall@20 after training %s, random weights' %s" % (name, result_h, random_result))
+        del trainer_h, model_h, ev_h
+        torch.cuda.empty_cache()
+
+    # -- 20. the sampled-candidates protocol on gowalla -------------------------
+    t = time.perf_counter()
+    conf_n = Config(PROPS, cmd_args=NORTHSTAR_ARGS + ["--rec.evaluate.neg=%d" % CAND_NEG])
+    dataset_n = Dataset(conf_n)
+    gen_n_s = time.perf_counter() - t
+    neg_dict = dataset_n.get_user_test_neg_dict()
+    train_d, test_d = dataset_n.get_user_train_dict(), dataset_n.get_user_test_dict()
+    require(all(len(v) == CAND_NEG and not set(v) & (set(train_d.get(u, ())) | set(test_d.get(u, ())))
+                for u, v in neg_dict.items()) and set(test_d) <= set(neg_dict),
+            "the generated negatives are not %d unrated items a test user" % CAND_NEG)
+    t = time.perf_counter()
+    ev_n = Evaluator.from_dataset(dataset_n, conf_n)
+    ev_n_cpu = Evaluator.from_dataset(dataset_n, conf_n, device="cpu")
+    cand_setup_s = time.perf_counter() - t
+    cand = {}
+    for key, (model_n, params_n) in (("lightgcn", (tmodel, trainer.params)),
+                                     ("mf", (trainer_mf64.model, trainer_mf64.params))):
+        _build.reset_launches()
+        t = time.perf_counter()
+        result_n = ev_n.evaluate(model_n.predict, params_n)
+        torch.cuda.synchronize()
+        eval_n_s = time.perf_counter() - t
+        paths["cand_" + key] = dict(_build.LAUNCHES)
+
+        # the plain path: the same scores, the candidates ranked on the host
+        def host_predict(p, users, model_n=model_n):
+            return model_n.predict(p, users.cuda()).cpu()
+
+        t = time.perf_counter()
+        result_np = ev_n_cpu.evaluate(host_predict, params_n)
+        plain_n_s = time.perf_counter() - t
+        diff_n = max(abs(a - b) for a, b in zip(parse_metrics(result_n), parse_metrics(result_np)))
+        cand[key] = {"result": result_n, "plain_result": result_np, "metric_max_abs_diff": diff_n,
+                     "eval_s": eval_n_s, "plain_eval_s": plain_n_s, "launches": paths["cand_" + key]}
+        require(diff_n <= 1e-6, "candidates, %s: metrics differ from the plain path by %g" % (key, diff_n))
+        require(ev_n.evaluator._bits_tables == {}, "the candidate protocol built a bits table")
+        values = parse_metrics(result_n)
+        require(all(np.isfinite(values)) and all(0.0 <= m <= 1.0 for m in values),
+                "candidates, %s: metrics out of range: %s" % (key, result_n))
+    emit({"phase": "candidates", "neg": CAND_NEG, "generate_s": gen_n_s, "setup_s": cand_setup_s,
+          "test_users": len(test_d), "tol": "metrics within 1e-6 (the per-user sums in another order)", **cand})
+    del dataset_n, ev_n, ev_n_cpu, trainer_mf64, neg_dict, train_d, test_d
+
+    # -- 21. the streamed bits tier ----------------------------------------------
+    table_bytes = n_eval * width // 8
+    with env_vars({"NEUREC_EVAL_BITS_BUDGET": str(table_bytes - 1)}):
+        ev_s = Evaluator.from_dataset(dataset, conf)
+        _build.reset_launches()
+        t = time.perf_counter()
+        result_s = ev_s.evaluate(tmodel.predict, trainer.params)
+        torch.cuda.synchronize()
+        eval_s_cold = time.perf_counter() - t
+        t = time.perf_counter()
+        result_s2 = ev_s.evaluate(tmodel.predict, trainer.params)
+        torch.cuda.synchronize()
+        eval_s_warm = time.perf_counter() - t
+        paths["stream"] = dict(_build.LAUNCHES)
+        plan_s = ev_s.evaluator._get_program(tmodel.predict).plan
+    require(plan_s.stream and ev_s.evaluator._bits_tables == {}, "the streamed tier did not engage")
+    t = time.perf_counter()
+    result_t = evaluator.evaluate(tmodel.predict, trainer.params)
+    torch.cuda.synchronize()
+    eval_t_s = time.perf_counter() - t
+    # the top-20 ids of every test user, on the packed planes and the
+    # table's rows (a pad slot of the last batch packs no pair)
+    users_sb, sel_sb, valid_sb = ev_s.evaluator._default_batches
+    e_items, e_slots = ev_s.evaluator._edges[None]
+    pack = tiers.make_edge_pack(plan_s.pack_block, plan_s.bits_width)
+    with torch.no_grad():
+        u_tab, i_tab = tmodel.eval_tables(trainer.params)
+        ids_differ = 0
+        for j in range(users_sb.shape[0]):
+            u_j = u_tab[users_sb[j]].contiguous()
+            planes = pack(e_items[j], e_slots[j], users_sb.shape[1])
+            ids_s = top_k(k1.masked_scores_bits(u_j, i_tab, planes, width, I), 20)[1]
+            ids_t = top_k(k1.masked_scores_bits(u_j, i_tab, evaluator.evaluator._get_bits_table(width, width)[sel_sb[j]],
+                                                width, I), 20)[1]
+            ids_differ += int((ids_s != ids_t)[valid_sb[j] > 0].sum())
+        pack_ms = time_ms(torch, lambda: pack(e_items[0], e_slots[0], users_sb.shape[1]))
+    emit({"phase": "stream", "budget": table_bytes - 1, "table_bytes": table_bytes, "result": result_s,
+          "table_result": result_t, "eval_s_cold": eval_s_cold, "eval_s": eval_s_warm, "table_eval_s": eval_t_s,
+          "edges_shape": list(e_items.shape), "edge_bytes": 2 * e_items.numel() * e_items.element_size(),
+          "pack_ms": pack_ms, "top20_ids_differing": ids_differ, "launches": paths["stream"]})
+    require(result_s == result_t == result_s2, "streamed metrics %s, the table's %s" % (result_s, result_t))
+    require(ids_differ == 0, "%d streamed top-20 ids differ from the table's" % ids_differ)
+    require(paths["stream"]["masked_scores"] == 2 * n_batches, "stream: %d K1 launches for %d eval batches"
+            % (paths["stream"]["masked_scores"], 2 * n_batches))
+    del ev_s, u_tab, i_tab
+
+    # -- 22. path I: the Bloom sampler at ml-10m's shape -------------------------
+    t = time.perf_counter()
+    train_i, test_i, counts_i = ml10m_seeded(torch, np, sp)
+    gen_i_s = time.perf_counter() - t
+    ds_i = InMemoryDataset(train_i, test_i, name="ml10m_seeded")
+    require((ds_i.num_users, ds_i.num_items, ds_i.num_ratings) == (ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS),
+            "path I: %d users, %d items, %d ratings" % (ds_i.num_users, ds_i.num_items, ds_i.num_ratings))
+    conf_i = Config(PROPS, cmd_args=["--recommender=MF", "--config_dir=%s" % os.path.join(REPO, "conf"),
+                                     "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]",
+                                     "--test_batch_size=%d" % EVAL_USERS_PER_BATCH])
+    t = time.perf_counter()
+    trainer_i = Trainer(get_model("MF")(ds_i, conf_i), ds_i, conf_i)
+    trainer_i.initialize()
+    torch.cuda.synchronize()
+    setup_i_s = time.perf_counter() - t
+    require(trainer_i._excl_bloom is not None and not hasattr(trainer_i, "_padded_items"),
+            "path I: the Bloom sampler did not engage")
+    lens_i = np.diff(train_i.indptr)
+    l_max_i = max(int(lens_i.max()), 8)
+    padded_i = 4 * ML10M_USERS * (l_max_i + (-l_max_i) % 8)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    draws_i = trainer_i.draw_epoch(trainer_i.epoch_generator(1))
+    torch.cuda.synchronize()
+    draw_i_s = time.perf_counter() - t
+    users_i = trainer_i._users_flat[trainer_i._base(draws_i.inst)].reshape(-1)
+    t = time.perf_counter()
+    trainer_i.bloom_negatives(torch.Generator(device="cuda").manual_seed(SEED), users_i)
+    torch.cuda.synchronize()
+    predraw_i_s = time.perf_counter() - t
+    t = time.perf_counter()
+    trainer_i.params, trainer_i.opt_state, loss_i = trainer_i.run_epoch(
+        trainer_i.params, trainer_i.opt_state, *(a[:BLOOM_STEPS] for a in draws_i))
+    loss_i = float(loss_i)
+    steps_i_s = time.perf_counter() - t
+    require(np.isfinite(loss_i), "path I: non-finite loss %g" % loss_i)
+    # every negative of the epoch against the train CSR, on the card
+    keys_train = torch.from_numpy(np.repeat(np.arange(ML10M_USERS, dtype=np.int64), lens_i) * ML10M_ITEMS
+                                  + train_i.indices.astype(np.int64)).cuda().sort()[0]
+    keys_neg = users_i * ML10M_ITEMS + draws_i.negs.reshape(-1).long()
+    at = torch.searchsorted(keys_train, keys_neg).clamp_max(keys_train.numel() - 1)
+    real = draws_i.w.reshape(-1) > 0
+    positive = (keys_train[at] == keys_neg) & real
+    kept = int(positive.sum())
+    kept_cut = int(positive[: BLOOM_STEPS * draws_i.inst.shape[1]].sum())
+    rounds = trainer_i._bloom_rounds
+    dens = torch.from_numpy(lens_i / ML10M_ITEMS).cuda()[users_i][real]
+    fp = 0.031
+    expected = float(((dens + fp) ** rounds * dens / (dens + fp)).sum())
+    from scipy.stats import poisson
+
+    bound_i = float(poisson.isf(BLOOM_TAIL, expected))
+    steps_i = trainer_i.steps
+    rec_i = {"phase": "bloom", "users": ML10M_USERS, "items": ML10M_ITEMS, "ratings": ds_i.num_ratings,
+             "train_nnz": int(train_i.nnz), "per_user": [int(x) for x in np.percentile(counts_i, [0, 50, 99, 100])],
+             "generate_s": gen_i_s, "setup_s": setup_i_s, "padded_table_bytes": padded_i,
+             "bloom_table_bytes": int(trainer_i._excl_bloom[0].numel()), "bloom_bits": trainer_i._excl_bloom[1],
+             "k_hash": trainer_i._excl_bloom[2], "bloom_rounds": rounds, "d_max": float(lens_i.max() / ML10M_ITEMS),
+             "steps_per_epoch": steps_i, "steps": BLOOM_STEPS, "loss": loss_i, "draw_epoch_s": draw_i_s,
+             "predraw_s": predraw_i_s, "steps_s": steps_i_s, "ms_per_step": 1e3 * steps_i_s / BLOOM_STEPS,
+             "predraw_ms_per_step": 1e3 * predraw_i_s / steps_i,
+             "predraw_share_of_epoch": predraw_i_s / (draw_i_s + steps_i * steps_i_s / BLOOM_STEPS),
+             "negatives_checked": int(real.sum()), "train_positives_kept": kept, "kept_in_cut_steps": kept_cut,
+             "expected_kept": expected, "poisson_bound": bound_i, "tail": BLOOM_TAIL}
+    emit(rec_i)
+    require(kept <= bound_i, "path I: %d train positives among the negatives, over the bound %g (expected %g)"
+            % (kept, bound_i, expected))
+    del trainer_i, ds_i, train_i, test_i, draws_i, users_i, keys_train, keys_neg, at, positive, dens
+    torch.cuda.empty_cache()
+
     # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
     run_dir = os.path.join(REPO, "build", "run_main")
     os.makedirs(run_dir, exist_ok=True)
@@ -1817,7 +2228,14 @@ def main() -> int:
                     "--data.cache.path=%s" % run_seq_dir, "--data.input.dataset=synthetic_seq",
                     "--data.column.format=UIRT", "--data.convert.separator=','", "--splitter=loo", "--by_time=True",
                     "--user_min=0", "--item_min=0", "--topk=[20]", "--metric=[\"Recall\",\"NDCG\"]", "--epochs=1"]
-    for name, args in [(m, run_args) for m in RUN_MODELS] + [(m, run_seq_args) for m in RUN_SEQ_MODELS]:
+    rng_u = np.random.RandomState(SEED + 2)
+    run_social = os.path.join(run_dir, "synthetic.uu")
+    with open(run_social, "w") as fout:
+        fout.write("".join("%d,%d\n" % (u, f) for u in range(RUN_USERS) for f in rng_u.choice(RUN_USERS, 5, replace=False)))
+    run_social_args = run_args + ["--social_file=%s" % run_social, "--num_epochs=1", "--user_feature_file=",
+                                  "--item_feature_file="]
+    for name, args in ([(m, run_args) for m in RUN_MODELS] + [(m, run_seq_args) for m in RUN_SEQ_MODELS]
+                       + [(m, run_social_args) for m in RUN_SOCIAL_MODELS]):
         t = time.perf_counter()
         trainer_r, result_r = run.main(PROPS, cmd_args=["--recommender=%s" % name] + args)
         torch.cuda.synchronize()
@@ -1836,12 +2254,12 @@ def main() -> int:
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
-        "masked_scores": ("masked_scores", lightgcn_paths + ("apr",)),
+        "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream")),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
         "masked_scores[d1]": ("masked_scores", ("pop",)),
-        "masked_scores[d16]": ("masked_scores", ("wrmf",)),
+        "masked_scores[d16]": ("masked_scores", ("wrmf", "sbpr", "diffnet")),
         "masked_scores[d21]": ("masked_scores", ("irgan",)),
         "masked_scores[d33]": ("masked_scores", ("multidae", "multivae")),
         "masked_scores[d40]": ("masked_scores", ()),

@@ -6,9 +6,22 @@ writes and reads the same cache files under ``data.cache.path``
 user2id,item2id,md5,info}``) and exposes the same ``train_matrix``,
 ``test_matrix``, ``time_matrix``, ``get_user_*_dict`` and ``__str__``.
 
-Not ported in this slice: the sampled-candidates protocol — a shipped
-``<name>.neg`` file or ``rec.evaluate.neg > 0`` raises
-``NotImplementedError``.
+The sampled-candidates protocol (``neurec_tpu/data/dataset.py:244-330``):
+
+* a shipped ``<name>.neg`` (a user id, then that user's test negatives, on
+  each line) is remapped through the id maps beside the split cache, as
+  ``<prefix>.neg<N>``; ids are matched as the JAX package's
+  ``_remap_token`` matches them, on the values its pandas reader would
+  give (one dtype for the whole file: object where a column holds text,
+  else float where a column has a gap, else int). A ragged line raises
+  ``ValueError``; so does an empty or whitespace-only file, naming the
+  dataset (the JAX package raises pandas' ``EmptyDataError``, a
+  ``ValueError``);
+* ``rec.evaluate.neg = N > 0``: ``<prefix>.neg<N>`` is read, or made from
+  ``RandomState(seed)``: user by user in sorted order, N items drawn
+  without replacement from those the user never rated (train or test).
+  The file is byte-equal to the JAX package's; ``negative_matrix`` holds
+  it as a CSR of ones, and ``get_user_test_neg_dict`` as lists.
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ import numpy as np
 from scipy.sparse import csr_matrix
 
 from neurec_tpu_torch.data.preprocess import (
+    _parse_column,
     check_md5,
     concat,
     filter_data,
@@ -63,11 +77,26 @@ def csr_to_user_dict_bytime(
     return out
 
 
-def _neg_not_ported(what: str):
-    return NotImplementedError(
-        "%s belongs to the sampled-candidates evaluation protocol, which "
-        "the PyTorch port does not implement yet" % what
-    )
+def read_neg_rows(path: str, sep: str, dataset_name: str) -> list:
+    """The rows of a ``.neg`` file as the JAX package's ``pd.read_csv(...,
+    header=None).values`` gives them: columns typed as ``read_table`` types
+    them, then one dtype for all (object if any column holds text, else
+    float if any has a gap, else int). Blank and whitespace-only lines are
+    skipped; a line longer than the first, or no line at all, raises
+    ``ValueError``."""
+    with open(path, "r") as fin:
+        rows = [line.split(sep) for line in fin.read().splitlines() if line.strip()]
+    if not rows:
+        raise ValueError("%s.neg is empty: it holds no user and no negative" % dataset_name)
+    width = len(rows[0])
+    if any(len(r) > width for r in rows):
+        raise ValueError("ragged line in %s.neg (a line has more fields than the first)" % dataset_name)
+    cols = [_parse_column([r[j] if j < len(r) else "" for r in rows]) for j in range(width)]
+    if any(c.dtype == object for c in cols):
+        cols = [c.astype(object) for c in cols]
+    elif any(c.dtype.kind == "f" for c in cols):
+        cols = [c.astype(np.float64) for c in cols]
+    return [list(r) for r in zip(*(c.tolist() for c in cols))]
 
 
 class Dataset:
@@ -168,15 +197,11 @@ class Dataset:
                 (train_data["time"], (train_data["user"], train_data["item"])),
                 shape=shape,
             )
-        number_neg = config.get("rec.evaluate.neg", 0)
-        if number_neg and number_neg > 0:
-            raise _neg_not_ported("rec.evaluate.neg=%s" % number_neg)
+        self.negative_matrix = self._load_test_neg_items(all_data, config, saved_prefix, sep)
 
     def _split_data(self, ori_prefix, saved_prefix, columns, by_time, config):
         splitter = config["splitter"]
         sep = config["data.convert.separator"]
-        if os.path.isfile(ori_prefix + ".neg"):
-            raise _neg_not_ported("the file %s.neg" % ori_prefix)
         os.makedirs(os.path.dirname(saved_prefix), exist_ok=True)
 
         if splitter in ("loo", "ratio"):
@@ -222,6 +247,16 @@ class Dataset:
         np.savetxt(saved_prefix + ".user2id", user2id, fmt="%s", delimiter=sep)
         np.savetxt(saved_prefix + ".item2id", item2id, fmt="%s", delimiter=sep)
 
+        neg_item_file = ori_prefix + ".neg"
+        if os.path.isfile(neg_item_file):
+            neg_item_list = []
+            for line in read_neg_rows(neg_item_file, sep, self.dataset_name):
+                row = [self._remap_token(self.userids, line[0], "user")]
+                row.extend(self._remap_token(self.itemids, i, "item") for i in line[1:])
+                neg_item_list.append(row)
+            test_neg = len(neg_item_list[0]) - 1
+            np.savetxt("%s.neg%d" % (saved_prefix, test_neg), neg_item_list, fmt="%d", delimiter=sep)
+
         with open(saved_prefix + ".md5", "w") as md5_out:
             md5_out.write("\n".join(self._source_md5(splitter, ori_prefix)))
 
@@ -234,6 +269,53 @@ class Dataset:
             fout.write(os.path.basename(saved_prefix) + "\n" + str(self) + "\n")
 
         return train_data, test_data
+
+    def _remap_token(self, mapping, tok, which):
+        """A ``.neg`` id through an id map: as it is, as text, as an int."""
+        if isinstance(tok, float) and np.isnan(tok):
+            raise ValueError(
+                "ragged line in %s.neg (every row needs the same number of %s ids)" % (self.dataset_name, which))
+        if tok in mapping:
+            return mapping[tok]
+        if str(tok) in mapping:
+            return mapping[str(tok)]
+        try:
+            as_int = int(tok)
+        except (TypeError, ValueError):
+            as_int = None
+        if as_int is not None and as_int in mapping:
+            return mapping[as_int]
+        raise KeyError("unknown %s id %r in %s.neg" % (which, tok, self.dataset_name))
+
+    def _load_test_neg_items(self, all_data, config, saved_prefix, sep):
+        number_neg = config.get("rec.evaluate.neg", 0)
+        if not number_neg or number_neg <= 0:
+            return None
+        neg_items_file = "%s.neg%d" % (saved_prefix, number_neg)
+        if not os.path.isfile(neg_items_file):
+            rng = np.random.RandomState(self._seed)
+            users, items = all_data["user"], all_data["item"]
+            order = np.argsort(users, kind="stable")
+            users, items = users[order], items[order]
+            starts = np.flatnonzero(np.r_[True, users[1:] != users[:-1]])
+            rows = []
+            free = np.ones(self.num_items, dtype=bool)
+            for user, u_items in zip(users[starts], np.split(items, starts[1:])):
+                # the sorted items the user never rated: np.setdiff1d's result without its sorts
+                free[:] = True
+                free[u_items] = False
+                candidates = np.flatnonzero(free)
+                chosen = rng.choice(candidates, size=number_neg, replace=False)
+                rows.append([user] + chosen.tolist())
+            np.savetxt(neg_items_file, np.asarray(rows), fmt="%d", delimiter=sep)
+        else:
+            rows = read_neg_rows(neg_items_file, sep, self.dataset_name)
+        user_list, item_list = [], []
+        for line in rows:
+            user_list.extend([line[0]] * (len(line) - 1))
+            item_list.extend(line[1:])
+        return csr_matrix(
+            (np.ones(len(user_list)), (user_list, item_list)), shape=(self.num_users, self.num_items))
 
     # -- accessors ---------------------------------------------------------
     def get_user_train_dict(self, by_time: bool = False) -> Dict[int, List[int]]:
@@ -249,7 +331,9 @@ class Dataset:
         return csr_to_user_dict(self.test_matrix)
 
     def get_user_test_neg_dict(self) -> Optional[Dict[int, List[int]]]:
-        return None  # the sampled-candidates protocol is not ported yet
+        if self.negative_matrix is None:
+            return None
+        return csr_to_user_dict(self.negative_matrix)
 
     def get_train_interactions(self):
         coo = self.train_matrix.tocoo()

@@ -12,10 +12,23 @@ protocol:
     mean = float64(total) / count -> float32
 
 The per-eval-user train masks are packed once per layout into a bit-plane
-table (the default ``bits`` tier) and kept on the device.
+table (the default ``bits`` tier) and kept on the device. A table above
+``NEUREC_EVAL_BITS_BUDGET`` streams instead (``plan.stream``,
+``neurec_tpu/eval/evaluator.py:510-532``): each batch's train pairs, as
+(item, slot in the batch) edges built on the host once per batch set and
+sized by the batch's interactions, are packed on the device into the
+table's exact layout (``tiers.make_edge_pack``), with no host sync inside
+a batch; the ids and metrics are the table's.
 
-Not ported yet: the sampled-candidates protocol (``.neg`` negatives), the
-``native`` host backend, the streamed bits tier and the multi-device tiers;
+The sampled-candidates protocol (per-user test negatives,
+``neurec_tpu/eval/evaluator.py:198-210,633-674``): each test user's
+candidates are their test positives, then their negatives, padded with the
+``-inf`` column; the top-min(K, C) of ``predict``'s scores (or the rows of
+``eval_dense_scores``) gathered at the candidates, the lowest candidate
+column first among ties; a hit is a column below the user's positive
+count.
+
+Not ported yet: the ``native`` host backend and the multi-device tiers;
 each raises ``NotImplementedError`` where the JAX package would take it.
 
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
@@ -34,6 +47,7 @@ from neurec_tpu_torch.eval import tiers
 from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
 from neurec_tpu_torch.ops.masked_scores import pack_train_bits
 from neurec_tpu_torch.ops.metrics import METRIC_INDEX, METRIC_NAMES, all_metrics, hit_matrix
+from neurec_tpu_torch.ops.topk import top_k
 
 PredictFn = Callable[[object, torch.Tensor], torch.Tensor]
 
@@ -78,8 +92,6 @@ class UniEvaluator:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        if user_neg_test is not None:
-            raise _not_ported("the sampled-candidates protocol (test negatives)")
         if metric is None:
             metric = list(METRIC_NAMES)
         elif isinstance(metric, str):
@@ -93,7 +105,7 @@ class UniEvaluator:
 
         self.user_pos_train = user_train_dict
         self.user_pos_test = user_test_dict
-        self.user_neg_test = None
+        self.user_neg_test = user_neg_test
         self.batch_size = int(batch_size)
 
         self.max_top = top_k if isinstance(top_k, int) else max(top_k)
@@ -122,6 +134,16 @@ class UniEvaluator:
         self._test_rows = torch.from_numpy(test_rows).to(self.device)
         self._test_lens = torch.from_numpy(test_lens).to(self.device)
 
+        self._cand_rows = self._n_pos = None
+        if user_neg_test is not None:
+            # candidates: the test positives first, then the negatives
+            cand_rows, _ = _pad_rows(
+                [list(user_test_dict[u]) + list(user_neg_test[u]) for u in self.test_users],
+                self.num_items, min_len=self.max_top,
+            )
+            self._cand_rows = torch.from_numpy(cand_rows).long().to(self.device)
+            self._n_pos = torch.from_numpy(test_lens).to(self.device)
+
         self._user_pos_index = {int(u): i for i, u in enumerate(self.test_users)}
         self._programs: Dict[Tuple[int, int], EvalProgram] = {}
         self._default_batches = None
@@ -130,6 +152,9 @@ class UniEvaluator:
         self._subset_cache_max = 32
         # packed train-mask bitmaps, keyed by (pack_block, width) layout
         self._bits_tables: Dict[Tuple[int, int], torch.Tensor] = {}
+        # streamed tier: (edge items, edge slots) of each batch set, keyed as
+        # the batch caches are (None: the default set)
+        self._edges: "OrderedDict[Optional[bytes], tuple]" = OrderedDict()
 
     def _host_rows(self, users, min_len: int = 1, pad_to: Optional[int] = None) -> np.ndarray:
         """Padded sorted train rows for the given users, padded with
@@ -199,6 +224,43 @@ class UniEvaluator:
             )
         return self._bits_tables[key]
 
+    def _batch_edges(self, users_b: torch.Tensor, valid_b: torch.Tensor):
+        """(edge_items, edge_slots), (n_batches, E_max) int64 each, on the
+        device: batch j's train pairs as (item, slot of the user in the
+        batch), padded with slot == B (dropped by the pack). E_max is the
+        most pairs of any one batch, rounded up to 8: ~B * mean + max_row,
+        not B * max_row."""
+        users_np, valid_np = users_b.cpu().numpy(), valid_b.cpu().numpy()
+        n_batches, B = users_np.shape
+        rows = self.user_pos_train
+        per_batch, e_max = [], 1
+        for j in range(n_batches):
+            its, slots = [], []
+            for lb in range(B):
+                items = rows.get(int(users_np[j, lb]), ()) if valid_np[j, lb] else ()
+                if len(items):
+                    its.append(np.asarray(items, dtype=np.int64))
+                    slots.append(np.full(len(items), lb, dtype=np.int64))
+            its = np.concatenate(its) if its else np.zeros(0, np.int64)
+            slots = np.concatenate(slots) if slots else np.zeros(0, np.int64)
+            per_batch.append((its, slots))
+            e_max = max(e_max, len(its))
+        e_max += (-e_max) % 8
+        e_items = np.zeros((n_batches, e_max), np.int64)
+        e_slots = np.full((n_batches, e_max), B, np.int64)
+        for j, (its, slots) in enumerate(per_batch):
+            e_items[j, : len(its)] = its
+            e_slots[j, : len(slots)] = slots
+        return torch.from_numpy(e_items).to(self.device), torch.from_numpy(e_slots).to(self.device)
+
+    def _get_edges(self, key: Optional[bytes], batches) -> tuple:
+        if key not in self._edges:
+            self._edges[key] = self._batch_edges(batches[0], batches[2])
+            while len(self._edges) > self._subset_cache_max + 1:
+                self._edges.popitem(last=False)
+        self._edges.move_to_end(key)
+        return self._edges[key]
+
     def _select_plan(self, predict_fn: PredictFn) -> TierPlan:
         model = getattr(predict_fn, "__self__", None)
         factorized = getattr(model, "eval_embeddings", None) is not None
@@ -215,6 +277,7 @@ class UniEvaluator:
             batch_size=self.batch_size,
             n_test_users=len(self.test_users),
             premask=self._premask_requested(),
+            neg_protocol=self.user_neg_test is not None,
         )
 
     def _make_program(self, predict_fn: PredictFn) -> EvalProgram:
@@ -222,10 +285,6 @@ class UniEvaluator:
         K = min(self.max_top, num_items)
         model = getattr(predict_fn, "__self__", None)
         plan = self._select_plan(predict_fn)
-        if plan.stream:
-            raise _not_ported(
-                "the streamed bits tier (a bits table above NEUREC_EVAL_BITS_BUDGET)"
-            )
 
         fact_topk = pred_topk = None
         if plan.name == "bits":
@@ -302,8 +361,9 @@ class UniEvaluator:
         prog = self._get_program(predict_fn)
         plan = prog.plan
         mask_data = (
-            self._get_bits_table(plan.pack_block, plan.bits_width) if plan.bits else None
+            self._get_bits_table(plan.pack_block, plan.bits_width) if plan.bits and plan.table else None
         )
+        ck = None
         if test_users is None:
             if self._default_batches is None:
                 self._default_batches = self._make_batches(
@@ -327,7 +387,33 @@ class UniEvaluator:
             self._subset_batch_cache.move_to_end(ck)
         if n_users == 0:
             return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
+        if self.user_neg_test is not None:
+            return self._run_candidates(prog, predict_fn, params, batches)
+        if plan.stream:
+            mask_data = self._get_edges(ck, batches)
         return self._run(prog, predict_fn, params, batches, mask_data)
+
+    def _mean(self, total: torch.Tensor, count: torch.Tensor) -> np.ndarray:
+        mean = (
+            total.cpu().numpy().astype(np.float64) / max(float(count), 1.0)
+        ).astype(np.float32)  # (5, K)
+        k_idx = np.minimum(self.top_show, self.num_items) - 1
+        return mean[self._metric_rows][:, k_idx]
+
+    @torch.no_grad()
+    def _run_candidates(self, prog: EvalProgram, predict_fn, params, batches):
+        """The sampled-candidates protocol over the batches."""
+        users_b, sel_b, valid_b = batches
+        K = min(self.max_top, self.num_items)
+        dense_scores = prog.dense_fn(params).float() if prog.dense_fn is not None else None
+        total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
+        count = torch.zeros((), dtype=torch.float32, device=self.device)
+        for users, sel, valid in zip(users_b, sel_b, valid_b):
+            scores = dense_scores[users] if dense_scores is not None else predict_fn(params, users).float()
+            m = candidate_metrics(scores, self._cand_rows[sel], self._n_pos[sel], K)
+            total = total + torch.sum(m * valid[:, None, None], dim=0)
+            count = count + torch.sum(valid)
+        return self._mean(total, count)
 
     @torch.no_grad()
     def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data):
@@ -342,8 +428,12 @@ class UniEvaluator:
 
         total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
-        for users, sel, valid in zip(users_b, sel_b, valid_b):
-            mask = mask_data[sel] if plan.bits else self._train_rows[users]
+        pack = tiers.make_edge_pack(plan.pack_block, plan.bits_width) if plan.stream else None
+        for j, (users, sel, valid) in enumerate(zip(users_b, sel_b, valid_b)):
+            if plan.stream:
+                mask = pack(mask_data[0][j], mask_data[1][j], users.shape[0])
+            else:
+                mask = mask_data[sel] if plan.bits else self._train_rows[users]
             if hoisted is not None:
                 u_table, item_table = hoisted
                 topk = prog.fact_topk(u_table[users], item_table, mask)
@@ -360,12 +450,7 @@ class UniEvaluator:
             m = all_metrics(hits, self._test_lens[sel])  # (B, 5, K)
             total = total + torch.sum(m * valid[:, None, None], dim=0)
             count = count + torch.sum(valid)
-
-        mean = (
-            total.cpu().numpy().astype(np.float64) / max(float(count), 1.0)
-        ).astype(np.float32)  # (5, K)
-        k_idx = np.minimum(self.top_show, self.num_items) - 1
-        return mean[self._metric_rows][:, k_idx]
+        return self._mean(total, count)
 
     def evaluate(
         self,
@@ -375,6 +460,23 @@ class UniEvaluator:
     ) -> str:
         result = self.evaluate_raw(predict_fn, params, test_users).reshape(-1)
         return "\t".join(("%.8f" % x).ljust(12) for x in result)
+
+
+def candidate_metrics(scores: torch.Tensor, cand_rows: torch.Tensor, n_pos: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, 5, K) metrics of the sampled-candidates protocol: ``scores``
+    (B, I) with a ``-inf`` column appended, gathered at ``cand_rows`` (B, C)
+    (pads point at that column), the top-min(K, C) columns, the lowest
+    first among ties, a hit where a column is below ``n_pos``, the ranks
+    past C empty."""
+    B = scores.shape[0]
+    ext = torch.cat([scores, torch.full((B, 1), float("-inf"), dtype=torch.float32, device=scores.device)], dim=1)
+    cscores = torch.gather(ext, 1, cand_rows)
+    Kc = min(K, cand_rows.shape[1])
+    topk = top_k(cscores, Kc)[1]
+    hits = (topk < n_pos[:, None]).to(torch.float32)
+    if Kc < K:
+        hits = torch.nn.functional.pad(hits, (0, K - Kc))
+    return all_metrics(hits, n_pos)
 
 
 class GroupedEvaluator:

@@ -15,9 +15,13 @@ the JAX package's pure function, copied as is; the builders ported here:
 ``scatter`` (NEUREC_EVAL_PREMASK=0, other models)
     Concat a dump column, scatter -inf at the padded train rows, slice.
 
+A ``bits`` plan whose table would pass the budget streams
+(``plan.stream``): ``make_edge_pack`` packs each batch's train pairs on the
+device into the table's layout, so the consumers above are unchanged.
+
 All top-K here break ties to the lowest item id, as ``lax.top_k`` does.
-Not ported yet: the streamed bits tier, ``bits_dp`` / ``pallas_dp`` and
-the item-sharded tiers (multi-device).
+Not ported yet: ``bits_dp`` / ``pallas_dp`` and the item-sharded tiers
+(multi-device).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from neurec_tpu_torch.ops import masked_scores as k1
-from neurec_tpu_torch.ops.masked_scores import bits_expand, wrap_ids
+from neurec_tpu_torch.ops.masked_scores import bits_expand, pack_mask_bits, wrap_ids
 from neurec_tpu_torch.ops.topk import top_k
 
 # Prebuilt per-eval-user bits tables larger than this are streamed (packed
@@ -150,6 +154,24 @@ def select_tier(
         return _no_bits("pallas_dp" if dp else "pallas", "factorized", dp=dp)
 
     return _no_bits("scatter", "predict")
+
+
+def make_edge_pack(pack_block: int, width: int):
+    """The streamed tier's pack (``neurec_tpu/eval/evaluator.py:517-528``):
+    fn(edge_items, edge_slots, B) -> (B, width/8) uint8, the bit planes the
+    table would hold for the batch's users, from the batch's (item, slot)
+    edges; an edge with slot >= B is dropped. One (B, width) byte mask, set
+    by one fill at flat offsets (a dropped edge sets the byte past the
+    mask: no boolean index, so no host sync), then ``pack_mask_bits``."""
+
+    def pack(edge_items, edge_slots, B):
+        n = B * width
+        flat = torch.zeros(n + 1, dtype=torch.uint8, device=edge_items.device)
+        at = torch.where(edge_slots < B, edge_slots * width + edge_items, n)
+        flat.index_fill_(0, at.reshape(-1), 1)
+        return pack_mask_bits(flat[:n].view(B, width), pack_block)
+
+    return pack
 
 
 # -- tier builders ----------------------------------------------------------

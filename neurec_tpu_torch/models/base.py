@@ -78,7 +78,7 @@ def chunks(n: int, size: int):
 
 _REGISTRY: Dict[str, Type[Recommender]] = {}
 
-_FAMILIES = ("general", "sequential")
+_FAMILIES = ("general", "sequential", "social")
 
 
 def register(name: str):

@@ -55,9 +55,18 @@ torch's (Philox on a CUDA device), not JAX's threefry: the packages agree
 in distribution, not draw for draw. ``scan_unroll`` has no meaning without
 a scan and is ignored.
 
-Not ported yet (``NotImplementedError``): the pair Bloom sampler (an
-exclusion table above ``_EXCL_TABLE_BUDGET`` on a sampled epoch, the
-``time_*`` ones included) and ``trace_dir``.
+The exclusion sampler: below ``_EXCL_TABLE_BUDGET`` the padded (U, L_max)
+positive rows (``ops/sampling.py``, one step's negatives at a time); above
+it, on every sampled epoch (the ``time_*`` ones included), the pair Bloom
+filter (``ops/bloom.py``, k = 3, built on the host) and no padded table,
+as in the JAX package (``neurec_tpu/trainer.py:162-194,284-340``).
+``draw_epoch`` then pre-draws the whole epoch's negatives before the steps,
+in chunks of ``_BLOOM_CHUNK`` slots by ``_bloom_rounds`` rounds (6 to 16,
+from the densest user's row; see ``_rounds_for``), each chunk's candidates
+from ``_bloom_draws``, on a generator of its own, seeded by a draw of the
+epoch's generator that the step seeds do not share.
+
+Not ported yet (``NotImplementedError``): ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -76,11 +85,19 @@ from neurec_tpu_torch.data.sequences import user_seq_windows
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import Evaluator
 from neurec_tpu_torch.logging import Logger, run_logger
+from neurec_tpu_torch.ops.bloom import build_pair_bloom, is_positive_bloom, select_first_nonmember
 from neurec_tpu_torch.ops.sampling import sample_negatives
 
-# padded-exclusion-table byte budget: above it the JAX package switches the
-# sampler to its pair Bloom filter, which the port does not have yet
+# padded-exclusion-table byte budget: above it the sampled epochs exclude
+# through the pair Bloom filter
 _EXCL_TABLE_BUDGET = 64 * 1024 * 1024
+# the Bloom filter's hashes (the probe gathers are the sampler's cost; a
+# false positive only costs a rejection) and its false-positive rate at 8
+# bits a pair, which sizes the rejection rounds
+_BLOOM_K_HASH = 3
+_BLOOM_FP = 0.031
+# slots a pre-draw chunk takes at once: (chunk, rounds) draws and probes
+_BLOOM_CHUNK = 8192
 
 Params = Dict[str, object]  # a tree of dicts and lists of tensors (bridge.py)
 
@@ -232,6 +249,17 @@ def _flat_interactions(user_dict):
     return np.asarray(users, dtype=np.int32), np.asarray(items, dtype=np.int32)
 
 
+def _rounds_for(d_max: float) -> int:
+    """Rejection rounds of the Bloom pre-draw for the densest user's
+    density ``d_max``: a positive is kept when every round is flagged and
+    the round-0 draw is a positive, probability (d + FP)^R d / (d + FP);
+    R is the least count in [6, 16] that puts it under 1e-8 at d_max."""
+    rounds = 6
+    while rounds < 16 and (d_max + _BLOOM_FP) ** rounds * max(d_max, 1e-12) / (d_max + _BLOOM_FP) > 1e-8:
+        rounds += 1
+    return rounds
+
+
 def _time_order_instances(user_dict, high_order: int):
     """(user, recent[high_order], target) instances in the dict's order
     (data/sampler.py:42-68): each position ``idx >= high_order`` of a
@@ -260,14 +288,6 @@ class Trainer:
         kind = model.data_kind
         if kind not in _SAMPLED + ("dense_row", "custom", "none"):
             raise ValueError("Trainer does not handle data_kind=%r" % kind)
-        lens = np.diff(dataset.train_matrix.indptr)
-        l_max = max(int(lens.max()) if len(lens) else 0, 8)
-        padded_bytes = 4 * model.num_users * (l_max + (-l_max) % 8)
-        if kind in _SAMPLED and padded_bytes > _EXCL_TABLE_BUDGET:
-            raise _not_ported(
-                "an exclusion table of %.1f MB (the pair Bloom sampler)" % (padded_bytes / 2**20),
-                "Bloom sampler",
-            )
         self.model = model
         self.dataset = dataset
         self.config = config
@@ -284,6 +304,8 @@ class Trainer:
         self._pairwise = kind in ("pairwise", "time_pairwise")
         self._dense_row = kind == "dense_row"
         self._recent_flat = None
+        self._excl_bloom = None
+        self._bloom_rounds = None
         self.n_positives = self.n_instances = self.steps = 0
         if kind in _SAMPLED + ("dense_row",):
             time_order = kind.startswith("time_")
@@ -302,14 +324,51 @@ class Trainer:
                 self.n_positives = len(users)
                 # pointwise epochs visit each positive (1 + num_negatives) times
                 self.n_instances = self.n_positives * (1 if self._pairwise else 1 + model.num_negatives)
-                # the sampler's exclusion table
-                padded = build_padded_positives(dataset.train_matrix)
-                self._padded_items = torch.from_numpy(padded.items).to(self.device)
+                self._build_exclusion(dataset.train_matrix)
             self._users_flat = torch.from_numpy(users).long().to(self.device)
             self.steps = _cdiv(self.n_instances, model.batch_size)
         self.params: Optional[Params] = None
         self.opt_state = None
         self._epoch_fn: Optional[Callable] = None
+
+    def _build_exclusion(self, train_matrix) -> None:
+        """The sampler's exclusion: the padded positive rows, or the pair
+        Bloom filter where they would pass ``_EXCL_TABLE_BUDGET``."""
+        lens = np.diff(train_matrix.indptr)
+        l_max = max(int(lens.max()) if len(lens) else 0, 8)
+        padded_bytes = 4 * self.model.num_users * (l_max + (-l_max) % 8)
+        if padded_bytes <= _EXCL_TABLE_BUDGET:
+            padded = build_padded_positives(train_matrix)
+            self._padded_items = torch.from_numpy(padded.items).to(self.device)
+            return
+        coo = train_matrix.tocoo()
+        bf = build_pair_bloom(coo.row, coo.col, k_hash=_BLOOM_K_HASH)
+        self._excl_bloom = (torch.from_numpy(bf.table).to(self.device), bf.n_bits, bf.k_hash)
+        self._bloom_rounds = _rounds_for(float(lens.max() if len(lens) else 0) / max(self.model.num_items, 1))
+        self.logger.info(
+            "sampler exclusion: pair Bloom filter (%.1f MB, %d pairs, %d rounds) - padded rows would cost %.1f MB"
+            % (bf.nbytes() / 2**20, coo.nnz, self._bloom_rounds, padded_bytes / 2**20))
+
+    def _bloom_draws(self, generator: torch.Generator, shape) -> torch.Tensor:
+        """One pre-draw chunk's candidates: int32 uniform in [0, num_items)."""
+        return torch.randint(0, self.model.num_items, tuple(shape), generator=generator, device=generator.device,
+                             dtype=torch.int32)
+
+    def bloom_negatives(self, generator: torch.Generator, users: torch.Tensor) -> torch.Tensor:
+        """One negative per entry of ``users`` (n,), drawn through the Bloom
+        filter in chunks of ``_BLOOM_CHUNK`` by ``_bloom_rounds`` rounds
+        (the users padded with user 0 to whole chunks): int32 (n,)."""
+        table, n_bits, k_hash = self._excl_bloom
+        n = users.shape[0]
+        chunks = _cdiv(n, _BLOOM_CHUNK)
+        u_pad = torch.zeros(chunks * _BLOOM_CHUNK, dtype=users.dtype, device=users.device)
+        u_pad[:n] = users
+        out = []
+        for c in range(chunks):
+            users_c = u_pad[c * _BLOOM_CHUNK:(c + 1) * _BLOOM_CHUNK]
+            draws = self._bloom_draws(generator, (_BLOOM_CHUNK, self._bloom_rounds))
+            out.append(select_first_nonmember(draws, is_positive_bloom(table, n_bits, users_c, draws, k_hash)))
+        return torch.cat(out)[:n] if out else torch.zeros(0, dtype=torch.int32, device=users.device)
 
     # -- one epoch ----------------------------------------------------------
     def epoch_generator(self, epoch: int) -> torch.Generator:
@@ -324,7 +383,9 @@ class Trainer:
         and ``seeds`` (steps,) int64 on the host, one per step for the
         randomness a model draws inside its loss (dropout). The seeds are
         drawn last, so the first three do not depend on them. A dense_row
-        epoch draws no negatives: ``negs`` is (steps, 0)."""
+        epoch draws no negatives: ``negs`` is (steps, 0). Under the Bloom
+        filter the negatives are one pre-draw over every slot
+        (``bloom_negatives``), on a generator seeded by one draw of this one."""
         B, steps = self.model.batch_size, self.steps
         perm = torch.randperm(steps * B, generator=generator, device=self.device)
         valid = perm < self.n_instances
@@ -332,6 +393,13 @@ class Trainer:
         w = valid.to(torch.float32).reshape(steps, B)
         if self._dense_row:
             negs = torch.zeros((steps, 0), dtype=torch.int32, device=self.device)
+        elif self._excl_bloom is not None:
+            # the whole epoch's negatives before the steps, on a generator of
+            # their own (the step seeds below are other draws of this one)
+            pre_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=self.device))
+            pre = torch.Generator(device=self.device).manual_seed(pre_seed)
+            users = self._users_flat[self._base(inst)].reshape(-1)
+            negs = self.bloom_negatives(pre, users).reshape(steps, B)
         else:
             users = self._users_flat[self._base(inst)]
             negs = torch.stack([

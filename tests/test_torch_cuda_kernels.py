@@ -444,3 +444,27 @@ def test_masked_scores_kernel_at_the_sequential_models_widths(cuda, d):
         finite = torch.isfinite(got)
         assert torch.equal(torch.isinf(got), torch.isinf(want)) and torch.equal(got, run())
         assert bool(((got.double() - exact).abs() <= bound)[finite].all())
+
+
+@pytest.mark.parametrize("I,B", [(38546, 2048), (700, 16)])
+def test_masked_scores_on_a_streamed_bit_plane_equals_the_tables(cuda, I, B):
+    """The streamed tier's device pack (``tiers.make_edge_pack``, from the
+    batch's (item, slot) edges) feeds K1 the table's planes: K1's scores are
+    bit-equal to K1 on the resident table's rows (d 16, SBPR's and
+    DiffNet's width, at gowalla's evaluation shape and a small one)."""
+    from neurec_tpu_torch.eval.tiers import make_edge_pack
+
+    u, items, rows = _scores_inputs(16, B, I, 16, 96)
+    width = global_bits_width(I)
+    table = k1.pack_train_bits(torch.from_numpy(rows).to(cuda), I, block_items=width)
+    slots, its = np.nonzero(rows < I)
+    pad = (-len(its)) % 8
+    e_items = torch.from_numpy(np.r_[rows[slots, its], np.zeros(pad, np.int32)]).long().to(cuda)
+    e_slots = torch.from_numpy(np.r_[slots, np.full(pad, B)]).long().to(cuda)
+    streamed = make_edge_pack(width, width)(e_items, e_slots, B)
+    assert streamed.shape == table.shape and streamed.dtype == torch.uint8
+    u, items = torch.from_numpy(u).to(cuda), torch.from_numpy(items).to(cuda)
+    before = _build.LAUNCHES["masked_scores"]
+    got = k1.masked_scores_bits(u, items, streamed, width, I)
+    assert torch.equal(got, k1.masked_scores_bits(u, items, table, width, I))
+    assert _build.LAUNCHES["masked_scores"] == before + 2

@@ -292,13 +292,15 @@ def test_exclusion_table_budget_binds_the_sampled_epochs_only(monkeypatch):
     monkeypatch.setattr(trainer_mod, "_EXCL_TABLE_BUDGET", 16)
     for name in ("multidae", "wrmf", "pop"):
         _, ds, _, model = build_both(CONFS[name])
-        Trainer(model, ds, DictConfig(CONFS[name]), logger=SilentLogger(), device="cpu")
+        trainer = Trainer(model, ds, DictConfig(CONFS[name]), logger=SilentLogger(), device="cpu")
+        assert trainer._excl_bloom is None
     _, ds, _, model = build_both(CONFS["spectralcf"])
-    with pytest.raises(NotImplementedError, match="Bloom"):
-        Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
+    trainer = Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
+    assert trainer._excl_bloom is not None and not hasattr(trainer, "_padded_items")
     model.data_kind = "time_pairwise"  # the time-order epochs are sampled epochs too
-    with pytest.raises(NotImplementedError, match="Bloom"):
-        Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
+    model.high_order = 1
+    trainer = Trainer(model, ds, DictConfig(CONFS["spectralcf"]), logger=SilentLogger(), device="cpu")
+    assert trainer._excl_bloom is not None and not hasattr(trainer, "_padded_items")
 
 
 RUN_CASES = [

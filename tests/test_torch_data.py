@@ -118,5 +118,12 @@ def test_negatives_protocol_not_ported(tmp_path):
     data.mkdir()
     _write_uirt(data / "syn.rating")
     args = _args(str(data), str(tmp_path / "c"), "syn", "UIRT", "'\\t'", "ratio", False)
-    with pytest.raises(NotImplementedError):
-        Dataset(Config(LIB, cmd_args=args + ["--rec.evaluate.neg=5"]))
+    # the protocol is ported: 5 negatives a user, the JAX package's bytes
+    ds = Dataset(Config(LIB, cmd_args=args + ["--rec.evaluate.neg=5"]))
+    jax_args = _args(str(data), str(tmp_path / "j"), "syn", "UIRT", "'\\t'", "ratio", False)
+    ds_j = JaxDataset(JaxConfig(LIB, cmd_args=jax_args + ["--rec.evaluate.neg=5"]))
+    assert ds.get_user_test_neg_dict() == ds_j.get_user_test_neg_dict()
+    assert all(len(v) == 5 for v in ds.get_user_test_neg_dict().values())
+    port_files, jax_files = _cache_files(str(tmp_path / "c")), _cache_files(str(tmp_path / "j"))
+    neg5 = [f for f in port_files if f.endswith(".neg5")]
+    assert len(neg5) == 1 and port_files[neg5[0]] == jax_files[neg5[0]]

@@ -192,8 +192,8 @@ def test_time_epoch_with_injected_jax_draws_matches_jax(name):
 
 def test_time_epoch_builds_and_the_budget_binds_it(monkeypatch):
     """A time epoch draws and trains through ``Trainer``; above the
-    exclusion-table budget it raises, naming the Bloom sampler, as the
-    sampled epochs do."""
+    exclusion-table budget it excludes through the pair Bloom filter, as
+    the sampled epochs do, and builds no padded table."""
     from neurec_tpu_torch import trainer as trainer_mod
 
     _, trainer = both_trainers("fpmc-pair")
@@ -205,8 +205,8 @@ def test_time_epoch_builds_and_the_budget_binds_it(monkeypatch):
     monkeypatch.setattr(trainer_mod, "_EXCL_TABLE_BUDGET", 16)
     for name in ("fpmc", "fpmc-pair"):
         _, ds, _, model = build_both(CONFS[name])
-        with pytest.raises(NotImplementedError, match="Bloom"):
-            Trainer(model, ds, DictConfig(CONFS[name]), logger=SilentLogger(), device="cpu")
+        bloom = Trainer(model, ds, DictConfig(CONFS[name]), logger=SilentLogger(), device="cpu")
+        assert bloom._excl_bloom is not None and not hasattr(bloom, "_padded_items")
 
 
 def test_trainer_refuses_an_unknown_data_kind():

@@ -259,8 +259,11 @@ def test_outside_the_slice_raises_not_implemented():
     big = InMemoryDataset(sp.vstack([wide] + [sp.csr_matrix((1, 80), dtype=np.float32)] * 209_999).tocsr(),
                           sp.csr_matrix((210_000, 80), dtype=np.float32))
     model = get_model("MF")(big, DictConfig(MF_PAIR), device="cpu")
-    with pytest.raises(NotImplementedError, match="Bloom"):
-        Trainer(model, big, DictConfig(MF_PAIR), device="cpu")
+    # no longer a raise: the sampler excludes through the pair Bloom filter;
+    # the one user holds all 80 items, which takes the rounds to their cap
+    trainer = Trainer(model, big, DictConfig(MF_PAIR), logger=SilentLogger(), device="cpu")
+    assert trainer._excl_bloom is not None and not hasattr(trainer, "_padded_items")
+    assert trainer._bloom_rounds == 16
 
 
 def test_plan_branch_training_moves_params_through_the_transposed_plan(monkeypatch):
