@@ -58,7 +58,8 @@ failure exits non-zero before the result line):
    difference;
 6. the training path, counted the same way: ``run.main`` trains the
    north star (batch 2048, lr 0.001, reg 1e-4, Adam) for 2 epochs with an
-   evaluation after each. It fails on a non-finite loss, an epoch-2 loss
+   evaluation after each, writing a checkpoint after each
+   (``--ckpt_dir``, under ``build/ckpt``). It fails on a non-finite loss, an epoch-2 loss
    not below epoch 1's, a trained Recall@20 not above phase 4's random
    weights, K2 launch counts other than 3 forward + 3 backward per step
    and 3 forward per evaluation, or losses and Recall@20 more than
@@ -189,7 +190,33 @@ failure exits non-zero before the result line):
    pre-draw, ``BLOOM_STEPS`` steps, and every negative of the epoch
    checked on the card against the train CSR: the train positives among
    them at most the ``BLOOM_TAIL`` upper quantile of a Poisson at their
-   expected count, sum over the draws of (d + 0.031)^R d / (d + 0.031).
+   expected count, sum over the draws of (d + 0.031)^R d / (d + 0.031);
+23. checkpoint and resume: the north star through ``run.main`` for 1
+   epoch into a second directory, then a fresh ``run.main`` resumes it to
+   epoch 2 (``--ckpt_dir``; phase 6 is the uninterrupted run). The state
+   restored must equal the params and Adam state saved at epoch 1 bit for
+   bit, the resumed epoch-2 loss be within ``RECORDED_RTOL`` of phase 6's
+   (the embedding gathers' backward adds in another order on the card),
+   and a third ``run.main`` on phase 6's finished directory must log the
+   final-epoch line with phase 6's metric string, character for character
+   (K1 and the top-K are deterministic). It prints a checkpoint's bytes and
+   the save and restore seconds, and each run's launches (K1 one a batch,
+   K2 3 forward a step and an evaluation, 3 backward a step);
+24. the device trace: the resumed run above ran with ``--trace_dir``
+   (``build/trace``); the Chrome trace is parsed and its kernel events of
+   K1, K2 and K2 backward counted against the run's launch counts. A trace
+   with no kernel event fails; a shortfall (the profiler can lose kernel
+   records) is printed as ``dropped``, with the trace's bytes;
+25. the native host backend: the trained north star evaluated over every
+   test user with ``eval_backend=native`` (``num_thread`` 8: the scores
+   from ``predict`` on the card, ranked on the host's C++ thread pool) and
+   with the device backend (K1): every metric within 1e-5, ``eval_s`` of
+   both and the bytes copied to the host;
+26. the exact segment top-K (``benchmarks/topk_ab.py``): ``top_k``,
+   ``exact_topk_indices`` and a row-max read on one evaluation batch
+   (2048 x 38,546) of randn scores and of K1's masked scores of the
+   trained north star, at K 20 and 50: the ids equal to ``top_k``'s
+   wherever the overflow is 0 (an overflow is printed), ms and device ms.
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -219,7 +246,9 @@ import contextlib
 import copy
 import json
 import logging
+import glob
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -441,6 +470,15 @@ CAND_NEG = 99
 ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS, ML10M_MIN_PER_USER = 69_878, 10_677, 10_000_054, 20
 ML10M_MAX_PER_USER, ML10M_ZIPF = 7359, 0.9
 BLOOM_STEPS = 300
+# phases 23-24: the uninterrupted north star's checkpoints (phase 6), the
+# 1-epoch run's that a fresh run.main resumes, and the resumed run's trace
+CKPT_WHOLE = os.path.join(REPO, "build", "ckpt", "northstar")
+CKPT_CUT = os.path.join(REPO, "build", "ckpt", "northstar_cut")
+TRACE_DIR = os.path.join(REPO, "build", "trace")
+# phase 25: the native backend's threads (the card's host has 8 cores)
+NATIVE_THREADS = 8
+# phase 26: the top-K probe's K
+FAST_TOPK_KS = (20, 50)
 # the Bloom contract: train positives among the epoch's negatives at most
 # the 1e-6 upper quantile of a Poisson at their expected count
 BLOOM_TAIL = 1e-6
@@ -893,6 +931,40 @@ def ml10m_seeded(torch, np, sp, device="cuda"):
     return csr(True), csr(False), counts
 
 
+def trace_events(path):
+    """What the Chrome trace at ``path`` holds: its events, its kernel
+    events, those of K1 (``masked_scores``, any of its kernels) and K2
+    (``span_spmm_kernel``) by name, K2's split into forward and backward
+    (``plan_spmm[bwd]``: its launch, found by the runtime event of the same
+    ``correlation``, inside an ``autograd`` range of ``PlanSpmmBackward`` on
+    the launching thread), and the K2 kernels whose launch was not found."""
+    with open(path) as fin:
+        events = json.load(fin)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    bwd = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and "PlanSpmmBackward" in e.get("name", ""):
+            bwd.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e.get("dur", 0)))
+    by_name = {"masked_scores": 0, "plan_spmm": 0, "plan_spmm[bwd]": 0}
+    unattributed = 0
+    for k in kernels:
+        name = k.get("name", "")
+        if "masked_scores" in name:
+            by_name["masked_scores"] += 1
+        elif "span_spmm_kernel" in name:
+            r = launch.get(k.get("args", {}).get("correlation"))
+            if r is None:
+                unattributed += 1
+                by_name["plan_spmm"] += 1
+            elif any(a <= r["ts"] <= b for a, b in bwd.get(r["tid"], ())):
+                by_name["plan_spmm[bwd]"] += 1
+            else:
+                by_name["plan_spmm"] += 1
+    return {"events": len(events), "kernels": len(kernels), "by_name": by_name, "k2_unattributed": unattributed}
+
+
 class LogLines(logging.Handler):
     """Collects the messages of a logger (the warm starts' "load pretrained
     params successful!" lines)."""
@@ -921,8 +993,8 @@ def main() -> int:
     import numpy as np
     import scipy.sparse as sp
 
-    from neurec_tpu_torch import pretrain, run
-    from neurec_tpu_torch.benchmarks import dma_rate
+    from neurec_tpu_torch import checkpoint, pretrain, run
+    from neurec_tpu_torch.benchmarks import dma_rate, topk_ab
     from neurec_tpu_torch.bridge import param_leaves, params_from_numpy
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
@@ -1319,9 +1391,11 @@ def main() -> int:
     require(near_tie <= ATOL + RTOL * np.abs(sc_p).max(), "ids differ beyond a near-tie")
 
     # -- 6. the training path, counted --------------------------------------
+    # (with a checkpoint each epoch: the uninterrupted run of phase 23)
+    shutil.rmtree(CKPT_WHOLE, ignore_errors=True)
     _build.reset_launches()
     t = time.perf_counter()
-    trainer, train_result = run.main(PROPS, cmd_args=TRAIN_ARGS)
+    trainer, train_result = run.main(PROPS, cmd_args=TRAIN_ARGS + ["--ckpt_dir=%s" % CKPT_WHOLE])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     train_launches = paths["train"] = dict(_build.LAUNCHES)
@@ -2207,6 +2281,146 @@ def main() -> int:
     del trainer_i, ds_i, train_i, test_i, draws_i, users_i, keys_train, keys_neg, at, positive, dens
     torch.cuda.empty_cache()
 
+    # -- 23. checkpoint and resume: the north star through run.main --------------
+    # phase 6 ran 2 epochs uninterrupted into CKPT_WHOLE; here 1 epoch into
+    # CKPT_CUT, then a fresh run.main resumes it to epoch 2 (traced, phase 24)
+    for path in (CKPT_CUT, TRACE_DIR):
+        shutil.rmtree(path, ignore_errors=True)
+    one_epoch = [a for a in TRAIN_ARGS if not a.startswith("--epochs=")] + ["--epochs=1"]
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer_c, _ = run.main(PROPS, cmd_args=one_epoch + ["--ckpt_dir=%s" % CKPT_CUT])
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t
+    paths["cut"] = dict(_build.LAUNCHES)
+    saved = {"params": {n: v.detach().clone() for n, v in param_leaves(trainer_c.params)},
+             "opt": copy.deepcopy(trainer_c.opt_state.state_dict())}
+    ckpt_bytes = os.path.getsize(checkpoint.CheckpointManager(CKPT_CUT).path(1))
+    scratch = checkpoint.CheckpointManager(os.path.join(CKPT_CUT, "timing"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scratch.save(1, trainer_c.params, trainer_c.opt_state)
+    save_s = time.perf_counter() - t
+    del trainer_c
+
+    restored = {}
+    real_attach = checkpoint.attach_to_trainer
+
+    def timed_attach(trainer_r, directory, every=1):
+        """attach_to_trainer, its restore timed and the state it restored kept."""
+        trainer_r.initialize()
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        start_r = real_attach(trainer_r, directory, every)
+        torch.cuda.synchronize()
+        restored.update(restore_s=time.perf_counter() - t_r, start=start_r,
+                        params={n: v.detach().clone() for n, v in param_leaves(trainer_r.params)},
+                        opt=copy.deepcopy(trainer_r.opt_state.state_dict()))
+        return start_r
+
+    _build.reset_launches()
+    t = time.perf_counter()
+    with mock.patch.object(checkpoint, "attach_to_trainer", timed_attach):
+        trainer_r, result_r = run.main(PROPS, cmd_args=TRAIN_ARGS + ["--ckpt_dir=%s" % CKPT_CUT,
+                                                                     "--trace_dir=%s" % TRACE_DIR])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    paths["resume"] = dict(_build.LAUNCHES)
+    recs_r = run_records(trainer_r)
+    # bit for bit: the params and Adam's moments and steps saved at epoch 1
+    same_params = all(torch.equal(saved["params"][n], restored["params"][n]) for n in saved["params"])
+    same_opt = saved["opt"]["param_groups"] == restored["opt"]["param_groups"] and all(
+        torch.equal(st[key], restored["opt"]["state"][i][key])
+        for i, st in saved["opt"]["state"].items() for key in st)
+    loss_rel = abs(recs_r[0]["loss"] - recs[1]["loss"]) / abs(recs[1]["loss"])
+
+    # a third run.main on the uninterrupted run's finished directory: it
+    # evaluates the epoch-2 checkpoint and logs the final-epoch line
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer_f, result_f = run.main(PROPS, cmd_args=TRAIN_ARGS + ["--ckpt_dir=%s" % CKPT_WHOLE])
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t
+    paths["final_eval"] = dict(_build.LAUNCHES)
+    with open(trainer_f.logger.path) as fin:
+        final_line = "checkpoint already at final epoch %d; evaluating" % TRAIN_EPOCHS in fin.read()
+    emit({"phase": "checkpoint", "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+          "restore_s": restored["restore_s"], "resumed_at_epoch": restored["start"],
+          "restored_equal_to_saved": {"params": same_params, "adam": same_opt},
+          "loss_uninterrupted": recs[1]["loss"], "loss_resumed": recs_r[0]["loss"], "loss_rel_diff": loss_rel,
+          "tol": "resumed epoch-2 loss rtol %g; final evaluation's string identical" % RECORDED_RTOL,
+          "result_uninterrupted": train_result, "result_resumed": result_r, "result_final_run": result_f,
+          "final_epoch_line_logged": final_line, "run_main_s": {"cut": cut_s, "resume": resume_s, "final": final_s},
+          "launches": {k: paths[k] for k in ("cut", "resume", "final_eval")}})
+    require(restored["start"] == 2 and len(recs_r) == 1 and recs_r[0]["epoch"] == 2,
+            "the resumed run started at %s with records %s" % (restored["start"], recs_r))
+    require(same_params and same_opt, "the restored state differs from the one saved at epoch 1")
+    require(loss_rel <= RECORDED_RTOL, "the resumed epoch-2 loss is %g from the uninterrupted run's" % loss_rel)
+    require(final_line and result_f == train_result, "the finished run's evaluation %s is not the uninterrupted "
+            "run's %s (final-epoch line logged: %s)" % (result_f, train_result, final_line))
+    steps_r = trainer_r.steps
+    for key, fwd, bwd, k1_n in (("cut", 3 * (steps_r + 1), 3 * steps_r, n_batches),
+                                ("resume", 3 * (steps_r + 1), 3 * steps_r, n_batches),
+                                ("final_eval", 3, 0, n_batches)):
+        got = paths[key]
+        require((got["plan_spmm"], got["plan_spmm_t"], got["masked_scores"]) == (fwd, bwd, k1_n),
+                "%s: launches %s, expected K2 %d forward, %d backward, K1 %d" % (key, got, fwd, bwd, k1_n))
+    del trainer_f
+
+    # -- 24. the resumed run's device trace ---------------------------------------
+    (trace_path,) = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    trace = trace_events(trace_path)
+    want_k = {"masked_scores": paths["resume"]["masked_scores"],
+              "plan_spmm": paths["resume"]["plan_spmm"], "plan_spmm[bwd]": paths["resume"]["plan_spmm_t"]}
+    emit({"phase": "trace", "trace_bytes": os.path.getsize(trace_path), "events": trace["events"],
+          "kernel_events": trace["kernels"], "by_name": trace["by_name"], "launches": want_k,
+          "dropped": {k: want_k[k] - trace["by_name"].get(k, 0) for k in want_k},
+          "k2_unattributed": trace["k2_unattributed"], "path": os.path.relpath(trace_path, REPO)})
+    require(trace["kernels"] > 0, "the device trace holds no kernel event")
+    del trace
+
+    # -- 25. the native host backend against the device backend -------------------
+    conf_nat = Config(PROPS, cmd_args=NORTHSTAR_ARGS + ["--eval_backend=native", "--num_thread=%d" % NATIVE_THREADS])
+    ev_nat = Evaluator.from_dataset(dataset, conf_nat)
+    require(ev_nat.evaluator.backend == "native" and ev_nat.evaluator.num_thread == NATIVE_THREADS,
+            "eval_backend=native was not taken")
+    _build.reset_launches()
+    t = time.perf_counter()
+    result_nat = ev_nat.evaluate(tmodel.predict, trainer.params)
+    nat_s = time.perf_counter() - t
+    paths["native"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    t = time.perf_counter()
+    result_dev = evaluator.evaluate(tmodel.predict, trainer.params)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    paths["native_device"] = dict(_build.LAUNCHES)
+    nat_diff = max(abs(a - b) for a, b in zip(parse_metrics(result_nat), parse_metrics(result_dev)))
+    emit({"phase": "native", "result": result_nat, "device_result": result_dev, "metric_max_abs_diff": nat_diff,
+          "tol": "metrics within 1e-5 (tests/test_native.py's bar between the backends)",
+          "eval_s": nat_s, "device_eval_s": dev_s, "num_thread": NATIVE_THREADS, "eval_users": n_eval,
+          "host_bytes": n_eval * I * 4, "launches": {"native": paths["native"], "device": paths["native_device"]}})
+    require(nat_diff <= 1e-5, "native metrics differ from the device backend's by %g" % nat_diff)
+    require(paths["native"]["masked_scores"] == 0 and paths["native"]["plan_spmm"] == 3 * n_batches,
+            "native: launches %s" % paths["native"])
+    require(paths["native_device"]["masked_scores"] == n_batches, "native_device: %s" % paths["native_device"])
+    del ev_nat
+
+    # -- 26. the exact segment top-K against top_k --------------------------------
+    rng_f = np.random.RandomState(SEED + 5)
+    x_randn = torch.from_numpy(rng_f.standard_normal((EVAL_USERS_PER_BATCH, I)).astype(np.float32)).cuda()
+    users_0, sel_0, _ = (b[0] for b in evaluator.evaluator._default_batches)
+    with torch.no_grad():
+        u_tab, i_tab = tmodel.eval_tables(trainer.params)
+        x_k1 = k1.masked_scores_bits(u_tab[users_0].contiguous(), i_tab,
+                                     evaluator.evaluator._get_bits_table(width, width)[sel_0], width, I)
+    del u_tab, i_tab
+    topk_rep = topk_ab.run({"randn": x_randn, "northstar_k1": x_k1}, ks=FAST_TOPK_KS, iters=20,
+                           device_ms=lambda fn: device_ms(torch, fn)[0])
+    emit({"phase": "fast_topk", "results": topk_rep,
+          "tol": "ids equal to top_k's wherever the overflow is 0 (a non-zero overflow is reported)"})
+    del x_randn, x_k1
+
     # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
     run_dir = os.path.join(REPO, "build", "run_main")
     os.makedirs(run_dir, exist_ok=True)
@@ -2254,7 +2468,8 @@ def main() -> int:
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
-        "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream")),
+        "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream", "cut", "resume", "final_eval",
+                                                             "native_device")),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
@@ -2272,8 +2487,9 @@ def main() -> int:
         "masked_scores[d50]": ("masked_scores", ("sasrec",)),
         "masked_scores[d100]": ("masked_scores", ("caser",)),
         "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus")),
-        "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf")),
-        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf")),
+        "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf", "cut", "resume", "final_eval", "native",
+                                    "native_device")),
+        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume")),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),
         "plan_spmm[bwd,bf16]": ("plan_spmm_t", ("bf16",)),
     }

@@ -28,8 +28,18 @@ candidates are their test positives, then their negatives, padded with the
 column first among ties; a hit is a column below the user's positive
 count.
 
-Not ported yet: the ``native`` host backend and the multi-device tiers;
-each raises ``NotImplementedError`` where the JAX package would take it.
+``backend="native"`` (``eval_backend=native``,
+``neurec_tpu/eval/evaluator.py:853-905``): each batch's scores come from
+``predict`` on the device and are copied to the host as f32 with a ``-inf``
+pad column; the train items are masked on the host (or the candidate
+columns taken, on the sampled protocol), and the C++ thread pool
+(``native/``) ranks them on ``num_thread`` threads and computes the
+per-user metrics; the mean goes over users in f64. Where the library does
+not build, the evaluator raises: the JAX package prints and falls back to
+``device``, which would switch what ran.
+
+Not ported yet: the multi-device tiers (ROADMAP.md queue 1 item 13); they
+raise ``NotImplementedError`` where the JAX package would take them.
 
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
 """
@@ -42,6 +52,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from neurec_tpu_torch import native
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import tiers
 from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
@@ -64,7 +75,8 @@ class EvalProgram(NamedTuple):
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError("%s is not ported to the PyTorch evaluator yet" % what)
+    return NotImplementedError("%s is not ported to the PyTorch evaluator yet "
+                               "(ROADMAP.md queue 1 item 13: multi-device)" % what)
 
 
 def _pad_rows(rows: List[List[int]], pad_value: int, min_len: int = 1):
@@ -90,8 +102,17 @@ class UniEvaluator:
         batch_size: int = 1024,
         num_items: Optional[int] = None,
         device: DeviceLike = None,
+        num_thread: int = 8,
+        backend: str = "device",
     ):
         self.device = resolve_device(device)
+        self.num_thread = int(num_thread)
+        if backend not in ("device", "native"):
+            raise ValueError("eval_backend must be 'device' or 'native', got %r" % (backend,))
+        if backend == "native":
+            native.build()  # raises where g++ is missing or fails: no fallback
+            print("NeuRec eval backend: native (C++ host thread pool)")
+        self.backend = backend
         if metric is None:
             metric = list(METRIC_NAMES)
         elif isinstance(metric, str):
@@ -135,6 +156,7 @@ class UniEvaluator:
         self._test_lens = torch.from_numpy(test_lens).to(self.device)
 
         self._cand_rows = self._n_pos = None
+        self._cand_rows_host = self._n_pos_host = None
         if user_neg_test is not None:
             # candidates: the test positives first, then the negatives
             cand_rows, _ = _pad_rows(
@@ -143,6 +165,7 @@ class UniEvaluator:
             )
             self._cand_rows = torch.from_numpy(cand_rows).long().to(self.device)
             self._n_pos = torch.from_numpy(test_lens).to(self.device)
+            self._cand_rows_host, self._n_pos_host = cand_rows.astype(np.int64), test_lens
 
         self._user_pos_index = {int(u): i for i, u in enumerate(self.test_users)}
         self._programs: Dict[Tuple[int, int], EvalProgram] = {}
@@ -358,6 +381,8 @@ class UniEvaluator:
         test_users: Optional[Sequence[int]] = None,
     ) -> np.ndarray:
         """Mean per-user metric matrix, shape (metrics_num, len(top_show))."""
+        if self.backend == "native":
+            return self._evaluate_raw_native(predict_fn, params, test_users)
         prog = self._get_program(predict_fn)
         plan = prog.plan
         mask_data = (
@@ -452,6 +477,48 @@ class UniEvaluator:
             count = count + torch.sum(valid)
         return self._mean(total, count)
 
+    @torch.no_grad()
+    def _evaluate_raw_native(
+        self,
+        predict_fn: PredictFn,
+        params,
+        test_users: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """The host backend (``neurec_tpu/eval/evaluator.py:853-905``): each
+        batch's ``predict`` scores copied to the host as f32, a ``-inf`` pad
+        column added, the train items masked (or the candidate columns
+        taken), then ranked and scored on the C++ thread pool; the mean over
+        users in f64."""
+        users = self.test_users if test_users is None else np.asarray(list(test_users), dtype=np.int32)
+        K = min(self.max_top, self.num_items)
+        B = min(self.batch_size, max(len(users), 1))
+        total = np.zeros((self.metrics_num, K), dtype=np.float64)
+        count = 0
+        for lo in range(0, len(users), B):
+            batch = users[lo : lo + B]
+            idx = torch.from_numpy(batch.astype(np.int64)).to(self.device)
+            scores = predict_fn(params, idx).float().cpu().numpy()
+            nb = scores.shape[0]
+            ext = np.concatenate([scores, np.full((nb, 1), -np.inf, np.float32)], axis=1)
+            if self.user_neg_test is not None:
+                sel = [self._user_pos_index[int(u)] for u in batch]
+                cscores = np.take_along_axis(ext, self._cand_rows_host[sel], axis=1)
+                truth = [list(range(int(n))) for n in self._n_pos_host[sel]]
+                per_user = native.eval_score_matrix(cscores, truth, self.metrics, K, n_threads=self.num_thread)
+            else:
+                for r, u in enumerate(batch):
+                    items = self.user_pos_train.get(int(u), ())
+                    if len(items):
+                        ext[r, np.asarray(items, dtype=np.int64)] = -np.inf
+                truth = [list(self.user_pos_test[int(u)]) for u in batch]
+                per_user = native.eval_score_matrix(ext[:, : self.num_items], truth, self.metrics, K,
+                                                    n_threads=self.num_thread)
+            total += per_user.reshape(nb, self.metrics_num, K).sum(axis=0)
+            count += nb
+        mean = (total / max(count, 1)).astype(np.float32)
+        k_idx = np.minimum(self.top_show, self.num_items) - 1
+        return mean[:, k_idx]
+
     def evaluate(
         self,
         predict_fn: PredictFn,
@@ -495,6 +562,8 @@ class GroupedEvaluator:
         batch_size=1024,
         num_items=None,
         device: DeviceLike = None,
+        num_thread=8,
+        backend="device",
     ):
         if not isinstance(group_view, list):
             raise TypeError("The type of 'group_view' must be `list`!")
@@ -507,6 +576,8 @@ class GroupedEvaluator:
             batch_size=batch_size,
             num_items=num_items,
             device=device,
+            num_thread=num_thread,
+            backend=backend,
         )
         group_list = [0] + group_view
         group_info = [
@@ -549,10 +620,12 @@ class Evaluator:
         batch_size=1024,
         num_items=None,
         device: DeviceLike = None,
+        num_thread=8,
+        backend="device",
     ):
         kwargs = dict(
             metric=metric, top_k=top_k, batch_size=batch_size,
-            num_items=num_items, device=device,
+            num_items=num_items, device=device, num_thread=num_thread, backend=backend,
         )
         if group_view is not None:
             self.evaluator = GroupedEvaluator(
@@ -566,8 +639,6 @@ class Evaluator:
 
     @classmethod
     def from_dataset(cls, dataset, config, device: DeviceLike = None) -> "Evaluator":
-        if config.get("eval_backend", "device") != "device":
-            raise _not_ported("eval_backend=%s" % config.get("eval_backend"))
         return cls(
             dataset.get_user_train_dict(),
             dataset.get_user_test_dict(),
@@ -578,6 +649,8 @@ class Evaluator:
             batch_size=config.get("test_batch_size", 1024),
             num_items=dataset.num_items,
             device=device,
+            num_thread=config.get("num_thread", 8),
+            backend=config.get("eval_backend", "device"),
         )
 
     def metrics_info(self) -> str:

@@ -66,7 +66,13 @@ from the densest user's row; see ``_rounds_for``), each chunk's candidates
 from ``_bloom_draws``, on a generator of its own, seeded by a draw of the
 epoch's generator that the step seeds do not share.
 
-Not ported yet (``NotImplementedError``): ``trace_dir``.
+Checkpoints and traces (``neurec_tpu/trainer.py:128-131,492-551``):
+``checkpoint.attach_to_trainer`` sets ``_ckpt``, ``_ckpt_every`` and
+``_start_epoch``; ``train`` then starts at ``_start_epoch``, saves every
+``_ckpt_every`` epochs, and a run resumed at its final epoch still evaluates.
+Epoch ``e``'s draws depend on ``e`` alone (``epoch_generator``, the
+dense_row ``step``), so a resumed run on the CPU gives the uninterrupted
+run's bits. ``trace_dir`` runs ``train`` inside ``profiling.device_trace``.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ from neurec_tpu_torch.eval import Evaluator
 from neurec_tpu_torch.logging import Logger, run_logger
 from neurec_tpu_torch.ops.bloom import build_pair_bloom, is_positive_bloom, select_first_nonmember
 from neurec_tpu_torch.ops.sampling import sample_negatives
+from neurec_tpu_torch.profiling import device_trace
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
 # through the pair Bloom filter
@@ -110,12 +117,6 @@ class EpochDraws(NamedTuple):
     w: torch.Tensor      # (steps, B) f32
     negs: torch.Tensor   # (steps, B) int32; (steps, 0) on a dense_row epoch
     seeds: torch.Tensor  # (steps,) int64, on the host
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        "%s is not ported to the PyTorch trainer yet (ROADMAP.md queue 1: %s)" % (what, item)
-    )
 
 
 class OptaxAdagrad(torch.optim.Optimizer):
@@ -282,9 +283,9 @@ class Trainer:
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError("the model lives on %s, the trainer on %s" % (model.device, self.device))
+        # --trace_dir=<dir>: a torch.profiler trace of the run (profiling.py)
         get_raw = getattr(config, "get_raw", config.get)
-        if get_raw("trace_dir", None):
-            raise _not_ported("trace_dir (a device trace)", "checkpoint, profiling and native")
+        self.trace_dir = get_raw("trace_dir", None) or None
         kind = model.data_kind
         if kind not in _SAMPLED + ("dense_row", "custom", "none"):
             raise ValueError("Trainer does not handle data_kind=%r" % kind)
@@ -486,6 +487,14 @@ class Trainer:
         return self.tx([p for _, p in param_leaves(params)])
 
     def train(self) -> str:
+        if self.trace_dir:
+            with device_trace(self.trace_dir, self.device):
+                result = self._train()
+            self.logger.info("device trace written to %s" % self.trace_dir)
+            return result
+        return self._train()
+
+    def _train(self) -> str:
         if self.params is None:
             self.initialize()
         model = self.model
@@ -495,10 +504,11 @@ class Trainer:
             self.logger.info("result:\t%s" % result)
             return result
         result = ""
+        start_epoch = getattr(self, "_start_epoch", 1)
         jsonl_path = None
         if getattr(self.logger, "path", None):
             jsonl_path = self.logger.path + ".metrics.jsonl"
-        for epoch in range(1, model.epochs + 1):
+        for epoch in range(start_epoch, model.epochs + 1):
             t0 = time.time()
             self.params, self.opt_state, loss = self.train_epoch(epoch)
             loss = float(loss)
@@ -515,6 +525,14 @@ class Trainer:
             if jsonl_path is not None:
                 with open(jsonl_path, "a") as f:
                     f.write(json.dumps(record) + "\n")
+            ckpt = getattr(self, "_ckpt", None)
+            if ckpt is not None and epoch % self._ckpt_every == 0:
+                ckpt.save(epoch, self.params, self.opt_state)
+        if start_epoch > model.epochs:
+            # a resumed run that had finished: still report its metrics
+            self.logger.info("checkpoint already at final epoch %d; evaluating" % model.epochs)
+            result = self.evaluate()
+            self.logger.info("result:\t%s" % result)
         return result
 
     def evaluate(self) -> str:

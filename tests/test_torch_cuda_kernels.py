@@ -468,3 +468,47 @@ def test_masked_scores_on_a_streamed_bit_plane_equals_the_tables(cuda, I, B):
     got = k1.masked_scores_bits(u, items, streamed, width, I)
     assert torch.equal(got, k1.masked_scores_bits(u, items, table, width, I))
     assert _build.LAUNCHES["masked_scores"] == before + 2
+
+
+@pytest.mark.parametrize("k,kw", [(20, {}), (50, {}), (20, dict(seg=128, max_hot=2))])
+def test_exact_topk_indices_on_the_card_matches_top_k(cuda, k, kw):
+    """``ops/fast_topk.py`` on K1's masked scores at gowalla's shape: the ids
+    of ``top_k`` wherever the overflow is 0, computed on the card."""
+    from neurec_tpu_torch.ops.fast_topk import exact_topk_indices
+    from neurec_tpu_torch.ops.topk import top_k
+
+    B, I, d = 512, 38546, 64
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(11, B, I, d, 32))
+    x = k1.masked_scores(u, items, rows)
+    x[:, 100:140] = x[:, :1]  # ties across the K-th place
+    idx, overflow = exact_topk_indices(x, k, **kw)
+    assert idx.device.type == "cuda" and overflow.device.type == "cuda"
+    want = top_k(x, k)[1]
+    if kw:
+        assert int(overflow) > 0
+    else:
+        assert int(overflow) == 0
+        assert torch.equal(idx.long(), want)
+
+
+def test_native_evaluation_of_scores_from_the_card(cuda):
+    """``eval_backend=native`` on scores computed on the card: the metric
+    strings of the device backend (its predict tier, on the same scores)
+    within 1e-5."""
+    from neurec_tpu_torch.eval.evaluator import UniEvaluator
+
+    rng = np.random.RandomState(12)
+    U, I, d = 300, 2000, 64
+    train = {u: sorted(rng.choice(I, 20, replace=False).tolist()) for u in range(U)}
+    test = {u: sorted(set(rng.choice(I, 5, replace=False).tolist()) - set(train[u])) or [0] for u in range(U)}
+    u_emb = torch.from_numpy(rng.randn(U, d).astype(np.float32)).to(cuda)
+    i_emb = torch.from_numpy(rng.randn(I, d).astype(np.float32)).to(cuda)
+
+    def predict(p, users):
+        return u_emb[users] @ i_emb.T
+
+    args = dict(metric=["Precision", "Recall", "NDCG"], top_k=[5, 20], batch_size=128, num_items=I)
+    got = UniEvaluator(train, test, backend="native", num_thread=4, **args).evaluate(predict, None)
+    want = UniEvaluator(train, test, **args).evaluate(predict, None)
+    for a, b in zip(got.split("\t"), want.split("\t")):
+        assert abs(float(a) - float(b)) <= 1e-5, (got, want)

@@ -33,7 +33,8 @@ def test_importing_every_module_loads_neither_jax_nor_neurec_tpu():
         " or m == 'neurec_tpu' or m.startswith('neurec_tpu.'))\n"
         "need = {'neurec_tpu_torch.' + m for m in ('trainer', 'run', 'logging', 'ops.losses',"
         " 'ops.initializers', 'ops.sampling', 'data.padded', 'models.general.mf',"
-        " 'models.general.ngcf', 'pretrain', 'benchmarks.dma_rate')}\n"
+        " 'models.general.ngcf', 'pretrain', 'benchmarks.dma_rate', 'checkpoint', 'profiling', 'utils',"
+        " 'data.iterator', 'ops.metrics_host', 'ops.fast_topk', 'native', 'benchmarks.topk_ab')}\n"
         "print(len(names), bad, sorted(need - set(names)))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 26 else 0)\n"
     )
@@ -117,5 +118,14 @@ def test_training_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     trainer, result = run.main(props, args, device="cpu")
     assert trainer.device.type == "cpu" and len(result.split("\t")) == 1
     assert list((tmp_path / "log" / "syn" / "MF").glob("*.log.metrics.jsonl"))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run.main(props, args + ["--ckpt_dir=%s" % (tmp_path / "ck")], device="cpu")
+    # --ckpt_dir: a checkpoint each epoch, and the same command resumes
+    ck = ["--ckpt_dir=%s" % (tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(props, args + ck)
+    assert not (tmp_path / "ck").exists()
+    trainer, result = run.main(props, args + ck, device="cpu")
+    assert trainer._ckpt.all_epochs() == [1, 2] and trainer._start_epoch == 1
+    longer = [a for a in args if not a.startswith("--epochs=")] + ["--epochs=3"]
+    trainer, result = run.main(props, longer + ck, device="cpu")
+    assert trainer._start_epoch == 3 and trainer._ckpt.all_epochs() == [1, 2, 3]
+    assert len(result.split("\t")) == 1

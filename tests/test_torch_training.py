@@ -249,11 +249,14 @@ def test_lightgcn_learns():
     assert after[1, 0] > 0.15, after  # NDCG@10, the JAX package's bar
 
 
-def test_outside_the_slice_raises_not_implemented():
+def test_outside_the_slice_raises_not_implemented(tmp_path):
     ds = random_dataset(num_users=30, num_items=40, seed=9)
     model = get_model("MF")(ds, DictConfig(MF_PAIR), device="cpu")
-    with pytest.raises(NotImplementedError, match="trace_dir"):
-        Trainer(model, ds, DictConfig(dict(MF_PAIR, trace_dir="/tmp/t")), device="cpu")
+    # no longer a raise: trace_dir writes a torch.profiler trace of the run
+    trace_conf = DictConfig(dict(MF_PAIR, epochs=1, verbose=1, trace_dir=str(tmp_path / "t")))
+    Trainer(model, ds, trace_conf, logger=SilentLogger(), device="cpu").train()
+    (trace,) = (tmp_path / "t").glob("*.pt.trace.json")
+    assert json.loads(trace.read_text())["traceEvents"]
     # a row long enough to put the padded exclusion table above 64 MB
     wide = sp.csr_matrix(np.ones((1, 80), np.float32))
     big = InMemoryDataset(sp.vstack([wide] + [sp.csr_matrix((1, 80), dtype=np.float32)] * 209_999).tocsr(),
