@@ -216,7 +216,29 @@ failure exits non-zero before the result line):
    ``exact_topk_indices`` and a row-max read on one evaluation batch
    (2048 x 38,546) of randn scores and of K1's masked scores of the
    trained north star, at K 20 and 50: the ids equal to ``top_k``'s
-   wherever the overflow is 0 (an overflow is printed), ms and device ms.
+   wherever the overflow is 0 (an overflow is printed), ms and device ms;
+27. ``mesh1``: the north star through ``run.main`` inside a one-rank NCCL
+   group on a (1, 1) mesh, as on a machine with a card a rank: its losses,
+   metric string and K1 / K2 launches equal phase 6's;
+28. ``dp2``: two ranks (``mesh_rank``, spawned; a free port, a timeout)
+   share the card through gloo, which stages the collectives through the
+   host; on a (2, 1) mesh LightGCN at the north star with
+   ``graph_shard=on`` takes ``MESH_STEPS`` steps and one evaluation
+   (``bits_dp``), held to a one-rank run on the same draws (params within
+   1e-5, losses 1e-4, the metric string equal, metrics within 1e-6) and to
+   the replicated tier on rank 0's params (the string equal); every K2
+   launch has the block's rows, every K2 backward the graph's, every K1
+   the rank's half of a batch. Two ranks on one card measure no
+   multi-device speed;
+29. ``itemshard2``: the same ranks on a (1, 2) mesh, ``eval_item_shard=on``,
+   premask auto (``item_shard_bits``: K1 on a rank's 19,456 items against
+   its own per-block table) and 0 (``item_shard_rows``: K1's int8 mask):
+   the strings and every test user's top-20 ids equal the replicated
+   tier's. Then K1 at a rank's rows (1,024 x 38,546) and item block
+   (2,048 x 19,456) and K2 both ways on a block plan against their plain
+   versions, timed as in phase 3 (``masked_scores[dp]``,
+   ``masked_scores[block]``, ``plan_spmm[block]``,
+   ``plan_spmm[bwd,block]``).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -496,8 +518,156 @@ SKEW_WARPS = 16
 HUB_NODES, HUB_ZIPF, HUB_CAP, HUB_DEGREE = 20000, 1.8, 200, 3000
 
 
+# phases 27-29: the mesh. mesh1: the north star through run.main in a one-rank
+# NCCL group on a (1, 1) mesh. dp2 and itemshard2: two ranks sharing the one
+# card through gloo (NCCL refuses two ranks on one device), LightGCN at the
+# north star with graph_shard=on, MESH_STEPS steps on a (2, 1) mesh and one
+# evaluation (bits_dp), then the evaluation on a (1, 2) mesh with
+# eval_item_shard=on, premask auto (item_shard_bits) and 0 (item_shard_rows)
+MESH_STEPS = 20
+MESH_DIR = os.path.join(REPO, "build", "mesh")
+MESH_TIMEOUT_S = 600
+MESH_PARAM_ATOL, MESH_LOSS_RTOL, MESH_METRIC_ATOL = 1e-5, 1e-4, 1e-6
+
+
 class SmokeFailure(RuntimeError):
     pass
+
+
+class SilentLogger:
+    path = None
+
+    def info(self, msg):
+        pass
+
+    debug = warning = error = critical = info
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mesh_steps(trainer, draws, steps):
+    """``steps`` steps of ``trainer`` on ``draws``, one ``run_epoch`` a step:
+    each step's whole-batch loss."""
+    return [float(trainer.run_epoch(trainer.params, trainer.opt_state, draws.inst[s:s + 1], draws.w[s:s + 1],
+                                    draws.negs[s:s + 1], draws.seeds[s:s + 1], epoch=1)[2]) for s in range(steps)]
+
+
+def mesh_rank(rank: int, port: int, out_dir: str, train_args=None, device: str = "cuda"):
+    """One rank of phases 28-29 (a spawned process; the parent has built
+    every kernel): joins the gloo group of two ranks on the card, runs the
+    (2, 1) data-parallel steps and evaluation and the (1, 2) item-sharded
+    evaluations of ``train_args`` (``TRAIN_ARGS`` when None), and pickles
+    what it saw to ``out_dir/rank<r>.pkl``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    out = {}
+    try:
+        from neurec_tpu_torch.bridge import params_to_numpy
+        from neurec_tpu_torch.config import Config
+        from neurec_tpu_torch.data.dataset import Dataset
+        from neurec_tpu_torch.eval import Evaluator
+        from neurec_tpu_torch.models import get_model
+        from neurec_tpu_torch.ops import _build
+        from neurec_tpu_torch.ops import masked_scores as k1
+        from neurec_tpu_torch.ops import spmm as k2
+        from neurec_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+        from neurec_tpu_torch.parallel.mesh import make_mesh
+        from neurec_tpu_torch.trainer import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        # two ranks and the parent share the host's cores: threads that
+        # spin on a busy core slow every collective
+        torch.set_num_threads(2)
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        train_args = TRAIN_ARGS if train_args is None else train_args
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        initialize_multihost("127.0.0.1:%d" % port, 2, rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        # every K2 launch's output rows and every K1 launch's (B, I)
+        shapes = {"plan_spmm": set(), "plan_spmm_t": set(), "masked_scores": set()}
+        real_scatter, real_bits, real_int8 = k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores
+
+        def scatter(plan, x):
+            shapes["plan_spmm_t" if plan.transposed else "plan_spmm"].add(plan.n_rows)
+            return real_scatter(plan, x)
+
+        def bits_k1(u, items, bits, width, num_items):
+            shapes["masked_scores"].add((u.shape[0], num_items))
+            return real_bits(u, items, bits, width, num_items)
+
+        def int8_k1(u, items, rows):
+            shapes["masked_scores"].add((u.shape[0], items.shape[0]))
+            return real_int8(u, items, rows)
+
+        k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores = scatter, bits_k1, int8_k1
+
+        t = time.perf_counter()
+        conf = Config(PROPS, cmd_args=train_args + ["--graph_shard=on"])
+        dataset = Dataset(conf)
+        model = get_model("LightGCN")(dataset, conf, device=device)
+        mesh = make_mesh(n_data=2, n_model=1)
+        trainer = Trainer(model, dataset, conf, logger=SilentLogger(), device=device, mesh=mesh)
+        trainer.initialize()
+        draws = trainer.draw_epoch(trainer.epoch_generator(1))
+        sync()
+        setup_s = time.perf_counter() - t
+        _build.reset_launches()
+        t = time.perf_counter()
+        losses = mesh_steps(trainer, draws, MESH_STEPS)
+        sync()
+        steps_s = time.perf_counter() - t
+        t = time.perf_counter()
+        result = trainer.evaluate()
+        sync()
+        out["dp2"] = {"setup_s": setup_s, "steps_s": steps_s, "eval_s": time.perf_counter() - t,
+                      "losses": losses, "result": result, "launches": dict(_build.LAUNCHES),
+                      "tier": trainer.evaluator.evaluator._get_program(model.predict).plan.name,
+                      "block": model._adj_sharded.block, "n_nodes": model.adj.n_nodes,
+                      "k2_rows": sorted(shapes["plan_spmm"]), "k2_t_rows": sorted(shapes["plan_spmm_t"]),
+                      "k1_shapes": sorted(shapes["masked_scores"])}
+        if rank == 0:
+            out["params"] = params_to_numpy(trainer.params)
+
+        mesh2 = make_mesh(n_data=1, n_model=2)
+        for key, premask in (("itemshard2", None), ("itemshard2_rows", "0")):
+            if premask is None:
+                os.environ.pop("NEUREC_EVAL_PREMASK", None)
+            else:
+                os.environ["NEUREC_EVAL_PREMASK"] = premask
+            ev = Evaluator.from_dataset(dataset, Config(PROPS, cmd_args=train_args + ["--eval_item_shard=on"]),
+                                        device=device, mesh=mesh2)
+            ev.evaluator.record_ids = True
+            for name in shapes:
+                shapes[name] = set()
+            _build.reset_launches()
+            t = time.perf_counter()
+            result = ev.evaluate(model.predict, trainer.params)
+            sync()
+            out[key] = {"eval_s": time.perf_counter() - t, "result": result, "launches": dict(_build.LAUNCHES),
+                        "tier": ev.evaluator._get_program(model.predict).plan.name,
+                        "ids": ev.evaluator.last_ids[:, :20].cpu().numpy(),
+                        "k1_shapes": sorted(shapes["masked_scores"])}
+        os.environ.pop("NEUREC_EVAL_PREMASK", None)
+        shutdown()
+    except Exception:  # reported to the parent through the result file
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as fout:
+        pickle.dump(out, fout)
 
 
 def require(cond, msg):
@@ -2465,13 +2635,173 @@ def main() -> int:
                 "run.main %s: metrics out of range: %s" % (name, result_r))
         del trainer_r
 
+    # -- 27. mesh1: the north star through run.main on a one-rank mesh -------
+    from types import SimpleNamespace
+
+    from neurec_tpu_torch.bridge import params_to_numpy
+    from neurec_tpu_torch.ops.graph import shard_adjacency
+    from neurec_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+    from neurec_tpu_torch.parallel.mesh import make_mesh
+
+    initialize_multihost("127.0.0.1:%d" % _free_port(), 1, 0, backend="nccl")
+    mesh1 = make_mesh(n_data=1, n_model=1)
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer_mesh1, result_mesh1 = run.main(PROPS, cmd_args=TRAIN_ARGS, mesh=mesh1)
+    torch.cuda.synchronize()
+    paths["mesh1"] = dict(_build.LAUNCHES)
+    recs_mesh1 = run_records(trainer_mesh1)
+    loss_rel_mesh1 = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(recs_mesh1, recs))
+    emit({"phase": "mesh1", "mesh": repr(mesh1), "device": str(trainer_mesh1.device),
+          "tier": trainer_mesh1.evaluator.evaluator._get_program(trainer_mesh1.model.predict).plan.name,
+          "result": result_mesh1, "phase6_result": train_result, "losses": [r["loss"] for r in recs_mesh1],
+          "phase6_losses": [r["loss"] for r in recs], "loss_max_rel_diff": loss_rel_mesh1,
+          "run_main_s": time.perf_counter() - t, "launches": paths["mesh1"],
+          "tol": "metric string equal, losses rtol %g" % TRAIN_LOSS_RTOL})
+    require(len(recs_mesh1) == len(recs) and loss_rel_mesh1 <= TRAIN_LOSS_RTOL,
+            "mesh1: losses %s, phase 6's %s" % (recs_mesh1, recs))
+    require(result_mesh1 == train_result, "mesh1: %r, phase 6: %r" % (result_mesh1, train_result))
+    require(all(paths["mesh1"][k] == train_launches[k] for k in ("masked_scores", "plan_spmm", "plan_spmm_t")),
+            "mesh1 launches %s, phase 6's %s" % (paths["mesh1"], train_launches))
+    del trainer_mesh1
+    shutdown()
+
+    # -- 28-29. dp2 and itemshard2: two ranks sharing the card (gloo) --------
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for f in glob.glob(os.path.join(MESH_DIR, "rank*.pkl")):
+        os.unlink(f)
+    t_mesh = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(_free_port(), MESH_DIR), nprocs=2, join=False, start_method="spawn")
+    # the one-rank run on the same draws, while the ranks start
+    conf_dp = Config(PROPS, cmd_args=TRAIN_ARGS + ["--graph_shard=on"])
+    model_dp = get_model("LightGCN")(dataset, conf_dp)
+    trainer_dp = Trainer(model_dp, dataset, conf_dp, logger=SilentLogger())
+    trainer_dp.initialize()
+    losses_dp = mesh_steps(trainer_dp, trainer_dp.draw_epoch(trainer_dp.epoch_generator(1)), MESH_STEPS)
+    result_dp = trainer_dp.evaluate()
+    try:
+        while not ctx.join(timeout=5.0):
+            require(time.perf_counter() - t_mesh < MESH_TIMEOUT_S, "the two ranks did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(MESH_DIR, "rank%d.pkl" % r), "rb") as fin:
+            ranks.append(pickle.load(fin))
+        require("error" not in ranks[r], "mesh rank %d failed:\n%s" % (r, ranks[r].get("error")))
+    mesh_s = time.perf_counter() - t_mesh
+    params_r0 = params_from_numpy(ranks[0]["params"])
+    with torch.no_grad():
+        param_err_dp = max(float((params_r0[k] - trainer_dp.params[k]).abs().max()) for k in params_r0)
+    # the replicated tier (phase 2's evaluator) on rank 0's trained params
+    ev_rep = evaluator.evaluator
+    ev_rep.record_ids = True
+    result_rep = ev_rep.evaluate(model.predict, params_r0)
+    ids_rep = ev_rep.last_ids[:, :20].cpu().numpy()
+    ev_rep.record_ids = False
+    n_test = len(ev_rep.test_users)
+    n_batches_eval = -(-n_test // EVAL_USERS_PER_BATCH)
+    block_dp = ranks[0]["dp2"]["block"]
+    I_m, _ = tiers.shard_bits_geometry(I, 2)
+    paths["dp2"], paths["itemshard2"], paths["itemshard2_rows"] = (
+        ranks[0][k]["launches"] for k in ("dp2", "itemshard2", "itemshard2_rows"))
+    loss_rel_dp = [max(abs(a - b) / abs(b) for a, b in zip(rk["dp2"]["losses"], losses_dp)) for rk in ranks]
+    metric_err_dp = [max(abs(a - b) for a, b in zip(parse_metrics(rk["dp2"]["result"]), parse_metrics(result_dp)))
+                     for rk in ranks]
+    emit({"phase": "dp2", "mesh": [2, 1], "backend": "gloo, staged through the host", "steps": MESH_STEPS,
+          "seconds": mesh_s, "losses": ranks[0]["dp2"]["losses"], "one_rank_losses": losses_dp,
+          "loss_max_rel_diff": loss_rel_dp, "param_max_abs_diff": param_err_dp, "result": ranks[0]["dp2"]["result"],
+          "one_rank_result": result_dp, "replicated_result_same_params": result_rep,
+          "metric_max_abs_diff": metric_err_dp, "block": block_dp,
+          "ranks": [{k: rk["dp2"][k] for k in ("setup_s", "steps_s", "eval_s", "tier", "launches", "k2_rows",
+                                                "k2_t_rows", "k1_shapes")} for rk in ranks],
+          "tol": "params atol %g, losses rtol %g, metrics atol %g, strings equal"
+                 % (MESH_PARAM_ATOL, MESH_LOSS_RTOL, MESH_METRIC_ATOL)})
+    for r, rk in enumerate(ranks):
+        got = rk["dp2"]
+        require(got["tier"] == "bits_dp", "dp2 rank %d evaluated on %s" % (r, got["tier"]))
+        require(got["result"] == result_dp and got["result"] == result_rep,
+                "dp2 rank %d: %r, the one-rank run %r, replicated %r" % (r, got["result"], result_dp, result_rep))
+        require(loss_rel_dp[r] <= MESH_LOSS_RTOL and metric_err_dp[r] <= MESH_METRIC_ATOL,
+                "dp2 rank %d: losses %g, metrics %g from the one-rank run" % (r, loss_rel_dp[r], metric_err_dp[r]))
+        require(got["k2_rows"] == [block_dp] and got["k2_t_rows"] == [got["n_nodes"]]
+                and block_dp == -(-got["n_nodes"] // 2), "dp2 rank %d: K2 rows %s, %s" % (r, got["k2_rows"],
+                                                                                          got["k2_t_rows"]))
+        n_layers = model_dp.n_layers
+        require((got["launches"]["plan_spmm"], got["launches"]["plan_spmm_t"], got["launches"]["masked_scores"])
+                == (n_layers * (MESH_STEPS + 1), n_layers * MESH_STEPS, n_batches_eval),
+                "dp2 rank %d launches %s" % (r, got["launches"]))
+        require(got["k1_shapes"] == [(EVAL_USERS_PER_BATCH // 2, I)], "dp2 rank %d K1 shapes %s"
+                % (r, got["k1_shapes"]))
+    require(param_err_dp <= MESH_PARAM_ATOL, "dp2 params differ from the one-rank run by %g" % param_err_dp)
+    for key, tier, k1_cols in (("itemshard2", "item_shard_bits", I_m), ("itemshard2_rows", "item_shard_rows",
+                                                                        -(-I // 2))):
+        ids_differ = [int((rk[key]["ids"][:n_test] != ids_rep[:n_test]).sum()) for rk in ranks]
+        emit({"phase": key, "mesh": [1, 2], "tier": tier, "result": ranks[0][key]["result"],
+              "replicated_result": result_rep, "top20_ids_differing": ids_differ, "block_items": k1_cols,
+              "ranks": [{k: rk[key][k] for k in ("eval_s", "tier", "launches", "k1_shapes")} for rk in ranks]})
+        for r, rk in enumerate(ranks):
+            got = rk[key]
+            require(got["tier"] == tier and got["result"] == result_rep and ids_differ[r] == 0,
+                    "%s rank %d: %s %r, replicated %r, %d ids differ" % (key, r, got["tier"], got["result"],
+                                                                       result_rep, ids_differ[r]))
+            require(got["k1_shapes"] == [(EVAL_USERS_PER_BATCH, k1_cols)]
+                    and got["launches"]["masked_scores"] == n_batches_eval,
+                    "%s rank %d: K1 %s, %s" % (key, r, got["k1_shapes"], got["launches"]))
+    del trainer_dp, model_dp, params_r0, ranks
+
+    # the mesh paths' kernel shapes against their plain versions: K1 on a
+    # rank's half of a batch and on a rank's item block, K2 both ways on a
+    # rank's block plan
+    with torch.no_grad():
+        u_table_m, item_table_m = model.propagate(params)
+    u_full = u_table_m[users].contiguous()
+    half = EVAL_USERS_PER_BATCH // 2
+    u_half, bits_half, mask8_half = u_full[:half].contiguous(), bits[:half].contiguous(), mask8[:half]
+    k1_check("masked_scores[dp]", lambda: k1.masked_scores_bits(u_half, item_table_m, bits_half, width, I),
+             lambda: k1.masked_scores_bits_reference(u_half, item_table_m, bits_half, width, I),
+             lambda: torch.where(mask8_half != 0, float("-inf"), torch.matmul(u_half, item_table_m.T)),
+             (half + I) * d * 4 + bits_half.numel() + half * I * 4, u_half, item_table_m,
+             {"mode": "bits", "shape": [half, I, d], "library_call": "matmul + where on a prebuilt int8 mask",
+              "mesh": "bits_dp, a rank's rows of a batch on a (2, 1) mesh"})
+    items_blk = tiers._item_block(item_table_m, 0, I_m)
+    bits_blk = k1.pack_train_bits(train_rows, I, block_items=I_m)[:, : I_m // 8].contiguous()
+    mask8_blk = k1.build_train_mask(train_rows, I_m)
+    k1_check("masked_scores[block]", lambda: k1.masked_scores_bits(u_full, items_blk, bits_blk, I_m, I_m),
+             lambda: k1.masked_scores_bits_reference(u_full, items_blk, bits_blk, I_m, I_m),
+             lambda: torch.where(mask8_blk != 0, float("-inf"), torch.matmul(u_full, items_blk.T)),
+             (B + I_m) * d * 4 + bits_blk.numel() + B * I_m * 4, u_full, items_blk,
+             {"mode": "bits", "shape": [B, I_m, d], "library_call": "matmul + where on a prebuilt int8 mask",
+              "mesh": "item_shard_bits, 'model' block 0 of 2, its own (B, I_m/8) table packed per block"})
+    blk = shard_adjacency(model.adj, SimpleNamespace(shape={"data": 2, "model": 1},
+                                                     coordinate={"data": 0, "model": 0}))
+    blk_r, blk_c, blk_v = (t.cpu().numpy() for t in (blk.rows_local, blk.cols, blk.vals))
+    real = blk_v != 0
+    blk_edges = sp.csr_matrix((blk_v[real], (blk_r[real], blk_c[real])), shape=(blk.block, model.adj.n_nodes))
+    ego_m = torch.cat([params["user_emb"], params["item_emb"]], dim=0).contiguous()
+    g_blk = torch.from_numpy(
+        np.random.RandomState(SEED + 5).standard_normal((blk.block, d)).astype(np.float32)).cuda()
+    spmm_check("plan_spmm[block]", k2_src, "neurec_tpu/ops/pallas_spmm.py:144", blk.plan, ego_m, 1,
+               sparse_csr(torch, np, blk_edges), ego_m, {"mesh": "a 'data' rank's row block of 2"})
+    spmm_check("plan_spmm[bwd,block]", k2_src, "neurec_tpu/ops/pallas_spmm.py:504", blk.plan_t, g_blk, 1,
+               sparse_csr(torch, np, blk_edges.T.tocsr()), g_blk, {"mesh": "a 'data' rank's row block of 2"})
+    del u_table_m, item_table_m, u_full, items_blk, bits_blk, mask8_blk, blk, ego_m, g_blk
+
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
         "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream", "cut", "resume", "final_eval",
-                                                             "native_device")),
+                                                             "native_device", "mesh1")),
+        "masked_scores[dp]": ("masked_scores", ("dp2",)),
+        "masked_scores[block]": ("masked_scores", ("itemshard2",)),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
-        "masked_scores[int8]": ("masked_scores", ("serve_int8",)),
+        "masked_scores[int8]": ("masked_scores", ("serve_int8", "itemshard2_rows")),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
         "masked_scores[d1]": ("masked_scores", ("pop",)),
         "masked_scores[d16]": ("masked_scores", ("wrmf", "sbpr", "diffnet")),
@@ -2488,8 +2818,10 @@ def main() -> int:
         "masked_scores[d100]": ("masked_scores", ("caser",)),
         "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus")),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf", "cut", "resume", "final_eval", "native",
-                                    "native_device")),
-        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume")),
+                                    "native_device", "mesh1")),
+        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume", "mesh1")),
+        "plan_spmm[block]": ("plan_spmm", ("dp2", "itemshard2", "itemshard2_rows")),
+        "plan_spmm[bwd,block]": ("plan_spmm_t", ("dp2",)),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),
         "plan_spmm[bwd,bf16]": ("plan_spmm_t", ("bf16",)),
     }
@@ -2510,7 +2842,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     # device times where they were taken (the SpMM kernels), None elsewhere
-    extra_keys = ("path", "device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
+    extra_keys = ("path", "mesh", "device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
                   "err_vs_f64", "plain_err_vs_f64", "err_over_f32_bound", "err_over_split_bound", "matmul_ms",
                   "matmul_device_ms", "mask_build_ms", "kernel_ms")
     emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})

@@ -22,6 +22,10 @@ after an epoch and restored to continue the run, on any device.
 * A write goes to a temporary file in the directory, is flushed to disk and
   renamed over its name (``os.replace``), so a crash never leaves a half
   written newest checkpoint; the newest ``max_to_keep`` are kept.
+* Under a process group (a mesh, ``parallel/``) only the primary rank
+  writes, then every rank waits at a barrier; every rank restores the
+  host copies (the state is the same on every rank, the parameters
+  replicated), so a run saved on one mesh shape resumes on another.
 
 The format is the port's own: it does not read the JAX package's orbax
 checkpoints (that would import jax). Weights cross between the packages as
@@ -37,6 +41,7 @@ from typing import List, Optional
 import torch
 
 from neurec_tpu_torch.bridge import param_leaves
+from neurec_tpu_torch.parallel.distributed import barrier, is_primary_host
 
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
 _OPT = "__optimizer_state_dict__"
@@ -103,6 +108,13 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
 
     def save(self, epoch: int, params, opt_state, extra: Optional[dict] = None):
+        """Write the state of ``epoch`` (the primary rank only; every rank
+        leaves after the write, at a barrier)."""
+        if is_primary_host():
+            self._write(epoch, params, opt_state, extra)
+        barrier()
+
+    def _write(self, epoch: int, params, opt_state, extra: Optional[dict]):
         state = {
             "params": _to_cpu(params),
             "opt_state": _opt_tree(opt_state),

@@ -38,14 +38,29 @@ per-user metrics; the mean goes over users in f64. Where the library does
 not build, the evaluator raises: the JAX package prints and falls back to
 ``device``, which would switch what ran.
 
-Not ported yet: the multi-device tiers (ROADMAP.md queue 1 item 13); they
-raise ``NotImplementedError`` where the JAX package would take them.
+On a mesh (``mesh=``, ``neurec_tpu/eval/evaluator.py:112-127,309-329,
+410-505,760-790``) every rank holds every batch; the tiers that split
+(``bits_dp``, ``pallas_dp``, ``item_shard_bits``, ``item_shard_rows``:
+factorized models) score, mask and rank this rank's rows of each batch,
+rows ``[r*B/n, (r+1)*B/n)`` over 'data' (B rounded up to a multiple of
+the axis), and the item-sharded ones this rank's item block over 'model';
+the top-K ids are all-gathered, so every rank computes the whole batch's
+metric sums in the single run's order and returns the same string. The
+item-sharded tier keeps, per rank, its own contiguous (n_test, I_m/8) bits
+table, packed per block. ``item_shard`` (``eval_item_shard``: auto, on,
+off, 1 or 0; ``NEUREC_EVAL_ITEM_SHARD`` overrides) picks the item-sharded
+tiers as the JAX package does, and ``on`` where they cannot engage logs
+so on the primary rank. The other tiers (``predict`` models, the sampled
+candidates) run whole on every rank. ``backend="native"`` is
+single-process only, as ``docs/parallelism.md`` says, and raises under a
+group of more than one process.
 
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
 """
 
 from __future__ import annotations
 
+import logging
 from collections import OrderedDict
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -59,6 +74,8 @@ from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
 from neurec_tpu_torch.ops.masked_scores import pack_train_bits
 from neurec_tpu_torch.ops.metrics import METRIC_INDEX, METRIC_NAMES, all_metrics, hit_matrix
 from neurec_tpu_torch.ops.topk import top_k
+from neurec_tpu_torch.parallel.distributed import is_primary_host, process_count
+from neurec_tpu_torch.parallel.mesh import Mesh, axis_size, slice_rows
 
 PredictFn = Callable[[object, torch.Tensor], torch.Tensor]
 
@@ -74,9 +91,21 @@ class EvalProgram(NamedTuple):
     factorized: Optional[Callable]  # eval_embeddings
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError("%s is not ported to the PyTorch evaluator yet "
-                               "(ROADMAP.md queue 1 item 13: multi-device)" % what)
+_log = logging.getLogger("neurec_tpu_torch.eval")
+
+NATIVE_SINGLE_PROCESS = (
+    "the eval_backend=native host tier assumes fully-addressable score arrays and is single-process "
+    "only - use the default device backend under more than one process")
+
+
+def _item_shard_flag(item_shard) -> str:
+    """``eval_item_shard`` as auto, on or off (1 / true and 0 / false
+    accepted); anything else raises, as in the JAX package."""
+    flag = {"1": "on", "true": "on", "0": "off", "false": "off"}.get(
+        str(item_shard).lower(), str(item_shard).lower())
+    if flag not in ("auto", "on", "off"):
+        raise ValueError("eval_item_shard must be 'auto', 'on', 'off', 1 or 0, got %r" % (item_shard,))
+    return flag
 
 
 def _pad_rows(rows: List[List[int]], pad_value: int, min_len: int = 1):
@@ -104,11 +133,17 @@ class UniEvaluator:
         device: DeviceLike = None,
         num_thread: int = 8,
         backend: str = "device",
+        mesh: Optional[Mesh] = None,
+        item_shard: str = "auto",
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._item_shard_flag = _item_shard_flag(item_shard)
         self.num_thread = int(num_thread)
         if backend not in ("device", "native"):
             raise ValueError("eval_backend must be 'device' or 'native', got %r" % (backend,))
+        if backend == "native" and process_count() > 1:
+            raise ValueError(NATIVE_SINGLE_PROCESS)
         if backend == "native":
             native.build()  # raises where g++ is missing or fails: no fallback
             print("NeuRec eval backend: native (C++ host thread pool)")
@@ -173,11 +208,15 @@ class UniEvaluator:
         # explicit-user-list (grouped eval) batch blocks, keyed by the ids
         self._subset_batch_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
         self._subset_cache_max = 32
-        # packed train-mask bitmaps, keyed by (pack_block, width) layout
-        self._bits_tables: Dict[Tuple[int, int], torch.Tensor] = {}
+        # packed train-mask bitmaps, keyed by (pack_block, width, item block) layout
+        self._bits_tables: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
         # streamed tier: (edge items, edge slots) of each batch set, keyed as
         # the batch caches are (None: the default set)
         self._edges: "OrderedDict[Optional[bytes], tuple]" = OrderedDict()
+        # with record_ids set, _run keeps the last call's top-K ids (one row
+        # per slot of its batches) in last_ids
+        self.record_ids = False
+        self.last_ids: Optional[torch.Tensor] = None
 
     def _host_rows(self, users, min_len: int = 1, pad_to: Optional[int] = None) -> np.ndarray:
         """Padded sorted train rows for the given users, padded with
@@ -220,10 +259,25 @@ class UniEvaluator:
 
         return os.environ.get("NEUREC_EVAL_PREMASK", "auto") not in ("0", "off")
 
-    def _get_bits_table(self, pack_block: int, width: int) -> torch.Tensor:
+    def _item_shard_mode(self) -> str:
+        """auto, on or off for the item-sharded tiers: ``NEUREC_EVAL_ITEM_SHARD``
+        (1 / on, 0 / off) over the ``item_shard`` flag."""
+        import os
+
+        env = os.environ.get("NEUREC_EVAL_ITEM_SHARD", "").lower()
+        if env in ("1", "on"):
+            return "on"
+        if env in ("0", "off"):
+            return "off"
+        return self._item_shard_flag
+
+    def _get_bits_table(self, pack_block: int, width: int, part: Optional[int] = None) -> torch.Tensor:
         """(n_test, width/8) uint8 bit-plane-packed train masks of the test
-        users, in test-user order; built on the device once per layout."""
-        key = (int(pack_block), int(width))
+        users, in test-user order; built on the device once per layout.
+        With ``part``, only byte columns ``[part*pack_block/8,
+        (part+1)*pack_block/8)``: item block ``part``'s own contiguous
+        (n_test, pack_block/8) table (the item-sharded tier's)."""
+        key = (int(pack_block), int(width), part)
         if key not in self._bits_tables:
             chunk = 4096
             n = len(self.test_users)
@@ -240,10 +294,13 @@ class UniEvaluator:
                 short = width // 8 - bits.shape[1]
                 if short:
                     bits = torch.nn.functional.pad(bits, (0, short))
+                if part is not None:
+                    bits = bits[:, part * pack_block // 8: (part + 1) * pack_block // 8]
                 parts.append(bits)
+            cols = width // 8 if part is None else pack_block // 8
             self._bits_tables[key] = (
-                torch.cat(parts, dim=0) if parts
-                else torch.zeros((0, width // 8), dtype=torch.uint8, device=self.device)
+                torch.cat(parts, dim=0).contiguous() if parts
+                else torch.zeros((0, cols), dtype=torch.uint8, device=self.device)
             )
         return self._bits_tables[key]
 
@@ -292,10 +349,10 @@ class UniEvaluator:
             has_tables=getattr(model, "eval_tables", None) is not None,
             # K1 runs on every device of the port (kernel on cuda, plain on cpu)
             pallas_ok=factorized,
-            n_model=1,
-            has_data_axis=False,
-            mesh_size=1,
-            item_shard_mode="off",
+            n_model=axis_size(self.mesh, "model"),
+            has_data_axis=self.mesh is not None,
+            mesh_size=1 if self.mesh is None else self.mesh.size,
+            item_shard_mode=self._item_shard_mode(),
             num_items=self.num_items,
             batch_size=self.batch_size,
             n_test_users=len(self.test_users),
@@ -308,19 +365,29 @@ class UniEvaluator:
         K = min(self.max_top, num_items)
         model = getattr(predict_fn, "__self__", None)
         plan = self._select_plan(predict_fn)
+        if self._item_shard_mode() == "on" and not plan.item_shard and self.user_neg_test is None:
+            # an explicit request that cannot engage: say so
+            if is_primary_host():
+                _log.warning(
+                    "eval_item_shard=on ignored: requires a mesh with 'data' and 'model' (>1) axes and a model "
+                    "exposing eval_embeddings (factorized scores); falling back to the replicated evaluator path")
 
+        dp_mesh = self.mesh if plan.dp else None
         fact_topk = pred_topk = None
-        if plan.name == "bits":
+        if plan.name == "item_shard_bits":
+            fact_topk = tiers.make_item_shard_bits_topk(K, self.mesh, num_items, plan.pack_block,
+                                                        self.mesh.shape["model"])
+        elif plan.name == "item_shard_rows":
+            fact_topk = tiers.make_item_shard_rows_topk(K, self.mesh, num_items)
+        elif plan.name in ("bits", "bits_dp"):
             if plan.kind == "factorized" or plan.hoist:
-                fact_topk = tiers.make_bits_topk(K, plan.bits_width, num_items)
+                fact_topk = tiers.make_bits_topk(K, plan.bits_width, num_items, mesh=dp_mesh)
             if plan.kind == "predict":
                 pred_topk = tiers.make_bits_predict_topk(K, plan.bits_width, num_items)
-        elif plan.name == "pallas":
-            fact_topk = tiers.make_pallas_topk(K)
-        elif plan.name == "scatter":
-            pred_topk = tiers.make_scatter_topk(K, num_items)
+        elif plan.name in ("pallas", "pallas_dp"):
+            fact_topk = tiers.make_pallas_topk(K, mesh=dp_mesh)
         else:
-            raise _not_ported("the %r tier" % plan.name)
+            pred_topk = tiers.make_scatter_topk(K, num_items)
 
         # user-independent tables (graph propagation) are computed once per
         # call instead of once per batch
@@ -359,6 +426,9 @@ class UniEvaluator:
 
     def _make_batches(self, users: np.ndarray, positions: np.ndarray):
         B = min(self.batch_size, max(len(users), 1))
+        # on a mesh, a multiple of the 'data' axis (each rank takes B / n rows)
+        n_data = axis_size(self.mesh, "data")
+        B = -(-B // n_data) * n_data
         n_batches = (len(users) + B - 1) // B
         n_pad = n_batches * B
         valid = np.zeros(n_pad, dtype=np.float32)
@@ -385,9 +455,10 @@ class UniEvaluator:
             return self._evaluate_raw_native(predict_fn, params, test_users)
         prog = self._get_program(predict_fn)
         plan = prog.plan
-        mask_data = (
-            self._get_bits_table(plan.pack_block, plan.bits_width) if plan.bits and plan.table else None
-        )
+        mask_data = None
+        if plan.bits and plan.table:
+            part = self.mesh.coordinate["model"] if plan.item_shard else None
+            mask_data = self._get_bits_table(plan.pack_block, plan.bits_width, part)
         ck = None
         if test_users is None:
             if self._default_batches is None:
@@ -453,17 +524,24 @@ class UniEvaluator:
 
         total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
-        pack = tiers.make_edge_pack(plan.pack_block, plan.bits_width) if plan.stream else None
+        pack = None
+        if plan.stream:  # the item-sharded tier packs its own block
+            pack = (tiers.make_edge_pack(plan.pack_block, plan.pack_block) if plan.item_shard
+                    else tiers.make_edge_pack(plan.pack_block, plan.bits_width))
+        ids = []
         for j, (users, sel, valid) in enumerate(zip(users_b, sel_b, valid_b)):
+            # the splitting tiers score this rank's rows; their top-K come back whole
+            users_l, sel_l = (slice_rows(users, self.mesh), slice_rows(sel, self.mesh)) if plan.dp else (users, sel)
             if plan.stream:
-                mask = pack(mask_data[0][j], mask_data[1][j], users.shape[0])
+                mask = pack(*self._local_edges(plan, mask_data[0][j], mask_data[1][j], users.shape[0]),
+                            users_l.shape[0])
             else:
-                mask = mask_data[sel] if plan.bits else self._train_rows[users]
+                mask = mask_data[sel_l] if plan.bits else self._train_rows[users_l]
             if hoisted is not None:
                 u_table, item_table = hoisted
-                topk = prog.fact_topk(u_table[users], item_table, mask)
+                topk = prog.fact_topk(u_table[users_l], item_table, mask)
             elif plan.kind == "factorized":
-                u_vecs, item_table = prog.factorized(params, users)
+                u_vecs, item_table = prog.factorized(params, users_l)
                 topk = prog.fact_topk(u_vecs.float(), item_table.float(), mask)
             else:
                 scores = (
@@ -471,11 +549,31 @@ class UniEvaluator:
                     else predict_fn(params, users).float()
                 )
                 topk = prog.pred_topk(scores, mask)
+            if self.record_ids:
+                ids.append(topk)
             hits = hit_matrix(topk, self._test_rows[sel], self._test_lens[sel])
             m = all_metrics(hits, self._test_lens[sel])  # (B, 5, K)
             total = total + torch.sum(m * valid[:, None, None], dim=0)
             count = count + torch.sum(valid)
+        if self.record_ids:
+            self.last_ids = torch.cat(ids)
         return self._mean(total, count)
+
+    def _local_edges(self, plan: TierPlan, e_items: torch.Tensor, e_slots: torch.Tensor, B: int):
+        """A streamed batch's (item, slot) edges as this rank packs them:
+        slots of its rows of the batch (a splitting tier), items of its
+        block (the item-sharded tier), each made local; the other edges
+        get the dropped slot (the local row count)."""
+        if not plan.dp:
+            return e_items, e_slots
+        k = B // axis_size(self.mesh, "data")
+        lo = self.mesh.coordinate["data"] * k
+        keep = (e_slots >= lo) & (e_slots < lo + k)
+        if plan.item_shard:
+            off = self.mesh.coordinate["model"] * plan.pack_block
+            keep &= (e_items >= off) & (e_items < off + plan.pack_block)
+            e_items = torch.where(keep, e_items - off, torch.zeros_like(e_items))
+        return e_items, torch.where(keep, e_slots - lo, torch.full_like(e_slots, k))
 
     @torch.no_grad()
     def _evaluate_raw_native(
@@ -564,6 +662,8 @@ class GroupedEvaluator:
         device: DeviceLike = None,
         num_thread=8,
         backend="device",
+        mesh: Optional[Mesh] = None,
+        item_shard="auto",
     ):
         if not isinstance(group_view, list):
             raise TypeError("The type of 'group_view' must be `list`!")
@@ -578,6 +678,8 @@ class GroupedEvaluator:
             device=device,
             num_thread=num_thread,
             backend=backend,
+            mesh=mesh,
+            item_shard=item_shard,
         )
         group_list = [0] + group_view
         group_info = [
@@ -622,10 +724,13 @@ class Evaluator:
         device: DeviceLike = None,
         num_thread=8,
         backend="device",
+        mesh: Optional[Mesh] = None,
+        item_shard="auto",
     ):
         kwargs = dict(
             metric=metric, top_k=top_k, batch_size=batch_size,
             num_items=num_items, device=device, num_thread=num_thread, backend=backend,
+            mesh=mesh, item_shard=item_shard,
         )
         if group_view is not None:
             self.evaluator = GroupedEvaluator(
@@ -638,7 +743,7 @@ class Evaluator:
             )
 
     @classmethod
-    def from_dataset(cls, dataset, config, device: DeviceLike = None) -> "Evaluator":
+    def from_dataset(cls, dataset, config, device: DeviceLike = None, mesh: Optional[Mesh] = None) -> "Evaluator":
         return cls(
             dataset.get_user_train_dict(),
             dataset.get_user_test_dict(),
@@ -651,6 +756,8 @@ class Evaluator:
             device=device,
             num_thread=config.get("num_thread", 8),
             backend=config.get("eval_backend", "device"),
+            mesh=mesh,
+            item_shard=str(config.get("eval_item_shard", "auto")).lower(),
         )
 
     def metrics_info(self) -> str:

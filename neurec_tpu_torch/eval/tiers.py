@@ -1,16 +1,28 @@
 """Evaluation masking/ranking tiers: one builder per tier plus a pure selector.
 
-Port of ``neurec_tpu/eval/tiers.py`` for one device. ``select_tier`` is
-the JAX package's pure function, copied as is; the builders ported here:
+Port of ``neurec_tpu/eval/tiers.py``. ``select_tier`` is the JAX
+package's pure function, copied as is; the builders:
 
-``bits`` (DEFAULT)
+``bits`` / ``bits_dp`` (DEFAULT)
     Per-eval-user train masks packed once into a global bit-plane table;
     scoring and masking run in kernel K1 (``masked_scores_bits``) for
     factorized models, in plain torch on ``predict``'s scores otherwise.
+    ``bits_dp`` (a mesh with more than one rank): K1 on this rank's rows
+    of the batch, the top-K ids all-gathered over 'data'.
 
-``pallas`` (NEUREC_EVAL_PREMASK=0, factorized models)
+``item_shard_bits`` (a 'model' axis above one, big catalogues or forced)
+    Each 'model' rank scores and masks its item block ``[s*I_m,
+    (s+1)*I_m)`` (``shard_bits_geometry``) in K1 against its own contiguous
+    bits table, packed per block, takes a local top-K with global ids, and
+    the candidates are all-gathered over 'model' and merged
+    (``_merge_local_topk``); then over 'data' as ``bits_dp``.
+
+``item_shard_rows`` (NEUREC_EVAL_PREMASK=0 with a 'model' axis)
+    The same merge, K1's int8 mask from block-local train ids.
+
+``pallas`` / ``pallas_dp`` (NEUREC_EVAL_PREMASK=0, factorized models)
     K1 on its own contract: int8 mask built from padded train rows
-    (``masked_scores``).
+    (``masked_scores``); ``pallas_dp`` on this rank's rows, as ``bits_dp``.
 
 ``scatter`` (NEUREC_EVAL_PREMASK=0, other models)
     Concat a dump column, scatter -inf at the padded train rows, slice.
@@ -20,8 +32,8 @@ A ``bits`` plan whose table would pass the budget streams
 device into the table's layout, so the consumers above are unchanged.
 
 All top-K here break ties to the lowest item id, as ``lax.top_k`` does.
-Not ported yet: ``bits_dp`` / ``pallas_dp`` and the item-sharded tiers
-(multi-device).
+A builder given a mesh takes this rank's rows of the batch (the evaluator
+slices them) and returns the whole batch's ids, on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 from neurec_tpu_torch.ops import masked_scores as k1
 from neurec_tpu_torch.ops.masked_scores import bits_expand, pack_mask_bits, wrap_ids
 from neurec_tpu_torch.ops.topk import top_k
+from neurec_tpu_torch.parallel.mesh import all_gather_rows
 
 # Prebuilt per-eval-user bits tables larger than this are streamed (packed
 # per batch) instead of held resident.
@@ -178,12 +191,17 @@ def make_edge_pack(pack_block: int, width: int):
 # Factorized builders return fn(u_vecs, item_table, mask) -> (B, K) top-K
 # ids; predict builders return fn(scores, mask).
 
-def make_bits_topk(K: int, width: int, num_items: int):
-    """``bits``: K1 score + bit-plane mask, then top-K."""
+def _gather_batch(ids: torch.Tensor, mesh) -> torch.Tensor:
+    """The ranks' rows of the batch's ids, in batch order ('data')."""
+    return ids if mesh is None else all_gather_rows(ids, mesh, "data")
+
+
+def make_bits_topk(K: int, width: int, num_items: int, mesh=None):
+    """``bits`` / ``bits_dp``: K1 score + bit-plane mask, then top-K."""
 
     def topk_fn(u_vecs, item_table, bits):
         masked = k1.masked_scores_bits(u_vecs, item_table, bits, width, num_items)
-        return top_k(masked, K)[1]
+        return _gather_batch(top_k(masked, K)[1], mesh)
 
     return topk_fn
 
@@ -202,11 +220,73 @@ def make_bits_predict_topk(K: int, width: int, num_items: int):
     return topk_fn
 
 
-def make_pallas_topk(K: int):
-    """``pallas``: K1 on padded train rows (int8 mask), then top-K."""
+def make_pallas_topk(K: int, mesh=None):
+    """``pallas`` / ``pallas_dp``: K1 on padded train rows (int8 mask), then top-K."""
 
     def topk_fn(u_vecs, item_table, train_rows):
-        return top_k(k1.masked_scores(u_vecs, item_table, train_rows), K)[1]
+        return _gather_batch(top_k(k1.masked_scores(u_vecs, item_table, train_rows), K)[1], mesh)
+
+    return topk_fn
+
+
+def _merge_local_topk(masked: torch.Tensor, off: int, num_items: int, K: int, k_local: int, mesh) -> torch.Tensor:
+    """The tail of both item-sharded tiers: the catalogue-pad guard, a
+    local top-``k_local`` with global ids, the all-gather over 'model' and
+    the merge.
+
+    The tie rule lives here and only here: the candidates line up in
+    (shard, local rank) order, so at equal scores the merge's top-K (lowest
+    position first) keeps the lowest global id, as the replicated tier's
+    top-K over the whole catalogue does.
+    """
+    gcol = torch.arange(masked.shape[1], device=masked.device) + off
+    masked = torch.where(gcol[None, :] < num_items, masked, torch.full_like(masked, float("-inf")))
+    vals, ids = top_k(masked, k_local)
+    gids = ids + off
+    B, n_model = vals.shape[0], mesh.shape["model"]
+    vals_cat = all_gather_rows(vals, mesh, "model").reshape(n_model, B, k_local).transpose(0, 1).reshape(B, -1)
+    gids_cat = all_gather_rows(gids, mesh, "model").reshape(n_model, B, k_local).transpose(0, 1).reshape(B, -1)
+    return torch.gather(gids_cat, 1, top_k(vals_cat, K)[1])
+
+
+def _item_block(item_table: torch.Tensor, off: int, rows: int) -> torch.Tensor:
+    """Rows ``[off, off + rows)`` of the item table, zero rows past its end."""
+    block = item_table[off: off + rows]
+    if block.shape[0] < rows:
+        block = torch.cat([block, block.new_zeros((rows - block.shape[0], block.shape[1]))], dim=0)
+    return block
+
+
+def make_item_shard_bits_topk(K: int, mesh, num_items: int, pack_block: int, n_model: int):
+    """``item_shard_bits``: fn(u_vecs, item_table, bits_block) on this
+    rank's rows, ``bits_block`` (B_loc, I_m/8) from the rank's own table
+    packed per block. K1 scores and masks the rank's (B_loc, I_m) item
+    block, then ``_merge_local_topk``, then the rows over 'data'."""
+    I_m = pack_block
+    k_local = min(K, I_m)
+    off = mesh.coordinate["model"] * I_m
+
+    def topk_fn(u_vecs, item_table, bits_block):
+        masked = k1.masked_scores_bits(u_vecs, _item_block(item_table, off, I_m), bits_block, I_m, I_m)
+        return _gather_batch(_merge_local_topk(masked, off, num_items, K, k_local, mesh), mesh)
+
+    return topk_fn
+
+
+def make_item_shard_rows_topk(K: int, mesh, num_items: int):
+    """``item_shard_rows``: K1's int8 mask on the rank's item block, from
+    block-local train ids (ids outside the block map past it, where the
+    mask build drops them), then the merge as ``item_shard_bits``."""
+    n_model = mesh.shape["model"]
+    I_m = -(-num_items // n_model)
+    k_local = min(K, I_m)
+    off = mesh.coordinate["model"] * I_m
+
+    def topk_fn(u_vecs, item_table, train_rows):
+        inside = (train_rows >= off) & (train_rows < off + I_m)
+        local_rows = torch.where(inside, train_rows - off, torch.full_like(train_rows, 2 ** 30))
+        masked = k1.masked_scores(u_vecs, _item_block(item_table, off, I_m), local_rows)
+        return _gather_batch(_merge_local_topk(masked, off, num_items, K, k_local, mesh), mesh)
 
     return topk_fn
 

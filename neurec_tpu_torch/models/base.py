@@ -57,6 +57,38 @@ class Recommender:
     def loss(self, params, batch: Dict[str, torch.Tensor], weights: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    # Whether a built-in epoch may split this model's steps over the mesh's
+    # 'data' axis (``Trainer.dp_constrain``): each rank's loss is then its
+    # rows' part, its terms over whole tensors and whole-batch counts taken
+    # through ``parallel.mesh`` (``whole_term``, ``batch_sum``,
+    # ``split_draw``). A model whose loss has no such form sets it False
+    # and its step runs whole on every rank.
+    dp_split: bool = True
+
+    def on_mesh(self, mesh) -> None:
+        """Hook: the Trainer announces its mesh before the first step.
+
+        A model holding device-side structures re-places them (LightGCN and
+        NGCF keep one row block of their adjacency per 'data' rank,
+        ``ops/graph.py::maybe_shard``). Default: nothing to re-place.
+        """
+        return None
+
+    def param_shardings(self, mesh, params=None):
+        """A tree of ``parallel.mesh.Placement`` of ``init_params``' shape
+        (of ``params``' when given, else of a fresh ``init_params``):
+        every leaf replicated, so every rank holds the whole of each table.
+        Row-sharding the id tables over 'model' (the JAX package's default
+        for a leaf whose leading dimension is a vocabulary size dividing the
+        axis) is the next slice of the port; until then the tables stay
+        whole, which changes memory and never a number."""
+        from neurec_tpu_torch.bridge import map_params
+        from neurec_tpu_torch.parallel.mesh import replicated
+
+        if params is None:
+            params = self.init_params(torch.Generator(device=self.device).manual_seed(0))
+        return map_params(lambda _: replicated(mesh), params)
+
     @staticmethod
     def _affine_eval(u_vecs, item_table, item_bias=None):
         """Fold a per-item bias into the factorized form by appending a

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from neurec_tpu_torch.data.padded import build_padded_positives, dense_rows
+from neurec_tpu_torch.parallel.mesh import split_draw
 
 
 class DenseRowMixin:
@@ -29,14 +30,16 @@ class DenseRowMixin:
     # The draws a loss makes (dropout, corruption, the VAE's noise), one
     # method each, from the step's generator (``batch["generator"]``). They
     # are torch's, not JAX's threefry: the packages agree in distribution.
+    # Each has the batch's leading dimension: a data-parallel step draws it
+    # for the whole batch and keeps this rank's rows (``split_draw``).
     @staticmethod
     def _bernoulli(generator: torch.Generator, p: float, shape) -> torch.Tensor:
         """Bool, True with probability ``p`` (``jax.random.bernoulli``)."""
-        return torch.rand(tuple(shape), generator=generator, device=generator.device) < p
+        return split_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape) < p
 
     @staticmethod
     def _normal(generator: torch.Generator, shape) -> torch.Tensor:
-        return torch.randn(tuple(shape), generator=generator, device=generator.device)
+        return split_draw(lambda s: torch.randn(s, generator=generator, device=generator.device), shape)
 
     def _dropout(self, x: torch.Tensor, generator: torch.Generator, keep: float) -> torch.Tensor:
         """Inverted dropout: kept entries scaled by 1 / keep, zeros stay zero."""

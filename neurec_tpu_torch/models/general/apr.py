@@ -27,6 +27,7 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 
 def _row_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -66,7 +67,8 @@ class APR(Recommender):
             Pd, Qd = P.detach().requires_grad_(True), Q.detach().requires_grad_(True)
             with torch.enable_grad():
                 gP, gQ = torch.autograd.grad(_bpr(Pd[users], Qd[pos], Qd[neg], weights), (Pd, Qd))
-            return _row_normalize(gP) * self.eps, _row_normalize(gQ) * self.eps
+            # the whole batch's gradient, then normalised (a split step's is a part)
+            return _row_normalize(batch_sum(gP)) * self.eps, _row_normalize(batch_sum(gQ)) * self.eps
         if generator is None:
             raise ValueError("APR adv=random draws its noise from batch['generator']")
         noise = [torch.nn.init.trunc_normal_(torch.empty_like(t), 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -76,7 +78,7 @@ class APR(Recommender):
     def loss(self, params, batch, weights):
         users, pos, neg = batch["users"], batch["pos_items"], batch["neg_items"]
         P, Q = params["embedding_P"], params["embedding_Q"]
-        opt_loss = _bpr(P[users], Q[pos], Q[neg], weights) + self.reg * l2_loss(P, Q)
+        opt_loss = _bpr(P[users], Q[pos], Q[neg], weights) + whole_term(self.reg * l2_loss(P, Q))
         if not self.adver:
             return opt_loss
         dP, dQ = self._deltas(P, Q, users, pos, neg, weights, batch.get("generator"))

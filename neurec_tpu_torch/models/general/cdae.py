@@ -28,6 +28,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.sampling import sample_negatives
+from neurec_tpu_torch.parallel.mesh import whole_term
 
 
 @register("CDAE")
@@ -103,8 +104,7 @@ class CDAE(DenseRowMixin, Recommender):
             + torch.sum(torch.square(params["de_emb"][items] * w2))
             + torch.sum(torch.square(params["de_bias"][items] * entry_w))
             + torch.sum(torch.square(params["user_emb"][users] * weights[:, None]))
-            + torch.sum(torch.square(params["en_offset"]))
-        )
+        ) + whole_term(0.5 * torch.sum(torch.square(params["en_offset"])))
         return torch.sum(model_loss * entry_w) + self.reg * reg_loss
 
     def predict(self, params, users):

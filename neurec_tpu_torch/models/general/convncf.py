@@ -32,6 +32,7 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss
+from neurec_tpu_torch.parallel.mesh import split_draw, whole_term
 from neurec_tpu_torch.pretrain import as_tensor, try_load
 from neurec_tpu_torch.trainer import OptaxAdagrad
 
@@ -120,7 +121,7 @@ class ConvNCF(Recommender):
             x = torch.tanh(conv2x2_stride2(x, layer["w"], layer["b"]))
         x = x.reshape(x.shape[0], self.nc[-1])
         if training and generator is not None and self.keep < 1.0:
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < self.keep
+            mask = split_draw(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) < self.keep
             x = torch.where(mask, x / self.keep, torch.zeros_like(x))
         return (x @ params["W"] + params["b"])[:, 0]
 
@@ -139,7 +140,7 @@ class ConvNCF(Recommender):
         head_reg = l2_loss(params["W"], params["b"])
         return (pairwise_loss(self.loss_function, y_pos - y_neg, weights=weights)
                 + self.lambda_bilinear * l2_loss(p * w, q2 * w, q1 * w)
-                + self.gamma_bilinear * head_reg + self.lambda_weight * (conv_reg + head_reg))
+                + whole_term(self.gamma_bilinear * head_reg + self.lambda_weight * (conv_reg + head_reg)))
 
     def predict(self, params, users):
         """(B, num_items): the CNN over every (user, item) pair, by item chunk

@@ -21,6 +21,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.activations import activation_function
 from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.parallel.mesh import whole_term
 
 
 @register("DAE")
@@ -61,7 +62,8 @@ class DAE(DenseRowMixin, Recommender):
         else:
             y = torch.clamp(self.g_act(logits), 1e-7, 1 - 1e-7)
             ce = -(rows * torch.log(y) + (1 - rows) * torch.log(1 - y))
-        reg = self.reg * 0.5 * sum(torch.sum(torch.square(params[k])) for k in ("w_enc", "w_dec", "b_enc", "b_dec"))
+        reg = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(params[k]))
+                                             for k in ("w_enc", "w_dec", "b_enc", "b_dec")))
         return torch.sum(torch.sum(ce, dim=1) * weights) + reg
 
     def predict(self, params, users):

@@ -27,6 +27,7 @@ from neurec_tpu_torch.models.base import register
 from neurec_tpu_torch.models.general.nais import NAIS
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 
 @register("DeepICF")
@@ -35,6 +36,9 @@ class DeepICF(NAIS):
         super().__init__(dataset, config, device)
         self.n_hidden = list(config.get("layers", [64, 32, 16]))
         self.use_batch_norm = bool(config.get("batch_norm", False))
+        # batch norm's statistics are the whole batch's: such a step is not
+        # a sum of the ranks' parts, so it runs whole on every rank
+        self.dp_split = not self.use_batch_norm
         self.is_pairwise = False
         self.data_kind = "pointwise"
 
@@ -74,8 +78,8 @@ class DeepICF(NAIS):
         coeff = torch.pow(torch.clamp(torch.where(labels > 0, n, n + 1.0), min=1.0), self.alpha)[:, None]
         prob = torch.clamp(self._prob(params, coeff * p, q, items), 1e-7, 1 - 1e-7)
         ce = -(labels * torch.log(prob) + (1 - labels) * torch.log(1 - prob))
-        denom = torch.clamp(torch.sum(weights), min=1.0)
-        return torch.sum(ce * weights) / denom + (
+        denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
+        return torch.sum(ce * weights) / denom + whole_term(
             self.lambda_bilinear * l2_loss(params["Q"])
             + self.gamma_bilinear * l2_loss(params["Q_set"])
             + self.eta_bilinear * l2_loss(params["W"]))

@@ -29,6 +29,7 @@ from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.parallel.mesh import batch_sum
 
 # elements of one (items, L_i, first_layer) gather in predict: 256 MB of f32
 _TRANSIENT = 1 << 26
@@ -117,7 +118,7 @@ class DMF(Recommender):
         # paper eq. (12): normalized binary cross-entropy on the cosine
         ce = -(labels * torch.log(y) + (1.0 - labels) * torch.log1p(-y))
         if weights is not None:
-            return torch.sum(ce * weights) / torch.clamp(torch.sum(weights), min=1.0)
+            return torch.sum(ce * weights) / torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
         return torch.mean(ce)
 
     def _dense_eval_fits(self) -> bool:

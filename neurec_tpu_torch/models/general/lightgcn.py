@@ -7,7 +7,11 @@ graph (He et al., SIGIR 2020). Port of
   layer runs the plan SpMM kernel (K2), its backward K2 over Â^T;
 * BPR loss sum(softplus(neg - pos)) + reg * l2(layer-0 rows of the batch),
   each term scaled by the instance weight;
-* eval scores = propagated user rows @ propagated item table^T.
+* eval scores = propagated user rows @ propagated item table^T;
+* ``graph_shard`` = auto | on | off: on a mesh, ``on_mesh`` keeps one row
+  block of Â per 'data' rank (``ops/graph.py::maybe_shard``; ``auto`` only
+  a graph above ``DENSE_LIMIT``) and each layer runs ``spmm_sharded``: K2
+  over the block's plan, the blocks all-gathered.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
-from neurec_tpu_torch.ops.graph import build_norm_adjacency, spmm
+from neurec_tpu_torch.ops.graph import build_norm_adjacency, maybe_shard, spmm, spmm_sharded
 from neurec_tpu_torch.ops.initializers import glorot_uniform
 from neurec_tpu_torch.ops.losses import l2_loss, log_loss
 
@@ -33,6 +37,11 @@ class LightGCN(Recommender):
         self.n_layers = int(config.get("n_layers", 3))
         self.adj_type = config.get("adj_type", "pre")
         self.adj = build_norm_adjacency(dataset.train_matrix, self.adj_type, device=self.device)
+        self.graph_shard = str(config.get("graph_shard", "auto")).lower()
+        self._adj_sharded = None
+
+    def on_mesh(self, mesh):
+        self._adj_sharded = maybe_shard(self.adj, mesh, self.graph_shard)
 
     def init_params(self, generator: torch.Generator):
         return {
@@ -46,7 +55,7 @@ class LightGCN(Recommender):
         acc = ego
         h = ego
         for _ in range(self.n_layers):
-            h = spmm(self.adj, h)
+            h = spmm(self.adj, h) if self._adj_sharded is None else spmm_sharded(self._adj_sharded, h)
             acc = acc + h
         final = acc / (self.n_layers + 1)
         return final[: self.num_users], final[self.num_users :]

@@ -17,6 +17,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.activations import activation_function, l2_normalize
 from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 
 @register("MultiDAE")
@@ -59,9 +60,9 @@ class MultiDAE(DenseRowMixin, Recommender):
     def loss(self, params, batch, weights):
         rows = batch["rows"]
         log_softmax = torch.log_softmax(self._forward(params, rows, batch["generator"]), dim=-1)
-        denom = torch.clamp(torch.sum(weights), min=1.0)
+        denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
         neg_ll = -torch.sum(torch.sum(log_softmax * rows, dim=1) * weights) / denom
-        reg_var = self.reg * 0.5 * sum(torch.sum(torch.square(w)) for w in params["w"])
+        reg_var = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(w)) for w in params["w"]))
         return neg_ll + 2.0 * reg_var
 
     def predict(self, params, users):

@@ -25,6 +25,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.activations import activation_function, l2_normalize
 from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 
 @register("MultiVAE")
@@ -87,7 +88,7 @@ class MultiVAE(DenseRowMixin, Recommender):
         z = mu + 0.01 * self._normal(generator, std.shape) * std
         log_softmax = torch.log_softmax(self._p_net(params, z), dim=-1)
 
-        denom = torch.clamp(torch.sum(weights), min=1.0)
+        denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
         neg_ll = -torch.sum(torch.sum(log_softmax * rows, dim=1) * weights) / denom
         kl_per_user = torch.sum(0.5 * (-logvar + torch.exp(logvar) + torch.square(mu) - 1.0), dim=1)
         kl = torch.sum(kl_per_user * weights) / denom
@@ -95,7 +96,7 @@ class MultiVAE(DenseRowMixin, Recommender):
             anneal = min(self.anneal_cap, float(batch["step"]) / self.total_anneal_steps)
         else:
             anneal = self.anneal_cap
-        reg_var = self.reg * 0.5 * sum(torch.sum(torch.square(p)) for p in params["q_w"] + params["p_w"])
+        reg_var = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(p)) for p in params["q_w"] + params["p_w"]))
         return neg_ll + anneal * kl + 2.0 * reg_var
 
     def predict(self, params, users):

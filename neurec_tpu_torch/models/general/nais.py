@@ -32,6 +32,7 @@ from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.models.general.fism import padded_rows
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss, pointwise_loss
+from neurec_tpu_torch.parallel.mesh import whole_term
 from neurec_tpu_torch.pretrain import as_tensor, try_load
 
 _ACTS = {0: torch.relu, 1: torch.sigmoid, 2: torch.tanh,
@@ -127,7 +128,7 @@ class NAIS(Recommender):
     def loss(self, params, batch, weights):
         users = batch["users"]
         w, w3 = weights[:, None], weights[:, None, None]
-        reg_w = self.eta_bilinear * l2_loss(params["W"])
+        reg_w = whole_term(self.eta_bilinear * l2_loss(params["W"]))
         if self.is_pairwise:
             pos, neg = batch["pos_items"], batch["neg_items"]
             ones = torch.ones_like(weights)

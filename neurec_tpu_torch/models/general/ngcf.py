@@ -20,7 +20,11 @@ Port of ``neurec_tpu/models/general/ngcf.py``:
 * BPR loss sum(softplus(neg - pos)) + reg * l2(propagated batch rows),
   each term scaled by the instance weight;
 * ``pretrain_file``: a ``[user_emb, item_emb]`` pickle warm-starts the
-  embeddings.
+  embeddings;
+* ``graph_shard`` = auto | on | off, as LightGCN's: on a mesh each 'data'
+  rank keeps one row block of Â and each layer runs ``spmm_sharded``; node
+  dropout on a block draws over every block's padded edges (the same draw
+  on every rank), keeps the rank's, and takes the segment-sum branch.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ import torch.nn.functional as F
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.ops.activations import l2_normalize
-from neurec_tpu_torch.ops.graph import SparseAdj, build_norm_adjacency, spmm, with_vals
+from neurec_tpu_torch.ops.graph import (
+    SparseAdj, build_norm_adjacency, maybe_shard, spmm, spmm_sharded, with_vals,
+)
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, log_loss
 from neurec_tpu_torch.pretrain import try_load
@@ -65,6 +71,11 @@ class NGCF(Recommender):
         self.stddev = float(config.get("stddev", 0.01))
         self.pretrain_file = config.get("pretrain_file", "")
         self.adj = build_norm_adjacency(dataset.train_matrix, self.adj_type, device=self.device)
+        self.graph_shard = str(config.get("graph_shard", "auto")).lower()
+        self._adj_sharded = None
+
+    def on_mesh(self, mesh):
+        self._adj_sharded = maybe_shard(self.adj, mesh, self.graph_shard)
 
     def init_params(self, generator: torch.Generator):
         e_init = get_initializer(self.embed_init_method, self.stddev)
@@ -87,12 +98,19 @@ class NGCF(Recommender):
         return {name: [v.to(self.device) for v in value] if isinstance(value, list) else value.to(self.device)
                 for name, value in params.items()}
 
-    def _adj_for_step(self, generator, training: bool) -> SparseAdj:
-        """The adjacency of one step: with edge dropout while training."""
-        adj = self.adj
+    def _adj_for_step(self, generator, training: bool):
+        """The adjacency of one step (a ``SparseAdj``, or this rank's
+        ``ShardedAdj`` block): with edge dropout while training."""
+        adj = self.adj if self._adj_sharded is None else self._adj_sharded
         if not (training and self.node_dropout_flag and generator is not None):
             return adj
         keep = 1.0 - self.node_dropout_ratio
+        if not isinstance(adj, SparseAdj):
+            # every block's padded edges drawn at once, as the JAX package's
+            # (n_blocks, E_pad) values; this rank keeps its block's row
+            mask = _keep_mask(generator, (adj.n_blocks, adj.vals.shape[0]), keep, adj.vals.device)[adj.index]
+            return adj._replace(vals=torch.where(mask, adj.vals / keep, torch.zeros_like(adj.vals)),
+                                plan=None, plan_t=None)
         if adj.dense is not None:
             # zero entries stay zero: an element-wise mask is per-edge dropout
             mask = _keep_mask(generator, adj.dense.shape, keep, adj.dense.device)
@@ -114,7 +132,7 @@ class NGCF(Recommender):
         outs = [] if self.alg_type == "gcmc" else [ego]
         h = ego
         for k in range(self.n_layers):
-            side = spmm(adj, h)
+            side = spmm(adj, h) if isinstance(adj, SparseAdj) else spmm_sharded(adj, h)
             if self.alg_type == "ngcf":
                 sum_emb = F.leaky_relu(side @ params["W_gc"][k] + params["b_gc"][k], _SLOPE)
                 bi = F.leaky_relu((h * side) @ params["W_bi"][k] + params["b_bi"][k], _SLOPE)

@@ -80,12 +80,22 @@ class WRMF(Recommender):
             total = total + torch.sum(torch.square((1.0 - pred) * (rows < self.num_items).float()))
         return total / max(float((self._user_rows < self.num_items).sum()), 1.0)
 
+    def _solve_split(self, trainer, other_emb: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """``_solve_side`` over the mesh's 'data' axis (``wrmf.py:79-82``):
+        each rank solves its rows (``Trainer.dp_constrain``) and the solved
+        rows are all-gathered, not summed; rows that do not divide the axis
+        are solved whole on every rank."""
+        split = trainer.dp_split_for(rows.shape[0])
+        if split is None:
+            return self._solve_side(other_emb, rows)
+        return trainer.dp_gather(self._solve_side(other_emb, trainer.dp_constrain(rows)), split)
+
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
             del generator, epoch, max_steps  # ALS draws nothing and has no steps
             with torch.no_grad():
-                user_emb = self._solve_side(params["item_emb"], self._user_rows)
-                item_emb = self._solve_side(user_emb, self._item_rows)
+                user_emb = self._solve_split(trainer, params["item_emb"], self._user_rows)
+                item_emb = self._solve_split(trainer, user_emb, self._item_rows)
                 loss = self._loss(user_emb, item_emb)
             return {"user_emb": user_emb, "item_emb": item_emb}, opt_state, loss
 

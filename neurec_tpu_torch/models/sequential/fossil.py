@@ -26,6 +26,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SequentialMixin
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss, pointwise_loss
+from neurec_tpu_torch.parallel.mesh import whole_term
 
 
 @register("Fossil")
@@ -86,7 +87,7 @@ class Fossil(SequentialMixin, Recommender):
         full_sum, n = self._full_sum(params, users)
         short, short_emb = self._short_term(params, users, recents)
         w, w3 = weights[:, None], weights[:, None, None]
-        eta_reg = self.reg_eta * l2_loss(params["eta"][users] * w, params["eta_bias"])
+        eta_reg = self.reg_eta * (l2_loss(params["eta"][users] * w) + whole_term(l2_loss(params["eta_bias"])))
         if self.is_pairwise:
             pos = batch["pos_items"]
             p_pos = full_sum - params["P"][pos]

@@ -22,6 +22,7 @@ from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.models.sequential.seq_common import SequentialMixin
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss, pointwise_loss
+from neurec_tpu_torch.parallel.mesh import whole_term
 
 _PREDICT_CHUNK = 1024
 
@@ -77,7 +78,7 @@ class FPMCplus(SequentialMixin, Recommender):
             y_neg, (_, iu2, il2, _) = self._score(params, users, recent, batch["neg_items"])
             return (pairwise_loss(self.loss_function, y_pos - y_neg, weights=weights)
                     + self.reg_mf * l2_loss(ui * w, iu1 * w, il1 * w, li * w3, iu2 * w, il2 * w)
-                    + self.reg_w * l2_loss(params["W"], params["h"]))
+                    + whole_term(self.reg_w * l2_loss(params["W"], params["h"])))
         y, (ui, iu, il, li) = self._score(params, users, recent, batch["items"])
         return (pointwise_loss(self.loss_function, batch["labels"], y, weights=weights)
                 + self.reg_mf * l2_loss(ui * w, iu * w, il * w, li * w3))

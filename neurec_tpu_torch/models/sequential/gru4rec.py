@@ -43,6 +43,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.initializers import get_initializer, glorot_uniform
 from neurec_tpu_torch.ops.losses import l2_loss, log_loss
+from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, current_split, slice_rows, whole_term
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -192,65 +193,91 @@ class GRU4Rec(SeqDraws, Recommender):
         return (np.pad(ins, pad), np.pad(outs, pad), np.pad(resets, pad, constant_values=True),
                 np.pad(valids, pad))
 
-    def _loss_from_logits(self, logits, valid_rows, valid_cols, B):
-        """logits (B, C); valid_rows (B,) masks idle streams, valid_cols (C,)."""
-        pos = torch.diagonal(logits[:, :B])[:, None]
+    def _loss_from_logits(self, logits, valid_rows, valid_cols, B, lo=0):
+        """logits (k, C) of the streams ``lo .. lo+k-1`` (all B of them
+        outside a split step); valid_rows (k,) masks idle streams,
+        valid_cols (C,). A split step's whole-batch counts are summed over
+        'data' (``batch_sum``)."""
+        pos = torch.diagonal(logits[:, lo:lo + logits.shape[0]])[:, None]
         vv = valid_rows[:, None] * valid_cols[None, :]
         if self.loss_name == "bpr":
-            return torch.sum(log_loss(pos - logits) * vv) / torch.clamp(torch.sum(vv), min=1.0)
+            return torch.sum(log_loss(pos - logits) * vv) / torch.clamp(batch_sum(torch.sum(vv)), min=1.0)
         nvalid = torch.clamp(torch.sum(vv, dim=1), min=1.0)
         loss1 = torch.sum(torch.sigmoid(-pos + logits) * vv, dim=1) / nvalid
         loss2 = (torch.sum(torch.sigmoid(torch.square(logits)) * vv, dim=1) / nvalid
                  - torch.sigmoid(torch.square(pos[:, 0])) / B)
-        return torch.sum((loss1 + loss2) * valid_rows) / torch.clamp(torch.sum(valid_rows), min=1.0)
+        return torch.sum((loss1 + loss2) * valid_rows) / torch.clamp(batch_sum(torch.sum(valid_rows)), min=1.0)
 
     def step_loss(self, params, states, in_i, out_i, valid, extra):
-        """One step's ``(loss, new states)`` from ``states`` (reset already)."""
+        """One step's ``(loss, new states)`` from ``states`` (reset already).
+
+        ``in_i``, ``out_i`` and ``valid`` are the whole step's streams;
+        ``states`` holds this rank's streams: all of them, or in a split
+        step (``parallel.mesh.batch_split``) its rows of the streams, as
+        the JAX package splits the session lanes over 'data'
+        (``gru4rec.py:238``). The rows of the logits are this rank's
+        streams, the columns every stream's target (the in-batch
+        negatives), so the column terms of the regulariser count once."""
         B = in_i.shape[0]
+        split = current_split()
+        rows = slice(0, B) if split is None else slice(split.index * states[0].shape[0],
+                                                       (split.index + 1) * states[0].shape[0])
         if extra is None:
             y, valid_cols = out_i, valid
         else:
             y = torch.cat([out_i, extra])
             valid_cols = torch.cat([valid, valid.new_ones(extra.shape)])
-        x = params["input_emb"][in_i]
+        x = params["input_emb"][in_i[rows]]
         h, new_states = x, []
         for cell, s in zip(params["cells"], states):
             h = _gru_step(cell, self.hidden_act, h, s)
             new_states.append(h)
         items_embed, items_bias = params["item_emb"][y], params["item_bias"][y]
         logits = self._final_act(h @ items_embed.T + items_bias)
-        loss = self._loss_from_logits(logits, valid, valid_cols, B)
-        reg = self.reg * l2_loss(x * valid[:, None], items_embed * valid_cols[:, None], items_bias * valid_cols)
+        loss = self._loss_from_logits(logits, valid[rows], valid_cols, B, rows.start)
+        reg = self.reg * (l2_loss(x * valid[rows][:, None]) + whole_term(l2_loss(items_embed * valid_cols[:, None]))
+                          + whole_term(l2_loss(items_bias * valid_cols)))
         return loss + reg, new_states
 
-    def run_schedule(self, params, opt, ins, outs, resets, valids, generator, max_steps=None):
+    def run_schedule(self, params, opt, ins, outs, resets, valids, generator, max_steps=None, trainer=None):
         """The steps of a schedule, ``(params, opt, loss)``: the sum of the
         losses over the number of steps with a valid entry. A step without
-        one (a pad step) is skipped whole: it changes nothing."""
+        one (a pad step) is skipped whole: it changes nothing. With a
+        ``trainer`` on a mesh the streams split over 'data': each rank
+        carries its streams' states and computes their rows."""
         B = self.batch_size
         n_run = ins.shape[0] if max_steps is None else min(ins.shape[0], max_steps)
         live = valids[:n_run].any(axis=1)
         dev = self.device
         ins_d, outs_d = (torch.from_numpy(a[:n_run]).long().to(dev) for a in (ins, outs))
         resets_d, valids_d = (torch.from_numpy(a[:n_run].astype(np.float32)).to(dev) for a in (resets, valids))
-        states = [torch.zeros((B, n), device=dev) for n in self.layers]
+        split = None if trainer is None else trainer.dp_split_for(B)
+        n_rows = B if split is None else B // split.count
+        states = [torch.zeros((n_rows, n), device=dev) for n in self.layers]
         total = torch.zeros((), device=dev)
         for s in range(n_run):
             if not live[s]:
                 continue
-            states = [st * (1.0 - resets_d[s][:, None]) for st in states]
+            reset = resets_d[s] if split is None else slice_rows(resets_d[s], split.mesh)
+            states = [st * (1.0 - reset[:, None]) for st in states]
             extra = self._extra_negatives(generator)
             opt.zero_grad(set_to_none=True)
-            loss, new_states = self.step_loss(params, states, ins_d[s], outs_d[s], valids_d[s], extra)
-            loss.backward()
+            with batch_split(split):
+                loss, new_states = self.step_loss(params, states, ins_d[s], outs_d[s], valids_d[s], extra)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt.step()
             states = [st.detach() for st in new_states]
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt, total / max(int(live.sum()), 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_schedule(params, opt_state, *self.schedule(generator), generator, max_steps)
+            return self.run_schedule(params, opt_state, *self.schedule(generator), generator, max_steps,
+                                     trainer=trainer)
 
         return epoch
 

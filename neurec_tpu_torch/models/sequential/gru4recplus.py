@@ -18,6 +18,7 @@ import torch
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import register
 from neurec_tpu_torch.models.sequential.gru4rec import GRU4Rec
+from neurec_tpu_torch.parallel.mesh import batch_sum
 
 
 @register("GRU4RecPlus")
@@ -38,16 +39,19 @@ class GRU4RecPlus(GRU4Rec):
         return torch.clamp(idx, max=self.num_items - 1)
 
     @staticmethod
-    def _softmax_neg(logits, valid_cols, B):
-        hm = (1.0 - torch.eye(B, logits.shape[1], device=logits.device)) * valid_cols[None, :]
+    def _softmax_neg(logits, valid_cols, B, lo=0):
+        """Softmax over each row's valid columns but its own stream's
+        (row j is stream lo + j)."""
+        eye = torch.eye(logits.shape[1], device=logits.device)[lo:lo + logits.shape[0]]
+        hm = (1.0 - eye) * valid_cols[None, :]
         masked = logits * hm
         masked = masked - torch.amax(masked, dim=1, keepdim=True)
         e_x = torch.exp(masked) * hm
         return e_x / torch.clamp(torch.sum(e_x, dim=1, keepdim=True), min=1e-24)
 
-    def _loss_from_logits(self, logits, valid_rows, valid_cols, B):
-        softmax_scores = self._softmax_neg(logits, valid_cols, B)
-        pos = torch.diagonal(logits[:, :B])[:, None]
+    def _loss_from_logits(self, logits, valid_rows, valid_cols, B, lo=0):
+        softmax_scores = self._softmax_neg(logits, valid_cols, B, lo)
+        pos = torch.diagonal(logits[:, lo:lo + logits.shape[0]])[:, None]
         if self.loss_name == "bpr_max":
             prob = torch.sum(torch.sigmoid(pos - logits) * softmax_scores, dim=1)
             reg = torch.sum(torch.square(logits) * softmax_scores, dim=1)
@@ -55,4 +59,4 @@ class GRU4RecPlus(GRU4Rec):
         else:  # top1_max
             prob = torch.sigmoid(-pos + logits) + torch.sigmoid(torch.square(logits))
             per_row = torch.sum(prob * softmax_scores, dim=1)
-        return torch.sum(per_row * valid_rows) / torch.clamp(torch.sum(valid_rows), min=1.0)
+        return torch.sum(per_row * valid_rows) / torch.clamp(batch_sum(torch.sum(valid_rows)), min=1.0)

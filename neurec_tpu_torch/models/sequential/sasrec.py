@@ -34,6 +34,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.attention import feedforward, init_dense, init_layer_norm, layer_norm, multihead_attention
 from neurec_tpu_torch.ops.initializers import glorot_uniform
+from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, whole_term
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -120,31 +121,43 @@ class SASRec(SeqDraws, Recommender):
         is_target = (pos != self.num_items).float() * seq_weights[:, None]
         pos_loss = -torch.log(torch.sigmoid(pos_logits) + 1e-24) * is_target
         neg_loss = -torch.log(1.0 - torch.sigmoid(neg_logits) + 1e-24) * is_target
-        loss = torch.sum(pos_loss + neg_loss) / torch.clamp(torch.sum(is_target), min=1.0)
+        loss = torch.sum(pos_loss + neg_loss) / torch.clamp(batch_sum(torch.sum(is_target)), min=1.0)
         if self.l2_emb > 0:
-            loss = loss + self.l2_emb * 0.5 * (torch.sum(torch.square(params["item_emb"]))
-                                               + torch.sum(torch.square(params["pos_emb"])))
+            loss = loss + whole_term(self.l2_emb * 0.5 * (torch.sum(torch.square(params["item_emb"]))
+                                                          + torch.sum(torch.square(params["pos_emb"]))))
         return loss
 
-    def run_epoch(self, params, opt, generator, max_steps=None):
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch: ``(params, opt, mean step loss)``; ``max_steps`` cuts
-        it to its first steps."""
+        it to its first steps. With a ``trainer`` on a mesh each step is
+        split over 'data' as the JAX package's (``sasrec.py:180-185``): the
+        negatives drawn for the whole batch, then this rank's rows of the
+        slots, weights and negatives (``Trainer.dp_constrain``)."""
         idx, w = self._epoch_slots(generator, int(self._train_users.shape[0]))
         n_run = idx.shape[0] if max_steps is None else min(idx.shape[0], max_steps)
+        split = None if trainer is None else trainer.dp_split_for(idx.shape[1])
         total = torch.zeros((), device=self.device)
         for s in range(n_run):
             users = self._train_users[idx[s]]
             negs = self._negatives(generator, self._padded_items[users], self.max_len)
+            idx_s, w_s = idx[s], w[s]
+            if split is not None:
+                idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
             opt.zero_grad(set_to_none=True)
-            loss = self.seq_loss(params, self._seq[idx[s]], self._pos[idx[s]], negs, w[s], generator)
-            loss.backward()
+            with batch_split(split):
+                loss = self.seq_loss(params, self._seq[idx_s], self._pos[idx_s], negs, w_s, generator)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt.step()
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt, total / n_run
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, generator, max_steps)
+            return self.run_epoch(params, opt_state, generator, max_steps, trainer=trainer)
 
         return epoch
 

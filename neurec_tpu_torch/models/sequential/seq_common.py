@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from neurec_tpu_torch.ops.sampling import sample_negatives
+from neurec_tpu_torch.parallel.mesh import split_draw
 
 
 class SequentialMixin:
@@ -60,15 +61,18 @@ class SeqDraws:
         idx = torch.where(perm < n, perm, torch.zeros_like(perm)).reshape(steps, B)
         return idx, (perm < n).float().reshape(steps, B)
 
+    # ``_bernoulli`` and ``_uniform`` take shapes with the batch's leading
+    # dimension: a data-parallel step draws them for the whole batch and
+    # keeps this rank's rows (``split_draw``)
     @staticmethod
     def _bernoulli(generator: torch.Generator, p: float, shape) -> torch.Tensor:
         """Bool, True with probability ``p`` (``jax.random.bernoulli``)."""
-        return torch.rand(tuple(shape), generator=generator, device=generator.device) < p
+        return split_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape) < p
 
     @staticmethod
     def _uniform(generator: torch.Generator, shape) -> torch.Tensor:
         """U[0, 1) float32 (``jax.random.uniform``)."""
-        return torch.rand(tuple(shape), generator=generator, device=generator.device)
+        return split_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape)
 
     def _negatives(self, generator: torch.Generator, rows: torch.Tensor, n: int) -> torch.Tensor:
         """(B, n) int64 negatives of each row of ``rows`` (B, L), excluding

@@ -18,6 +18,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SequentialMixin
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss, pointwise_loss
+from neurec_tpu_torch.parallel.mesh import whole_term
 
 
 @register("TransRec")
@@ -57,11 +58,12 @@ class TransRec(SequentialMixin, Recommender):
             y_pos, (u, prev, q1, b1) = self._score(params, users, recent, batch["pos_items"])
             y_neg, (_, _, q2, b2) = self._score(params, users, recent, batch["neg_items"])
             return (pairwise_loss(self.loss_function, y_pos - y_neg, weights=weights)
-                    + self.reg_mf * l2_loss(u * w, prev * w, q2 * w, q1 * w, b1 * weights, b2 * weights,
-                                            params["global_emb"]))
+                    + self.reg_mf * (l2_loss(u * w, prev * w, q2 * w, q1 * w, b1 * weights, b2 * weights)
+                                     + whole_term(l2_loss(params["global_emb"]))))
         y, (u, prev, q, b) = self._score(params, users, recent, batch["items"])
         return (pointwise_loss(self.loss_function, batch["labels"], y, weights=weights)
-                + self.reg_mf * l2_loss(u * w, prev * w, q * w, b * weights, params["global_emb"]))
+                + self.reg_mf * (l2_loss(u * w, prev * w, q * w, b * weights)
+                                 + whole_term(l2_loss(params["global_emb"]))))
 
     def predict(self, params, users):
         last = self._recent_items[users, -1]

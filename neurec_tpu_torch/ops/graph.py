@@ -18,6 +18,11 @@ differentiable through ``PlanSpmm``, whose backward runs the same routing
 over the transposed plan (``neurec_tpu/ops/pallas_spmm.py`` ``make_spmm``);
 the other two keep autograd's own gradient, as JAX's ``jnp.dot`` and
 ``segment_sum`` do.
+
+On a mesh (``neurec_tpu/ops/graph.py:183-449``): ``shard_adjacency`` keeps
+one row block of the adjacency per 'data' rank, with its own K2 plans, and
+``spmm_sharded`` computes the rank's output rows and all-gathers them
+(``ShardedAdj``, ``maybe_shard``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.ops import spmm as spmm_ops
+from neurec_tpu_torch.parallel.mesh import Mesh, all_gather_rows, axis_size, reduce_scatter_rows
 
 
 class SparseAdj(NamedTuple):
@@ -175,3 +181,128 @@ def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     gathered = x[adj.cols.long()] * adj.vals[:, None]
     out = torch.zeros((adj.n_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
     return out.index_add_(0, adj.rows.long(), gathered)
+
+
+class ShardedAdj(NamedTuple):
+    """One 'data' rank's row block of a ``SparseAdj``.
+
+    Block b owns the global rows ``[b*block, (b+1)*block)``, ``block =
+    ceil(n_nodes / n_blocks)``; this rank holds block ``index``: its edges
+    in the global row-sorted order, as ``rows_local`` (the row minus the
+    block's start), ``cols`` (global source ids) and ``vals``, padded to
+    ``e_pad`` (the largest block's edge count rounded up, equal on every
+    rank) with value-0 edges repeating the last row. ``plan`` is the
+    block's K2 plan (block-local destination rows, global source columns,
+    ``n_rows = block``); ``plan_t`` its transpose for the backward (A_b^T:
+    destination rows the global columns, ``n_rows = n_nodes``). Both None
+    after a change of values (NGCF's node dropout): ``spmm_sharded`` then
+    takes the segment-sum branch.
+    """
+
+    rows_local: torch.Tensor  # (e_pad,) int32, sorted
+    cols: torch.Tensor        # (e_pad,) int32
+    vals: torch.Tensor        # (e_pad,) float32, 0.0 on padding
+    n_nodes: int
+    block: int
+    n_blocks: int
+    index: int
+    mesh: Mesh
+    plan: Optional[spmm_ops.SpmmPlan] = None
+    plan_t: Optional[spmm_ops.SpmmPlan] = None
+
+
+def shard_adjacency(adj: SparseAdj, mesh: Mesh, pad_multiple: int = 1024, with_plans: bool = True) -> ShardedAdj:
+    """This rank's row block of ``adj`` over the mesh's 'data' axis
+    (``neurec_tpu/ops/graph.py:240-297``), on ``adj``'s device.
+    ``with_plans`` also builds the block's K2 plans with the port's
+    ``build_spmm_plan`` (geometry from ``NEUREC_SPMM_TILE`` /
+    ``NEUREC_SPMM_CHUNK``) and their edge-balanced schedules."""
+    n = axis_size(mesh, "data")
+    b = mesh.coordinate["data"]
+    dev = adj.rows.device
+    rows, cols, vals = (t.cpu().numpy() for t in (adj.rows, adj.cols, adj.vals))
+    keep = vals != 0.0  # the build's padding goes; each block re-pads below
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    block = -(-adj.n_nodes // n)
+    owner = rows // block
+    counts = np.bincount(owner, minlength=n)
+    e_pad = max(int(-(-counts.max() // pad_multiple) * pad_multiple), pad_multiple)
+    sel = owner == b  # keeps the global row-sorted order within the block
+    k = int(counts[b])
+    r_l = np.zeros(e_pad, dtype=np.int32)
+    c = np.zeros(e_pad, dtype=np.int32)
+    v = np.zeros(e_pad, dtype=np.float32)
+    r_l[:k] = rows[sel] - b * block
+    c[:k] = cols[sel]
+    v[:k] = vals[sel]
+    if k:  # keep the block's row sequence non-decreasing
+        r_l[k:] = r_l[k - 1]
+    plan = plan_t = None
+    if with_plans:
+        plan = spmm_ops.build_spmm_plan(r_l[:k], c[:k], v[:k], block).to(dev)
+        plan_t = spmm_ops.build_spmm_plan(c[:k], r_l[:k], v[:k], adj.n_nodes)._replace(transposed=True).to(dev)
+        for p in (plan, plan_t):
+            spmm_ops.spmm_schedule(p)
+    return ShardedAdj(
+        rows_local=torch.from_numpy(r_l).to(dev), cols=torch.from_numpy(c).to(dev),
+        vals=torch.from_numpy(v).to(dev), n_nodes=adj.n_nodes, block=block, n_blocks=n, index=b,
+        mesh=mesh, plan=plan, plan_t=plan_t,
+    )
+
+
+def maybe_shard(adj: SparseAdj, mesh: Optional[Mesh], mode: str = "auto") -> Optional[ShardedAdj]:
+    """The models' ``on_mesh`` policy (``graph_shard``): ``off`` keeps the
+    adjacency whole, ``auto`` shards only a graph without a dense copy (a
+    small graph's one matmul beats a distributed scatter), anything else
+    (``on``) shards. Nothing is sharded without a mesh or with one 'data'
+    rank."""
+    if mesh is None or mode == "off":
+        return None
+    if axis_size(mesh, "data") <= 1:
+        return None
+    if mode == "auto" and adj.dense is not None:
+        return None
+    return shard_adjacency(adj, mesh)
+
+
+class GatherBlocks(torch.autograd.Function):
+    """The ranks' (block, d) row blocks -> the replicated (n_nodes, d):
+    an all-gather over 'data'. Its backward is the reduce-scatter: the
+    upstream gradient summed over 'data', this rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, n_nodes):
+        ctx.mesh, ctx.block = mesh, part.shape[0]
+        return all_gather_rows(part, mesh, "data")[:n_nodes]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return reduce_scatter_rows(grad_out, ctx.mesh, "data", ctx.block), None, None
+
+
+def spmm_sharded(adj: ShardedAdj, x: torch.Tensor) -> torch.Tensor:
+    """Row-block-parallel A @ x (``neurec_tpu/ops/graph.py:340-449``) on a
+    replicated x (n_nodes, d): each rank computes its block's rows, K2 over
+    the block's plan (in ``NEUREC_SPMM_DTYPE``'s dtype, as ``spmm``), and
+    the blocks are all-gathered over 'data' into the replicated (n_nodes, d)
+    f32. K3 is not on this path, as in the JAX package's.
+
+    The gradient splits between this op and the trainer. Each rank's loss
+    is its part of the whole, so the upstream gradient G_r differs by rank.
+    The backward sums it over 'data' and keeps the rank's block (the
+    reduce-scatter of ``GatherBlocks``), then runs K2 over the block's
+    transposed plan (``PlanSpmm``): dx_r = A_r^T (sum_s G_s)_r, a partial
+    gradient. The trainer's all-reduce of the gradients over 'data' then
+    sums the partials: sum_r A_r^T (sum_s G_s)_r = A^T (sum_s G_s), the
+    whole batch's gradient, as the JAX ``f_bwd`` gives with its ``psum``.
+
+    A block without plans (new values: NGCF's node dropout) takes the
+    plain segment-sum over its edges.
+    """
+    if adj.plan is not None:
+        part = PlanSpmm.apply(x, adj.plan, adj.plan_t, spmm_ops.spmm_compute_dtype())
+    else:
+        gathered = x[adj.cols.long()] * adj.vals[:, None]
+        part = torch.zeros((adj.block, x.shape[1]), dtype=torch.float32, device=x.device)
+        part = part.index_add(0, adj.rows_local.long(), gathered)
+    return GatherBlocks.apply(part, adj.mesh, adj.n_nodes)

@@ -12,7 +12,10 @@ util/tool.py:216-224):
 * ``l2_loss(*xs)`` = sum of 0.5 * sum(x^2) (tf.nn.l2_loss semantics).
 
 Every function takes an optional ``weights`` tensor for padded batches
-(weight 0 drops the example).
+(weight 0 drops the example). In a data-parallel step the cross-entropy
+mean divides by the whole batch's weight count
+(``parallel.mesh.batch_sum``), so the ranks' losses sum to the whole
+batch's.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from neurec_tpu_torch.parallel.mesh import batch_sum
 
 
 def _weighted_sum(x: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
@@ -58,7 +63,7 @@ def pointwise_loss(
         # SUM_BY_NONZERO_WEIGHTS (the mean for unit weights)
         ce = torch.clamp(preds, min=0.0) - preds * labels + F.softplus(-torch.abs(preds))
         if weights is not None:
-            denom = torch.clamp(torch.sum(weights), min=1.0)
+            denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
             return torch.sum(ce * weights) / denom
         return torch.mean(ce)
     elif lf == "square":

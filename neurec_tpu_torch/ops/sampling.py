@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from neurec_tpu_torch.parallel.mesh import split_draw
+
 
 def is_positive(
     rows: torch.Tensor,        # (B, L) padded positive rows (pad = num_items)
@@ -45,9 +47,10 @@ def sample_negatives(
     S = 1
     for d in shape:
         S *= d
-    draws = torch.randint(
-        0, num_items, (B, num_rounds, S), generator=generator, device=rows.device, dtype=torch.int32
-    )
+    # in a data-parallel step: drawn for the whole batch, this rank's rows kept
+    draws = split_draw(lambda shape: torch.randint(
+        0, num_items, shape, generator=generator, device=rows.device, dtype=torch.int32
+    ), (B, num_rounds, S))
     member = is_positive(rows, draws)
     # first free round per slot; argmax gives 0 (the round-0 draw) when none is
     first = torch.argmax((~member).to(torch.uint8), dim=1, keepdim=True)  # (B, 1, S)

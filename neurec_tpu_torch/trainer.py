@@ -66,6 +66,20 @@ from the densest user's row; see ``_rounds_for``), each chunk's candidates
 from ``_bloom_draws``, on a generator of its own, seeded by a draw of the
 epoch's generator that the step seeds do not share.
 
+Data parallelism (``neurec_tpu/trainer.py:111-132,214-254``): with a
+``mesh`` (``parallel/mesh.py``) every rank draws the whole epoch from the
+same seeds and, in each step, takes its rows of the batch
+(``dp_constrain``: rows ``[r*B/n, (r+1)*B/n)`` over the 'data' axis); the
+loss runs inside ``parallel.mesh.batch_split``, so its draws, whole-tensor
+terms and whole-batch counts are the single step's, and its gradients are
+summed over 'data' (``dp_sync_grads``) before the optimizer, whose step is
+then the same on every rank. A batch whose leading dimension does not
+divide the axis, or a model whose ``dp_split`` is False, runs whole on
+every rank, with the same result. Ranks along 'model' compute the same
+rows with the same (replicated) parameters. Log lines and the
+``.metrics.jsonl`` records come from the primary rank only; the model's
+``on_mesh`` hook runs at construction.
+
 Checkpoints and traces (``neurec_tpu/trainer.py:128-131,492-551``):
 ``checkpoint.attach_to_trainer`` sets ``_ckpt``, ``_ckpt_every`` and
 ``_start_epoch``; ``train`` then starts at ``_start_epoch``, saves every
@@ -93,6 +107,10 @@ from neurec_tpu_torch.eval import Evaluator
 from neurec_tpu_torch.logging import Logger, run_logger
 from neurec_tpu_torch.ops.bloom import build_pair_bloom, is_positive_bloom, select_first_nonmember
 from neurec_tpu_torch.ops.sampling import sample_negatives
+from neurec_tpu_torch.parallel.distributed import is_primary_host
+from neurec_tpu_torch.parallel.mesh import (
+    BatchSplit, Mesh, all_gather_rows, all_sum, axis_size, batch_split, shard_params, slice_rows,
+)
 from neurec_tpu_torch.profiling import device_trace
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
@@ -270,6 +288,17 @@ def _time_order_instances(user_dict, high_order: int):
     return keys[idx], recents.reshape(len(idx), high_order), targets
 
 
+class _SilentLogger:
+    """The logger of a rank other than the primary: it writes nothing."""
+
+    path = None
+
+    def info(self, msg):
+        pass
+
+    debug = warning = error = critical = info
+
+
 class Trainer:
     def __init__(
         self,
@@ -279,6 +308,7 @@ class Trainer:
         logger: Optional[Logger] = None,
         seed: int = 2018,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -293,8 +323,15 @@ class Trainer:
         self.dataset = dataset
         self.config = config
         self.seed = seed
-        self.logger = logger or run_logger(config, dataset.dataset_name)
-        self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device)
+        self.mesh = mesh
+        self._dp_warned = set()
+        if mesh is not None and not is_primary_host():
+            self.logger = _SilentLogger()
+        else:
+            self.logger = logger or run_logger(config, dataset.dataset_name)
+        self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device, mesh=mesh)
+        if mesh is not None:
+            model.on_mesh(mesh)
         # the optimizer factory: over the tensors of params (the learner's),
         # or over params itself (a model's make_optimizer); see init_opt_state
         if hasattr(model, "make_optimizer"):
@@ -441,19 +478,97 @@ class Trainer:
         the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         step_gen = None if seeds is None else torch.Generator(device=self.device)
+        split = self.dp_split_for(inst.shape[1])
         for s in range(inst.shape[0]):
-            batch = self._batch(inst[s], negs[s])
+            inst_s, w_s, negs_s = inst[s], w[s], negs[s]
+            if split is not None:  # this rank's rows of the step
+                inst_s, w_s, negs_s = self.dp_constrain(inst_s, w_s, negs_s)
+            batch = self._batch(inst_s, negs_s)
             batch["epoch"] = epoch
             if self._dense_row:
                 batch["step"] = (epoch - 1) * self.steps + s
             if step_gen is not None:
                 batch["generator"] = step_gen.manual_seed(int(seeds[s]))
             opt_state.zero_grad(set_to_none=True)
-            loss = self.model.loss(params, batch, w[s])
-            loss.backward()
+            with batch_split(split):
+                loss = self.model.loss(params, batch, w_s)
+                loss.backward()
+            self.dp_sync_grads(params, split)
             opt_state.step()
             total += loss.detach()
-        return params, opt_state, total / inst.shape[0]
+        return params, opt_state, self.dp_loss_total(total, split) / inst.shape[0]
+
+    # -- data parallelism ---------------------------------------------------
+    def dp_constrain(self, *arrays):
+        """This rank's rows of each tensor over the mesh's 'data' axis.
+
+        The JAX package pins a batch's leading dimension to ``P('data')``
+        (``neurec_tpu/trainer.py:214-254``); here each rank takes rows
+        ``[r*k, (r+1)*k)``, ``k = shape[0] / n_data``, of the whole-batch
+        tensor every rank holds. A tensor whose leading dimension does not
+        divide the axis stays whole, with a warning once per (dim, axis) on
+        the primary rank. Without a mesh, or with one 'data' rank, the
+        tensors come back as they are. One tensor in, one out."""
+        n_data = axis_size(self.mesh, "data")
+        out = []
+        for x in arrays:
+            if n_data > 1 and isinstance(x, torch.Tensor) and x.dim() >= 1:
+                if x.shape[0] % n_data == 0:
+                    x = slice_rows(x, self.mesh, "data")
+                else:
+                    self._warn_nondivisible(int(x.shape[0]), n_data)
+            out.append(x)
+        return tuple(out) if len(out) != 1 else out[0]
+
+    def _warn_nondivisible(self, dim: int, n_data: int) -> None:
+        key = (dim, n_data)
+        if key in self._dp_warned:
+            return
+        self._dp_warned.add(key)
+        if is_primary_host():
+            self.logger.warning(
+                "dp_constrain: batch leading dim %d does not divide the 'data' mesh axis (%d); data "
+                "parallelism for this tensor is left to GSPMD propagation. Pick a batch_size divisible by "
+                "the 'data' axis to guarantee DP." % key)
+
+    def dp_split_for(self, rows: int) -> Optional[BatchSplit]:
+        """The split of a step of ``rows`` batch rows over 'data', or None
+        where the step runs whole: no mesh, one 'data' rank, a model whose
+        ``dp_split`` is False, or ``rows`` not dividing the axis (warned,
+        as ``dp_constrain`` warns)."""
+        n_data = axis_size(self.mesh, "data")
+        if n_data <= 1 or not self.model.dp_split:
+            return None
+        if rows % n_data:
+            self._warn_nondivisible(int(rows), n_data)
+            return None
+        return BatchSplit(self.mesh.coordinate["data"], n_data, self.mesh)
+
+    def dp_sync_grads(self, params: Params, split: Optional[BatchSplit]) -> None:
+        """After a split step's backward: each gradient summed over 'data'
+        (one collective over the gradients laid end to end), so that every
+        rank holds the whole batch's. Every rank ran the same loss, so the
+        same leaves have a gradient. Nothing to do for a whole step."""
+        if split is None:
+            return
+        grads = [p.grad for _, p in param_leaves(params) if isinstance(p, torch.Tensor) and p.grad is not None]
+        if not grads:
+            return
+        flat = all_sum(torch.cat([g.reshape(-1) for g in grads]), split.mesh, "data")
+        at = 0
+        for g in grads:
+            g.copy_(flat[at: at + g.numel()].view_as(g))
+            at += g.numel()
+
+    def dp_loss_total(self, total: torch.Tensor, split: Optional[BatchSplit]) -> torch.Tensor:
+        """A split epoch's summed step losses over 'data': the whole
+        batches' (each rank's loss is its rows' part)."""
+        return total if split is None else all_sum(total, split.mesh, "data")
+
+    def dp_gather(self, x: torch.Tensor, split: Optional[BatchSplit]) -> torch.Tensor:
+        """The ranks' rows of a split computation back in batch order, on
+        every rank (WRMF's solved rows); ``x`` itself for a whole one."""
+        return x if split is None else all_gather_rows(x, split.mesh, "data")
 
     # -- epochs, logs and evaluation ---------------------------------------
     def initialize(self):
@@ -461,6 +576,8 @@ class Trainer:
         # index tables among the params (ItemKNN's neighbour ids) take no gradient
         self.params = map_params(lambda v: v.detach().requires_grad_(v.is_floating_point()),
                                  self.model.init_params(generator))
+        if self.mesh is not None:
+            self.params = shard_params(self.params, self.model.param_shardings(self.mesh, self.params), self.mesh)
         self.opt_state = self.init_opt_state(self.params)
         if self.model.data_kind == "custom":
             self._epoch_fn = self.model.build_epoch(self)

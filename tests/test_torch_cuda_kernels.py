@@ -512,3 +512,64 @@ def test_native_evaluation_of_scores_from_the_card(cuda):
     want = UniEvaluator(train, test, **args).evaluate(predict, None)
     for a, b in zip(got.split("\t"), want.split("\t")):
         assert abs(float(a) - float(b)) <= 1e-5, (got, want)
+
+
+# -- the mesh paths' shapes: a per-block bits table, a block plan -------------
+
+@pytest.mark.parametrize("block", [0, 1])
+def test_masked_scores_on_a_per_block_bits_table(cuda, block):
+    """K1 as the item-sharded tier runs it: I_m = 19,456 items of a 38,546
+    catalogue on two 'model' ranks (``shard_bits_geometry``), the rank's own
+    contiguous (B, I_m/8) bits table packed per block, the item block zero
+    past the catalogue; the masked columns are the block's train ids less
+    the block's start."""
+    from neurec_tpu_torch.eval.tiers import _item_block, shard_bits_geometry
+
+    I = 38546
+    I_m, width = shard_bits_geometry(I, 2)
+    assert I_m == 19456
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(9, 2048, I, 64, 64))
+    bits = k1.pack_train_bits(rows, I, block_items=I_m)[:, block * I_m // 8: (block + 1) * I_m // 8].contiguous()
+    off = block * I_m
+    item_block = _item_block(items, off, I_m)
+    before = _build.LAUNCHES["masked_scores"]
+    got = k1.masked_scores_bits(u, item_block, bits, I_m, I_m)
+    assert _build.LAUNCHES["masked_scores"] == before + 1
+    want = k1.masked_scores_bits_reference(u, item_block, bits, I_m, I_m)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    masked = torch.zeros((2048, I_m), dtype=torch.bool, device=cuda)
+    local = rows.long() - off
+    inside = (local >= 0) & (local < I_m)
+    masked[torch.arange(2048, device=cuda)[:, None].expand_as(local)[inside], local[inside]] = True
+    assert torch.equal(torch.isinf(got), masked)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_plan_spmm_on_a_block_plan_and_its_transpose(cuda, index):
+    """K2 and K2 backward on one 'data' rank's block of a graph above
+    DENSE_LIMIT (``shard_adjacency``): block-local destination rows and
+    global source columns, and the transposed plan with n_nodes rows."""
+    import types
+
+    from neurec_tpu_torch.data.synthetic import random_dataset
+    from neurec_tpu_torch.ops import graph
+
+    ds = random_dataset(num_users=6000, num_items=3000, seed=4)
+    adj = graph.build_norm_adjacency(ds.train_matrix, "pre", device=cuda)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1}, coordinate={"data": index, "model": 0})
+    block = graph.shard_adjacency(adj, mesh)
+    assert block.plan.n_rows == block.block == -(-adj.n_nodes // 2) and block.plan_t.n_rows == adj.n_nodes
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(adj.n_nodes, 64, generator=gen).to(cuda)
+    g = torch.randn(block.block, 64, generator=gen).to(cuda)
+    before = dict(_build.LAUNCHES)
+    got = spmm.plan_spmm(block.plan, x)
+    torch.testing.assert_close(got, spmm.plan_spmm_reference(block.plan, x), atol=1e-5, rtol=1e-5)
+    # the block's rows of the whole graph's A @ x
+    lo = index * block.block
+    torch.testing.assert_close(got[: adj.n_nodes - lo], spmm.plan_spmm_reference(adj.plan, x)[lo: lo + block.block],
+                               atol=1e-5, rtol=1e-5)
+    got_t = spmm.plan_spmm(block.plan_t, g)
+    torch.testing.assert_close(got_t, spmm.plan_spmm_reference(block.plan_t, g), atol=1e-5, rtol=1e-5)
+    assert _build.LAUNCHES["plan_spmm"] == before["plan_spmm"] + 1
+    assert _build.LAUNCHES["plan_spmm_t"] == before["plan_spmm_t"] + 1
