@@ -238,7 +238,22 @@ failure exits non-zero before the result line):
    (2,048 x 19,456) and K2 both ways on a block plan against their plain
    versions, timed as in phase 3 (``masked_scores[dp]``,
    ``masked_scores[block]``, ``plan_spmm[block]``,
-   ``plan_spmm[bwd,block]``).
+   ``plan_spmm[bwd,block]``);
+30. ``tp2``: two ranks (``tp_rank``, spawned as in phase 28) on a (1, 2)
+   mesh, where the trainer row-shards every id table over 'model': each
+   rank holds 14,929 of ``user_emb``'s 29,858 rows and 19,273 of
+   ``item_emb``'s 38,546 (``parallel/tables.py``: ID-partitioned lookups,
+   the whole tables gathered for the propagation and the scores).
+   LightGCN at the north star with ``graph_shard=off`` takes
+   ``MESH_STEPS`` steps and two evaluations (``eval_item_shard`` auto:
+   ``bits_dp`` on the whole table; on: ``item_shard_bits``), and MF at
+   ``conf/MF.properties`` (``tp2_mf``: the lookups alone) its steps and one
+   evaluation. Each is held to a one-rank run on the same draws (params
+   gathered within 1e-5, losses 1e-4, every metric string equal); each
+   rank's K2 and K2 backward launches over the whole graph equal the
+   one-rank run's, K1 runs once an evaluation batch, and a rank's bytes of
+   params and of Adam moments are half the one-rank run's (printed beside
+   them).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -528,6 +543,12 @@ MESH_STEPS = 20
 MESH_DIR = os.path.join(REPO, "build", "mesh")
 MESH_TIMEOUT_S = 600
 MESH_PARAM_ATOL, MESH_LOSS_RTOL, MESH_METRIC_ATOL = 1e-5, 1e-4, 1e-6
+# phase 30, tp2: the same two ranks on a (1, 2) mesh, every id table
+# row-sharded over 'model' (a rank holds half of each, and of its Adam
+# moments): LightGCN at the north star with the graph whole (graph_shard=off)
+# and MF at conf/MF.properties (the lookups alone), MESH_STEPS steps each
+TP_DIR = os.path.join(REPO, "build", "tp")
+TP_RUNS = {"tp2": TRAIN_ARGS + ["--graph_shard=off"], "tp2_mf": ["--recommender=MF"] + DATA_ARGS}
 
 
 class SmokeFailure(RuntimeError):
@@ -558,6 +579,29 @@ def mesh_steps(trainer, draws, steps):
     each step's whole-batch loss."""
     return [float(trainer.run_epoch(trainer.params, trainer.opt_state, draws.inst[s:s + 1], draws.w[s:s + 1],
                                     draws.negs[s:s + 1], draws.seeds[s:s + 1], epoch=1)[2]) for s in range(steps)]
+
+
+def spy_launch_shapes(k1, k2) -> dict:
+    """Wrap the K1 and K2 wrappers of this process so that every K2 launch
+    records its output rows and every K1 launch its (B, I); returns the
+    sets, by launch counter name."""
+    shapes = {"plan_spmm": set(), "plan_spmm_t": set(), "masked_scores": set()}
+    real_scatter, real_bits, real_int8 = k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores
+
+    def scatter(plan, x):
+        shapes["plan_spmm_t" if plan.transposed else "plan_spmm"].add(plan.n_rows)
+        return real_scatter(plan, x)
+
+    def bits_k1(u, items, bits, width, num_items):
+        shapes["masked_scores"].add((u.shape[0], num_items))
+        return real_bits(u, items, bits, width, num_items)
+
+    def int8_k1(u, items, rows):
+        shapes["masked_scores"].add((u.shape[0], items.shape[0]))
+        return real_int8(u, items, rows)
+
+    k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores = scatter, bits_k1, int8_k1
+    return shapes
 
 
 def mesh_rank(rank: int, port: int, out_dir: str, train_args=None, device: str = "cuda"):
@@ -598,23 +642,7 @@ def mesh_rank(rank: int, port: int, out_dir: str, train_args=None, device: str =
         train_args = TRAIN_ARGS if train_args is None else train_args
         sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
         initialize_multihost("127.0.0.1:%d" % port, 2, rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
-        # every K2 launch's output rows and every K1 launch's (B, I)
-        shapes = {"plan_spmm": set(), "plan_spmm_t": set(), "masked_scores": set()}
-        real_scatter, real_bits, real_int8 = k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores
-
-        def scatter(plan, x):
-            shapes["plan_spmm_t" if plan.transposed else "plan_spmm"].add(plan.n_rows)
-            return real_scatter(plan, x)
-
-        def bits_k1(u, items, bits, width, num_items):
-            shapes["masked_scores"].add((u.shape[0], num_items))
-            return real_bits(u, items, bits, width, num_items)
-
-        def int8_k1(u, items, rows):
-            shapes["masked_scores"].add((u.shape[0], items.shape[0]))
-            return real_int8(u, items, rows)
-
-        k2.plan_scatter, k1.masked_scores_bits, k1.masked_scores = scatter, bits_k1, int8_k1
+        shapes = spy_launch_shapes(k1, k2)
 
         t = time.perf_counter()
         conf = Config(PROPS, cmd_args=train_args + ["--graph_shard=on"])
@@ -668,6 +696,212 @@ def mesh_rank(rank: int, port: int, out_dir: str, train_args=None, device: str =
         out["error"] = traceback.format_exc()
     with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as fout:
         pickle.dump(out, fout)
+
+
+def resident_bytes(tensors) -> int:
+    """The bytes of the storages of ``tensors`` (what a rank holds)."""
+    return sum(t.untyped_storage().nbytes() for t in tensors)
+
+
+def adam_moments(trainer):
+    """The Adam moments (``exp_avg``, ``exp_avg_sq``) of ``trainer``'s params."""
+    from neurec_tpu_torch.bridge import param_leaves
+
+    state = trainer.opt_state.state
+    return [state[p][k] for _, p in param_leaves(trainer.params) if p in state for k in ("exp_avg", "exp_avg_sq")]
+
+
+def tp_rank(rank: int, port: int, out_dir: str, device: str = "cuda"):
+    """One rank of phase 30 (a spawned process; the parent has built every
+    kernel): joins the gloo group of two ranks on the card, makes a (1, 2)
+    mesh, on which the trainer row-shards every id table over 'model', and
+    for each of ``TP_RUNS`` takes ``MESH_STEPS`` steps and its evaluations
+    (``eval_item_shard`` auto, and on for LightGCN); pickles what it saw,
+    the params gathered whole on rank 0, to ``out_dir/rank<r>.pkl``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    out = {}
+    try:
+        from neurec_tpu_torch.bridge import param_leaves, params_to_numpy
+        from neurec_tpu_torch.config import Config
+        from neurec_tpu_torch.data.dataset import Dataset
+        from neurec_tpu_torch.eval import Evaluator
+        from neurec_tpu_torch.models import get_model
+        from neurec_tpu_torch.ops import _build
+        from neurec_tpu_torch.ops import masked_scores as k1
+        from neurec_tpu_torch.ops import spmm as k2
+        from neurec_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+        from neurec_tpu_torch.parallel.mesh import make_mesh
+        from neurec_tpu_torch.trainer import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        torch.set_num_threads(2)  # as mesh_rank: spinning threads slow the collectives
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        initialize_multihost("127.0.0.1:%d" % port, 2, rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        shapes = spy_launch_shapes(k1, k2)
+        mesh = make_mesh(n_data=1, n_model=2)
+        dataset = None
+        for key, args in TP_RUNS.items():
+            t = time.perf_counter()
+            conf = Config(PROPS, cmd_args=args)
+            dataset = dataset or Dataset(conf)
+            model = get_model(conf["recommender"])(dataset, conf, device=device)
+            trainer = Trainer(model, dataset, conf, logger=SilentLogger(), device=device, mesh=mesh)
+            trainer.initialize()
+            draws = trainer.draw_epoch(trainer.epoch_generator(1))
+            sync()
+            rec = {"setup_s": time.perf_counter() - t,
+                   "shards": {path[0]: [s.lo, s.block, s.rows] for path, s in model.shards.items()},
+                   "param_bytes": resident_bytes(p for _, p in param_leaves(trainer.params))}
+            for name in shapes:
+                shapes[name] = set()
+            _build.reset_launches()
+            t = time.perf_counter()
+            rec["losses"] = mesh_steps(trainer, draws, MESH_STEPS)
+            sync()
+            rec.update(steps_s=time.perf_counter() - t, launches=dict(_build.LAUNCHES),
+                       adam_bytes=resident_bytes(adam_moments(trainer)), k2_rows=sorted(shapes["plan_spmm"]),
+                       k2_t_rows=sorted(shapes["plan_spmm_t"]))
+            for mode in ("auto", "on") if conf["recommender"] == "LightGCN" else ("auto",):
+                ev = trainer.evaluator if mode == "auto" else Evaluator.from_dataset(
+                    dataset, Config(PROPS, cmd_args=args + ["--eval_item_shard=on"]), device=device, mesh=mesh)
+                for name in shapes:
+                    shapes[name] = set()
+                _build.reset_launches()
+                t = time.perf_counter()
+                result = ev.evaluate(model.predict, trainer.params)
+                sync()
+                rec["eval_" + mode] = {"eval_s": time.perf_counter() - t, "result": result,
+                                       "launches": dict(_build.LAUNCHES),
+                                       "tier": ev.evaluator._get_program(model.predict).plan.name,
+                                       "k1_shapes": sorted(shapes["masked_scores"])}
+            params = params_to_numpy(trainer.params, model.shards)  # a gather: every rank
+            if rank == 0:
+                rec["params"] = params
+            out[key] = rec
+            del trainer, model, draws
+        shutdown()
+    except Exception:  # reported to the parent through the result file
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as fout:
+        pickle.dump(out, fout)
+
+
+def tp_phase(dataset, n_batches_eval: int, I_m: int, paths: dict, device: str = "cuda", start_method: str = "spawn"):
+    """Phase 30: ``tp_rank`` on two spawned ranks, the one-rank runs of
+    ``TP_RUNS`` on the same draws meanwhile, then the checks; emits a
+    line a run and adds its launches to ``paths`` (``tp2``,
+    ``tp2_item_shard``, ``tp2_mf``). ``dataset`` is the gowalla split the
+    ranks load, ``n_batches_eval`` its evaluation batches, ``I_m`` a
+    'model' rank's item block on the item-sharded tier."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from neurec_tpu_torch.bridge import param_leaves, params_from_numpy
+    from neurec_tpu_torch.config import Config
+    from neurec_tpu_torch.models import get_model
+    from neurec_tpu_torch.ops import _build
+    from neurec_tpu_torch.trainer import Trainer
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    I = dataset.num_items
+    os.makedirs(TP_DIR, exist_ok=True)
+    for f in glob.glob(os.path.join(TP_DIR, "rank*.pkl")):
+        os.unlink(f)
+    t_tp = time.perf_counter()
+    ctx = mp.start_processes(tp_rank, args=(_free_port(), TP_DIR, device), nprocs=2, join=False,
+                             start_method=start_method)
+    # the one-rank runs on the same draws, while the ranks start
+    one_rank = {}
+    for key, args in TP_RUNS.items():
+        conf_1 = Config(PROPS, cmd_args=args)
+        trainer_1 = Trainer(get_model(conf_1["recommender"])(dataset, conf_1, device=device), dataset, conf_1,
+                            logger=SilentLogger(), device=device)
+        trainer_1.initialize()
+        draws_1 = trainer_1.draw_epoch(trainer_1.epoch_generator(1))
+        bytes_1 = resident_bytes(p for _, p in param_leaves(trainer_1.params))
+        _build.reset_launches()
+        losses_1 = mesh_steps(trainer_1, draws_1, MESH_STEPS)
+        sync()
+        one_rank[key] = {"losses": losses_1, "launches": dict(_build.LAUNCHES), "param_bytes": bytes_1,
+                         "adam_bytes": resident_bytes(adam_moments(trainer_1)), "result": trainer_1.evaluate(),
+                         "params": trainer_1.params, "n_nodes": getattr(getattr(trainer_1.model, "adj", None),
+                                                                         "n_nodes", None)}
+        del trainer_1, draws_1
+    try:
+        while not ctx.join(timeout=5.0):
+            require(time.perf_counter() - t_tp < MESH_TIMEOUT_S, "the two tp2 ranks did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(TP_DIR, "rank%d.pkl" % r), "rb") as fin:
+            ranks.append(pickle.load(fin))
+        require("error" not in ranks[r], "tp2 rank %d failed:\n%s" % (r, ranks[r].get("error")))
+    tp_s = time.perf_counter() - t_tp
+    for key in TP_RUNS:
+        want = one_rank[key]
+        params_r0 = params_from_numpy(ranks[0][key]["params"], device)
+        with torch.no_grad():
+            param_err_tp = max(float((params_r0[k] - want["params"][k]).abs().max()) for k in params_r0)
+        loss_rel_tp = [max(abs(a - b) / abs(b) for a, b in zip(rk[key]["losses"], want["losses"])) for rk in ranks]
+        modes = [m for m in ("auto", "on") if "eval_" + m in ranks[0][key]]
+        emit({"phase": key, "mesh": [1, 2], "backend": "gloo, staged through the host", "steps": MESH_STEPS,
+              "seconds": tp_s, "losses": ranks[0][key]["losses"], "one_rank_losses": want["losses"],
+              "loss_max_rel_diff": loss_rel_tp, "param_max_abs_diff": param_err_tp,
+              "results": {m: ranks[0][key]["eval_" + m]["result"] for m in modes}, "one_rank_result": want["result"],
+              "bytes": {"one_rank": {"params": want["param_bytes"], "adam": want["adam_bytes"]},
+                        "ranks": [{"params": rk[key]["param_bytes"], "adam": rk[key]["adam_bytes"]} for rk in ranks]},
+              "one_rank_launches": want["launches"],
+              "ranks": [dict({k: rk[key][k] for k in ("setup_s", "steps_s", "shards", "launches", "k2_rows",
+                                                       "k2_t_rows")},
+                             **{"eval_" + m: rk[key]["eval_" + m] for m in modes}) for rk in ranks],
+              "tol": "params atol %g, losses rtol %g, strings equal; a rank's bytes half the one rank's"
+                     % (MESH_PARAM_ATOL, MESH_LOSS_RTOL)})
+        for r, rk in enumerate(ranks):
+            got = rk[key]
+            tables = {"user_emb": dataset.num_users, "item_emb": dataset.num_items}
+            require(got["shards"] == {k: [r * n // 2, n // 2, n] for k, n in tables.items()},
+                    "%s rank %d holds %s" % (key, r, got["shards"]))
+            require(2 * got["param_bytes"] == want["param_bytes"] and 2 * got["adam_bytes"] == want["adam_bytes"],
+                    "%s rank %d holds %d + %d bytes, one rank %d + %d" % (
+                        key, r, got["param_bytes"], got["adam_bytes"], want["param_bytes"], want["adam_bytes"]))
+            require(loss_rel_tp[r] <= MESH_LOSS_RTOL, "%s rank %d: losses %g from the one-rank run"
+                    % (key, r, loss_rel_tp[r]))
+            require(all(got["launches"][k] == want["launches"][k] for k in ("plan_spmm", "plan_spmm_t"))
+                    and got["k2_rows"] == got["k2_t_rows"] == ([want["n_nodes"]] if want["n_nodes"] else []),
+                    "%s rank %d: K2 %s at %s, %s; one rank %s" % (key, r, got["launches"], got["k2_rows"],
+                                                                 got["k2_t_rows"], want["launches"]))
+            for mode, tier, cols in (("auto", "bits_dp", I), ("on", "item_shard_bits", I_m)):
+                if mode not in modes:
+                    continue
+                ev_got = got["eval_" + mode]
+                require(ev_got["tier"] == tier and ev_got["result"] == want["result"],
+                        "%s rank %d eval %s: %s %r, one rank %r" % (key, r, mode, ev_got["tier"], ev_got["result"],
+                                                                 want["result"]))
+                require(ev_got["launches"]["masked_scores"] == n_batches_eval
+                        and ev_got["k1_shapes"] == [(EVAL_USERS_PER_BATCH, cols)],
+                        "%s rank %d eval %s: K1 %s, %s" % (key, r, mode, ev_got["k1_shapes"], ev_got["launches"]))
+        require(param_err_tp <= MESH_PARAM_ATOL, "%s params differ from the one-rank run by %g" % (key, param_err_tp))
+        train_eval = ranks[0][key]
+        paths[key] = {k: train_eval["launches"].get(k, 0) + train_eval["eval_auto"]["launches"].get(k, 0)
+                      for k in set(train_eval["launches"]) | set(train_eval["eval_auto"]["launches"])}
+        if "on" in modes:
+            paths[key + "_item_shard"] = train_eval["eval_on"]["launches"]
+    del one_rank, ranks, params_r0
 
 
 def require(cond, msg):
@@ -2793,13 +3027,16 @@ def main() -> int:
                sparse_csr(torch, np, blk_edges.T.tocsr()), g_blk, {"mesh": "a 'data' rank's row block of 2"})
     del u_table_m, item_table_m, u_full, items_blk, bits_blk, mask8_blk, blk, ego_m, g_blk
 
+    # -- 30. tp2: the id tables row-sharded over 'model' (two ranks, gloo) ---
+    tp_phase(dataset, n_batches_eval, I_m, paths)
+
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
         "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream", "cut", "resume", "final_eval",
-                                                             "native_device", "mesh1")),
+                                                             "native_device", "mesh1", "tp2", "tp2_mf")),
         "masked_scores[dp]": ("masked_scores", ("dp2",)),
-        "masked_scores[block]": ("masked_scores", ("itemshard2",)),
+        "masked_scores[block]": ("masked_scores", ("itemshard2", "tp2_item_shard")),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8", "itemshard2_rows")),
         "masked_scores[d256]": ("masked_scores", ("ngcf",)),
@@ -2818,8 +3055,8 @@ def main() -> int:
         "masked_scores[d100]": ("masked_scores", ("caser",)),
         "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus")),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf", "cut", "resume", "final_eval", "native",
-                                    "native_device", "mesh1")),
-        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume", "mesh1")),
+                                    "native_device", "mesh1", "tp2", "tp2_item_shard")),
+        "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume", "mesh1", "tp2")),
         "plan_spmm[block]": ("plan_spmm", ("dp2", "itemshard2", "itemshard2_rows")),
         "plan_spmm[bwd,block]": ("plan_spmm_t", ("dp2",)),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),

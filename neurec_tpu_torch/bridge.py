@@ -62,7 +62,15 @@ def params_from_numpy(params, device: DeviceLike = None) -> Tree:
     return map_params(lambda v: torch.from_numpy(np.array(v)).to(dev), params)
 
 
-def params_to_numpy(params: Tree):
+def params_to_numpy(params: Tree, shards=None):
+    """The params as numpy, whole: under a mesh whose tables are sharded
+    over 'model' (``shards``, the model's ``Recommender.shards``) each
+    sharded leaf is gathered first, a collective that every rank calls
+    (``parallel/tables.py``)."""
+    if shards:
+        from neurec_tpu_torch.parallel.tables import gather_tree
+
+        params = gather_tree(params, shards)
     return map_params(lambda v: v.detach().cpu().numpy(), params)
 
 

@@ -250,7 +250,13 @@ def _merge_local_topk(masked: torch.Tensor, off: int, num_items: int, K: int, k_
 
 
 def _item_block(item_table: torch.Tensor, off: int, rows: int) -> torch.Tensor:
-    """Rows ``[off, off + rows)`` of the item table, zero rows past its end."""
+    """Rows ``[off, off + rows)`` of the item table, zero rows past its end.
+
+    The table is whole: a model whose item table is row-sharded over
+    'model' gathers its parameter blocks (N/m rows) through ``whole``,
+    and the tier cuts its own block (I_m rows, padded to the packing
+    width) from that, where the JAX package's XLA reshards one layout to
+    the other."""
     block = item_table[off: off + rows]
     if block.shape[0] < rows:
         block = torch.cat([block, block.new_zeros((rows - block.shape[0], block.shape[1]))], dim=0)

@@ -21,21 +21,33 @@ JAX package's params:
 A model lives on one device, chosen at construction (``device=None`` means
 cuda, see ``device.py``). The Trainer (``trainer.py``) owns sampling, the
 optimizer, the epoch loop and evaluation.
+
+On a mesh whose 'model' axis is above 1 the Trainer places the leaves that
+``param_shardings`` row-shards as this rank's blocks and tells the model
+which (``place``, ``shards``); a model reaches a vocabulary-keyed leaf
+only through ``rows`` (a lookup), ``rows_padded`` (a lookup where the pad
+id, the row count, reads zeros), ``whole`` / ``whole_tree`` /
+``with_whole`` (the whole table) and ``own_block`` (a table it writes
+whole), the functions of ``parallel/tables.py``. Without a mesh they are
+``leaf[ids]`` and ``leaf``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Type
+from typing import Dict, Optional, Type
 
 import torch
 
 from neurec_tpu_torch.device import DeviceLike, resolve_device
+from neurec_tpu_torch.parallel import tables
 
 
 class Recommender:
     """Base class: hyperparameter capture, device and protocol stubs."""
 
     data_kind: str = "pairwise"
+    # the row-sharded leaves of the trainer's params: path -> tables.Shard
+    shards: Dict[tuple, "tables.Shard"] = {}
 
     def __init__(self, dataset, config, device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -76,18 +88,98 @@ class Recommender:
 
     def param_shardings(self, mesh, params=None):
         """A tree of ``parallel.mesh.Placement`` of ``init_params``' shape
-        (of ``params``' when given, else of a fresh ``init_params``):
-        every leaf replicated, so every rank holds the whole of each table.
-        Row-sharding the id tables over 'model' (the JAX package's default
-        for a leaf whose leading dimension is a vocabulary size dividing the
-        axis) is the next slice of the port; until then the tables stay
-        whole, which changes memory and never a number."""
+        (of ``params``' when given, else of a fresh ``init_params``), as
+        ``neurec_tpu/models/base.py::param_shardings`` lays its leaves out.
+
+        Tensor parallelism is opt-out: every leaf with ndim >= 2 whose
+        leading dimension is an id-vocabulary size (num_users / num_items,
+        their +1 padded-row variants, or the num_users + num_items stacked
+        graph) and divides the 'model' axis is row-sharded over 'model'
+        (``row_sharded``); the rest, and every leaf under a 'model' axis of
+        1, is replicated. The models look such a leaf up through ``rows``
+        and use it whole through ``whole`` (``parallel/tables.py``).
+        Returns None where the shapes cannot be had without data (a fresh
+        ``init_params`` raises), as the JAX method does where its abstract
+        evaluation fails."""
         from neurec_tpu_torch.bridge import map_params
-        from neurec_tpu_torch.parallel.mesh import replicated
+        from neurec_tpu_torch.parallel.mesh import axis_size, replicated, row_sharded
 
         if params is None:
-            params = self.init_params(torch.Generator(device=self.device).manual_seed(0))
-        return map_params(lambda _: replicated(mesh), params)
+            try:
+                params = self.init_params(torch.Generator(device=self.device).manual_seed(0))
+            except Exception:
+                return None
+        n_model = axis_size(mesh, "model")
+        vocab = {
+            self.num_users,
+            self.num_items,
+            self.num_users + 1,
+            self.num_items + 1,
+            self.num_users + self.num_items,
+        }
+
+        def spec(leaf):
+            if leaf.dim() >= 2 and leaf.shape[0] in vocab and n_model > 1 and leaf.shape[0] % n_model == 0:
+                return row_sharded(mesh, leaf.dim())
+            return replicated(mesh)
+
+        return map_params(spec, params)
+
+    # -- the 'model'-sharded tables ------------------------------------------
+    def place(self, mesh, placements, params) -> None:
+        """Keep which leaves of ``params`` (whole, before ``shard_params``)
+        ``placements`` row-shards over 'model', so that ``rows`` and
+        ``whole`` treat them as blocks (``Trainer.initialize``)."""
+        self.shards = tables.table_shards(params, placements, mesh)
+
+    def shard(self, path) -> Optional[tables.Shard]:
+        """The ``tables.Shard`` of the leaf at ``path`` (a key, or a tuple of
+        keys and list indices), None where the leaf is replicated."""
+        return self.shards.get(path if isinstance(path, tuple) else (path,))
+
+    def rows(self, params, path, ids: torch.Tensor) -> torch.Tensor:
+        """``leaf[ids]`` of the vocabulary-keyed leaf at ``path``: an
+        ID-partitioned lookup where the leaf is a 'model' block."""
+        return tables.rows(_at(params, path), ids, self.shard(path))
+
+    def rows_padded(self, params, path, ids: torch.Tensor) -> torch.Tensor:
+        """``rows`` of the leaf at ``path`` with one zero row appended: the
+        pad id (the leaf's row count) looks up zeros, as
+        ``cat([leaf, 0])[ids]`` does. A sharded leaf needs no append: the
+        pad id lies in no rank's block, so every rank gives zeros there."""
+        leaf, shard = _at(params, path), self.shard(path)
+        if shard is None:
+            return torch.cat([leaf, leaf.new_zeros((1,) + tuple(leaf.shape[1:]))], dim=0)[ids]
+        return tables.rows(leaf, ids, shard)
+
+    def whole(self, params, path) -> torch.Tensor:
+        """The whole of the vocabulary-keyed leaf at ``path``: its blocks
+        gathered over 'model' where it is sharded, the leaf itself else."""
+        return tables.whole(_at(params, path), self.shard(path))
+
+    def own_block(self, path, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole value ``t`` of the leaf at
+        ``path`` (a tensor of its own), ``t`` itself where the leaf is
+        replicated: for a model that writes whole tables (WRMF's solved
+        factors)."""
+        shard = self.shard(path)
+        return t if shard is None else tables.block_of(t, shard)
+
+    def whole_tree(self, params, path=()):
+        """The subtree of ``params`` at ``path`` (a dense tower, a list of
+        layers) with each sharded leaf in it whole (``whole``), the others
+        as they are."""
+        prefix = path if isinstance(path, tuple) else (path,)
+        sub = _at(params, prefix)
+        if not any(p[: len(prefix)] == prefix for p in self.shards):
+            return sub
+        return tables.map_with_path(lambda p, v: tables.whole(v, self.shards.get(prefix + p)), sub)
+
+    def with_whole(self, params, *keys):
+        """``params`` (a dict) with the subtree under each of ``keys``
+        through ``whole_tree``: for models whose vocabulary-keyed leaves
+        are weight matrices used whole (the autoencoders' item layers)."""
+        return dict(params, **{k: self.whole_tree(params, k) for k in keys})
 
     @staticmethod
     def _affine_eval(u_vecs, item_table, item_bias=None):
@@ -100,6 +192,12 @@ class Recommender:
             torch.cat([u_vecs, ones], dim=1),
             torch.cat([item_table, item_bias[:, None].to(item_table.dtype)], dim=1),
         )
+
+
+def _at(params, path):
+    for part in path if isinstance(path, tuple) else (path,):
+        params = params[part]
+    return params
 
 
 def chunks(n: int, size: int):

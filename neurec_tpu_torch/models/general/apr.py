@@ -77,7 +77,8 @@ class APR(Recommender):
 
     def loss(self, params, batch, weights):
         users, pos, neg = batch["users"], batch["pos_items"], batch["neg_items"]
-        P, Q = params["embedding_P"], params["embedding_Q"]
+        # the adversarial gradient and noise are over the whole tables
+        P, Q = self.whole(params, "embedding_P"), self.whole(params, "embedding_Q")
         opt_loss = _bpr(P[users], Q[pos], Q[neg], weights) + whole_term(self.reg * l2_loss(P, Q))
         if not self.adver:
             return opt_loss
@@ -87,8 +88,8 @@ class APR(Recommender):
         return opt_loss + adv_on * self.reg_adv * adv_loss
 
     def predict(self, params, users):
-        return params["embedding_P"][users] @ params["embedding_Q"].T
+        return self.rows(params, "embedding_P", users) @ self.whole(params, "embedding_Q").T
 
     def eval_embeddings(self, params, users):
         """Factorized eval form for the fused score+mask kernel (K1)."""
-        return params["embedding_P"][users], params["embedding_Q"]
+        return self.rows(params, "embedding_P", users), self.whole(params, "embedding_Q")

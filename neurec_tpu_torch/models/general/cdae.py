@@ -73,7 +73,8 @@ class CDAE(DenseRowMixin, Recommender):
     def _encode(self, params, users, rows, generator=None):
         if generator is not None and self.dropout > 0:
             rows = self._dropout(rows, generator, 1.0 - self.dropout)
-        return self.hidden_act(rows @ params["en_emb"] + params["user_emb"][users] + params["en_offset"])
+        return self.hidden_act(rows @ self.whole(params, "en_emb") + self.rows(params, "user_emb", users)
+                               + params["en_offset"])
 
     def loss(self, params, batch, weights):
         users, generator = batch["users"], batch["generator"]
@@ -93,24 +94,25 @@ class CDAE(DenseRowMixin, Recommender):
         labels = torch.cat([torch.ones((B, L), device=users.device),
                             torch.zeros((B, L * self.num_neg), device=users.device)], dim=1)
         entry_w = torch.cat([slot_valid, neg_slot_valid], dim=1).float() * weights[:, None]
-        ratings = torch.einsum("bd,bed->be", hidden, params["de_emb"][items]) + params["de_bias"][items]
+        de_rows = self.rows(params, "de_emb", items)
+        ratings = torch.einsum("bd,bed->be", hidden, de_rows) + params["de_bias"][items]
         if self.loss_func == "square":
             model_loss = torch.square(ratings - labels)
         else:
             model_loss = torch.clamp(ratings, min=0.0) - ratings * labels + F.softplus(-torch.abs(ratings))
         w2 = entry_w[:, :, None]
         reg_loss = 0.5 * (
-            torch.sum(torch.square(params["en_emb"][items] * w2))
-            + torch.sum(torch.square(params["de_emb"][items] * w2))
+            torch.sum(torch.square(self.rows(params, "en_emb", items) * w2))
+            + torch.sum(torch.square(de_rows * w2))
             + torch.sum(torch.square(params["de_bias"][items] * entry_w))
-            + torch.sum(torch.square(params["user_emb"][users] * weights[:, None]))
+            + torch.sum(torch.square(self.rows(params, "user_emb", users) * weights[:, None]))
         ) + whole_term(0.5 * torch.sum(torch.square(params["en_offset"])))
         return torch.sum(model_loss * entry_w) + self.reg * reg_loss
 
     def predict(self, params, users):
         hidden = self._encode(params, users, self.make_rows(users))
-        return hidden @ params["de_emb"].T + params["de_bias"]
+        return hidden @ self.whole(params, "de_emb").T + params["de_bias"]
 
     def eval_embeddings(self, params, users):
         hidden = self._encode(params, users, self.make_rows(users))
-        return self._affine_eval(hidden, params["de_emb"], params["de_bias"])
+        return self._affine_eval(hidden, self.whole(params, "de_emb"), params["de_bias"])

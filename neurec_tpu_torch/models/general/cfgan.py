@@ -123,8 +123,8 @@ class CFGAN(Recommender):
         cond = self._make_cond_rows(idx)
         pm = self._sample_mask(generator, cond, self.ZP_ratio)
         with torch.no_grad():
-            fake = _sigmoid_stack(params["gen"], cond)
-        dis = params["dis"]
+            fake = _sigmoid_stack(self.whole_tree(params, "gen"), cond)
+        dis = self.whole_tree(params, "dis")
         d_fake = _sigmoid_stack(dis, torch.cat([cond, fake * pm], 1))
         d_real = _sigmoid_stack(dis, torch.cat([cond, cond], 1))
         return self._bce(d_real, True) + self._bce(d_fake, False) + self.reg_D * l2_loss(*_leaves(dis))
@@ -134,9 +134,9 @@ class CFGAN(Recommender):
         cond = self._make_cond_rows(idx)
         zr = self._sample_mask(generator, cond, self.ZR_ratio) - cond  # the negatives only
         pm = self._sample_mask(generator, cond, self.ZP_ratio)
-        gen = params["gen"]
+        gen = self.whole_tree(params, "gen")
         fake = _sigmoid_stack(gen, cond)
-        dis = map_params(torch.Tensor.detach, params["dis"])
+        dis = map_params(torch.Tensor.detach, self.whole_tree(params, "dis"))
         adv = self._bce(_sigmoid_stack(dis, torch.cat([cond, fake * pm], 1)), True)
         zr_loss = torch.mean(torch.sum(torch.square(fake) * zr, dim=1))
         return adv + self.reg_G * l2_loss(*_leaves(gen)) + self.ZR_coefficient * zr_loss
@@ -177,7 +177,7 @@ class CFGAN(Recommender):
     def _all_ratings_t(self, params):
         """(U, I) scores in itemBased mode: column u of G(every item row)."""
         cond = self._make_cond_rows(torch.arange(self._n_rows, device=self.device))
-        return _sigmoid_stack(params["gen"], cond).T
+        return _sigmoid_stack(self.whole_tree(params, "gen"), cond).T
 
     def eval_dense_scores(self, params):
         """Every user's scores once per evaluation (itemBased only: see
@@ -187,4 +187,4 @@ class CFGAN(Recommender):
     def predict(self, params, users):
         if self.mode == "itemBased":
             return self._all_ratings_t(params)[users]
-        return _sigmoid_stack(params["gen"], self._make_cond_rows(users))
+        return _sigmoid_stack(self.whole_tree(params, "gen"), self._make_cond_rows(users))

@@ -126,8 +126,8 @@ class ConvNCF(Recommender):
         return (x @ params["W"] + params["b"])[:, 0]
 
     def _pair_scores(self, params, users, items, generator=None, training=False):
-        p = params["embedding_P"][users]
-        q = params["embedding_Q"][items]
+        p = self.rows(params, "embedding_P", users)
+        q = self.rows(params, "embedding_Q", items)
         images = (p[:, :, None] * q[:, None, :])[..., None]
         return self._cnn(params, images, generator, training), p, q
 
@@ -145,8 +145,8 @@ class ConvNCF(Recommender):
     def predict(self, params, users):
         """(B, num_items): the CNN over every (user, item) pair, by item chunk
         and user group."""
-        P = params["embedding_P"][users]
-        Q = params["embedding_Q"]
+        P = self.rows(params, "embedding_P", users)
+        Q = self.whole(params, "embedding_Q")
         d = self.embedding_size
         group = max(1, _PAIRS // _PREDICT_CHUNK)
         rows = []

@@ -48,7 +48,7 @@ class DAE(DenseRowMixin, Recommender):
         return {k: init(generator, s).to(self.device) for k, s in shapes.items()}
 
     def _decode_logits(self, params, corrupted_rows):
-        h = self.h_act(corrupted_rows @ params["w_enc"] + params["b_enc"])
+        h = self.h_act(corrupted_rows @ self.whole(params, "w_enc") + params["b_enc"])
         return h @ params["w_dec"] + params["b_dec"]
 
     def loss(self, params, batch, weights):
@@ -62,7 +62,7 @@ class DAE(DenseRowMixin, Recommender):
         else:
             y = torch.clamp(self.g_act(logits), 1e-7, 1 - 1e-7)
             ce = -(rows * torch.log(y) + (1 - rows) * torch.log(1 - y))
-        reg = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(params[k]))
+        reg = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(self.whole(params, k)))
                                              for k in ("w_enc", "w_dec", "b_enc", "b_dec")))
         return torch.sum(torch.sum(ce, dim=1) * weights) + reg
 

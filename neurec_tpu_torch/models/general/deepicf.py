@@ -80,17 +80,17 @@ class DeepICF(NAIS):
         ce = -(labels * torch.log(prob) + (1 - labels) * torch.log(1 - prob))
         denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
         return torch.sum(ce * weights) / denom + whole_term(
-            self.lambda_bilinear * l2_loss(params["Q"])
-            + self.gamma_bilinear * l2_loss(params["Q_set"])
+            self.lambda_bilinear * l2_loss(self.whole(params, "Q"))
+            + self.gamma_bilinear * l2_loss(self.whole(params, "Q_set"))
             + self.eta_bilinear * l2_loss(params["W"]))
 
     def predict(self, params, users):
         set_table = self._set_table(params)
-        Q = params["Q"]
+        Q = self.whole(params, "Q")
         all_items = torch.arange(self.num_items, device=Q.device)
         out = []
         for row, n in self._user_rows(users):
-            p = self._attend_catalogue(params, set_table, row)
+            p = self._attend_catalogue(params, set_table, row, Q)
             coeff = torch.pow(torch.clamp(n, min=1.0), self.alpha)
             # the tower's batch norm reduces over this user's catalogue only
             out.append(self._prob(params, coeff * p, Q, all_items))

@@ -89,9 +89,8 @@ class DMF(Recommender):
 
     def _tower(self, params, side, rows, vals):
         """Rating row @ W1 as a padded weighted gather-sum, relu, dense."""
-        w1 = params[side + "_w1"]
-        w1_ext = torch.cat([w1, w1.new_zeros((1, w1.shape[1]))], dim=0)
-        h1 = torch.relu(torch.sum(w1_ext[rows] * vals[:, :, None], dim=1) + params[side + "_b1"])
+        w1_rows = self.rows_padded(params, side + "_w1", rows)
+        h1 = torch.relu(torch.sum(w1_rows * vals[:, :, None], dim=1) + params[side + "_b1"])
         return h1 @ params[side + "_w2"] + params[side + "_b2"]
 
     def _user_tower(self, params, users):

@@ -60,12 +60,11 @@ class FISM(Recommender):
 
     def _set_sum(self, params, users):
         """Sum of the set embeddings over each user's full padded row, and n."""
-        Q_set = params["Q_set"]
-        table = torch.cat([Q_set, Q_set.new_zeros((1, Q_set.shape[1]))], dim=0)
-        return torch.sum(table[self._rows[users]], dim=1), self._lens[users].float()
+        return (torch.sum(self.rows_padded(params, "Q_set", self._rows[users]), dim=1),
+                self._lens[users].float())
 
     def _score(self, params, p, num_idx, items):
-        q = params["Q"][items]
+        q = self.rows(params, "Q", items)
         coeff = torch.pow(torch.clamp(num_idx, min=1.0), -self.alpha)
         return coeff * torch.sum(p * q, dim=-1) + params["bias"][items], q
 
@@ -74,14 +73,14 @@ class FISM(Recommender):
         w = weights[:, None]
         if self.is_pairwise:
             pos = batch["pos_items"]
-            p_pos = full_sum - params["Q_set"][pos]  # set minus target
+            p_pos = full_sum - self.rows(params, "Q_set", pos)  # set minus target
             y_pos, q1 = self._score(params, p_pos, n, pos)
             y_neg, q2 = self._score(params, full_sum, n + 1.0, batch["neg_items"])
             return (pairwise_loss(self.loss_function, y_pos - y_neg, weights=weights)
                     + self.lambda_bilinear * l2_loss(p_pos * w) + self.gamma_bilinear * l2_loss(q2 * w, q1 * w))
         items, labels = batch["items"], batch["labels"]
         # positives exclude the target; negatives use the full set
-        p = full_sum - params["Q_set"][items] * labels[:, None]
+        p = full_sum - self.rows(params, "Q_set", items) * labels[:, None]
         y, q = self._score(params, p, torch.where(labels > 0, n, n + 1.0), items)
         return (pointwise_loss(self.loss_function, labels, y, weights=weights)
                 + self.lambda_bilinear * l2_loss(p * w) + self.gamma_bilinear * l2_loss(q * w))
@@ -92,9 +91,9 @@ class FISM(Recommender):
 
     def predict(self, params, users):
         coeff, p = self._coeff_sum(params, users)
-        return coeff * (p @ params["Q"].T) + params["bias"][None, :]
+        return coeff * (p @ self.whole(params, "Q").T) + params["bias"][None, :]
 
     def eval_embeddings(self, params, users):
         """Factorized eval form (K1 at d + 1, the bias folded in)."""
         coeff, p = self._coeff_sum(params, users)
-        return self._affine_eval(coeff * p, params["Q"], params["bias"])
+        return self._affine_eval(coeff * p, self.whole(params, "Q"), params["bias"])

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
+from neurec_tpu_torch.parallel import tables
 from neurec_tpu_torch.pretrain import as_tensor, try_load
 
 # users of one (users, I) softmax block of the D pass's negatives
@@ -79,9 +80,16 @@ class IRGAN(Recommender):
                    "item_bias": as_tensor(p[2], self.device)}
         return {"gen": gen, "dis": dis}
 
-    @staticmethod
-    def _logits(mf, u):
-        return mf["user_emb"][u] @ mf["item_emb"].T + mf["item_bias"]
+    def _emb(self, mf, side, key, ids=None):
+        """``mf[key]`` of the player ``side`` ("gen" or "dis", ``mf`` its
+        tree): its rows at ``ids``, or the whole table where ``ids`` is None
+        (``parallel/tables.py``)."""
+        shard = self.shard((side, key))
+        return tables.whole(mf[key], shard) if ids is None else tables.rows(mf[key], ids, shard)
+
+    def _logits(self, gen, u):
+        """The generator's scores of users ``u`` over the catalogue."""
+        return self._emb(gen, "gen", "user_emb", u) @ self._emb(gen, "gen", "item_emb").T + gen["item_bias"]
 
     @staticmethod
     def _categorical(generator, logits, n):
@@ -123,13 +131,14 @@ class IRGAN(Recommender):
         for s in range(n_steps):
             bi = idx[s]
             u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * tail_w[s]
-            logits = torch.sum(dis["user_emb"][u] * dis["item_emb"][i], dim=-1) + dis["item_bias"][i]
+            logits = (torch.sum(self._emb(dis, "dis", "user_emb", u) * self._emb(dis, "dis", "item_emb", i), dim=-1)
+                      + dis["item_bias"][i])
             ce = torch.clamp(logits, min=0.0) - logits * lbl + F.softplus(-torch.abs(logits))
             # the reference's quirk (IRGAN.py:103-107): the scalar d_reg * l2 is
             # broadcast over the (B,) loss and TF minimizes its sum
             reg = self.d_reg * torch.sum(w) * 0.5 * (
-                torch.sum(torch.square(dis["user_emb"][u] * w[:, None]))
-                + torch.sum(torch.square(dis["item_emb"][i] * w[:, None]))
+                torch.sum(torch.square(self._emb(dis, "dis", "user_emb", u) * w[:, None]))
+                + torch.sum(torch.square(self._emb(dis, "dis", "item_emb", i) * w[:, None]))
                 + torch.sum(torch.square(dis["item_bias"][i] * w)))
             loss = torch.sum(ce * w) + reg
             dis = self._sgd_step(dis, loss)
@@ -152,12 +161,14 @@ class IRGAN(Recommender):
                 pn = pn.index_add(0, self._rows[u], (self.sample_lambda / n_pos).expand(self._rows.shape[1]))[:I]
                 sample = self._categorical(generator, torch.log(pn + 1e-24)[None, :], S)[0]
                 samp_w = (torch.arange(S, device=users.device, dtype=torch.float32) < 2.0 * n_pos).float()
-                d_logits = torch.sum(d["user_emb"][u] * d["item_emb"][sample], dim=-1) + d["item_bias"][sample]
+                d_logits = (torch.sum(self._emb(d, "dis", "user_emb", u) * self._emb(d, "dis", "item_emb", sample),
+                                      dim=-1) + d["item_bias"][sample])
                 reward = 2.0 * (torch.sigmoid(d_logits) - 0.5) * prob[sample] / torch.clamp(pn[sample], min=1e-24)
             log_sm = torch.log_softmax(self._logits(gen, u), dim=-1)
             gan = -torch.sum(log_sm[sample] * reward * samp_w) / torch.clamp(torch.sum(samp_w), min=1.0)
-            reg = self.g_reg * 0.5 * (torch.sum(torch.square(gen["user_emb"][u]))
-                                      + torch.sum(torch.square(gen["item_emb"][sample] * samp_w[:, None]))
+            reg = self.g_reg * 0.5 * (torch.sum(torch.square(self._emb(gen, "gen", "user_emb", u)))
+                                      + torch.sum(torch.square(self._emb(gen, "gen", "item_emb", sample)
+                                                               * samp_w[:, None]))
                                       + torch.sum(torch.square(gen["item_bias"][sample] * samp_w)))
             loss = gan + reg
             gen = self._sgd_step(gen, loss)
@@ -187,4 +198,5 @@ class IRGAN(Recommender):
 
     def eval_embeddings(self, params, users):
         gen = params["gen"]
-        return self._affine_eval(gen["user_emb"][users], gen["item_emb"], gen["item_bias"])
+        return self._affine_eval(self._emb(gen, "gen", "user_emb", users), self._emb(gen, "gen", "item_emb"),
+                                 gen["item_bias"])

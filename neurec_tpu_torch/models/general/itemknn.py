@@ -164,7 +164,7 @@ class ItemKNN(Recommender):
         row_v = torch.where(valid, params["flat_vals"][pos], torch.zeros((), device=off.device))
         ru = torch.zeros((users.shape[0], self.num_items + 1), dtype=torch.float32, device=off.device)
         ru = ru.scatter_add_(1, row_it, row_v)[:, : self.num_items]
-        w_vals, w_idx = params["w_vals"], params["w_idx"].long()
+        w_vals, w_idx = self.whole(params, "w_vals"), self.whole(params, "w_idx").long()
         scores = torch.zeros((users.shape[0], self.num_items), dtype=torch.float32, device=off.device)
         for k in range(w_idx.shape[1]):
             scores = scores + ru[:, w_idx[:, k]] * w_vals[None, :, k]

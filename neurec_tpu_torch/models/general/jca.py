@@ -83,12 +83,12 @@ class JCA(Recommender):
         return dense_rows(self._item_rows[idx], self.num_users)   # (B, U)
 
     def _u_decode(self, params, r_u):
-        h = self.g_act(r_u @ params["UV"] + params["Ub1"])
+        h = self.g_act(r_u @ self.whole(params, "UV") + params["Ub1"])
         return self.f_act(h @ params["UW"] + params["Ub2"])        # (Bu, I)
 
     def _i_hidden(self, params, r_i_t, col_idx):
         factor = params["I_factor"][0][col_idx][:, None]           # (Bc, 1)
-        return self.g_act((r_i_t @ params["IV"] + params["Ib1"]) * factor)
+        return self.g_act((r_i_t @ self.whole(params, "IV") + params["Ib1"]) * factor)
 
     def _i_decode(self, params, r_i_t, col_idx):
         return self.f_act(self._i_hidden(params, r_i_t, col_idx) @ params["IW"] + params["Ib2"])  # (Bc, U)
@@ -114,7 +114,7 @@ class JCA(Recommender):
         hinge = torch.clamp(neg_vals - dec[:, :, None] + self.margin, min=0.0)
         w = w_cell[:, :, None] * (1.0 - neg_is_pos) * col_w[neg_cols]
         # the reference's reg * 0.5 * l2_loss(...), l2_loss = sum 0.5 ||.||^2
-        cost2 = self.reg * 0.25 * sum(torch.sum(torch.square(params[k]))
+        cost2 = self.reg * 0.25 * sum(torch.sum(torch.square(self.whole(params, k)))
                                       for k in ("UW", "UV", "IW", "IV", "Ib1", "Ib2", "Ub1", "Ub2"))
         return torch.sum(hinge * w) + cost2
 

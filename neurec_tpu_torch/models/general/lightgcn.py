@@ -51,7 +51,7 @@ class LightGCN(Recommender):
 
     def propagate(self, params):
         """K-layer propagation; returns (user_table, item_table)."""
-        ego = torch.cat([params["user_emb"], params["item_emb"]], dim=0)
+        ego = torch.cat([self.whole(params, "user_emb"), self.whole(params, "item_emb")], dim=0)
         acc = ego
         h = ego
         for _ in range(self.n_layers):
@@ -68,9 +68,9 @@ class LightGCN(Recommender):
         mf_loss = torch.sum(log_loss(y) * weights)
         w = weights[:, None]
         emb_loss = self.reg * l2_loss(
-            params["user_emb"][users] * w,
-            params["item_emb"][pos] * w,
-            params["item_emb"][neg] * w,
+            self.rows(params, "user_emb", users) * w,
+            self.rows(params, "item_emb", pos) * w,
+            self.rows(params, "item_emb", neg) * w,
         )
         return mf_loss + emb_loss
 

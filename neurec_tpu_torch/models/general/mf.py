@@ -37,8 +37,8 @@ class MF(Recommender):
         }
 
     def _score(self, params, users, items):
-        p = params["user_emb"][users]
-        q = params["item_emb"][items]
+        p = self.rows(params, "user_emb", users)
+        q = self.rows(params, "item_emb", items)
         return torch.sum(p * q, dim=-1), p, q
 
     def loss(self, params, batch, weights):
@@ -56,8 +56,8 @@ class MF(Recommender):
         return loss + reg
 
     def predict(self, params, users):
-        return params["user_emb"][users] @ params["item_emb"].T
+        return self.rows(params, "user_emb", users) @ self.whole(params, "item_emb").T
 
     def eval_embeddings(self, params, users):
         """Factorized eval form for the fused score+mask kernel."""
-        return params["user_emb"][users], params["item_emb"]
+        return self.rows(params, "user_emb", users), self.whole(params, "item_emb")

@@ -55,8 +55,8 @@ class MLP(Recommender):
         return map_params(lambda t: t.to(self.device), params)
 
     def _forward(self, params, users, items):
-        m = params["mlp_user"][users]
-        n = params["mlp_item"][items]
+        m = self.rows(params, "mlp_user", users)
+        n = self.rows(params, "mlp_item", items)
         vec = apply_dense_stack(params["tower"], torch.cat([m, n], dim=-1))
         return torch.sum(vec, dim=-1), m, n
 
@@ -74,7 +74,7 @@ class MLP(Recommender):
 
     def predict(self, params, users):
         """(B, num_items) full-catalogue scores, chunked over items."""
-        m = params["mlp_user"][users]
-        n_all = params["mlp_item"]
+        m = self.rows(params, "mlp_user", users)
+        n_all = self.whole(params, "mlp_item")
         return torch.cat([tower_scores(params["tower"], m, n_all[sl])
                           for sl in chunks(self.num_items, self.predict_chunk)], dim=1)

@@ -58,6 +58,7 @@ class MultiDAE(DenseRowMixin, Recommender):
         return h
 
     def loss(self, params, batch, weights):
+        params = self.with_whole(params, "w")
         rows = batch["rows"]
         log_softmax = torch.log_softmax(self._forward(params, rows, batch["generator"]), dim=-1)
         denom = torch.clamp(batch_sum(torch.sum(weights)), min=1.0)
@@ -66,10 +67,11 @@ class MultiDAE(DenseRowMixin, Recommender):
         return neg_ll + 2.0 * reg_var
 
     def predict(self, params, users):
-        return self._forward(params, self.make_rows(users))
+        return self._forward(self.with_whole(params, "w"), self.make_rows(users))
 
     def eval_embeddings(self, params, users):
         # the last layer is linear over the items: factor it out
+        params = self.with_whole(params, "w")
         h = l2_normalize(self.make_rows(users), dim=1)
         for w, b in zip(params["w"][:-1], params["b"][:-1]):
             h = self.act(h @ w + b)

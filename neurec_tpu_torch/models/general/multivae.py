@@ -82,6 +82,7 @@ class MultiVAE(DenseRowMixin, Recommender):
         return h
 
     def loss(self, params, batch, weights):
+        params = self.with_whole(params, "q_w", "p_w")
         rows, generator = batch["rows"], batch["generator"]
         mu, logvar = self._q_net(params, rows, generator)
         std = torch.exp(0.5 * logvar)
@@ -100,11 +101,13 @@ class MultiVAE(DenseRowMixin, Recommender):
         return neg_ll + anneal * kl + 2.0 * reg_var
 
     def predict(self, params, users):
+        params = self.with_whole(params, "q_w", "p_w")
         mu, _ = self._q_net(params, self.make_rows(users))
         return self._p_net(params, mu)
 
     def eval_embeddings(self, params, users):
         # the decoder's last layer is linear over the items: factor it out
+        params = self.with_whole(params, "q_w", "p_w")
         h, _ = self._q_net(params, self.make_rows(users))
         for w, b in zip(params["p_w"][:-1], params["p_b"][:-1]):
             h = self.act(h @ w + b)

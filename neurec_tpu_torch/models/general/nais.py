@@ -106,7 +106,7 @@ class NAIS(Recommender):
         return torch.sum(att[..., None] * set_emb, dim=-2)
 
     def _set_table(self, params):
-        Q_set = params["Q_set"]
+        Q_set = self.whole(params, "Q_set")
         return torch.cat([Q_set, Q_set.new_zeros((1, Q_set.shape[1]))], dim=0)
 
     def _attended(self, params, users, items, exclude_target):
@@ -117,8 +117,8 @@ class NAIS(Recommender):
         n = self._lens[users].float()
         hit = (rows == items[:, None]).float() * exclude_target[:, None]
         slot_mask = (rows < self.num_items).float() * (1.0 - hit)
-        set_emb = self._set_table(params)[rows]  # (B, L, d)
-        q = params["Q"][items]
+        set_emb = self.rows_padded(params, "Q_set", rows)  # (B, L, d)
+        q = self.rows(params, "Q", items)
         return self._att_pool(params, set_emb, q, slot_mask), n, set_emb, q
 
     def _score(self, params, p, num_idx, q, items):
@@ -152,13 +152,16 @@ class NAIS(Recommender):
         ids = users.cpu().numpy()
         return [(self._rows[u, : max(int(self._lens_host[u]), 1)], self._lens[u].float()) for u in ids]
 
-    def _attend_catalogue(self, params, set_table, row):
-        """(I, d) attended reps of one user's set for every candidate item."""
+    def _attend_catalogue(self, params, set_table, row, Q=None):
+        """(I, d) attended reps of one user's set for every candidate item
+        (``set_table`` whole; ``Q`` the whole target table, gathered here
+        when None)."""
+        if Q is None:
+            Q = self.whole(params, "Q")
         set_emb = set_table[row]  # (L, d)
         L = row.shape[0]
         slot_mask = (row < self.num_items).float()[None, :]
         width = max((self.algorithm + 1) * self.embedding_size, self.weight_size)
-        Q = params["Q"]
         return torch.cat([
             self._att_pool(params, set_emb[None].expand(sl.stop - sl.start, L, set_emb.shape[1]), Q[sl], slot_mask)
             for sl in chunks(self.num_items, max(1, _TRANSIENT // (L * width)))
@@ -166,10 +169,10 @@ class NAIS(Recommender):
 
     def predict(self, params, users):
         set_table = self._set_table(params)
-        Q, bias = params["Q"], params["bias"]
+        Q, bias = self.whole(params, "Q"), params["bias"]
         out = []
         for row, n in self._user_rows(users):
-            p = self._attend_catalogue(params, set_table, row)
+            p = self._attend_catalogue(params, set_table, row, Q)
             coeff = torch.pow(torch.clamp(n, min=1.0), self.alpha)
             out.append(coeff * torch.sum(p * Q, dim=-1) + bias)
         return torch.stack(out)

@@ -61,10 +61,10 @@ class NeuMF(Recommender):
 
     def _forward(self, params, users, items):
         """Scores of (user, item) pairs and the looked-up embeddings."""
-        p = params["mf_user"][users]
-        q = params["mf_item"][items]
-        m = params["mlp_user"][users]
-        n = params["mlp_item"][items]
+        p = self.rows(params, "mf_user", users)
+        q = self.rows(params, "mf_item", items)
+        m = self.rows(params, "mlp_user", users)
+        n = self.rows(params, "mlp_item", items)
         mlp_vec = apply_dense_stack(params["tower"], torch.cat([m, n], dim=-1))
         return torch.sum(p * q, dim=-1) + torch.sum(mlp_vec, dim=-1), (p, q, m, n)
 
@@ -84,8 +84,8 @@ class NeuMF(Recommender):
 
     def predict(self, params, users):
         """(B, num_items) full-catalogue scores, chunked over items."""
-        p = params["mf_user"][users]
-        m = params["mlp_user"][users]
-        q_all, n_all = params["mf_item"], params["mlp_item"]
+        p = self.rows(params, "mf_user", users)
+        m = self.rows(params, "mlp_user", users)
+        q_all, n_all = self.whole(params, "mf_item"), self.whole(params, "mlp_item")
         return torch.cat([p @ q_all[sl].T + tower_scores(params["tower"], m, n_all[sl])
                           for sl in chunks(self.num_items, self.predict_chunk)], dim=1)

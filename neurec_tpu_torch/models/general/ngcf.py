@@ -128,7 +128,7 @@ class NGCF(Recommender):
     def propagate(self, params, generator=None, training: bool = False):
         """Returns (user_table, item_table), the concatenated layers."""
         adj = self._adj_for_step(generator, training)
-        ego = torch.cat([params["user_emb"], params["item_emb"]], dim=0)
+        ego = torch.cat([self.whole(params, "user_emb"), self.whole(params, "item_emb")], dim=0)
         outs = [] if self.alg_type == "gcmc" else [ego]
         h = ego
         for k in range(self.n_layers):

@@ -81,7 +81,7 @@ class SpectralCF(Recommender):
         }
 
     def propagate(self, params):
-        emb = torch.cat([params["user_emb"], params["item_emb"]], dim=0)
+        emb = torch.cat([self.whole(params, "user_emb"), self.whole(params, "item_emb")], dim=0)
         outs = [emb]
         h = emb
         for k in range(self.num_layers):

@@ -94,10 +94,13 @@ class WRMF(Recommender):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
             del generator, epoch, max_steps  # ALS draws nothing and has no steps
             with torch.no_grad():
-                user_emb = self._solve_split(trainer, params["item_emb"], self._user_rows)
+                user_emb = self._solve_split(trainer, self.whole(params, "item_emb"), self._user_rows)
                 item_emb = self._solve_split(trainer, user_emb, self._item_rows)
                 loss = self._loss(user_emb, item_emb)
-            return {"user_emb": user_emb, "item_emb": item_emb}, opt_state, loss
+            # the solved tables are whole on every rank: each keeps its block
+            solved = {"user_emb": self.own_block("user_emb", user_emb),
+                      "item_emb": self.own_block("item_emb", item_emb)}
+            return solved, opt_state, loss
 
         return epoch
 
@@ -105,7 +108,7 @@ class WRMF(Recommender):
         raise RuntimeError("WRMF uses closed-form ALS (data_kind='custom')")
 
     def predict(self, params, users):
-        return params["user_emb"][users] @ params["item_emb"].T
+        return self.rows(params, "user_emb", users) @ self.whole(params, "item_emb").T
 
     def eval_embeddings(self, params, users):
-        return params["user_emb"][users], params["item_emb"]
+        return self.rows(params, "user_emb", users), self.whole(params, "item_emb")

@@ -100,8 +100,7 @@ class Caser(SeqDraws, Recommender):
 
     def _user_vec(self, params, users, seqs, generator=None):
         """(B,) users and (B, L) item windows -> (B, 2d)."""
-        table = torch.cat([params["seq_item_emb"], params["seq_item_emb"].new_zeros((1, self.d))], dim=0)
-        x = table[seqs]                                                              # (B, L, d)
+        x = self.rows_padded(params, "seq_item_emb", seqs)                           # (B, L, d)
         # vertical: nv filters over the L axis of each embedding column
         out_v = torch.einsum("bld,lv->bdv", x, params["conv_v_w"]) + params["conv_v_b"]
         out_v = out_v.reshape(x.shape[0], self.nv * self.d)
@@ -114,7 +113,7 @@ class Caser(SeqDraws, Recommender):
         out = torch.cat([out_v] + out_hs, dim=1)
         out = self._dropout(out, generator, self.dropout)
         z = torch.relu(out @ params["fc1_w"] + params["fc1_b"])                     # (B, d)
-        return torch.cat([z, params["user_emb"][users]], dim=1)
+        return torch.cat([z, self.rows(params, "user_emb", users)], dim=1)
 
     def caser_loss(self, params, users, seqs, pos, neg, w, generator):
         uvec = self._user_vec(params, users, seqs, generator)
@@ -124,7 +123,7 @@ class Caser(SeqDraws, Recommender):
         tar = torch.cat([pos, neg], dim=1)                                          # (B, T + S)
         pad = tar >= self.num_items
         tar = torch.clamp(tar, max=self.num_items - 1)
-        tar_emb, tar_bias = params["item_emb"][tar], params["item_bias"][tar]
+        tar_emb, tar_bias = self.rows(params, "item_emb", tar), params["item_bias"][tar]
         tar_emb = torch.where(pad[:, :, None], tar_emb.detach(), tar_emb)
         tar_bias = torch.where(pad, tar_bias.detach(), tar_bias)
         logits = torch.einsum("bd,btd->bt", uvec, tar_emb) + tar_bias
@@ -134,7 +133,7 @@ class Caser(SeqDraws, Recommender):
         denom_n = torch.clamp(torch.sum(w) * self.neg_samples, min=1.0)
         pos_loss = torch.sum(-torch.log(torch.sigmoid(pos_logits) + 1e-24) * w2) / denom_p
         neg_loss = torch.sum(-torch.log(1.0 - torch.sigmoid(neg_logits) + 1e-24) * w2) / denom_n
-        reg = self.l2_reg * 0.5 * sum(torch.sum(torch.square(params[k]))
+        reg = self.l2_reg * 0.5 * sum(torch.sum(torch.square(self.whole(params, k)))
                                       for k in ("user_emb", "seq_item_emb", "item_emb", "item_bias"))
         return pos_loss + neg_loss + reg
 
@@ -165,7 +164,7 @@ class Caser(SeqDraws, Recommender):
 
     def predict(self, params, users):
         # no item bias at evaluation: the reference's quirk (module docstring)
-        return self._user_vec(params, users, self._user_test_seq[users]) @ params["item_emb"].T
+        return self._user_vec(params, users, self._user_test_seq[users]) @ self.whole(params, "item_emb").T
 
     def eval_embeddings(self, params, users):
-        return self._user_vec(params, users, self._user_test_seq[users]), params["item_emb"]
+        return self._user_vec(params, users, self._user_test_seq[users]), self.whole(params, "item_emb")

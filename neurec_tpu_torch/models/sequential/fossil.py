@@ -59,17 +59,14 @@ class Fossil(SequentialMixin, Recommender):
                   "eta_bias": init(generator, (1, self.high_order)), "bias": torch.zeros((self.num_items,))}
         return {k: v.to(self.device) for k, v in params.items()}
 
-    def _p_table(self, params):
-        return torch.cat([params["P"], params["P"].new_zeros((1, self.embedding_size))], dim=0)
-
     def _short_term(self, params, users, recents_mrf):
         """The recent items most recent first (B, H) -> (B, d) weighted sum."""
-        eta = params["eta_bias"] + params["eta"][users]   # (B, H)
-        short_emb = self._p_table(params)[recents_mrf]    # (B, H, d)
+        eta = params["eta_bias"] + self.rows(params, "eta", users)   # (B, H)
+        short_emb = self.rows_padded(params, "P", recents_mrf)       # (B, H, d)
         return torch.sum(eta[:, :, None] * short_emb, dim=1), short_emb
 
     def _score(self, params, p, num_idx, short, items):
-        q = params["Q"][items]
+        q = self.rows(params, "Q", items)
         coeff = torch.pow(torch.clamp(num_idx, min=1.0), -self.alpha)
         return coeff * torch.sum(p * q, dim=-1) + torch.sum(short * q, dim=-1) + params["bias"][items], q
 
@@ -78,8 +75,9 @@ class Fossil(SequentialMixin, Recommender):
         the users' dense 0/1 rows times P, one product each way. (A gather
         of the (B, L_max, d) padded rows sends the pad slots' gradient to
         one row: ~8M atomic adds a step at ml-1m's 2,320-wide rows.)"""
-        rows = dense_rows(self._rows[users], self.num_items).to(params["P"].dtype)
-        return rows @ params["P"], self._lens[users].float()
+        P = self.whole(params, "P")
+        rows = dense_rows(self._rows[users], self.num_items).to(P.dtype)
+        return rows @ P, self._lens[users].float()
 
     def loss(self, params, batch, weights):
         users = batch["users"]
@@ -87,17 +85,18 @@ class Fossil(SequentialMixin, Recommender):
         full_sum, n = self._full_sum(params, users)
         short, short_emb = self._short_term(params, users, recents)
         w, w3 = weights[:, None], weights[:, None, None]
-        eta_reg = self.reg_eta * (l2_loss(params["eta"][users] * w) + whole_term(l2_loss(params["eta_bias"])))
+        eta_reg = self.reg_eta * (l2_loss(self.rows(params, "eta", users) * w)
+                                  + whole_term(l2_loss(params["eta_bias"])))
         if self.is_pairwise:
             pos = batch["pos_items"]
-            p_pos = full_sum - params["P"][pos]
+            p_pos = full_sum - self.rows(params, "P", pos)
             y_pos, q1 = self._score(params, p_pos, n - 1.0, short, pos)
             y_neg, q2 = self._score(params, full_sum, n, short, batch["neg_items"])
             return (pairwise_loss(self.loss_function, y_pos - y_neg, weights=weights)
                     + self.lambda_bilinear * l2_loss(p_pos * w)
                     + self.gamma_bilinear * l2_loss(q2 * w, q1 * w, short_emb * w3) + eta_reg)
         items, labels = batch["items"], batch["labels"]
-        p = full_sum - params["P"][items] * labels[:, None]
+        p = full_sum - self.rows(params, "P", items) * labels[:, None]
         y, q = self._score(params, p, torch.where(labels > 0, n - 1.0, n), short, items)
         return (pointwise_loss(self.loss_function, labels, y, weights=weights)
                 + self.lambda_bilinear * l2_loss(p * w)
@@ -109,7 +108,7 @@ class Fossil(SequentialMixin, Recommender):
         return torch.pow(torch.clamp(n, min=1.0), -self.alpha)[:, None] * full_sum + short
 
     def predict(self, params, users):
-        return self._user_vecs(params, users) @ params["Q"].T + params["bias"][None, :]
+        return self._user_vecs(params, users) @ self.whole(params, "Q").T + params["bias"][None, :]
 
     def eval_embeddings(self, params, users):
-        return self._affine_eval(self._user_vecs(params, users), params["Q"], params["bias"])
+        return self._affine_eval(self._user_vecs(params, users), self.whole(params, "Q"), params["bias"])

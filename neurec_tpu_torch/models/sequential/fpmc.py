@@ -43,8 +43,8 @@ class FPMC(SequentialMixin, Recommender):
         return {k: v.to(self.device) for k, v in params.items()}
 
     def _score(self, params, users, recent, items):
-        ui, iu = params["UI"][users], params["IU"][items]
-        il, li = params["IL"][items], params["LI"][recent]
+        ui, iu = self.rows(params, "UI", users), self.rows(params, "IU", items)
+        il, li = self.rows(params, "IL", items), self.rows(params, "LI", recent)
         return torch.sum(ui * iu, dim=-1) + torch.sum(il * li, dim=-1), (ui, iu, il, li)
 
     def loss(self, params, batch, weights):
@@ -62,9 +62,10 @@ class FPMC(SequentialMixin, Recommender):
 
     def predict(self, params, users):
         last = self._recent_items[users, -1]
-        return params["UI"][users] @ params["IU"].T + params["LI"][last] @ params["IL"].T
+        return (self.rows(params, "UI", users) @ self.whole(params, "IU").T
+                + self.rows(params, "LI", last) @ self.whole(params, "IL").T)
 
     def eval_embeddings(self, params, users):
         last = self._recent_items[users, -1]
-        return (torch.cat([params["UI"][users], params["LI"][last]], dim=1),
-                torch.cat([params["IU"], params["IL"]], dim=1))
+        return (torch.cat([self.rows(params, "UI", users), self.rows(params, "LI", last)], dim=1),
+                torch.cat([self.whole(params, "IU"), self.whole(params, "IL")], dim=1))

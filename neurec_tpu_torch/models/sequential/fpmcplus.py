@@ -64,8 +64,8 @@ class FPMCplus(SequentialMixin, Recommender):
         return torch.sum(att * li, dim=1)
 
     def _score(self, params, users, recent, items):
-        ui, iu = params["UI"][users], params["IU"][items]
-        il, li = params["IL"][items], params["LI"][recent]  # li (B, H, d)
+        ui, iu = self.rows(params, "UI", users), self.rows(params, "IU", items)
+        il, li = self.rows(params, "IL", items), self.rows(params, "LI", recent)  # li (B, H, d)
         short = self._attended_recent(params, ui, il, li)
         return torch.sum(ui * iu, dim=-1) + torch.sum(il * short, dim=-1), (ui, iu, il, li)
 
@@ -84,14 +84,15 @@ class FPMCplus(SequentialMixin, Recommender):
                 + self.reg_mf * l2_loss(ui * w, iu * w, il * w, li * w3))
 
     def predict(self, params, users):
-        ui = params["UI"][users]                                   # (B, d)
-        li = params["LI"][self._recent_items[users]]               # (B, H, d)
+        ui = self.rows(params, "UI", users)                        # (B, d)
+        li = self.rows(params, "LI", self._recent_items[users])    # (B, H, d)
+        IU, IL = self.whole(params, "IU"), self.whole(params, "IL")
         W1, W2, W3 = torch.split(params["W"], self.embedding_size, dim=0)
         ui_part = ui @ W1 + params["b"]                            # (B, w)
         li_part = li @ W3                                          # (B, H, w)
         out = []
         for sl in chunks(self.num_items, _PREDICT_CHUNK):
-            iu_c, il_c = params["IU"][sl], params["IL"][sl]        # (C, d)
+            iu_c, il_c = IU[sl], IL[sl]                            # (C, d)
             pre = ui_part[:, None, None, :] + (il_c @ W2)[None, :, None, :] + li_part[:, None, :, :]  # (B, C, H, w)
             att = torch.softmax((torch.tanh(pre) @ params["h"])[..., 0], dim=-1)                   # (B, C, H)
             short = torch.einsum("bch,bhd->bcd", att, li)

@@ -227,12 +227,12 @@ class GRU4Rec(SeqDraws, Recommender):
         else:
             y = torch.cat([out_i, extra])
             valid_cols = torch.cat([valid, valid.new_ones(extra.shape)])
-        x = params["input_emb"][in_i[rows]]
+        x = self.rows(params, "input_emb", in_i[rows])
         h, new_states = x, []
         for cell, s in zip(params["cells"], states):
             h = _gru_step(cell, self.hidden_act, h, s)
             new_states.append(h)
-        items_embed, items_bias = params["item_emb"][y], params["item_bias"][y]
+        items_embed, items_bias = self.rows(params, "item_emb", y), params["item_bias"][y]
         logits = self._final_act(h @ items_embed.T + items_bias)
         loss = self._loss_from_logits(logits, valid[rows], valid_cols, B, rows.start)
         reg = self.reg * (l2_loss(x * valid[rows][:, None]) + whole_term(l2_loss(items_embed * valid_cols[:, None]))
@@ -289,7 +289,7 @@ class GRU4Rec(SeqDraws, Recommender):
         layer's final state (B, layers[-1])."""
         seq = self._eval_seq[users]
         valid = seq != self.num_items
-        xs = params["input_emb"][torch.clamp(seq, max=self.num_items - 1)]  # (B, T, d)
+        xs = self.rows(params, "input_emb", torch.clamp(seq, max=self.num_items - 1))  # (B, T, d)
         states = [xs.new_zeros((seq.shape[0], n)) for n in self.layers]
         for t in range(seq.shape[1]):
             h, v = xs[:, t], valid[:, t, None]
@@ -301,8 +301,10 @@ class GRU4Rec(SeqDraws, Recommender):
         return states[-1]
 
     def predict(self, params, users):
-        return self._final_act(self._user_states(params, users) @ params["item_emb"].T + params["item_bias"])
+        return self._final_act(self._user_states(params, users) @ self.whole(params, "item_emb").T
+                               + params["item_bias"])
 
     def eval_embeddings(self, params, users):
         # exact for final_act=linear only: __init__ drops the hook otherwise
-        return self._affine_eval(self._user_states(params, users), params["item_emb"], params["item_bias"])
+        return self._affine_eval(self._user_states(params, users), self.whole(params, "item_emb"),
+                                 params["item_bias"])

@@ -44,8 +44,8 @@ class HRM(SequentialMixin, Recommender):
 
     def _hybrid(self, params, users, recent):
         """(B, d) hybrid user representation from (B, H) recent items."""
-        u = params["user_emb"][users]          # (B, d)
-        r = params["item_emb"][recent]         # (B, H, d)
+        u = self.rows(params, "user_emb", users)   # (B, d)
+        r = self.rows(params, "item_emb", recent)  # (B, H, d)
         if self.high_order > 1:
             sess = torch.amax(r, dim=1) if self.session_agg == "max" else torch.mean(r, dim=1)
         else:
@@ -56,13 +56,13 @@ class HRM(SequentialMixin, Recommender):
     def loss(self, params, batch, weights):
         recent = batch["recent_items"].reshape(-1, self.high_order)
         hybrid, u, r = self._hybrid(params, batch["users"], recent)
-        q = params["item_emb"][batch["items"]]
+        q = self.rows(params, "item_emb", batch["items"])
         y = torch.sum(hybrid * q, dim=-1)
         return (pointwise_loss(self.loss_function, batch["labels"], y, weights=weights)
                 + self.reg_mf * l2_loss(u * weights[:, None], r * weights[:, None, None], q * weights[:, None]))
 
     def predict(self, params, users):
-        return self._hybrid(params, users, self._recent_items[users])[0] @ params["item_emb"].T
+        return self._hybrid(params, users, self._recent_items[users])[0] @ self.whole(params, "item_emb").T
 
     def eval_embeddings(self, params, users):
-        return self._hybrid(params, users, self._recent_items[users])[0], params["item_emb"]
+        return self._hybrid(params, users, self._recent_items[users])[0], self.whole(params, "item_emb")

@@ -43,19 +43,19 @@ class NPE(SequentialMixin, Recommender):
 
     def loss(self, params, batch, weights):
         recent = batch["recent_items"].reshape(-1, self.high_order)
-        ui, iu = params["UI"][batch["users"]], params["IU"][batch["items"]]
-        li = params["IL"][recent]  # (B, H, d)
+        ui, iu = self.rows(params, "UI", batch["users"]), self.rows(params, "IU", batch["items"])
+        li = self.rows(params, "IL", recent)  # (B, H, d)
         ctx = torch.sum(li, dim=1)
         y = torch.sum(torch.relu(ui) * torch.relu(iu) + torch.relu(iu) * torch.relu(ctx), dim=-1)
         return (pointwise_loss(self.loss_function, batch["labels"], y, weights=weights)
                 + self.reg * l2_loss(ui * weights[:, None], iu * weights[:, None], li * weights[:, None, None]))
 
     def _left(self, params, users):
-        ctx = torch.sum(params["IL"][self._recent_items[users]], dim=1)
-        return torch.relu(params["UI"][users]) + torch.relu(ctx)
+        ctx = torch.sum(self.rows(params, "IL", self._recent_items[users]), dim=1)
+        return torch.relu(self.rows(params, "UI", users)) + torch.relu(ctx)
 
     def predict(self, params, users):
-        return self._left(params, users) @ torch.relu(params["IU"]).T
+        return self._left(params, users) @ torch.relu(self.whole(params, "IU")).T
 
     def eval_embeddings(self, params, users):
-        return self._left(params, users), torch.relu(params["IU"])
+        return self._left(params, users), torch.relu(self.whole(params, "IU"))

@@ -90,15 +90,15 @@ class SASRec(SeqDraws, Recommender):
             })
         return map_params(lambda t: t.to(self.device), params)
 
-    def _table(self, params):
-        """The item table with the zero pad row, scaled by sqrt(d)."""
-        d = self.hidden_units
-        return torch.cat([params["item_emb"], params["item_emb"].new_zeros((1, d))], dim=0) * (d ** 0.5)
+    def _item_rows(self, params, ids):
+        """Rows of the item table with the zero pad row (id num_items),
+        scaled by sqrt(d)."""
+        return self.rows_padded(params, "item_emb", ids) * (self.hidden_units ** 0.5)
 
     def encode(self, params, seq_ids, generator=None):
         """(B, T) item ids -> (B, T, d) final states; dropout with a generator."""
         T = seq_ids.shape[1]
-        x = self._table(params)[seq_ids] + params["pos_emb"][None, :T, :]
+        x = self._item_rows(params, seq_ids) + params["pos_emb"][None, :T, :]
         drop = None
         if generator is not None and self.dropout_rate > 0:
             drop = lambda t: self._dropout(t, generator, self.dropout_rate)  # noqa: E731
@@ -115,15 +115,14 @@ class SASRec(SeqDraws, Recommender):
     def seq_loss(self, params, seq, pos, neg, seq_weights, generator):
         """Binary CE per position averaged over the real targets (SASRec.py:369-375)."""
         h = self.encode(params, seq, generator)
-        table = self._table(params)
-        pos_logits = torch.sum(h * table[pos], dim=-1)
-        neg_logits = torch.sum(h * table[neg], dim=-1)
+        pos_logits = torch.sum(h * self._item_rows(params, pos), dim=-1)
+        neg_logits = torch.sum(h * self._item_rows(params, neg), dim=-1)
         is_target = (pos != self.num_items).float() * seq_weights[:, None]
         pos_loss = -torch.log(torch.sigmoid(pos_logits) + 1e-24) * is_target
         neg_loss = -torch.log(1.0 - torch.sigmoid(neg_logits) + 1e-24) * is_target
         loss = torch.sum(pos_loss + neg_loss) / torch.clamp(batch_sum(torch.sum(is_target)), min=1.0)
         if self.l2_emb > 0:
-            loss = loss + whole_term(self.l2_emb * 0.5 * (torch.sum(torch.square(params["item_emb"]))
+            loss = loss + whole_term(self.l2_emb * 0.5 * (torch.sum(torch.square(self.whole(params, "item_emb")))
                                                           + torch.sum(torch.square(params["pos_emb"]))))
         return loss
 
@@ -170,4 +169,4 @@ class SASRec(SeqDraws, Recommender):
 
     def eval_embeddings(self, params, users):
         h = self.encode(params, self._eval_seq[users])
-        return h[:, -1, :], self._table(params)[: self.num_items]
+        return h[:, -1, :], self.whole(params, "item_emb") * (self.hidden_units ** 0.5)

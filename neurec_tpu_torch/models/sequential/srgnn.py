@@ -153,8 +153,9 @@ class SRGNN(SeqDraws, Recommender):
         """(B, L) padded sessions -> (B, num_items) logits."""
         B, L = seq.shape
         d = self.hidden_size
-        nodes, alias, a_in, a_out = session_graphs(seq, sess_len, self.num_items, params["embedding"].dtype)
-        table = torch.cat([params["embedding"], params["embedding"].new_zeros((1, d))], dim=0)
+        emb = self.whole(params, "embedding")  # the lookups and the logits over every item
+        nodes, alias, a_in, a_out = session_graphs(seq, sess_len, self.num_items, emb.dtype)
+        table = torch.cat([emb, emb.new_zeros((1, d))], dim=0)
         h = table[nodes]                                                            # (B, L, d)
         for _ in range(self.step):
             av_in = torch.matmul(a_in, h @ params["W_in"] + params["b_in"])
@@ -169,11 +170,11 @@ class SRGNN(SeqDraws, Recommender):
         coef = (m @ params["nasr_v"].T)[:, :, 0] * mask
         attended = torch.sum(coef[:, :, None] * seq_h, dim=1)
         sess_emb = attended if self.nonhybrid else torch.cat([attended, last_h], dim=-1) @ params["B"]
-        return sess_emb @ params["embedding"].T
+        return sess_emb @ emb.T
 
     def batch_loss(self, params, idx):
         seq, sess_len, tar = self.instances(idx)
-        l2 = sum(0.5 * torch.sum(torch.square(p)) for _, p in param_leaves(params))
+        l2 = sum(0.5 * torch.sum(torch.square(p)) for _, p in param_leaves(self.whole_tree(params)))
         return F.cross_entropy(self._forward(params, seq, sess_len), tar) + self.L2 * l2
 
     def run_epoch(self, params, opt, generator, max_steps=None):

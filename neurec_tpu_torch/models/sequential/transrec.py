@@ -45,8 +45,8 @@ class TransRec(SequentialMixin, Recommender):
         return {k: v.to(self.device) for k, v in params.items()}
 
     def _score(self, params, users, recent, items):
-        u, prev = params["user_emb"][users], params["item_emb"][recent]
-        q, b = params["item_emb"][items], params["item_bias"][items]
+        u, prev = self.rows(params, "user_emb", users), self.rows(params, "item_emb", recent)
+        q, b = self.rows(params, "item_emb", items), params["item_bias"][items]
         vec = u + params["global_emb"] + prev - q
         return b - torch.sum(torch.square(vec), dim=-1), (u, prev, q, b)
 
@@ -67,8 +67,9 @@ class TransRec(SequentialMixin, Recommender):
 
     def predict(self, params, users):
         last = self._recent_items[users, -1]
-        pre = params["user_emb"][users] + params["global_emb"] + params["item_emb"][last]  # (B, d)
-        q = params["item_emb"]
+        pre = (self.rows(params, "user_emb", users) + params["global_emb"]
+               + self.rows(params, "item_emb", last))  # (B, d)
+        q = self.whole(params, "item_emb")
         sq = (torch.sum(torch.square(pre), dim=1, keepdim=True) + torch.sum(torch.square(q), dim=1)[None, :]
               - 2.0 * pre @ q.T)
         return params["item_bias"][None, :] - torch.sqrt(torch.clamp(sq, min=1e-12))

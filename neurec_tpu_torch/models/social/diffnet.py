@@ -124,14 +124,14 @@ class DiffNet(Recommender):
         }
 
     def _tables(self, params):
-        item_final = params["item_emb"]
+        item_final = self.whole(params, "item_emb")
         if self._has_item_feat:
             layer = params["reduce_dim"][0]
             feat = _convert_distribution(self._item_feat).to(layer["w"].dtype)
             reduced = torch.sigmoid(feat @ layer["w"] + layer["b"])
             item_final = item_final + _convert_distribution(reduced)
         from_items = self._cons_edges.spmm(item_final)
-        gcn1 = self._soc_edges.spmm(params["user_emb"])
+        gcn1 = self._soc_edges.spmm(self.whole(params, "user_emb"))
         gcn2 = self._soc_edges.spmm(gcn1)
         return gcn2 + from_items, item_final
 

@@ -177,13 +177,13 @@ class SBPR(Recommender):
     # -- loss and epoch -------------------------------------------------------
     def sbpr_loss(self, params, users, pos, soc, suk, negs, w):
         def score(items):
-            q, b = params["item_emb"][items], params["bias"][items]
-            return torch.sum(params["user_emb"][users] * q, dim=-1) + b, q, b
+            q, b = self.rows(params, "item_emb", items), params["bias"][items]
+            return torch.sum(self.rows(params, "user_emb", users) * q, dim=-1) + b, q, b
 
         y_pos, q1, b1 = score(pos)
         y_soc, q2, b2 = score(soc)
         y_neg, q3, b3 = score(negs)
-        u = params["user_emb"][users]
+        u = self.rows(params, "user_emb", users)
         w2 = w[:, None]
         return (
             pairwise_loss(self.loss_function, (y_pos - y_soc) / suk, weights=w)
@@ -226,7 +226,7 @@ class SBPR(Recommender):
 
     def predict(self, params, users):
         # no item bias at evaluation: the reference's quirk (module docstring)
-        return params["user_emb"][users] @ params["item_emb"].T
+        return self.rows(params, "user_emb", users) @ self.whole(params, "item_emb").T
 
     def eval_embeddings(self, params, users):
-        return params["user_emb"][users], params["item_emb"]
+        return self.rows(params, "user_emb", users), self.whole(params, "item_emb")

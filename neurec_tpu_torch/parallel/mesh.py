@@ -6,9 +6,11 @@ tables row-sharded over 'model', the rest replicated, and GSPMD makes the
 sharded program compute the single-device function. Here that function is
 kept by hand, one process per rank:
 
-* every rank holds the full host value: the dataset, the seeds, each
-  epoch's draws and the parameters (row-sharding the tables over 'model'
-  is left to the next slice: ``param_shardings`` replicates every leaf);
+* every rank holds the full host value of the dataset, the seeds and each
+  epoch's draws; of the parameters it holds the replicated leaves whole
+  and, of each id table that ``Recommender.param_shardings`` row-shards
+  over 'model', its block of rows, a tensor of its own (``shard_params``;
+  the models reach the tables through ``parallel/tables.py``);
 * a rank *takes* its slice of a batch, rows ``[r*B/n, (r+1)*B/n)`` of the
   whole batch (``slice_rows``); nothing is sent to it;
 * the collectives run over one axis's process group: ``all_sum``,
@@ -193,21 +195,26 @@ def col_sharded(mesh: Mesh, ndim: int = 2) -> Placement:
 
 def global_device_put(x, placement: Placement, mesh: Mesh, device=None) -> torch.Tensor:
     """This rank's piece of the full host value ``x`` (every rank holds
-    it) under ``placement``, on ``device`` (``x``'s when None)."""
+    it) under ``placement``, on ``device`` (``x``'s when None). A piece is a
+    tensor that owns its storage, never a view: a view would keep the whole
+    value alive on every rank."""
     t = torch.as_tensor(x)
     if placement.axis is not None:
         n, i = mesh.shape[placement.axis], mesh.coordinate[placement.axis]
         block = -(-t.shape[placement.dim] // n)
-        t = t.narrow(placement.dim, min(i * block, t.shape[placement.dim]),
-                     max(0, min(block, t.shape[placement.dim] - i * block)))
+        t = t.detach().narrow(placement.dim, min(i * block, t.shape[placement.dim]),
+                              max(0, min(block, t.shape[placement.dim] - i * block)))
+        t = t.clone(memory_format=torch.contiguous_format)
     return t if device is None else t.to(device)
 
 
 def shard_params(params, placements, mesh: Optional[Mesh] = None):
     """Place a param tree on the mesh: ``placements`` None leaves it as
     it is; otherwise a tree of ``Placement`` of ``params``' structure. A
-    replicated leaf is the tensor itself (every rank holds it), so the
-    optimizer keeps stepping the tensors the trainer holds."""
+    replicated leaf is the tensor itself (every rank holds it); a sharded
+    one is this rank's block, a fresh leaf tensor that takes a gradient as
+    the whole one did, so the optimizer built over the placed tree (and its
+    state) holds blocks."""
     if placements is None:
         return params
     if isinstance(params, dict):
@@ -216,7 +223,7 @@ def shard_params(params, placements, mesh: Optional[Mesh] = None):
         return type(params)(shard_params(v, p, mesh) for v, p in zip(params, placements))
     if placements.axis is None:
         return params
-    return global_device_put(params, placements, mesh)
+    return global_device_put(params, placements, mesh).requires_grad_(params.requires_grad)
 
 
 # -- the data-parallel step's context ----------------------------------------

@@ -21,6 +21,9 @@ import sys
 import numpy as np
 import torch
 
+from neurec_tpu_torch.parallel.distributed import is_primary_host
+from neurec_tpu_torch.parallel.tables import gather_tree
+
 log = logging.getLogger("neurec_tpu_torch.pretrain")
 if not log.handlers:
     _handler = logging.StreamHandler(sys.stdout)
@@ -56,14 +59,22 @@ def _as_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def save_pretrain(model_name: str, params: dict, path: str) -> None:
-    """Pickle the warm-start arrays of ``model_name`` in consumer layout."""
+def save_pretrain(model_name: str, params: dict, path: str, shards=None) -> None:
+    """Pickle the warm-start arrays of ``model_name`` in consumer layout.
+
+    Under a mesh whose tables are row-sharded over 'model' (``shards``,
+    the producer's ``Recommender.shards``) every rank calls it: the tables
+    are gathered whole (a collective), and the primary rank writes."""
     try:
         keys = _LAYOUTS[model_name]
     except KeyError:
         raise ValueError(
             "no pretrain layout for %r (have: %s)" % (model_name, ", ".join(sorted(_LAYOUTS)))
         ) from None
+    if shards:
+        params = gather_tree(params, shards)
+        if not is_primary_host():
+            return
     payload = [_as_numpy(_resolve(params, k)) for k in keys]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as fout:

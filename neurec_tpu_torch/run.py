@@ -15,8 +15,10 @@ has a card of its own, gloo otherwise), runs on ``cuda:LOCAL_RANK``, and a
 ('data', 'model') mesh is made when the world holds more than one rank or
 ``--mesh.model_axis`` is above 1; ``make_mesh`` raises where the axes do not
 cover the ranks (``mesh.model_axis=2`` on one rank). The mesh reaches the
-Trainer and through it the evaluator; ``--graph_shard`` and
-``--eval_item_shard`` choose the sharded graph and evaluation.
+Trainer, which row-shards the id tables over 'model'
+(``Recommender.param_shardings``), and through it the evaluator;
+``--graph_shard`` and ``--eval_item_shard`` choose the sharded graph and
+evaluation.
 """
 
 from __future__ import annotations

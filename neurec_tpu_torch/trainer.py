@@ -76,9 +76,13 @@ summed over 'data' (``dp_sync_grads``) before the optimizer, whose step is
 then the same on every rank. A batch whose leading dimension does not
 divide the axis, or a model whose ``dp_split`` is False, runs whole on
 every rank, with the same result. Ranks along 'model' compute the same
-rows with the same (replicated) parameters. Log lines and the
-``.metrics.jsonl`` records come from the primary rank only; the model's
-``on_mesh`` hook runs at construction.
+rows: they hold the same replicated parameters and, of each id table that
+``Recommender.param_shardings`` row-shards over 'model', their own block
+(``place``); the models look the tables up through ``parallel/tables.py``,
+whose backward leaves each rank the gradient of its block, so the 'data'
+sum of ``dp_sync_grads`` pairs ranks that hold the same block. Log lines
+and the ``.metrics.jsonl`` records come from the primary rank only; the
+model's ``on_mesh`` hook runs at construction.
 
 Checkpoints and traces (``neurec_tpu/trainer.py:128-131,492-551``):
 ``checkpoint.attach_to_trainer`` sets ``_ckpt``, ``_ckpt_every`` and
@@ -577,10 +581,21 @@ class Trainer:
         self.params = map_params(lambda v: v.detach().requires_grad_(v.is_floating_point()),
                                  self.model.init_params(generator))
         if self.mesh is not None:
-            self.params = shard_params(self.params, self.model.param_shardings(self.mesh, self.params), self.mesh)
+            self.params = self.place(self.params, self.model.param_shardings(self.mesh, self.params))
         self.opt_state = self.init_opt_state(self.params)
         if self.model.data_kind == "custom":
             self._epoch_fn = self.model.build_epoch(self)
+
+    def place(self, params: Params, placements) -> Params:
+        """``params`` (whole, as every rank holds them) placed on the mesh:
+        each leaf that ``placements`` row-shards over 'model' becomes this
+        rank's block (``parallel.mesh.shard_params``), and the model keeps
+        which (``Recommender.place``). Without a mesh, ``params`` as they
+        are."""
+        if self.mesh is None:
+            return params
+        self.model.place(self.mesh, placements, params)
+        return shard_params(params, placements, self.mesh)
 
     def train_epoch(self, epoch: int, max_steps: Optional[int] = None):
         """One epoch from the trainer's state: ``(params, opt_state, loss)``.

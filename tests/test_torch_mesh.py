@@ -253,7 +253,14 @@ def test_placements_take_this_ranks_block():
     fake = types.SimpleNamespace(shape={"data": 2, "model": 3}, coordinate={"data": 1, "model": 2})
     x = torch.arange(20).reshape(10, 2)
     assert torch.equal(global_device_put(x, Placement("data", 0), fake), x[5:10])
-    assert torch.equal(global_device_put(x, Placement("model", 0), fake), x[8:10])  # blocks of ceil(10 / 3)
+    block = global_device_put(x, Placement("model", 0), fake)
+    assert torch.equal(block, x[8:10])  # blocks of ceil(10 / 3)
+    # a block owns its storage: a view would keep the whole table alive
+    assert block.untyped_storage().nbytes() == 2 * 2 * x.element_size()
+    w = torch.ones(10, 2, requires_grad=True)
+    placed_w = shard_params({"w": w}, {"w": Placement("model", 0)}, fake)["w"]
+    assert placed_w.is_leaf and placed_w.requires_grad
+    assert placed_w.untyped_storage().nbytes() == 2 * 2 * w.element_size()
     assert torch.equal(global_device_put(x, Placement("model", 1), fake), x[:, 0:0])
     params = {"a": x, "b": [x]}
     placed = shard_params(params, {"a": Placement(), "b": [Placement()]}, fake)

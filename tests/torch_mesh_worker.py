@@ -11,6 +11,7 @@ tests that compare with the JAX package import that themselves.
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import socket
@@ -86,6 +87,26 @@ CONFS.update({
 })
 ZOO = ["MLP", "FISM", "NAIS", "DeepICF-nobn", "DMF", "ConvNCF", "SpectralCF", "MultiDAE", "FPMCplus", "TransRec",
        "Fossil", "HRM", "NPE", "GRU4RecPlus"]
+# the models no configuration above holds; SBPR and DiffNet read a
+# friendship file (``social_trainer``)
+CONFS.update({
+    "Pop": dict(recommender="Pop"),
+    "ItemKNN": dict(recommender="ItemKNN", neighbor=5, similarity="cosine", knn_block=16),
+    "JCA": dict(recommender="JCA", hidden_neuron=8, reg=0.01, f_act="tanh", g_act="sigmoid", num_neg=2),
+    "CFGAN": dict(recommender="CFGAN", hiddenLayer_G=[12], hiddenLayer_D=[6], batchSize_G=8, batchSize_D=8,
+                  step_G=1, step_D=1, mode="userBased", reg_D=0.01),
+    "IRGAN": dict(recommender="IRGAN", factors_num=4, d_reg=0.01, g_reg=0.01, lr=0.05),
+    "Caser": dict(recommender="Caser", factors_num=8, seq_L=3, seq_T=2, nv=2, nh=3, dropout=0.3, neg_samples=2,
+                  l2_reg=0.01, lr=0.01, batch_size=8),
+    "SRGNN": dict(recommender="SRGNN", hidden_size=8, max_seq_len=8, lr=0.01, lr_dc_step=1, batch_size=8),
+})
+SOCIAL_ARGS = {
+    "SBPR": ["--embedding_size=8", "--batch_size=32", "--num_epochs=1", "--learning_rate=0.05"],
+    "DiffNet": ["--embedding_size=8", "--batch_size=64", "--epochs=1", "--num_negatives=2", "--learning_rate=0.05",
+                "--feature_dimension=6", "--user_feature_file=", "--item_feature_file="],
+}
+# every registered model, each under one configuration
+ALL_MODELS = sorted([n for n in CONFS if n != "DeepICF-nobn"] + list(SOCIAL_ARGS))
 EPOCHS = 2
 
 
@@ -136,7 +157,7 @@ def train(mesh, name: str, epochs: int = EPOCHS, **over) -> dict:
     for epoch in range(1, epochs + 1):
         trainer.params, trainer.opt_state, loss = trainer.train_epoch(epoch)
         losses.append(float(loss))
-    return {"losses": losses, "params": params_to_numpy(trainer.params),
+    return {"losses": losses, "params": params_to_numpy(trainer.params, trainer.model.shards),
             "result": trainer.evaluate(), "warnings": getattr(trainer.logger, "warnings", []),
             "sharded": getattr(trainer.model, "_adj_sharded", None) is not None}
 
@@ -151,7 +172,11 @@ def evaluate(mesh, name: str, env: Dict[str, str] = None, group_view=None, param
             over["group_view"] = group_view
         trainer = make_trainer(name, mesh, **over)
         trainer.initialize()
-        params = trainer.params if params_np is None else params_from_numpy(params_np, "cpu")
+        if params_np is None:
+            params = trainer.params
+        else:
+            params = params_from_numpy(params_np, "cpu")
+            params = trainer.place(params, trainer.model.param_shardings(mesh, params))
         ev = trainer.evaluator.evaluator
         if group_view is not None:
             return {"result": trainer.evaluator.evaluate(trainer.model.predict, params)}
@@ -160,7 +185,7 @@ def evaluate(mesh, name: str, env: Dict[str, str] = None, group_view=None, param
         return {"result": "\t".join(("%.8f" % x).ljust(12) for x in raw.reshape(-1)), "raw": raw,
                 "tier": ev._get_program(trainer.model.predict).plan.name, "ids": ev.last_ids.numpy(),
                 "n_users": len(ev.test_users),
-                "params": params_to_numpy(params)}
+                "params": params_to_numpy(params, trainer.model.shards)}
     finally:
         for k, v in old.items():
             if v is None:
@@ -226,11 +251,14 @@ def checkpoint_case(mesh, directory: str, stop: int) -> dict:
     trainer = make_trainer("MF", mesh, epochs=stop, verbose=1)
     start = attach_to_trainer(trainer, directory)
     losses = []
+    moment_rows = {path: [int(t.shape[0]) for k, t in sorted(trainer.opt_state.state[p].items()) if t.dim()]
+                   for path, p in param_leaves(trainer.params)}
     for epoch in range(start, stop + 1):
         trainer.params, trainer.opt_state, loss = trainer.train_epoch(epoch)
         losses.append(float(loss))
         trainer._ckpt.save(epoch, trainer.params, trainer.opt_state)
-    return {"start": start, "losses": losses, "params": params_to_numpy(trainer.params),
+    return {"start": start, "losses": losses, "moment_rows": moment_rows,
+            "params": params_to_numpy(trainer.params, trainer.model.shards),
             "result": trainer.evaluate()}
 
 
@@ -263,7 +291,8 @@ def run_main(mesh, workdir: str, extra=()) -> dict:
             "--metric=[\"Recall\",\"NDCG\"]", "--batch_size=16", "--test_batch_size=16",
             "--embedding_size=8"] + list(extra)
     trainer, result = run.main(os.path.join(repo, "NeuRec.properties"), args, device="cpu", mesh=mesh)
-    return {"result": result, "logs": sorted(glob.glob(os.path.join(workdir, "log", "*", "MF", "*.log"))),
+    return {"result": result, "shards": sorted(trainer.model.shards),
+            "logs": sorted(glob.glob(os.path.join(workdir, "log", "*", "MF", "*.log"))),
             "records": sorted(glob.glob(os.path.join(workdir, "log", "*", "MF", "*.metrics.jsonl")))}
 
 
@@ -275,7 +304,8 @@ def propagate_case(mesh, name: str) -> dict:
     trainer.params, trainer.opt_state, loss = trainer.train_epoch(1)
     with torch.no_grad():
         u_table, _ = trainer.model.propagate(trainer.params)
-    return {"loss": float(loss), "table": u_table.numpy(), "params": params_to_numpy(trainer.params),
+    return {"loss": float(loss), "table": u_table.numpy(),
+            "params": params_to_numpy(trainer.params, trainer.model.shards),
             "sharded": trainer.model._adj_sharded is not None}
 
 
@@ -303,11 +333,10 @@ def item_shard_auto_case(mesh) -> dict:
         tiers.SCORE_BLOCK_BUDGET = old
 
 
-def diffnet_case(mesh, root: str) -> dict:
-    """DiffNet (the pointwise epoch over social and consumption segment
-    sums) one epoch on a seeded rating file and a seeded friendship file
-    under ``root`` (the primary rank writes them): the losses, params and
-    string."""
+def social_trainer(mesh, root: str, name: str) -> Trainer:
+    """A trainer of ``name`` (SBPR or DiffNet) on a seeded rating file and
+    a seeded friendship file under ``root`` (the primary rank writes
+    them)."""
     from neurec_tpu_torch.config import Config
     from neurec_tpu_torch.data.dataset import Dataset
 
@@ -320,8 +349,8 @@ def diffnet_case(mesh, root: str) -> dict:
                                for i in rng.choice(50, rng.randint(4, 14), replace=False)))
         with open(os.path.join(root, "soc.uu.tmp"), "w") as fout:
             fout.write("".join("%d,%d\n" % (u, v) for u in range(40) for v in rng.choice(40, 4, replace=False)))
-        for name in ("soc.rating", "soc.uu"):
-            os.replace(os.path.join(root, name + ".tmp"), os.path.join(root, name))
+        for fname in ("soc.rating", "soc.uu"):
+            os.replace(os.path.join(root, fname + ".tmp"), os.path.join(root, fname))
     if mesh is not None:
         from neurec_tpu_torch.parallel.distributed import barrier
 
@@ -329,19 +358,84 @@ def diffnet_case(mesh, root: str) -> dict:
     cache = os.path.join(root, "cache%d" % (0 if mesh is None else 1 + mesh.coordinate["data"] * 2
                                              + mesh.coordinate["model"]))
     conf = Config(os.path.join(repo, "NeuRec.properties"), cmd_args=[
-        "--recommender=DiffNet", "--config_dir=%s" % os.path.join(repo, "conf"), "--data.input.path=%s" % root,
+        "--recommender=%s" % name, "--config_dir=%s" % os.path.join(repo, "conf"), "--data.input.path=%s" % root,
         "--data.cache.path=%s" % cache, "--data.input.dataset=soc", "--data.column.format=UIR",
         "--data.convert.separator=','", "--splitter=ratio", "--ratio=0.8", "--by_time=False", "--user_min=0",
         "--item_min=0", "--social_file=%s" % os.path.join(root, "soc.uu"), "--topk=[5]",
-        "--metric=[\"Recall\",\"NDCG\"]", "--test_batch_size=16", "--embedding_size=8", "--batch_size=64",
-        "--epochs=1", "--num_negatives=2", "--learning_rate=0.05", "--feature_dimension=6",
-        "--user_feature_file=", "--item_feature_file="])
+        "--metric=[\"Recall\",\"NDCG\"]", "--test_batch_size=16"] + SOCIAL_ARGS[name])
     ds = Dataset(conf)
-    trainer = Trainer(get_model("DiffNet")(ds, conf, device="cpu"), ds, conf, logger=RecordingLogger(), seed=11,
-                      device="cpu", mesh=mesh)
+    return Trainer(get_model(name)(ds, conf, device="cpu"), ds, conf, logger=RecordingLogger(), seed=11,
+                   device="cpu", mesh=mesh)
+
+
+def diffnet_case(mesh, root: str) -> dict:
+    """DiffNet (the pointwise epoch over social and consumption segment
+    sums) one epoch on a seeded rating file and a seeded friendship file
+    under ``root`` (the primary rank writes them): the losses, params and
+    string."""
+    trainer = social_trainer(mesh, root, "DiffNet")
     trainer.initialize()
     trainer.params, trainer.opt_state, loss = trainer.train_epoch(1)
-    return {"losses": [float(loss)], "params": params_to_numpy(trainer.params), "result": trainer.evaluate()}
+    return {"losses": [float(loss)], "params": params_to_numpy(trainer.params, trainer.model.shards),
+            "result": trainer.evaluate()}
+
+
+ZOO_STEPS = 3
+
+
+def zoo_case(mesh, name: str, root: str, steps: int = ZOO_STEPS) -> dict:
+    """``name`` from its seeded init (``init``, gathered whole), one epoch
+    cut to its first ``steps`` steps (each pass of a custom epoch), then
+    evaluated: the losses, the params (gathered whole), the string, and of
+    every leaf sharded over 'model' this rank's block before and after the
+    steps, its first row, the whole table's rows and its storage's bytes."""
+    trainer = social_trainer(mesh, root, name) if name in SOCIAL_ARGS else make_trainer(name, mesh)
+    trainer.initialize()
+    model = trainer.model
+
+    def blocks():
+        return {path: leaf.detach().numpy().copy() for path, leaf in param_leaves(trainer.params)
+                if path in model.shards}
+
+    placed = {path: {"lo": model.shards[path].lo, "rows": model.shards[path].rows,
+                     "storage": leaf.untyped_storage().nbytes(), "nbytes": leaf.numel() * leaf.element_size()}
+              for path, leaf in param_leaves(trainer.params) if path in model.shards}
+    # copies: on the CPU a numpy view would follow the steps' in-place updates
+    init, before = copy.deepcopy(params_to_numpy(trainer.params, model.shards)), blocks()
+    losses = []
+    if model.data_kind != "none":
+        trainer.params, trainer.opt_state, loss = trainer.train_epoch(1, max_steps=steps)
+        losses.append(float(loss))
+    return {"losses": losses, "init": init, "placed": placed, "before": before, "after": blocks(),
+            "params": params_to_numpy(trainer.params, model.shards), "result": trainer.evaluate()}
+
+
+def resident_bytes(mesh, name: str = "MF") -> dict:
+    """The bytes this rank holds of ``name``'s params and of its Adam
+    state after one step (each tensor's storage)."""
+    trainer = make_trainer(name, mesh)
+    trainer.initialize()
+    trainer.params, trainer.opt_state, _ = trainer.train_epoch(1, max_steps=1)
+    leaves = [p for _, p in param_leaves(trainer.params)]
+    moments = [t for p in leaves for k, t in trainer.opt_state.state[p].items() if k in ("exp_avg", "exp_avg_sq")]
+    return {"params": sum(p.untyped_storage().nbytes() for p in leaves),
+            "adam": sum(t.untyped_storage().nbytes() for t in moments),
+            "shards": sorted(trainer.model.shards)}
+
+
+def pretrain_case(mesh, path: str) -> dict:
+    """MF's params written by ``save_pretrain`` from every rank, and the
+    numpy params (``params_to_numpy``), both whole."""
+    from neurec_tpu_torch.pretrain import save_pretrain
+    from neurec_tpu_torch.parallel.distributed import barrier
+
+    trainer = make_trainer("MF", mesh)
+    trainer.initialize()
+    save_pretrain("MF", trainer.params, path, trainer.model.shards)
+    barrier()
+    with open(path, "rb") as fin:
+        written = pickle.load(fin)
+    return {"written": written, "params": params_to_numpy(trainer.params, trainer.model.shards)}
 
 
 def native_refused(mesh) -> bool:
