@@ -253,7 +253,22 @@ failure exits non-zero before the result line):
    rank's K2 and K2 backward launches over the whole graph equal the
    one-rank run's, K1 runs once an evaluation batch, and a rank's bytes of
    params and of Adam moments are half the one-rank run's (printed beside
-   them).
+   them);
+31. ``dp2_custom``: two ranks (``custom_rank``, spawned as in phase 28) on
+   a (2, 1) mesh, where every step of the custom epochs is split over
+   'data': SBPR (over path H's friendship graph) and Caser (on path G's
+   ml-1m-shaped set) take ``MESH_STEPS`` steps, SRGNN (path G's set), JCA,
+   CFGAN's D and G sub-epochs and IRGAN's D and G passes (gowalla, IRGAN
+   warm-started from path E's generator) ``CUSTOM_STEPS`` steps of each
+   pass, at their ``conf/*.properties`` widths, then one evaluation (JCA
+   2,048 users). Each is held to a one-rank run on the same draws
+   (``custom_run``): the epoch loss within 1e-5 (relative), the params
+   within 1e-5 and the two ranks' equal, the metric string equal, and each
+   rank's loss methods fed half the one-rank run's rows. K1 runs once an
+   evaluation batch at the rank's 1,024 rows for SBPR (d 16), IRGAN (d 21)
+   and Caser (d 100), never for the predict-tier models; then K1 at those
+   shapes on the trained factors against its plain version, timed as in
+   phase 3 (``masked_scores[d16,dp]``, ``[d21,dp]``, ``[d100,dp]``).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -265,7 +280,8 @@ trains 100 of 315 steps of one epoch of its 300; path G trains 200-2,000
 steps of epochs of thousands (SASRec 8 epochs of 48 steps; GRU4Rec's cut
 in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
 DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
-path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole.
+path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole;
+phase 31 trains 5-20 steps of each pass of one epoch.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -549,6 +565,31 @@ MESH_PARAM_ATOL, MESH_LOSS_RTOL, MESH_METRIC_ATOL = 1e-5, 1e-4, 1e-6
 # and MF at conf/MF.properties (the lookups alone), MESH_STEPS steps each
 TP_DIR = os.path.join(REPO, "build", "tp")
 TP_RUNS = {"tp2": TRAIN_ARGS + ["--graph_shard=off"], "tp2_mf": ["--recommender=MF"] + DATA_ARGS}
+# phase 31, dp2_custom: the same two ranks on a (2, 1) mesh, every step of
+# the custom epochs split over 'data' (SBPR, Caser, SRGNN, JCA, CFGAN's D and
+# G sub-steps, IRGAN's D pass; DeepICF with batch norm runs whole, its
+# Trainer's ``dp_split`` False); each model at its conf/*.properties widths
+# on the data of its earlier phase: (path, model, data, flags, steps of each pass, eval
+# users (None: every test user), K1's record at the rank's rows of its
+# bits_dp evaluation (None: the predict tier)). SBPR and Caser, the slice's
+# full-width path, take MESH_STEPS steps, the others CUSTOM_STEPS
+CUSTOM_DIR = os.path.join(REPO, "build", "custom_dp")
+CUSTOM_STEPS = 5
+SOCIAL_FILE = os.path.join(SOCIAL_DIR, "gowalla_seeded.uu")
+IRGAN_GEN = os.path.join(REPO, "build", "pretrained", "gowalla_irgan_gen.pkl")
+CUSTOM_RUNS = (
+    ("dp2_sbpr", "SBPR", "gowalla", ["--social_file=%s" % SOCIAL_FILE], MESH_STEPS, None, "masked_scores[d16,dp]"),
+    ("dp2_caser", "Caser", "ml1m", [], MESH_STEPS, None, "masked_scores[d100,dp]"),
+    ("dp2_srgnn", "SRGNN", "ml1m", [], CUSTOM_STEPS, None, None),
+    ("dp2_jca", "JCA", "gowalla", [], CUSTOM_STEPS, ZOO_EVAL_USERS["JCA"], None),
+    ("dp2_cfgan", "CFGAN", "gowalla", [], CUSTOM_STEPS, None, None),
+    ("dp2_irgan", "IRGAN", "gowalla", ["--pretrain_file=%s" % IRGAN_GEN], CUSTOM_STEPS, None,
+     "masked_scores[d21,dp]"),
+)
+# the loss methods a step calls, their batch rows the first tensor after the params
+CUSTOM_LOSSES = {"SBPR": ("sbpr_loss",), "Caser": ("caser_loss",), "SRGNN": ("batch_loss",), "JCA": ("step_loss",),
+                 "CFGAN": ("d_loss", "g_loss"), "IRGAN": ("_d_loss",)}
+CUSTOM_LOSS_RTOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -902,6 +943,198 @@ def tp_phase(dataset, n_batches_eval: int, I_m: int, paths: dict, device: str = 
         if "on" in modes:
             paths[key + "_item_shard"] = train_eval["eval_on"]["launches"]
     del one_rank, ranks, params_r0
+
+
+def custom_run(name, data, flags, steps, n_eval, datasets, device="cuda", mesh=None):
+    """``name`` at conf/<name>.properties and ``flags`` on ``data``
+    ("gowalla" or "ml1m", its Dataset kept in ``datasets``): initialized,
+    one epoch cut to ``steps`` steps of each pass, one evaluation of the
+    first ``n_eval`` test users (every one when None), with every launch
+    count set to 0 before the steps and read after the evaluation. Returns
+    ``(trainer, record)``; the record holds the batch rows each loss method
+    of ``CUSTOM_LOSSES`` saw, the epoch loss, the string and the times."""
+    import torch
+
+    from neurec_tpu_torch.config import Config
+    from neurec_tpu_torch.data.dataset import Dataset
+    from neurec_tpu_torch.models import get_model
+    from neurec_tpu_torch.ops import _build
+    from neurec_tpu_torch.trainer import Trainer
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t = time.perf_counter()
+    conf = Config(PROPS, cmd_args=["--recommender=%s" % name] + (DATA_ARGS if data == "gowalla" else ML1M_ARGS)
+                  + flags)
+    if data not in datasets:
+        datasets[data] = Dataset(conf)
+    ds = datasets[data]
+    trainer = Trainer(get_model(name)(ds, conf, device=device), ds, conf, logger=SilentLogger(), device=device,
+                      mesh=mesh)
+    trainer.initialize()
+    sync()
+    rec = {"setup_s": time.perf_counter() - t, "batch_rows": {}}
+    model = trainer.model
+    for method in CUSTOM_LOSSES[name]:
+        def spy(params, *rest, _real=getattr(model, method), _key=method):
+            rows = next(a for a in rest if isinstance(a, torch.Tensor))
+            rec["batch_rows"].setdefault(_key, set()).add(int(rows.shape[0]))
+            return _real(params, *rest)
+
+        setattr(model, method, spy)
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer.params, trainer.opt_state, loss = trainer.train_epoch(1, max_steps=steps)
+    rec["loss"] = float(loss)
+    sync()
+    rec["steps_s"] = time.perf_counter() - t
+    ev = trainer.evaluator.evaluator
+    users = ev.test_users if n_eval is None else ev.test_users[:n_eval]
+    t = time.perf_counter()
+    rec["result"] = ev.evaluate(model.predict, trainer.params, users)
+    sync()
+    rec.update(eval_s=time.perf_counter() - t, eval_users=len(users), launches=dict(_build.LAUNCHES),
+               tier=ev._get_program(model.predict).plan.name, num_items=ds.num_items)
+    return trainer, rec
+
+
+def custom_rank(rank: int, port: int, out_dir: str, device: str = "cuda"):
+    """One rank of phase 31 (a spawned process; the parent has built every
+    kernel): joins the gloo group of two ranks on the card, makes a (2, 1)
+    mesh and runs each of ``CUSTOM_RUNS`` split over 'data'
+    (``custom_run``); records the K1 shapes of its evaluation and how far
+    its params lie from rank 0's, and pickles what it saw, rank 0's params
+    too, to ``out_dir/rank<r>.pkl``."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    out = {}
+    try:
+        from neurec_tpu_torch.bridge import param_leaves, params_to_numpy
+        from neurec_tpu_torch.ops import masked_scores as k1
+        from neurec_tpu_torch.ops import spmm as k2
+        from neurec_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+        from neurec_tpu_torch.parallel.mesh import all_sum_many, make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        torch.set_num_threads(2)  # as mesh_rank: spinning threads slow the collectives
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        initialize_multihost("127.0.0.1:%d" % port, 2, rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+        shapes = spy_launch_shapes(k1, k2)
+        mesh = make_mesh(n_data=2, n_model=1)
+        datasets = {}
+        for key, name, data, flags, steps, n_eval, _ in CUSTOM_RUNS:
+            for kernel in shapes:
+                shapes[kernel] = set()
+            trainer, rec = custom_run(name, data, flags, steps, n_eval, datasets, device, mesh)
+            rec["k1_shapes"] = sorted(shapes["masked_scores"])
+            # rank 0's params on both ranks (a sum of them and zeros)
+            leaves = [p.detach() for _, p in param_leaves(trainer.params)]
+            theirs = all_sum_many([p if rank == 0 else torch.zeros_like(p) for p in leaves], mesh, "data")
+            rec["param_max_abs_diff_to_rank0"] = max(float((a - b).abs().max()) for a, b in zip(leaves, theirs))
+            if rank == 0:
+                rec["params"] = params_to_numpy(trainer.params)
+            out[key] = rec
+            del trainer, leaves, theirs
+        shutdown()
+    except Exception:  # reported to the parent through the result file
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as fout:
+        pickle.dump(out, fout)
+
+
+def custom_dp_phase(dataset, paths: dict, device: str = "cuda", start_method: str = "spawn"):
+    """Phase 31: ``custom_rank`` on two spawned ranks, the one-rank runs of
+    ``CUSTOM_RUNS`` on the same draws meanwhile, then the checks: each
+    rank's epoch loss within ``CUSTOM_LOSS_RTOL`` of the one-rank run's,
+    rank 0's params within ``MESH_PARAM_ATOL`` and rank 1's equal to rank
+    0's, the strings equal, each loss method fed half the one-rank run's
+    rows, K1 once an evaluation batch at the rank's 1,024 rows on the
+    models it ranks and never on the others. Emits a line a model and adds
+    its launches to ``paths`` under its key; returns the one-rank trainers
+    of the K1 models, by key."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from neurec_tpu_torch.bridge import param_leaves
+
+    os.makedirs(CUSTOM_DIR, exist_ok=True)
+    for f in glob.glob(os.path.join(CUSTOM_DIR, "rank*.pkl")):
+        os.unlink(f)
+    t_phase = time.perf_counter()
+    ctx = mp.start_processes(custom_rank, args=(_free_port(), CUSTOM_DIR, device), nprocs=2, join=False,
+                             start_method=start_method)
+    # the one-rank runs on the same draws, while the ranks start
+    datasets = {"gowalla": dataset}
+    one_rank, kept = {}, {}
+    for key, name, data, flags, steps, n_eval, record in CUSTOM_RUNS:
+        trainer_1, rec_1 = custom_run(name, data, flags, steps, n_eval, datasets, device)
+        rec_1["params"] = {path: p.detach() for path, p in param_leaves(trainer_1.params)}
+        one_rank[key] = rec_1
+        if record is not None:
+            kept[key] = trainer_1
+        del trainer_1
+    try:
+        while not ctx.join(timeout=5.0):
+            require(time.perf_counter() - t_phase < MESH_TIMEOUT_S, "the two dp2_custom ranks did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(CUSTOM_DIR, "rank%d.pkl" % r), "rb") as fin:
+            ranks.append(pickle.load(fin))
+        require("error" not in ranks[r], "dp2_custom rank %d failed:\n%s" % (r, ranks[r].get("error")))
+    phase_s = time.perf_counter() - t_phase
+    for key, name, data, flags, steps, n_eval, record in CUSTOM_RUNS:
+        want = one_rank[key]
+        got0 = ranks[0][key]
+        with torch.no_grad():
+            param_err = max(float((torch.as_tensor(v).to(device) - want["params"][path]).abs().max())
+                            for path, v in param_leaves(got0["params"]))
+        loss_rel = [abs(rk[key]["loss"] - want["loss"]) / abs(want["loss"]) for rk in ranks]
+        rows_want = {m: sorted(b // 2 for b in rows) for m, rows in want["batch_rows"].items()}
+        n_batches = -(-want["eval_users"] // EVAL_USERS_PER_BATCH)
+        k1_want = ([(EVAL_USERS_PER_BATCH // 2, want["num_items"])], n_batches) if record else ([], 0)
+        emit({"phase": key, "model": name, "mesh": [2, 1], "backend": "gloo, staged through the host",
+              "steps": steps, "loss": got0["loss"], "one_rank_loss": want["loss"], "loss_max_rel_diff": loss_rel,
+              "param_max_abs_diff": param_err, "result": got0["result"], "one_rank_result": want["result"],
+              "eval_users": want["eval_users"], "tier": got0["tier"], "one_rank_tier": want["tier"],
+              "one_rank_rows": {m: sorted(v) for m, v in want["batch_rows"].items()},
+              "one_rank_steps_s": want["steps_s"], "one_rank_eval_s": want["eval_s"],
+              "ranks": [{"setup_s": rk[key]["setup_s"], "steps_s": rk[key]["steps_s"], "eval_s": rk[key]["eval_s"],
+                         "rows_per_rank": {m: sorted(v) for m, v in rk[key]["batch_rows"].items()},
+                         "launches": rk[key]["launches"], "k1_shapes": rk[key]["k1_shapes"],
+                         "param_max_abs_diff_to_rank0": rk[key]["param_max_abs_diff_to_rank0"]} for rk in ranks],
+              "tol": "params atol %g, loss rtol %g, strings equal, each loss method half the rows"
+                     % (MESH_PARAM_ATOL, CUSTOM_LOSS_RTOL)})
+        for r, rk in enumerate(ranks):
+            got = rk[key]
+            require(got["result"] == want["result"], "%s rank %d: %r, one rank %r" % (key, r, got["result"],
+                                                                                    want["result"]))
+            require(loss_rel[r] <= CUSTOM_LOSS_RTOL, "%s rank %d: loss %r, one rank %r" % (key, r, got["loss"],
+                                                                                         want["loss"]))
+            rows_got = {m: sorted(v) for m, v in got["batch_rows"].items()}
+            require(rows_got == rows_want and all(rows_want.values()),
+                    "%s rank %d: the loss saw rows %s, half the one rank's is %s" % (key, r, rows_got, rows_want))
+            require(got["param_max_abs_diff_to_rank0"] <= MESH_PARAM_ATOL,
+                    "%s rank %d: params %g from rank 0's" % (key, r, got["param_max_abs_diff_to_rank0"]))
+            require((got["k1_shapes"], got["launches"]["masked_scores"]) == k1_want,
+                    "%s rank %d: K1 %s, launches %s" % (key, r, got["k1_shapes"], got["launches"]))
+        require(param_err <= MESH_PARAM_ATOL, "%s params differ from the one-rank run by %g" % (key, param_err))
+        paths[key] = ranks[0][key]["launches"]
+    emit({"phase": "dp2_custom", "seconds": phase_s, "models": [run[1] for run in CUSTOM_RUNS]})
+    del one_rank, ranks
+    return kept
 
 
 def require(cond, msg):
@@ -3030,12 +3263,42 @@ def main() -> int:
     # -- 30. tp2: the id tables row-sharded over 'model' (two ranks, gloo) ---
     tp_phase(dataset, n_batches_eval, I_m, paths)
 
+    # -- 31. dp2_custom: the custom epochs split over 'data' (two ranks) -----
+    kept = custom_dp_phase(dataset, paths)
+    half = EVAL_USERS_PER_BATCH // 2
+    for key, name, data, flags, steps, n_eval, record in CUSTOM_RUNS:
+        if record is None:
+            continue
+        # K1 at a rank's rows of the first evaluation batch, the model's trained factors
+        trainer_k = kept.pop(key)
+        ev_k = trainer_k.evaluator.evaluator
+        with torch.no_grad():
+            u_k, items_k = trainer_k.model.eval_embeddings(
+                trainer_k.params, torch.from_numpy(ev_k.test_users[:half]).long().cuda())
+        u_k, items_k = u_k.detach().contiguous(), items_k.detach().contiguous()
+        I_k, d_k = items_k.shape[0], u_k.shape[1]
+        width_k = global_bits_width(I_k)
+        bits_k = ev_k._get_bits_table(width_k, width_k)[:half]
+        mask8_k = k1.build_train_mask(torch.from_numpy(ev_k._host_rows(ev_k.test_users[:half])).cuda(), I_k)
+        k1_check(record, lambda: k1.masked_scores_bits(u_k, items_k, bits_k, width_k, I_k),
+                 lambda: k1.masked_scores_bits_reference(u_k, items_k, bits_k, width_k, I_k),
+                 lambda: torch.where(mask8_k != 0, float("-inf"), torch.matmul(u_k, items_k.T)),
+                 (u_k.numel() + items_k.numel()) * 4 + bits_k.numel() + half * I_k * 4, u_k, items_k,
+                 {"mode": "bits", "shape": [half, I_k, d_k], "model": name,
+                  "library_call": "matmul + where on a prebuilt int8 mask",
+                  "mesh": "bits_dp, a rank's rows of a batch on a (2, 1) mesh"})
+        del trainer_k, ev_k, u_k, items_k, bits_k, mask8_k
+    del kept
+
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
         "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream", "cut", "resume", "final_eval",
                                                              "native_device", "mesh1", "tp2", "tp2_mf")),
         "masked_scores[dp]": ("masked_scores", ("dp2",)),
+        "masked_scores[d16,dp]": ("masked_scores", ("dp2_sbpr",)),
+        "masked_scores[d21,dp]": ("masked_scores", ("dp2_irgan",)),
+        "masked_scores[d100,dp]": ("masked_scores", ("dp2_caser",)),
         "masked_scores[block]": ("masked_scores", ("itemshard2", "tp2_item_shard")),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8", "itemshard2_rows")),

@@ -20,6 +20,14 @@ Adam or SGD at lr_G / lr_D). The masks and permutations come from the
 epoch's generator. ``eval_dense_scores`` exists only in itemBased mode,
 where ``predict`` runs the generator over the whole catalogue for any
 batch.
+
+On a mesh every step of both sub-epochs is split over 'data' as the JAX
+package's (``cfgan.py:130-131,148-150``): a rank takes its rows of the
+permutation's batch (user rows, or item rows in itemBased mode), draws the
+masks for the whole batch and keeps its rows (``split_draw``), takes its
+share of each mean over rows (``split_mean``), counts the weight
+regulariser once (``whole_term``), and sums the gradients of the player
+that stepped over 'data' before its optimizer.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.initializers import glorot_uniform
 from neurec_tpu_torch.ops.losses import l2_loss
+from neurec_tpu_torch.parallel.mesh import batch_split, split_mean, whole_term
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -116,7 +125,7 @@ class CFGAN(Recommender):
 
     @staticmethod
     def _bce(logits, target_ones: bool):
-        return torch.mean(F.softplus(-logits if target_ones else logits))
+        return split_mean(torch.mean(F.softplus(-logits if target_ones else logits)))
 
     def d_loss(self, params, idx, generator):
         """The discriminator's loss on rows ``idx`` (a gradient to ``dis`` only)."""
@@ -127,7 +136,7 @@ class CFGAN(Recommender):
         dis = self.whole_tree(params, "dis")
         d_fake = _sigmoid_stack(dis, torch.cat([cond, fake * pm], 1))
         d_real = _sigmoid_stack(dis, torch.cat([cond, cond], 1))
-        return self._bce(d_real, True) + self._bce(d_fake, False) + self.reg_D * l2_loss(*_leaves(dis))
+        return self._bce(d_real, True) + self._bce(d_fake, False) + whole_term(self.reg_D * l2_loss(*_leaves(dis)))
 
     def g_loss(self, params, idx, generator):
         """The generator's loss on rows ``idx`` (a gradient to ``gen`` only)."""
@@ -138,36 +147,50 @@ class CFGAN(Recommender):
         fake = _sigmoid_stack(gen, cond)
         dis = map_params(torch.Tensor.detach, self.whole_tree(params, "dis"))
         adv = self._bce(_sigmoid_stack(dis, torch.cat([cond, fake * pm], 1)), True)
-        zr_loss = torch.mean(torch.sum(torch.square(fake) * zr, dim=1))
-        return adv + self.reg_G * l2_loss(*_leaves(gen)) + self.ZR_coefficient * zr_loss
+        zr_loss = split_mean(torch.mean(torch.sum(torch.square(fake) * zr, dim=1)))
+        return adv + whole_term(self.reg_G * l2_loss(*_leaves(gen))) + self.ZR_coefficient * zr_loss
 
-    def _sub_epochs(self, params, opt, generator, loss_fn, B, n_reps, max_steps):
+    def _sub_epochs(self, params, opt, generator, loss_fn, side, B, n_reps, max_steps, trainer=None):
+        """``n_reps`` sub-epochs of ``loss_fn``, whose gradient reaches
+        ``params[side]`` only: the last one's mean step loss."""
         steps = max(self._n_rows // B, 1)
         if max_steps is not None:
             steps = min(steps, max_steps)
+        split = None if trainer is None else trainer.dp_split_for(B)
         loss = torch.zeros((), device=self.device)
         for _ in range(n_reps):
             total = torch.zeros((), device=self.device)
             for idx in self._perm(generator, steps, B):
+                if split is not None:  # this rank's rows of the step
+                    idx = trainer.dp_constrain(idx)
                 opt.zero_grad(set_to_none=True)
-                step_loss = loss_fn(params, idx, generator)
-                step_loss.backward()
+                with batch_split(split):
+                    step_loss = loss_fn(params, idx, generator)
+                    step_loss.backward()
+                if trainer is not None:
+                    # the other player's leaves take no gradient of this loss
+                    trainer.dp_sync_grads(params[side], split)
                 opt.step()
                 total += step_loss.detach()
+            if trainer is not None:
+                total = trainer.dp_loss_total(total, split)
             loss = total / steps
         return loss
 
-    def run_epoch(self, params, opt_state, generator, max_steps=None):
+    def run_epoch(self, params, opt_state, generator, max_steps=None, trainer=None):
         """One round: step_D discriminator sub-epochs, then step_G
-        generator ones; the loss is the last generator sub-epoch's mean."""
-        self._sub_epochs(params, opt_state["d"], generator, self.d_loss, self.batchSize_D, self.step_D, max_steps)
-        g_loss = self._sub_epochs(params, opt_state["g"], generator, self.g_loss, self.batchSize_G, self.step_G,
-                                  max_steps)
+        generator ones; the loss is the last generator sub-epoch's mean.
+        With a ``trainer`` on a mesh each step is split over 'data'
+        (``Trainer.dp_split_for``)."""
+        self._sub_epochs(params, opt_state["d"], generator, self.d_loss, "dis", self.batchSize_D, self.step_D,
+                         max_steps, trainer)
+        g_loss = self._sub_epochs(params, opt_state["g"], generator, self.g_loss, "gen", self.batchSize_G,
+                                  self.step_G, max_steps, trainer)
         return params, opt_state, g_loss
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, generator, max_steps)
+            return self.run_epoch(params, opt_state, generator, max_steps, trainer=trainer)
 
         return epoch
 

@@ -36,8 +36,14 @@ class DeepICF(NAIS):
         super().__init__(dataset, config, device)
         self.n_hidden = list(config.get("layers", [64, 32, 16]))
         self.use_batch_norm = bool(config.get("batch_norm", False))
-        # batch norm's statistics are the whole batch's: such a step is not
-        # a sum of the ranks' parts, so it runs whole on every rank
+        # batch norm's statistics are the whole batch's, and a split step
+        # cannot keep the single step's numbers: the batch mean removes the
+        # layers' biases, whose gradient is then f32 noise that Adam turns
+        # into steps of lr, and the first layer centres activations whose
+        # mean (the bias) is hundreds of times their spread, so a split's
+        # other rounding (statistics over the gathered rows) moved the
+        # weights by 7.9e-5 in 5 Adam steps at the conf's widths on gowalla
+        # (an H100), past the split's 1e-5 bound. It runs whole on every rank
         self.dp_split = not self.use_batch_norm
         self.is_pairwise = False
         self.data_kind = "pointwise"

@@ -21,6 +21,14 @@ IRGAN.py:15-250):
 Every draw (the D pass's negatives and permutation, the G pass's samples)
 comes from the epoch's generator: the same distributions as the JAX
 package's, not its draws. The softmax samples take ``torch.multinomial``.
+
+On a mesh the D pass's steps are split over 'data' as the JAX package's
+(``irgan.py:133-134,228``): the negatives and the permutation drawn whole
+on every rank, then a rank's rows of each batch; the quirk's factor is the
+whole batch's weight count (``batch_sum``), its bracket the rank's rows,
+and the SGD step takes the gradients summed over 'data'. The G pass, one
+REINFORCE step a user in turn, runs whole on every rank, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.parallel import tables
+from neurec_tpu_torch.parallel.mesh import all_sum_many, batch_split, batch_sum
 from neurec_tpu_torch.pretrain import as_tensor, try_load
 
 # users of one (users, I) softmax block of the D pass's negatives
@@ -100,13 +109,18 @@ class IRGAN(Recommender):
     def _perm(generator, n):
         return torch.randperm(n, generator=generator, device=generator.device)
 
-    def _sgd_step(self, tree, loss):
-        """tree - lr * grad(loss), a fresh leaf for each tensor."""
+    def _sgd_step(self, tree, loss, split=None):
+        """tree - lr * grad(loss), a fresh leaf for each tensor; in a split
+        step the gradients summed over 'data' first."""
         grads = torch.autograd.grad(loss, list(tree.values()))
+        if split is not None:
+            grads = all_sum_many(grads, split.mesh, "data")
         return {k: (p - self.lr * g).detach().requires_grad_(True) for (k, p), g in zip(tree.items(), grads)}
 
-    def d_pass(self, params, generator, max_steps=None):
-        """One discriminator sub-epoch; returns (params, mean step loss)."""
+    def d_pass(self, params, generator, max_steps=None, trainer=None):
+        """One discriminator sub-epoch; returns (params, mean step loss).
+        With a ``trainer`` on a mesh each step is split over 'data'
+        (``Trainer.dp_split_for``)."""
         users, L, I, B = self._train_users, self.L, self.num_items, self.batch_size
         nU = users.shape[0]
         with torch.no_grad():
@@ -128,22 +142,33 @@ class IRGAN(Recommender):
         dis = {k: v.detach().requires_grad_(True) for k, v in params["dis"].items()}
         total = torch.zeros((), device=users.device)
         n_steps = steps if max_steps is None else min(steps, max_steps)
+        split = None if trainer is None else trainer.dp_split_for(B)
         for s in range(n_steps):
-            bi = idx[s]
-            u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * tail_w[s]
-            logits = (torch.sum(self._emb(dis, "dis", "user_emb", u) * self._emb(dis, "dis", "item_emb", i), dim=-1)
-                      + dis["item_bias"][i])
-            ce = torch.clamp(logits, min=0.0) - logits * lbl + F.softplus(-torch.abs(logits))
-            # the reference's quirk (IRGAN.py:103-107): the scalar d_reg * l2 is
-            # broadcast over the (B,) loss and TF minimizes its sum
-            reg = self.d_reg * torch.sum(w) * 0.5 * (
-                torch.sum(torch.square(self._emb(dis, "dis", "user_emb", u) * w[:, None]))
-                + torch.sum(torch.square(self._emb(dis, "dis", "item_emb", i) * w[:, None]))
-                + torch.sum(torch.square(dis["item_bias"][i] * w)))
-            loss = torch.sum(ce * w) + reg
-            dis = self._sgd_step(dis, loss)
+            bi, bw = idx[s], tail_w[s]
+            if split is not None:  # this rank's rows of the step
+                bi, bw = trainer.dp_constrain(bi, bw)
+            u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * bw
+            with batch_split(split):
+                loss = self._d_loss(dis, u, i, lbl, w)
+            dis = self._sgd_step(dis, loss, split)
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return dict(params, dis={k: v.detach() for k, v in dis.items()}), total / n_steps
+
+    def _d_loss(self, dis, u, i, lbl, w):
+        """The D pass's loss on the pairs (u, i) labelled ``lbl``, weighing ``w``."""
+        logits = (torch.sum(self._emb(dis, "dis", "user_emb", u) * self._emb(dis, "dis", "item_emb", i), dim=-1)
+                  + dis["item_bias"][i])
+        ce = torch.clamp(logits, min=0.0) - logits * lbl + F.softplus(-torch.abs(logits))
+        # the reference's quirk (IRGAN.py:103-107): the scalar d_reg * l2 is
+        # broadcast over the (B,) loss and TF minimizes its sum; its factor
+        # is the whole batch's weight count, its bracket a sum over rows
+        reg = self.d_reg * batch_sum(torch.sum(w)) * 0.5 * (
+            torch.sum(torch.square(self._emb(dis, "dis", "user_emb", u) * w[:, None]))
+            + torch.sum(torch.square(self._emb(dis, "dis", "item_emb", i) * w[:, None]))
+            + torch.sum(torch.square(dis["item_bias"][i] * w)))
+        return torch.sum(ce * w) + reg
 
     def g_pass(self, params, generator, max_steps=None):
         """One generator sub-epoch: a REINFORCE step per train user, in turn."""
@@ -175,17 +200,17 @@ class IRGAN(Recommender):
             total += loss.detach()
         return dict(params, gen={k: v.detach() for k, v in gen.items()}), total / n_steps
 
-    def run_epoch(self, params, generator, max_steps=None):
+    def run_epoch(self, params, generator, max_steps=None, trainer=None):
         loss = torch.zeros((), device=self.device)
         for _ in range(self.d_epoch):
-            params, loss = self.d_pass(params, generator, max_steps)
+            params, loss = self.d_pass(params, generator, max_steps, trainer)
         for _ in range(self.g_epoch):
             params, loss = self.g_pass(params, generator, max_steps)
         return params, loss
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            params, loss = self.run_epoch(params, generator, max_steps)
+            params, loss = self.run_epoch(params, generator, max_steps, trainer)
             return params, opt_state, loss
 
         return epoch

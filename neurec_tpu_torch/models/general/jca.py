@@ -18,6 +18,12 @@ The JAX package's documented deviation is kept: the negative columns are
 drawn uniformly in the block (the reference draws without replacement
 among the zeros), and a draw that hits a positive weighs 0.
 
+On a mesh each grid step is split over 'data' as the JAX package's
+(``jca.py:110``): a rank takes its rows of the row block, the column block
+stays whole, the negative columns are drawn for the whole block and cut to
+the rank's rows (``split_draw``), and the weight regulariser is counted
+once (``whole_term``).
+
 ``predict`` runs the item decoder over the whole catalogue for every batch
 (an (I, U) computation), in item chunks that keep only the batch's users'
 columns. ``eval_dense_scores`` (every user's scores at once) is offered
@@ -35,6 +41,7 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.ops.activations import activation_function
 from neurec_tpu_torch.ops.initializers import get_initializer
+from neurec_tpu_torch.parallel.mesh import batch_split, split_draw, whole_term
 
 # elements of one (items, U) chunk of the item decoder in predict: 256 MB of f32
 _TRANSIENT = 1 << 26
@@ -99,9 +106,12 @@ class JCA(Recommender):
         i_dec = self._i_decode(params, self._cols_dense(col_idx), col_idx)[:, row_idx]  # (Bc, Bu)
         return (u_dec + i_dec.T) / 2.0, r_u[:, col_idx]
 
-    def _neg_cols(self, generator, B):
-        """(B, B, num_neg) negative columns of each cell, uniform in the block."""
-        return torch.randint(0, B, (B, B, self.neg_sample_rate), generator=generator, device=generator.device)
+    def _neg_cols(self, generator, rows, B):
+        """(rows, B, num_neg) negative columns of each cell of ``rows`` rows
+        of a block B wide, uniform in the block; in a split step this rank's
+        rows of the whole block's draw (``split_draw``)."""
+        return split_draw(lambda s: torch.randint(0, B, s, generator=generator, device=generator.device),
+                          (rows, B, self.neg_sample_rate))
 
     def step_loss(self, params, row_idx, row_w, col_idx, col_w, neg_cols):
         """One grid step's loss on the block (row_idx x col_idx)."""
@@ -114,8 +124,8 @@ class JCA(Recommender):
         hinge = torch.clamp(neg_vals - dec[:, :, None] + self.margin, min=0.0)
         w = w_cell[:, :, None] * (1.0 - neg_is_pos) * col_w[neg_cols]
         # the reference's reg * 0.5 * l2_loss(...), l2_loss = sum 0.5 ||.||^2
-        cost2 = self.reg * 0.25 * sum(torch.sum(torch.square(self.whole(params, k)))
-                                      for k in ("UW", "UV", "IW", "IV", "Ib1", "Ib2", "Ub1", "Ub2"))
+        cost2 = whole_term(self.reg * 0.25 * sum(torch.sum(torch.square(self.whole(params, k)))
+                                                 for k in ("UW", "UV", "IW", "IV", "Ib1", "Ib2", "Ub1", "Ub2")))
         return torch.sum(hinge * w) + cost2
 
     def draw_epoch(self, generator: torch.Generator) -> GridDraws:
@@ -128,25 +138,37 @@ class JCA(Recommender):
                          torch.where(cperm < I, cperm, 0).reshape(nI, B), (cperm < I).float().reshape(nI, B),
                          seeds)
 
-    def run_epoch(self, params, opt_state, draws: GridDraws, max_steps=None):
+    def run_epoch(self, params, opt_state, draws: GridDraws, max_steps=None, trainer=None):
         """Every (row block, column block) pair, row block major; returns
-        ``(params, opt_state, summed step losses)``."""
+        ``(params, opt_state, summed step losses)``. With a ``trainer`` on
+        a mesh each step's row block is split over 'data'
+        (``Trainer.dp_split_for``)."""
         nU, nI = draws.rows.shape[0], draws.cols.shape[0]
+        B = draws.rows.shape[1]
+        split = None if trainer is None else trainer.dp_split_for(B)
         total = torch.zeros((), device=draws.rows.device)
         step_gen = torch.Generator(device=draws.rows.device)
         for s in range(nU * nI if max_steps is None else min(max_steps, nU * nI)):
             ri, ci = divmod(s, nI)
-            neg_cols = self._neg_cols(step_gen.manual_seed(int(draws.seeds[s])), draws.rows.shape[1])
+            rows, row_w = draws.rows[ri], draws.row_w[ri]
+            if split is not None:  # this rank's rows of the row block
+                rows, row_w = trainer.dp_constrain(rows, row_w)
             opt_state.zero_grad(set_to_none=True)
-            loss = self.step_loss(params, draws.rows[ri], draws.row_w[ri], draws.cols[ci], draws.col_w[ci], neg_cols)
-            loss.backward()
+            with batch_split(split):
+                neg_cols = self._neg_cols(step_gen.manual_seed(int(draws.seeds[s])), rows.shape[0], B)
+                loss = self.step_loss(params, rows, row_w, draws.cols[ci], draws.col_w[ci], neg_cols)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt_state.step()
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt_state, total
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, self.draw_epoch(generator), max_steps)
+            return self.run_epoch(params, opt_state, self.draw_epoch(generator), max_steps, trainer=trainer)
 
         return epoch
 

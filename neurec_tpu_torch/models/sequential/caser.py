@@ -20,7 +20,12 @@ recommender/Caser.py:40-209):
 
 The convolutions are einsums over the (B, L, d) window, as in the JAX
 package. A custom epoch: ``_perm``, then each step ``_negatives`` and the
-dropout mask (``_bernoulli``).
+dropout mask (``_bernoulli``). On a mesh each step is split over 'data' as
+the JAX package's (``caser.py:167-173``): the negatives drawn for the whole
+batch and cut to this rank's rows, the dropout mask likewise
+(``split_draw``), the means' weight counts the whole batch's
+(``batch_sum``) and the L2 term over the whole tables counted once
+(``whole_term``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.initializers import glorot_uniform
+from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, whole_term
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -129,33 +135,44 @@ class Caser(SeqDraws, Recommender):
         logits = torch.einsum("bd,btd->bt", uvec, tar_emb) + tar_bias
         pos_logits, neg_logits = logits[:, : self.T], logits[:, self.T:]
         w2 = w[:, None]
-        denom_p = torch.clamp(torch.sum(w) * self.T, min=1.0)
-        denom_n = torch.clamp(torch.sum(w) * self.neg_samples, min=1.0)
+        n_w = batch_sum(torch.sum(w))
+        denom_p = torch.clamp(n_w * self.T, min=1.0)
+        denom_n = torch.clamp(n_w * self.neg_samples, min=1.0)
         pos_loss = torch.sum(-torch.log(torch.sigmoid(pos_logits) + 1e-24) * w2) / denom_p
         neg_loss = torch.sum(-torch.log(1.0 - torch.sigmoid(neg_logits) + 1e-24) * w2) / denom_n
-        reg = self.l2_reg * 0.5 * sum(torch.sum(torch.square(self.whole(params, k)))
-                                      for k in ("user_emb", "seq_item_emb", "item_emb", "item_bias"))
+        reg = whole_term(self.l2_reg * 0.5 * sum(torch.sum(torch.square(self.whole(params, k)))
+                                                 for k in ("user_emb", "seq_item_emb", "item_emb", "item_bias")))
         return pos_loss + neg_loss + reg
 
-    def run_epoch(self, params, opt, generator, max_steps=None):
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch: ``(params, opt, mean step loss)``; ``max_steps`` cuts
-        it to its first steps."""
+        it to its first steps. With a ``trainer`` on a mesh each step is
+        split over 'data' (``Trainer.dp_split_for``)."""
         idx, w = self._epoch_slots(generator, int(self._users.shape[0]))
         n_run = idx.shape[0] if max_steps is None else min(idx.shape[0], max_steps)
+        split = None if trainer is None else trainer.dp_split_for(idx.shape[1])
         total = torch.zeros((), device=self.device)
         for s in range(n_run):
-            users = self._users[idx[s]]
-            negs = self._negatives(generator, self._padded_items[users], self.neg_samples)
+            negs = self._negatives(generator, self._padded_items[self._users[idx[s]]], self.neg_samples)
+            idx_s, w_s = idx[s], w[s]
+            if split is not None:  # this rank's rows of the step
+                idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
             opt.zero_grad(set_to_none=True)
-            loss = self.caser_loss(params, users, self._seqs[idx[s]], self._poss[idx[s]], negs, w[s], generator)
-            loss.backward()
+            with batch_split(split):
+                loss = self.caser_loss(params, self._users[idx_s], self._seqs[idx_s], self._poss[idx_s], negs, w_s,
+                                       generator)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt.step()
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt, total / n_run
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, generator, max_steps)
+            return self.run_epoch(params, opt_state, generator, max_steps, trainer=trainer)
 
         return epoch
 

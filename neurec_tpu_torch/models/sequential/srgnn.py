@@ -21,7 +21,12 @@ recommender/SRGNN.py:20-236):
   batch_size`` steps (SRGNN.py:138-143).
 
 A custom epoch: one permutation of the instances (``_perm``), ``N // B``
-steps, the batch clamped to N when the data is smaller than one batch.
+steps, the batch clamped to N when the data is smaller than one batch. On
+a mesh each step is split over 'data' as the JAX package's
+(``srgnn.py:217-218``): a rank builds its rows' session graphs, its mean
+cross-entropy is its share of the whole batch's (``split_mean``) and the
+L2 term over every parameter is counted once (``whole_term``). The lr
+decay counts steps, the same on every rank.
 ``predict`` scores the full catalogue per user (the predict tier).
 """
 
@@ -37,6 +42,7 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.gru4rec import _gru_step
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
+from neurec_tpu_torch.parallel.mesh import batch_split, split_mean, whole_term
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -175,29 +181,38 @@ class SRGNN(SeqDraws, Recommender):
     def batch_loss(self, params, idx):
         seq, sess_len, tar = self.instances(idx)
         l2 = sum(0.5 * torch.sum(torch.square(p)) for _, p in param_leaves(self.whole_tree(params)))
-        return F.cross_entropy(self._forward(params, seq, sess_len), tar) + self.L2 * l2
+        return split_mean(F.cross_entropy(self._forward(params, seq, sess_len), tar)) + whole_term(self.L2 * l2)
 
-    def run_epoch(self, params, opt, generator, max_steps=None):
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch: ``(params, opt, mean step loss)``. The reference drops
         the last partial batch; on data smaller than one batch the batch
-        is clamped to N, so that one full batch still trains."""
+        is clamped to N, so that one full batch still trains. With a
+        ``trainer`` on a mesh each step is split over 'data'
+        (``Trainer.dp_split_for``)."""
         N = self._n_inst
         B = max(min(self.batch_size, N), 1)
         steps = max(N // B, 1)
         idx_all = self._perm(generator, N)[: steps * B].reshape(steps, B)
         n_run = steps if max_steps is None else min(steps, max_steps)
+        split = None if trainer is None else trainer.dp_split_for(B)
         total = torch.zeros((), device=self.device)
         for s in range(n_run):
+            idx = idx_all[s] if split is None else trainer.dp_constrain(idx_all[s])
             opt.zero_grad(set_to_none=True)
-            loss = self.batch_loss(params, idx_all[s])
-            loss.backward()
+            with batch_split(split):
+                loss = self.batch_loss(params, idx)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt.step()
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt, total / n_run
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, generator, max_steps)
+            return self.run_epoch(params, opt_state, generator, max_steps, trainer=trainer)
 
         return epoch
 

@@ -26,7 +26,10 @@ they hold.
 
 A custom epoch: ``_perm``, then each step ``_social_slot`` (the raw
 ``randint(0, 2**30)`` that the model reduces modulo the user's social
-count) and ``_negatives``.
+count) and ``_negatives``. On a mesh each step is split over 'data' as the
+JAX package's (``sbpr.py:116,118``): the draws made for the whole batch,
+then this rank's rows of the slots, weights, social slots and negatives.
+Every term of the loss is a sum over the batch's rows.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss
 from neurec_tpu_torch.ops.sampling import sample_negatives
+from neurec_tpu_torch.parallel.mesh import batch_split
 
 
 class SocialTables(NamedTuple):
@@ -191,9 +195,11 @@ class SBPR(Recommender):
             + self.reg_mf * l2_loss(u * w2, q2 * w2, q1 * w2, q3 * w2, b1 * w, b2 * w, b3 * w)
         )
 
-    def run_epoch(self, params, opt, generator, max_steps=None):
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch over the positives of the users with social items:
-        ``(params, opt, mean step loss)``; ``max_steps`` cuts it."""
+        ``(params, opt, mean step loss)``; ``max_steps`` cuts it. With a
+        ``trainer`` on a mesh each step is split over 'data'
+        (``Trainer.dp_split_for``)."""
         B = self.batch_size
         N = int(self._users_flat.shape[0])
         steps = -(-N // B)
@@ -201,23 +207,34 @@ class SBPR(Recommender):
         idx = torch.where(perm < N, perm, torch.zeros_like(perm)).reshape(steps, B)
         w = (perm < N).float().reshape(steps, B)
         n_run = steps if max_steps is None else min(steps, max_steps)
+        split = None if trainer is None else trainer.dp_split_for(B)
         total = torch.zeros((), device=self.device)
         for s in range(n_run):
-            users, pos = self._users_flat[idx[s]], self._pos_flat[idx[s]]
+            users = self._users_flat[idx[s]]
             slot = self._social_slot(generator, B) % self._social_len[users]
+            negs = self._negatives(generator, self._excl_rows[users])
+            idx_s, w_s = idx[s], w[s]
+            if split is not None:  # this rank's rows of the step
+                idx_s, w_s, slot, negs = trainer.dp_constrain(idx_s, w_s, slot, negs)
+                users = self._users_flat[idx_s]
+            pos = self._pos_flat[idx_s]
             soc = self._social_items[users, slot].long()
             suk = self._social_suk[users, slot]
-            negs = self._negatives(generator, self._excl_rows[users])
             opt.zero_grad(set_to_none=True)
-            loss = self.sbpr_loss(params, users, pos, soc, suk, negs, w[s])
-            loss.backward()
+            with batch_split(split):
+                loss = self.sbpr_loss(params, users, pos, soc, suk, negs, w_s)
+                loss.backward()
+            if trainer is not None:
+                trainer.dp_sync_grads(params, split)
             opt.step()
             total += loss.detach()
+        if trainer is not None:
+            total = trainer.dp_loss_total(total, split)
         return params, opt, total / max(n_run, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):
-            return self.run_epoch(params, opt_state, generator, max_steps)
+            return self.run_epoch(params, opt_state, generator, max_steps, trainer=trainer)
 
         return epoch
 

@@ -33,7 +33,9 @@ batch's rows read the context:
 * ``whole_term``: a term over whole tensors (a weight regulariser) counts
   on the first 'data' rank only;
 * ``batch_sum``: the whole batch's value of a per-rank sum (the weight
-  count a mean divides by, APR's batch gradient).
+  count a mean divides by, APR's batch gradient);
+* ``split_mean``: a mean over the batch's rows taken on the rank's rows,
+  as its share of the whole batch's mean.
 
 Summed over 'data', the ranks' losses and gradients are then the whole
 batch's.
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -127,6 +129,19 @@ def all_sum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     buf = _to_wire(mesh, t)
     dist.all_reduce(buf, group=mesh.group(axis))
     return buf.to(t.device)
+
+
+def all_sum_many(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str) -> List[torch.Tensor]:
+    """The sums of ``tensors`` over the ranks of ``axis`` in one collective
+    (the tensors laid end to end): new tensors, no gradient."""
+    if not tensors:
+        return []
+    flat = all_sum(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at: at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
 
 
 def all_gather_rows(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -285,3 +300,11 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     if split is None:
         return x
     return all_sum(x, split.mesh, "data")
+
+
+def split_mean(mean: torch.Tensor) -> torch.Tensor:
+    """A mean over the batch's rows, taken on this rank's rows: inside a
+    split step its share of the whole batch's mean (over the 'data' ranks,
+    which hold as many rows each), ``mean`` itself outside."""
+    split = _SPLIT.get()
+    return mean if split is None else mean / split.count

@@ -73,16 +73,19 @@ same seeds and, in each step, takes its rows of the batch
 loss runs inside ``parallel.mesh.batch_split``, so its draws, whole-tensor
 terms and whole-batch counts are the single step's, and its gradients are
 summed over 'data' (``dp_sync_grads``) before the optimizer, whose step is
-then the same on every rank. A batch whose leading dimension does not
-divide the axis, or a model whose ``dp_split`` is False, runs whole on
-every rank, with the same result. Ranks along 'model' compute the same
-rows: they hold the same replicated parameters and, of each id table that
-``Recommender.param_shardings`` row-shards over 'model', their own block
-(``place``); the models look the tables up through ``parallel/tables.py``,
-whose backward leaves each rank the gradient of its block, so the 'data'
-sum of ``dp_sync_grads`` pairs ranks that hold the same block. Log lines
-and the ``.metrics.jsonl`` records come from the primary rank only; the
-model's ``on_mesh`` hook runs at construction.
+then the same on every rank. The custom epochs split their steps the
+same way through the trainer ``build_epoch`` receives (``dp_split_for``,
+``dp_constrain``, ``dp_sync_grads``, ``dp_loss_total``). A batch whose
+leading dimension does not divide the axis, or a model whose ``dp_split``
+is False, runs whole on every rank, with the same result. Ranks along
+'model' compute the same rows: they hold the same replicated parameters
+and, of each id table that ``Recommender.param_shardings`` row-shards
+over 'model', their own block (``place``); the models look the tables
+up through ``parallel/tables.py``, whose backward leaves each rank the
+gradient of its block, so the 'data' sum of ``dp_sync_grads`` pairs ranks
+that hold the same block. Log lines and the ``.metrics.jsonl`` records
+come from the primary rank only; the model's ``on_mesh`` hook runs at
+construction.
 
 Checkpoints and traces (``neurec_tpu/trainer.py:128-131,492-551``):
 ``checkpoint.attach_to_trainer`` sets ``_ckpt``, ``_ckpt_every`` and
@@ -113,7 +116,7 @@ from neurec_tpu_torch.ops.bloom import build_pair_bloom, is_positive_bloom, sele
 from neurec_tpu_torch.ops.sampling import sample_negatives
 from neurec_tpu_torch.parallel.distributed import is_primary_host
 from neurec_tpu_torch.parallel.mesh import (
-    BatchSplit, Mesh, all_gather_rows, all_sum, axis_size, batch_split, shard_params, slice_rows,
+    BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, batch_split, shard_params, slice_rows,
 )
 from neurec_tpu_torch.profiling import device_trace
 
@@ -556,13 +559,8 @@ class Trainer:
         if split is None:
             return
         grads = [p.grad for _, p in param_leaves(params) if isinstance(p, torch.Tensor) and p.grad is not None]
-        if not grads:
-            return
-        flat = all_sum(torch.cat([g.reshape(-1) for g in grads]), split.mesh, "data")
-        at = 0
-        for g in grads:
-            g.copy_(flat[at: at + g.numel()].view_as(g))
-            at += g.numel()
+        for g, total in zip(grads, all_sum_many(grads, split.mesh, "data")):
+            g.copy_(total)
 
     def dp_loss_total(self, total: torch.Tensor, split: Optional[BatchSplit]) -> torch.Tensor:
         """A split epoch's summed step losses over 'data': the whole

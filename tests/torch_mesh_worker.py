@@ -108,6 +108,11 @@ SOCIAL_ARGS = {
 # every registered model, each under one configuration
 ALL_MODELS = sorted([n for n in CONFS if n != "DeepICF-nobn"] + list(SOCIAL_ARGS))
 EPOCHS = 2
+# the custom epochs that split their steps over 'data', and of each the
+# loss methods that a step calls, the batch's rows their second argument
+CUSTOM_DP = ["SBPR", "Caser", "SRGNN", "JCA", "CFGAN", "IRGAN"]
+CUSTOM_LOSSES = {"SBPR": ("sbpr_loss",), "Caser": ("caser_loss",), "SRGNN": ("batch_loss",), "JCA": ("step_loss",),
+                 "CFGAN": ("d_loss", "g_loss"), "IRGAN": ("_d_loss",)}
 
 
 class RecordingLogger:
@@ -148,10 +153,11 @@ def make_trainer(name: str, mesh, **over) -> Trainer:
     return Trainer(model, ds, conf, logger=RecordingLogger(), seed=11, device="cpu", mesh=mesh)
 
 
-def train(mesh, name: str, epochs: int = EPOCHS, **over) -> dict:
+def train(mesh, name: str, epochs: int = EPOCHS, root: str = None, **over) -> dict:
     """``epochs`` epochs from the seeded init: the epoch losses, the params
-    (numpy) and the evaluation string after them."""
-    trainer = make_trainer(name, mesh, **over)
+    (numpy) and the evaluation string after them. A social model reads its
+    files under ``root`` (``social_trainer``)."""
+    trainer = social_trainer(mesh, root, name) if name in SOCIAL_ARGS else make_trainer(name, mesh, **over)
     trainer.initialize()
     losses = []
     for epoch in range(1, epochs + 1):
@@ -222,13 +228,21 @@ def spmm_case(mesh, name: str = "LightGCN", seed: int = 5) -> dict:
             "block": sharded.block, "plan_rows": sharded.plan.n_rows, "plan_t_rows": sharded.plan_t.n_rows}
 
 
-def batch_shapes(mesh, name: str) -> dict:
+def batch_shapes(mesh, name: str, root: str = None) -> dict:
     """The leading dimension of every batch tensor and of the weights that
-    one step's loss receives."""
-    trainer = make_trainer(name, mesh)
+    one step's loss receives; of a custom epoch, the rows each of its loss
+    methods (``CUSTOM_LOSSES``) first receives. A social model reads its
+    files under ``root``."""
+    trainer = social_trainer(mesh, root, name) if name in SOCIAL_ARGS else make_trainer(name, mesh)
     trainer.initialize()
     seen = {}
     real = trainer.model.loss
+    for method in CUSTOM_LOSSES.get(name, ()):
+        def spy_method(params, rows, *rest, _real=getattr(trainer.model, method), _key=method):
+            seen.setdefault(_key, int(rows.shape[0]))
+            return _real(params, rows, *rest)
+
+        setattr(trainer.model, method, spy_method)
 
     def spy(params, batch, weights):
         seen.setdefault("w", int(weights.shape[0]))
