@@ -56,7 +56,9 @@ failure exits non-zero before the result line):
 5. the same path through the plain versions: metrics within 1e-5 and
    top-20 ids agreeing in >= 99.9% of positions, near-ties the only
    difference;
-6. the training path, counted the same way: ``run.main`` trains the
+6. the training path, counted the same way (every training phase runs
+   its built-in epochs as CUDA-graph replays, phase 32; each replay adds
+   the launches its graph took at capture): ``run.main`` trains the
    north star (batch 2048, lr 0.001, reg 1e-4, Adam) for 2 epochs with an
    evaluation after each, writing a checkpoint after each
    (``--ckpt_dir``, under ``build/ckpt``). It fails on a non-finite loss, an epoch-2 loss
@@ -204,7 +206,10 @@ failure exits non-zero before the result line):
    K2 3 forward a step and an evaluation, 3 backward a step);
 24. the device trace: the resumed run above ran with ``--trace_dir``
    (``build/trace``); the Chrome trace is parsed and its kernel events of
-   K1, K2 and K2 backward counted against the run's launch counts. A trace
+   K1, K2 and K2 backward counted against the run's launch counts (a
+   replayed step's K2 kernels, launched by a ``cudaGraphLaunch``, are
+   forward and backward alike: counted together, ``plan_spmm[replayed]``,
+   against the forward and backward launches). A trace
    with no kernel event fails; a shortfall (the profiler can lose kernel
    records) is printed as ``dropped``, with the trace's bytes;
 25. the native host backend: the trained north star evaluated over every
@@ -268,7 +273,27 @@ failure exits non-zero before the result line):
    evaluation batch at the rank's 1,024 rows for SBPR (d 16), IRGAN (d 21)
    and Caser (d 100), never for the predict-tier models; then K1 at those
    shapes on the trained factors against its plain version, timed as in
-   phase 3 (``masked_scores[d16,dp]``, ``[d21,dp]``, ``[d100,dp]``).
+   phase 3 (``masked_scores[d16,dp]``, ``[d21,dp]``, ``[d100,dp]``);
+32. ``graph``: every phase that trains runs the built-in epochs' steps
+   as CUDA-graph replays (``Trainer``'s default; ``step_graph.py``), and
+   beside each path's trainer (``graph_vs_eager``, a ``graph_check`` line
+   each) the same steps run eagerly (``Trainer(graphs=False)``), twice, and
+   captured, from copies of one state on one set of draws: the north star
+   ``GRAPH_NORTHSTAR_STEPS`` (50) steps of epoch 3's draws at
+   ``scan_unroll`` 1 and 8, with each run's ms a step past the first (CUDA
+   events around steps 1..49: the eager steps, or the replays), its device
+   ms a step from the profiler (``GRAPH_SHORT_STEPS`` steps) and the card's
+   idle share; NGCF at path B's widths (message
+   dropout 0.1) 20 steps and path A (K3, pack 2) 10, the same way; every
+   other built-in-epoch model (paths C-H: MF, MLP, NeuMF, APR, FISM, NAIS,
+   DeepICF, ConvNCF, DMF, MultiDAE, MultiVAE, DAE, CDAE, SpectralCF, FPMC,
+   FPMCplus, Fossil, HRM, NPE, TransRec, DiffNet) ``GRAPH_ZOO_STEPS`` (5)
+   at its ``conf`` widths on its path's data at ``scan_unroll`` 3 (a
+   remainder graph). A captured run's epoch loss, params and optimizer
+   state must equal the eager run's bit for bit, or, where the two eager
+   runs differ too, lie within 1e-6; K2 (K3 on path A) runs 3 forward and 3
+   backward a step on every run. The summary line ``phase: graph`` names
+   the 23 models checked.
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -590,6 +615,21 @@ CUSTOM_RUNS = (
 CUSTOM_LOSSES = {"SBPR": ("sbpr_loss",), "Caser": ("caser_loss",), "SRGNN": ("batch_loss",), "JCA": ("step_loss",),
                  "CFGAN": ("d_loss", "g_loss"), "IRGAN": ("_d_loss",)}
 CUSTOM_LOSS_RTOL = 1e-5
+# phase 32, graph: the built-in epochs' steps captured as CUDA graphs
+# against the same steps run eagerly (graphs=False), from one state on the
+# same draws: the north star GRAPH_NORTHSTAR_STEPS steps at scan_unroll 1 and
+# 8 (and GRAPH_SHORT_STEPS under the profiler for the device time a step),
+# NGCF at path B's widths GRAPH_NGCF_STEPS, path A GRAPH_PACK2_STEPS, every
+# other built-in-epoch model GRAPH_ZOO_STEPS at scan_unroll 3 (a warm-up
+# step, a graph of 3 and a remainder of 1). Where two eager runs differ (an
+# op that adds in no fixed order) a captured run is held within
+# GRAPH_ATOL (params) and GRAPH_LOSS_RTOL; else to the bit
+GRAPH_NORTHSTAR_STEPS, GRAPH_SHORT_STEPS = 50, 10
+GRAPH_NGCF_STEPS, GRAPH_PACK2_STEPS, GRAPH_ZOO_STEPS = 20, 10, 5
+GRAPH_UNROLLS, GRAPH_ZOO_UNROLLS = (1, 8), (3,)
+GRAPH_ATOL, GRAPH_LOSS_RTOL = 1e-6, 1e-6
+BUILT_IN_KINDS = ("pairwise", "pointwise", "time_pairwise", "time_pointwise", "dense_row")
+GRAPH_MODELS = 23
 
 
 class SmokeFailure(RuntimeError):
@@ -1457,6 +1497,151 @@ def kernel_vs_plain_steps(torch, trainer, draws, patches):
     return out
 
 
+def graph_draws(torch, trainer, steps, seed):
+    """Draws for ``steps`` steps of the trainer's built-in epoch, made as
+    ``draw_epoch`` makes them (one negative a slot from the exclusion
+    sampler, a seed a step) over instances drawn from the whole epoch's,
+    without drawing the whole epoch."""
+    from neurec_tpu_torch.trainer import EpochDraws
+
+    dev = trainer.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = trainer.model.batch_size
+    inst = torch.randint(0, trainer.n_instances, (steps, B), generator=g, device=dev, dtype=torch.int32)
+    w = torch.ones((steps, B), device=dev)
+    if trainer._dense_row:
+        negs = torch.zeros((steps, 0), dtype=torch.int32, device=dev)
+    else:
+        from neurec_tpu_torch.ops.sampling import sample_negatives
+
+        users = trainer._users_flat[trainer._base(inst)]
+        negs = torch.stack([sample_negatives(g, trainer._padded_items[users[s]], trainer.model.num_items, ())
+                            for s in range(steps)])
+    seeds = torch.randint(0, 2**62, (steps,), generator=g, device=dev).cpu()
+    return EpochDraws(inst, w, negs, seeds)
+
+
+def graph_vs_eager(torch, label, trainer, draws, unrolls, counts=None, timing=False):
+    """Phase 32 on one trainer: the steps of ``draws`` from the trainer's
+    state, eagerly twice (``graphs=False``; the second a control) and
+    captured at each ``scan_unroll`` of ``unrolls``, each from a copy of the
+    state. A captured run's epoch loss, params and optimizer state must be
+    the eager run's bit for bit, or, where the two eager runs differ too,
+    within GRAPH_LOSS_RTOL and GRAPH_ATOL. ``counts`` ``(fwd, bwd, n)``:
+    each run launches ``n`` of each kernel a step. Each run gives its wall
+    ms a step (the whole call: the warm-up step and the captures included)
+    and its ms a step past the first step: CUDA events before the second
+    step (eager) or the first replay (captured) and after the last, so the
+    span holds steps 1..n-1 as the device ran them, any wait for the host
+    included. ``timing`` adds the device ms a step (``torch.profiler``
+    over GRAPH_SHORT_STEPS steps, the kernels' summed time) and the card's
+    idle share of a step past the first. The launch counts and the
+    trainer's settings are put back."""
+    from torch.autograd import DeviceType
+
+    from neurec_tpu_torch import step_graph
+    from neurec_tpu_torch.bridge import param_leaves
+    from neurec_tpu_torch.ops import _build
+    from neurec_tpu_torch.trainer import EpochDraws
+
+    steps = int(draws.inst.shape[0])
+    saved = dict(_build.LAUNCHES), trainer.graphs, trainer.scan_unroll
+    t_check = time.perf_counter()
+
+    def run(graphs, unroll, n, state=None):
+        trainer.graphs, trainer.scan_unroll = graphs, unroll
+        params_c, opt_c = state or clone_state(trainer)
+        marks = []
+
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+        if graphs:
+            real_replay = step_graph._CudaGraphs.replay
+
+            def replay(graph):
+                if not marks:
+                    mark()
+                real_replay(graph)
+                mark()
+            spans = mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay))
+        else:
+            real_step, taken = trainer._step, []
+
+            def step(*args):
+                if len(taken) == 1:
+                    mark()
+                real_step(*args)
+                taken.append(1)
+                if len(taken) > 1:
+                    mark()
+            spans = mock.patch.object(trainer, "_step", step)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with spans:
+            loss = trainer.run_epoch(params_c, opt_c, *EpochDraws(*(a[:n] for a in draws)))[2]
+        torch.cuda.synchronize()
+        return {"loss": loss, "params": dict(param_leaves(params_c)), "opt": opt_c.state_dict()["state"],
+                "s": time.perf_counter() - t, "launches": dict(_build.LAUNCHES),
+                "span_ms": marks[0].elapsed_time(marks[-1]) / (n - 1) if len(marks) > 1 else None}
+
+    def diff(a, b):
+        floats = [(x, b["opt"][i][k]) for i, st in a["opt"].items() for k, x in st.items()
+                  if isinstance(x, torch.Tensor) and x.is_floating_point() and x.dim()]
+        pairs = [(a["params"][k], b["params"][k]) for k in a["params"]] + floats
+        return {"equal_bits": bool(torch.equal(a["loss"], b["loss"]) and all(torch.equal(x, y) for x, y in pairs)
+                                   and all(float(x.get("step", 0)) == float(b["opt"][i].get("step", 0))
+                                           for i, x in a["opt"].items())),
+                "loss_rel_diff": abs(float(a["loss"]) - float(b["loss"])) / max(abs(float(b["loss"])), 1e-30),
+                "param_max_abs_diff": max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())}
+
+    configs = [("eager", False, 1)] + [("graph_u%d" % u, True, u) for u in unrolls]
+    rec = {"phase": "graph_check", "path": label, "model": trainer.model.name, "data_kind": trainer.model.data_kind,
+           "steps": steps, "batch_size": trainer.model.batch_size, "steps_per_epoch": trainer.steps}
+    try:
+        runs = {name: run(g, u, steps) for name, g, u in configs}
+        control = diff(run(False, 1, steps), runs["eager"])
+        rec["eager_vs_eager"] = control
+        rec["loss"] = float(runs["eager"]["loss"])
+        for name, g, u in configs:
+            r = runs[name]
+            rec[name] = {"wall_ms_per_step": r["s"] * 1e3 / steps, "ms_per_step_past_first": r["span_ms"]}
+            if counts is not None:
+                fwd, bwd, n = counts
+                rec[name]["launches"] = {fwd: r["launches"][fwd], bwd: r["launches"][bwd]}
+                require((r["launches"][fwd], r["launches"][bwd]) == (n * steps, n * steps),
+                        "%s %s: launches %s, expected %d %s and %d %s a step"
+                        % (label, name, r["launches"], n, fwd, n, bwd))
+            if g:
+                d = rec[name]["vs_eager"] = diff(r, runs["eager"])
+                if control["equal_bits"]:
+                    require(d["equal_bits"], "%s %s: the captured steps differ from the eager ones (%s) where two "
+                            "eager runs agree to the bit" % (label, name, d))
+                else:
+                    rec[name]["differs"] = "eager runs differ as well: an op that adds in no fixed order"
+                    require(d["loss_rel_diff"] <= GRAPH_LOSS_RTOL and d["param_max_abs_diff"] <= GRAPH_ATOL,
+                            "%s %s: the captured steps are %s from the eager ones" % (label, name, d))
+            if timing:
+                states = [clone_state(trainer) for _ in range(2)]  # the profiled window copies nothing
+                prof = traced(torch, lambda: run(g, u, GRAPH_SHORT_STEPS, states.pop()), 1)[0]
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+                device = sum(e.self_device_time_total for e in kernels) / 1e3 / GRAPH_SHORT_STEPS if kernels else None
+                rec[name].update(device_ms_per_step=device,
+                                 kernels_per_step=sum(e.count for e in kernels) / GRAPH_SHORT_STEPS,
+                                 idle_share=None if device is None else 1.0 - device / r["span_ms"])
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved[0])
+        trainer.graphs, trainer.scan_unroll = saved[1], saved[2]
+    rec["seconds"] = time.perf_counter() - t_check
+    emit(rec)
+    return rec
+
+
 def step_ms(torch, trainer, draws):
     """CUDA-event time of one training step (forward, backward, Adam)."""
     params_c, opt_c = clone_state(trainer)
@@ -1574,7 +1759,10 @@ def trace_events(path):
     (``span_spmm_kernel``) by name, K2's split into forward and backward
     (``plan_spmm[bwd]``: its launch, found by the runtime event of the same
     ``correlation``, inside an ``autograd`` range of ``PlanSpmmBackward`` on
-    the launching thread), and the K2 kernels whose launch was not found."""
+    the launching thread), the K2 kernels of CUDA-graph replays
+    (``plan_spmm[replayed]``: launched by a ``cudaGraphLaunch``, forward
+    and backward alike, as a replay has no autograd range), and the K2
+    kernels whose launch was not found."""
     with open(path) as fin:
         events = json.load(fin)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -1584,7 +1772,7 @@ def trace_events(path):
     for e in events:
         if e.get("cat") == "cpu_op" and "PlanSpmmBackward" in e.get("name", ""):
             bwd.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e.get("dur", 0)))
-    by_name = {"masked_scores": 0, "plan_spmm": 0, "plan_spmm[bwd]": 0}
+    by_name = {"masked_scores": 0, "plan_spmm": 0, "plan_spmm[bwd]": 0, "plan_spmm[replayed]": 0}
     unattributed = 0
     for k in kernels:
         name = k.get("name", "")
@@ -1595,6 +1783,8 @@ def trace_events(path):
             if r is None:
                 unattributed += 1
                 by_name["plan_spmm"] += 1
+            elif "GraphLaunch" in r.get("name", ""):
+                by_name["plan_spmm[replayed]"] += 1
             elif any(a <= r["ts"] <= b for a, b in bwd.get(r["tid"], ())):
                 by_name["plan_spmm[bwd]"] += 1
             else:
@@ -2094,6 +2284,11 @@ def main() -> int:
     # -- 8. training steps through the plain versions ------------------------
     emit({"phase": "train_plain_path", **kernel_vs_plain_steps(
         torch, trainer, draws, [(k2, "plan_spmm", k2.plan_spmm_reference)])})
+    # phase 32 on the north star: the trained state, epoch 3's draws
+    graph_checks = []
+    graph_checks.append(graph_vs_eager(
+        torch, "northstar", trainer, EpochDraws(*(a[:GRAPH_NORTHSTAR_STEPS] for a in draws)), GRAPH_UNROLLS,
+        ("plan_spmm", "plan_spmm_t", tmodel.n_layers), timing=True))
 
     # -- 9. path A: LightGCN chunk512_pack2 (K3) -----------------------------
     with env_vars(PACK2_ENV):
@@ -2146,6 +2341,9 @@ def main() -> int:
         emit({"phase": "pack2_plain_path", **kernel_vs_plain_steps(
             torch, trainer_a, draws_a, [(k2, "plan_spmm_packed", k2.plan_spmm_packed_reference),
                                         (k2, "plan_scatter", k2.plan_spmm_reference)])})
+        graph_checks.append(graph_vs_eager(
+            torch, "pack2", trainer_a, EpochDraws(*(a[:GRAPH_PACK2_STEPS] for a in draws_a)), GRAPH_UNROLLS,
+            ("plan_spmm_packed", "plan_spmm_packed_t", 3)))
 
         # -- 10. the other variants, each a path ------------------------------
         some = EpochDraws(*(a[:VARIANT_STEPS] for a in draws_a))
@@ -2262,6 +2460,9 @@ def main() -> int:
           "k2_forward_ms_on_pre_plan": 3 * records["plan_spmm"]["ms"]})
     emit({"phase": "ngcf_plain_path", **kernel_vs_plain_steps(
         torch, trainer_b, draws_b, [(k2, "plan_scatter", k2.plan_spmm_reference)])})
+    graph_checks.append(graph_vs_eager(
+        torch, "ngcf", trainer_b, EpochDraws(*(a[:GRAPH_NGCF_STEPS] for a in draws_b)), GRAPH_UNROLLS,
+        ("plan_spmm", "plan_spmm_t", 3), timing=True))
 
     # -- 12. K4, the copy-rate probe -------------------------------------------
     _build.reset_launches()
@@ -2323,6 +2524,10 @@ def main() -> int:
         torch.cuda.synchronize()
         train_z_s = time.perf_counter() - t
         require(all(np.isfinite(losses)), "%s: non-finite loss %s" % (name, losses))
+        if kind in BUILT_IN_KINDS and name not in {c["model"] for c in graph_checks}:
+            graph_checks.append(graph_vs_eager(torch, name.lower(), trainer_z,
+                                               graph_draws(torch, trainer_z, GRAPH_ZOO_STEPS, SEED),
+                                               GRAPH_ZOO_UNROLLS))
         return trainer_z, {"model": name, "data_kind": kind, "steps": steps, "epochs": len(losses),
                            "steps_per_epoch": trainer_z.steps, "batch_size": trainer_z.model.batch_size,
                            "loss": losses[-1] if losses else None, "epoch_losses": losses, "train_s": train_z_s,
@@ -2571,6 +2776,9 @@ def main() -> int:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t
         require(all(np.isfinite(losses)), "%s: non-finite loss %s" % (name, losses))
+        if model_g.data_kind in BUILT_IN_KINDS:
+            graph_checks.append(graph_vs_eager(torch, key, trainer_g, graph_draws(torch, trainer_g, GRAPH_ZOO_STEPS,
+                                                                                  SEED), GRAPH_ZOO_UNROLLS))
         _build.reset_launches()
         result_g, eval_g_s = zoo_eval(trainer_g, trainer_g.params)
         paths[key] = dict(_build.LAUNCHES)
@@ -2688,6 +2896,9 @@ def main() -> int:
         loss_h = float(loss_h)
         train_s = time.perf_counter() - t
         require(np.isfinite(loss_h), "%s: non-finite loss %g" % (name, loss_h))
+        if model_h.data_kind in BUILT_IN_KINDS:
+            graph_checks.append(graph_vs_eager(torch, key, trainer_h, graph_draws(torch, trainer_h, GRAPH_ZOO_STEPS,
+                                                                                  SEED), GRAPH_ZOO_UNROLLS))
         _build.reset_launches()
         result_h, eval_h_s = zoo_eval(trainer_h, trainer_h.params)
         paths[key] = dict(_build.LAUNCHES)
@@ -3009,9 +3220,13 @@ def main() -> int:
     trace = trace_events(trace_path)
     want_k = {"masked_scores": paths["resume"]["masked_scores"],
               "plan_spmm": paths["resume"]["plan_spmm"], "plan_spmm[bwd]": paths["resume"]["plan_spmm_t"]}
+    got_k = trace["by_name"]
     emit({"phase": "trace", "trace_bytes": os.path.getsize(trace_path), "events": trace["events"],
-          "kernel_events": trace["kernels"], "by_name": trace["by_name"], "launches": want_k,
-          "dropped": {k: want_k[k] - trace["by_name"].get(k, 0) for k in want_k},
+          "kernel_events": trace["kernels"], "by_name": got_k, "launches": want_k,
+          # a replayed K2 kernel is forward or backward: the two counted together
+          "dropped": {"masked_scores": want_k["masked_scores"] - got_k["masked_scores"],
+                      "plan_spmm, both ways": want_k["plan_spmm"] + want_k["plan_spmm[bwd]"]
+                      - got_k["plan_spmm"] - got_k["plan_spmm[bwd]"] - got_k["plan_spmm[replayed]"]},
           "k2_unattributed": trace["k2_unattributed"], "path": os.path.relpath(trace_path, REPO)})
     require(trace["kernels"] > 0, "the device trace holds no kernel event")
     del trace
@@ -3289,6 +3504,23 @@ def main() -> int:
                   "mesh": "bits_dp, a rank's rows of a batch on a (2, 1) mesh"})
         del trainer_k, ev_k, u_k, items_k, bits_k, mask8_k
     del kept
+
+    # -- 32. graph: the built-in epochs' steps as CUDA-graph replays ------------
+    # (each check ran beside its path's trainer: the graph_check lines above)
+    graph_models = sorted({c["model"] for c in graph_checks})
+    emit({"phase": "graph", "checks": len(graph_checks), "models": graph_models,
+          "equal_bits": {c["path"]: all(c[k]["vs_eager"]["equal_bits"] for k in c if k.startswith("graph_u"))
+                         for c in graph_checks},
+          "eager_runs_equal_bits": {c["path"]: c["eager_vs_eager"]["equal_bits"] for c in graph_checks},
+          "seconds": sum(c["seconds"] for c in graph_checks),
+          "ms_per_step_past_first": {c["path"]: {k: c[k]["ms_per_step_past_first"] for k in c
+                                                 if k == "eager" or k.startswith("graph_u")} for c in graph_checks},
+          "device_ms_per_step": {c["path"]: {k: (c[k]["device_ms_per_step"], c[k]["idle_share"]) for k in c
+                                             if k == "eager" or k.startswith("graph_u")}
+                                 for c in graph_checks if "device_ms_per_step" in c["eager"]},
+          "card": smi})
+    require(len(graph_models) == GRAPH_MODELS, "phase 32 checked %d built-in-epoch models: %s"
+            % (len(graph_models), graph_models))
 
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)

@@ -94,7 +94,10 @@ class MultiVAE(DenseRowMixin, Recommender):
         kl_per_user = torch.sum(0.5 * (-logvar + torch.exp(logvar) + torch.square(mu) - 1.0), dim=1)
         kl = torch.sum(kl_per_user * weights) / denom
         if self.total_anneal_steps > 0:
-            anneal = min(self.anneal_cap, float(batch["step"]) / self.total_anneal_steps)
+            # min(cap, step / total) on the device in f64, then f32: the
+            # bits of the Python float times an f32 tensor
+            step = torch.as_tensor(batch["step"], device=rows.device).double()
+            anneal = torch.clamp(step / self.total_anneal_steps, max=self.anneal_cap).float()
         else:
             anneal = self.anneal_cap
         reg_var = whole_term(self.reg * 0.5 * sum(torch.sum(torch.square(p)) for p in params["q_w"] + params["p_w"]))

@@ -84,9 +84,12 @@ class _Edges:
         self.lengths = torch.from_numpy(np.bincount(rows, minlength=matrix.shape[0])).to(device)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        """(rows, d) = the matrix @ x, one ordered sum per output element."""
+        """(rows, d) = the matrix @ x, one ordered sum per output element.
+        ``unsafe``: the lengths, a bincount of the edges' rows, are valid by
+        construction, and the checks that it skips read them on the host (a
+        CUDA graph cannot hold them)."""
         return torch.segment_reduce(x[self.cols] * self.vals[:, None].to(x.dtype), "sum",
-                                    lengths=self.lengths, axis=0)
+                                    lengths=self.lengths, axis=0, unsafe=True)
 
 
 @register("DiffNet")

@@ -11,11 +11,15 @@ entry point returns the launch's ``cudaGetLastError()`` code.
 
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
-path went through.
+path went through. A CUDA graph's replay calls no wrapper: the graph runner
+(``step_graph.py``) takes the counts' change while it captures
+(``captured_launches``), puts the counts back (a capture runs nothing), and
+adds that change once a replay (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -60,6 +64,26 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture: yields a dict that holds, at exit,
+    each count's change during the capture, and puts the counts back as
+    they were before it."""
+    before = dict(LAUNCHES)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        delta.update({k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]})
+        LAUNCHES.update(before)
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add a captured graph's launches (``captured_launches``): one replay."""
+    for name, n in delta.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -6,7 +6,9 @@ properties + CLI config, dataset load, model resolution by name, train.
 [--ckpt_every=N]``: a checkpoint every N epochs (``checkpoint.py``) and
 auto-resume, so the same command after a crash goes on from the last saved
 epoch. ``--trace_dir=<dir>``: a ``torch.profiler`` trace of the run
-(``profiling.py``).
+(``profiling.py``). ``--scan_unroll=N``: the steps each CUDA graph of a
+built-in epoch holds on the card (``Trainer``, ``step_graph.py``), read
+as the JAX package's trainer reads it.
 
 The mesh (``neurec_tpu/run.py:32-37``): under ``torchrun
 --nproc_per_node=N -m neurec_tpu_torch.run ...`` every process joins the

@@ -1,0 +1,145 @@
+"""An epoch's steps as CUDA-graph replays: the port's counterpart of the
+JAX trainer's ``jax.jit(epoch, donate_argnums=(0, 1))`` over
+``lax.scan(step, unroll=scan_unroll)`` (``neurec_tpu/trainer.py:355-475``).
+
+``run_steps(step, n, seeds, device, unroll, capture)`` takes ``n`` steps.
+``step(generator)`` is one training step: it reads its step's index from
+device state and advances it itself, draws what it draws from
+``generator`` (None where ``seeds`` is None), synchronises nothing with
+the host, and holds no Python value that changes from step to step. Before
+step ``s`` runs, its generator is seeded with ``seeds[s]`` on the host.
+
+Without ``capture`` (the CPU, ``Trainer(graphs=False)``, a mesh of more
+than one rank) the steps run eagerly, one call each, on one generator.
+
+With ``capture`` (a CUDA device):
+
+* step 0 runs eagerly on a side stream. It is the epoch's real first step
+  and the warm-up that capture needs: the optimizer's state, the SpMM
+  schedules and layouts, cuBLAS's workspace and the kernel libraries come
+  into being here, outside any graph;
+* ``k = min(unroll, n - 1)`` consecutive steps are captured into one
+  ``torch.cuda.CUDAGraph`` and the remaining ``(n - 1) % k`` into a second,
+  on one memory pool. Position ``j`` of a graph draws from a generator of
+  its own, registered with the graph (``register_generator_state``), so a
+  replay draws from the seeds set on the host before it, as the eager step
+  does;
+* the first graph is replayed ``(n - 1) // k`` times, then the second once.
+
+The graphs are captured anew on every call, as ``jax.jit`` traces anew for
+new static arguments: what a step reads at capture (the epoch's tensors,
+the epoch number, ``NEUREC_SPMM_PACK``, a wrapper replaced by its plain
+version) is that call's. They are released with their pool when the call
+ends. A failed capture raises; nothing falls back to eager steps.
+
+Kernel launch counts (``ops/_build.py::LAUNCHES``): a replay calls no
+wrapper, so each graph's launches are taken while it is captured and added
+once a replay.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+
+from neurec_tpu_torch.ops import _build
+
+Step = Callable[[Optional[torch.Generator]], None]
+
+
+class _CudaGraphs:
+    """The CUDA side of a captured run, a context on ``device``: a side
+    stream, one memory pool and the graphs captured on them, released at
+    exit."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self._device_ctx = torch.cuda.device(device)
+
+    def __enter__(self) -> "_CudaGraphs":
+        self._device_ctx.__enter__()
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for graph in self.graphs:
+            graph.reset()
+        self.graphs.clear()
+        self._device_ctx.__exit__(*exc)
+
+    def warm_up(self, fn: Callable[[], None]) -> None:
+        """``fn`` run eagerly on the side stream, ordered after and before
+        the current stream's work."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            fn()
+        current.wait_stream(self.stream)
+
+    def capture(self, fn: Callable[[], None], generators: List[torch.Generator]) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        self.graphs.append(graph)
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            fn()
+        return graph
+
+    @staticmethod
+    def replay(graph: torch.cuda.CUDAGraph) -> None:
+        graph.replay()
+
+
+def _seed(generators: List[torch.Generator], seeds, s: int, count: int) -> None:
+    """Generator ``j`` seeded with ``seeds[s + j]`` for ``j < count``."""
+    if seeds is None:
+        return
+    for j in range(count):
+        generators[j].manual_seed(int(seeds[s + j]))
+
+
+def run_steps(step: Step, n: int, seeds: Optional[torch.Tensor], device: torch.device, unroll: int = 1,
+              capture: bool = False) -> None:
+    """Take ``n`` steps of ``step``: eagerly, or with ``capture`` as
+    replays of CUDA graphs of ``unroll`` steps (see the module's
+    docstring). ``seeds`` (n,) on the host, or None for steps that draw
+    nothing."""
+    if n <= 0:
+        return
+    width = max(1, min(unroll, n - 1)) if capture else 1
+    gens = [] if seeds is None else [torch.Generator(device=device) for _ in range(width)]
+
+    def steps_at(count: int) -> Callable[[], None]:
+        def run():
+            for j in range(count):
+                step(gens[j] if gens else None)
+        return run
+
+    if not capture:
+        for s in range(n):
+            _seed(gens, seeds, s, 1)
+            steps_at(1)()
+        return
+    with _CudaGraphs(device) as cuda:
+        _seed(gens, seeds, 0, 1)
+        cuda.warm_up(steps_at(1))
+        rest = n - 1
+        if rest == 0:
+            return
+        k = min(unroll, rest)
+        runs = [(k, rest // k)] + ([(rest % k, 1)] if rest % k else [])
+        graphs = []
+        for count, times in runs:
+            with _build.captured_launches() as launches:
+                graph = cuda.capture(steps_at(count), gens[:count])
+            graphs.append((graph, count, times, launches))
+        s = 1
+        for graph, count, times, launches in graphs:
+            for _ in range(times):
+                _seed(gens, seeds, s, count)
+                cuda.replay(graph)
+                _build.add_launches(launches)
+                s += count

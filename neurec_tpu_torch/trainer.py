@@ -1,7 +1,11 @@
 """The training loop (port of ``neurec_tpu/trainer.py``).
 
-The JAX package runs a whole epoch as one jitted ``lax.scan``; here an
-epoch is a Python loop of eager steps on the model's device, in two parts:
+The JAX package runs a whole epoch as one jitted ``lax.scan`` with
+``scan_unroll`` steps an iteration; here a built-in epoch's steps are one
+step function (``_step``) that ``step_graph.run_steps`` replays as CUDA
+graphs of ``scan_unroll`` steps on a CUDA device, and calls step by step on
+the CPU (``Trainer(graphs=False)`` and a mesh of more than one rank too).
+An epoch has two parts:
 
 * ``draw_epoch(generator) -> (inst, w, negs, seeds)`` holds all of the
   epoch's randomness: a permutation of ``steps * B`` instance slots (slots
@@ -52,8 +56,10 @@ as in the JAX trainer: ``Trainer.init_opt_state(params)`` builds it.
 Random streams: parameters are drawn from a generator seeded with
 ``seed``, epoch ``e`` from one seeded with ``(seed + 1, e)``. They are
 torch's (Philox on a CUDA device), not JAX's threefry: the packages agree
-in distribution, not draw for draw. ``scan_unroll`` has no meaning without
-a scan and is ignored.
+in distribution, not draw for draw. A captured step draws from generators
+registered with its graph and seeded before each replay, so it draws what
+the eager step draws. ``scan_unroll`` (``--scan_unroll``, read as the JAX
+trainer reads it) is the steps a graph holds.
 
 The exclusion sampler: below ``_EXCL_TABLE_BUDGET`` the padded (U, L_max)
 positive rows (``ops/sampling.py``, one step's negatives at a time); above
@@ -98,10 +104,11 @@ run's bits. ``trace_dir`` runs ``train`` inside ``profiling.device_trace``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from functools import partial
-from typing import Callable, Dict, Iterable, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -119,6 +126,7 @@ from neurec_tpu_torch.parallel.mesh import (
     BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, batch_split, shard_params, slice_rows,
 )
 from neurec_tpu_torch.profiling import device_trace
+from neurec_tpu_torch.step_graph import run_steps
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
 # through the pair Bloom filter
@@ -189,6 +197,34 @@ class OptaxRMSprop(torch.optim.Optimizer):
                 p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
 
 
+# b -> [1 - b^t for t = 1, 2, ...] in f32, each by numpy's scalar formula
+# (a vectorized power differs from it in the last bit at some t)
+_BIAS_CORRECTIONS: Dict[float, List[np.float32]] = {}
+
+
+def bias_corrections(b: float, t0: int, n: int) -> np.ndarray:
+    """``1 - b^t`` in f32 from an f32 ``b``, for t = t0 + 1 .. t0 + n: (n,)
+    float32, each entry the scalar ``np.float32(1) - b ** np.float32(t)``."""
+    done = _BIAS_CORRECTIONS.setdefault(float(b), [])
+    bf = np.float32(b)
+    for t in range(len(done) + 1, t0 + n + 1):
+        done.append(np.float32(1.0) - bf ** np.float32(t))
+    return np.asarray(done[t0:t0 + n], dtype=np.float32)
+
+
+class _DeviceCount:
+    """The step count of ``OptaxAdam.count_steps``: ``cursor`` (1,) int64 on
+    the device counts the steps taken; ``tables`` holds each param group's
+    (steps, 2) f32 bias corrections, ``stepped`` the tensors stepped."""
+
+    def __init__(self, steps: int):
+        self.steps = steps
+        self.opened = False  # the block's first step() has run
+        self.cursor: Optional[torch.Tensor] = None
+        self.tables: Dict[int, torch.Tensor] = {}
+        self.stepped: Dict[int, torch.Tensor] = {}
+
+
 class OptaxAdam(torch.optim.Optimizer):
     """``optax.adam`` with optax's f32 arithmetic: mu = (1 - b1) g + b1 mu,
     nu = (1 - b2) g^2 + b2 nu, bias corrections ``1 - b^t`` in f32 from an
@@ -196,15 +232,59 @@ class OptaxAdam(torch.optim.Optimizer):
     ``p + (-lr) * update``. (``torch.optim.Adam`` computes ``1 - b^t`` in
     float64, ~2e-5 of a step away at t = 3.) The state keys are
     ``torch.optim.Adam``'s (``step``, ``exp_avg``, ``exp_avg_sq``), which
-    ``bridge.adam_state_from_numpy`` / ``adam_state_to_numpy`` read and write.
-    One ``torch._foreach_*`` call per operation over the group's tensors."""
+    ``bridge.adam_state_from_numpy`` / ``adam_state_to_numpy`` read and write;
+    ``step`` is an f32 tensor on the host.
+    One ``torch._foreach_*`` call per operation over the group's tensors.
+
+    ``step()`` reads the count on the host and advances it, so a CUDA graph
+    could not hold it. Inside ``count_steps(n)`` it changes no host state:
+    the corrections come from a device table of the next ``n`` steps'
+    (``bias_corrections``, built at the first step), indexed by a device
+    count, and the host counts advance by ``n`` when the block ends."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        self._count: Optional[_DeviceCount] = None
+
+    @contextlib.contextmanager
+    def count_steps(self, steps: int):
+        """A block of ``steps`` calls of ``step()`` counted on the device
+        (see the class docstring); the host counts of the tensors stepped
+        in it advance by ``steps`` at its end."""
+        self._count = count = _DeviceCount(steps)
+        try:
+            yield
+        finally:
+            self._count = None
+        for p in count.stepped.values():
+            self.state[p]["step"] += steps
+
+    def _corrections(self, gi: int, group, states, device):
+        """The group's ``(1 - b1^t, 1 - b2^t)`` of this step: host floats, or
+        0-d device tensors inside ``count_steps``."""
+        steps = {int(s["step"]) for s in states}
+        if len(steps) != 1:
+            raise ValueError("Adam state steps differ across parameters: %s" % sorted(steps))
+        t0 = steps.pop()
+        count = self._count
+        if count is None:
+            return float(bias_corrections(group["b1"], t0, 1)[0]), float(bias_corrections(group["b2"], t0, 1)[0])
+        table = count.tables.get(gi)
+        if table is None:
+            if count.opened:
+                raise ValueError("Adam param group %d took no step at the start of a counted block" % gi)
+            table = torch.from_numpy(np.stack([bias_corrections(group["b1"], t0, count.steps),
+                                               bias_corrections(group["b2"], t0, count.steps)], axis=1)).to(device)
+            count.tables[gi] = table
+            if count.cursor is None:
+                count.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        row = table.index_select(0, count.cursor)[0]
+        return row[0], row[1]
 
     @torch.no_grad()
     def step(self, closure=None):
-        for group in self.param_groups:
+        count = self._count
+        for gi, group in enumerate(self.param_groups):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
@@ -213,13 +293,7 @@ class OptaxAdam(torch.optim.Optimizer):
                     self.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
                                      "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
             states = [self.state[p] for p in params]
-            steps = {int(s["step"]) for s in states}
-            if len(steps) != 1:
-                raise ValueError("Adam state steps differ across parameters: %s" % sorted(steps))
-            t = steps.pop() + 1
-            b1, b2 = np.float32(group["b1"]), np.float32(group["b2"])
-            bc1 = float(np.float32(1.0) - b1 ** np.float32(t))
-            bc2 = float(np.float32(1.0) - b2 ** np.float32(t))
+            bc1, bc2 = self._corrections(gi, group, states, params[0].device)
             grads = [p.grad for p in params]
             mus = [s["exp_avg"] for s in states]
             nus = [s["exp_avg_sq"] for s in states]
@@ -234,8 +308,15 @@ class OptaxAdam(torch.optim.Optimizer):
             torch._foreach_div_(update, denom)
             torch._foreach_mul_(update, -group["lr"])
             torch._foreach_add_(params, update)
-            for s in states:
-                s["step"] += 1
+            if count is None:
+                for s in states:
+                    s["step"] += 1
+            else:
+                count.stepped.update((id(p), p) for p in params)
+        if count is not None:
+            count.opened = True
+            if count.cursor is not None:
+                count.cursor += 1
 
 
 def make_optimizer(
@@ -316,6 +397,7 @@ class Trainer:
         seed: int = 2018,
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
+        graphs: bool = True,
     ):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -331,6 +413,11 @@ class Trainer:
         self.config = config
         self.seed = seed
         self.mesh = mesh
+        # the built-in epochs' steps as CUDA-graph replays on a CUDA device
+        # (run_epoch), ``scan_unroll`` steps a graph, read as the JAX trainer
+        # reads it
+        self.graphs = graphs
+        self.scan_unroll = max(int(config.get("scan_unroll", 1) or 1), 1)
         self._dp_warned = set()
         if mesh is not None and not is_primary_host():
             self.logger = _SilentLogger()
@@ -482,28 +569,58 @@ class Trainer:
         JAX package's per-step ``batch["rng"]``); without, the batch has
         none and a model draws nothing (no dropout). Every batch carries
         ``epoch`` (1-based) as ``batch["epoch"]``, and on a dense_row epoch
-        the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``."""
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        step_gen = None if seeds is None else torch.Generator(device=self.device)
+        the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``,
+        a 0-d int64 tensor on the device.
+
+        The steps are ``_step`` driven by ``step_graph.run_steps``: on a
+        CUDA device, replays of CUDA graphs of ``scan_unroll`` steps (the
+        JAX package's jitted ``lax.scan``); eagerly on the CPU, with
+        ``Trainer(graphs=False)`` and on a mesh of more than one rank
+        (gloo stages every collective through the host, which a graph
+        cannot hold). A loss must therefore synchronise nothing with the
+        host and draw only from ``batch["generator"]``. The
+        gradients are released at the end (``set_to_none``): a captured
+        epoch's live in the graphs' memory pool."""
+        steps = inst.shape[0]
         split = self.dp_split_for(inst.shape[1])
-        for s in range(inst.shape[0]):
-            inst_s, w_s, negs_s = inst[s], w[s], negs[s]
-            if split is not None:  # this rank's rows of the step
-                inst_s, w_s, negs_s = self.dp_constrain(inst_s, w_s, negs_s)
-            batch = self._batch(inst_s, negs_s)
-            batch["epoch"] = epoch
-            if self._dense_row:
-                batch["step"] = (epoch - 1) * self.steps + s
-            if step_gen is not None:
-                batch["generator"] = step_gen.manual_seed(int(seeds[s]))
-            opt_state.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss = self.model.loss(params, batch, w_s)
-                loss.backward()
-            self.dp_sync_grads(params, split)
-            opt_state.step()
-            total += loss.detach()
-        return params, opt_state, self.dp_loss_total(total, split) / inst.shape[0]
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
+        step = partial(self._step, params, opt_state, (inst, w, negs), cursor, total, split, epoch)
+        count = getattr(opt_state, "count_steps", None)
+        with count(steps) if count is not None else contextlib.nullcontext():
+            run_steps(step, steps, seeds, self.device, self.scan_unroll, capture=self._captures())
+        opt_state.zero_grad(set_to_none=True)
+        return params, opt_state, self.dp_loss_total(total, split) / steps
+
+    def _captures(self) -> bool:
+        """Whether ``run_epoch`` runs its steps as CUDA-graph replays."""
+        return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
+
+    def _step(self, params: Params, opt_state, xs, cursor: torch.Tensor, total: torch.Tensor,
+              split: Optional[BatchSplit], epoch: int, generator: Optional[torch.Generator]) -> None:
+        """One training step, the one at ``cursor`` (a (1,) int64 device
+        index into the rows of ``xs = (inst, w, negs)``): the batch, the
+        loss, its backward and the optimizer's step; the loss is added to
+        ``total`` and ``cursor`` advanced, on the device. It synchronises
+        nothing with the host and reads no Python value that changes from
+        step to step, so a CUDA graph can hold it."""
+        inst_s, w_s, negs_s = (a.index_select(0, cursor)[0] for a in xs)
+        if split is not None:  # this rank's rows of the step
+            inst_s, w_s, negs_s = self.dp_constrain(inst_s, w_s, negs_s)
+        batch = self._batch(inst_s, negs_s)
+        batch["epoch"] = epoch
+        if self._dense_row:
+            batch["step"] = (epoch - 1) * self.steps + cursor[0]
+        if generator is not None:
+            batch["generator"] = generator
+        opt_state.zero_grad(set_to_none=True)
+        with batch_split(split):
+            loss = self.model.loss(params, batch, w_s)
+            loss.backward()
+        self.dp_sync_grads(params, split)
+        opt_state.step()
+        total += loss.detach()
+        cursor += 1
 
     # -- data parallelism ---------------------------------------------------
     def dp_constrain(self, *arrays):
