@@ -57,7 +57,7 @@ failure exits non-zero before the result line):
    top-20 ids agreeing in >= 99.9% of positions, near-ties the only
    difference;
 6. the training path, counted the same way (every training phase runs
-   its built-in epochs as CUDA-graph replays, phase 32; each replay adds
+   its epochs' steps as CUDA-graph replays, phases 32-33; each replay adds
    the launches its graph took at capture): ``run.main`` trains the
    north star (batch 2048, lr 0.001, reg 1e-4, Adam) for 2 epochs with an
    evaluation after each, writing a checkpoint after each
@@ -293,7 +293,23 @@ failure exits non-zero before the result line):
    state must equal the eager run's bit for bit, or, where the two eager
    runs differ too, lie within 1e-6; K2 (K3 on path A) runs 3 forward and 3
    backward a step on every run. The summary line ``phase: graph`` names
-   the 23 models checked.
+   the 23 models checked;
+33. ``graph_custom``: every phase that trains a custom epoch runs its
+   steps as CUDA-graph replays too (SBPR, SASRec, Caser, SRGNN, GRU4Rec,
+   GRU4RecPlus, JCA, CFGAN's sub-epochs, IRGAN's D and G passes; WRMF's ALS
+   epoch has no steps), and beside each such path's trainer
+   (``custom_graph_check``, a ``graph_custom_check`` line each) the same
+   epoch cut to ``GRAPH_CUSTOM_STEPS`` (24) steps of each pass runs
+   eagerly, twice, and captured at ``scan_unroll`` 1 and 3, from copies
+   of one state on one epoch's seeds, at the model's ``conf`` widths on its
+   path's data (paths E, G and H). A captured run's loss, params and
+   optimizer state must equal the eager run's bit for bit, or, where the
+   two eager runs differ too, lie within 1e-6. Each run gives its ms a step
+   past the first (CUDA events around the eager steps 1..n-1 or the
+   replays, summed over the passes), the captured run the device ms a step
+   and the kernels a step from the profiler, and each run its idle share.
+   Phase 31's runs stay eager. The summary line ``phase: graph_custom``
+   names the nine models checked.
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -306,7 +322,8 @@ steps of epochs of thousands (SASRec 8 epochs of 48 steps; GRU4Rec's cut
 in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
 DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
 path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole;
-phase 31 trains 5-20 steps of each pass of one epoch.
+phase 31 trains 5-20 steps of each pass of one epoch, phase 33 24 of each
+pass of epoch 2.
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -630,6 +647,17 @@ GRAPH_UNROLLS, GRAPH_ZOO_UNROLLS = (1, 8), (3,)
 GRAPH_ATOL, GRAPH_LOSS_RTOL = 1e-6, 1e-6
 BUILT_IN_KINDS = ("pairwise", "pointwise", "time_pairwise", "time_pointwise", "dense_row")
 GRAPH_MODELS = 23
+# phase 33, graph_custom: the custom epochs' steps captured as CUDA graphs
+# against the same steps run eagerly (graphs=False), beside each path's
+# trainer, from copies of its state on one epoch's seeds (GRAPH_CUSTOM_EPOCH):
+# GRAPH_CUSTOM_STEPS steps of each pass at scan_unroll 1 and 3 (a warm-up
+# step, graphs of 3 and a remainder of 2); the device ms a step past the
+# first from the profiler over the captured run of GRAPH_CUSTOM_STEPS steps
+# less a 1-step one (the epoch's own draws and step 0 cancel). WRMF's epoch,
+# one ALS solve, has no steps and stays eager
+GRAPH_CUSTOM_MODELS = ("SBPR", "SASRec", "Caser", "SRGNN", "GRU4Rec", "GRU4RecPlus", "JCA", "CFGAN", "IRGAN")
+GRAPH_CUSTOM_STEPS, GRAPH_CUSTOM_EPOCH = 24, 2
+GRAPH_CUSTOM_UNROLLS = (1, 3)
 
 
 class SmokeFailure(RuntimeError):
@@ -1008,8 +1036,9 @@ def custom_run(name, data, flags, steps, n_eval, datasets, device="cuda", mesh=N
     if data not in datasets:
         datasets[data] = Dataset(conf)
     ds = datasets[data]
+    # eager steps on both sides of the comparison (a mesh of two ranks captures nothing)
     trainer = Trainer(get_model(name)(ds, conf, device=device), ds, conf, logger=SilentLogger(), device=device,
-                      mesh=mesh)
+                      mesh=mesh, graphs=False)
     trainer.initialize()
     sync()
     rec = {"setup_s": time.perf_counter() - t, "batch_rows": {}}
@@ -1633,6 +1662,158 @@ def graph_vs_eager(torch, label, trainer, draws, unrolls, counts=None, timing=Fa
                 rec[name].update(device_ms_per_step=device,
                                  kernels_per_step=sum(e.count for e in kernels) / GRAPH_SHORT_STEPS,
                                  idle_share=None if device is None else 1.0 - device / r["span_ms"])
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved[0])
+        trainer.graphs, trainer.scan_unroll = saved[1], saved[2]
+    rec["seconds"] = time.perf_counter() - t_check
+    emit(rec)
+    return rec
+
+
+def clone_custom_state(trainer):
+    """A copy of a custom-epoch trainer's params and of its optimizer (a
+    dict of them: CFGAN's ``{"g", "d"}``, IRGAN's none)."""
+    from neurec_tpu_torch.bridge import map_params
+
+    params_c = map_params(lambda v: v.detach().clone().requires_grad_(v.is_floating_point()), trainer.params)
+    opt_c = trainer.init_opt_state(params_c)
+    pairs = zip(opt_c.values(), trainer.opt_state.values()) if isinstance(opt_c, dict) else \
+        [(opt_c, trainer.opt_state)]
+    for mine, theirs in pairs:
+        mine.load_state_dict(copy.deepcopy(theirs.state_dict()))
+    return params_c, opt_c
+
+
+def custom_graph_check(torch, label, trainer):
+    """Phase 33 on one custom-epoch trainer: epoch GRAPH_CUSTOM_EPOCH cut to
+    GRAPH_CUSTOM_STEPS steps of each pass (``train_epoch(max_steps)``) from
+    copies of the trainer's state, eagerly twice (``graphs=False``; the
+    second a control) and captured at each of GRAPH_CUSTOM_UNROLLS. A
+    captured run's loss, params and optimizer state must be the eager run's
+    bit for bit, or, where the two eager runs differ too (a backward that
+    adds through atomics), within GRAPH_LOSS_RTOL and GRAPH_ATOL. Each run
+    gives its wall ms a step (the whole epoch call: its draws, the warm-up
+    steps and the captures included) and its ms a step past the first: CUDA
+    events before each pass's second step (eager) or first replay
+    (captured) and after its last, summed over the passes. The captured run
+    at scan_unroll 1 also gives the device ms a step past the first
+    (``torch.profiler``: the kernels' summed time over the cut epoch less a
+    1-step one) and the kernels a step; the eager steps run the same
+    kernels (bit-equal results), so each run's idle share reads that device
+    time against its ms a step past the first; a replay holds
+    ``scan_unroll`` steps' kernels. The launch counts and the trainer's
+    settings are put back."""
+    from torch.autograd import DeviceType
+
+    from neurec_tpu_torch import step_graph
+    from neurec_tpu_torch.bridge import param_leaves
+    from neurec_tpu_torch.ops import _build
+
+    saved = dict(_build.LAUNCHES), trainer.graphs, trainer.scan_unroll
+    t_check = time.perf_counter()
+    real_run, real_replay = step_graph.run_steps, step_graph._CudaGraphs.replay
+
+    def timed(calls):
+        """``step_graph.run_steps`` with CUDA events around steps 1..n-1."""
+        def run_steps(step, n, seeds, device, unroll=1, capture=False):
+            marks = []
+
+            def mark():
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+
+            if capture:
+                def replay(graph):
+                    if not marks:
+                        mark()
+                    real_replay(graph)
+                    mark()
+                with mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay)):
+                    real_run(step, n, seeds, device, unroll, capture)
+            else:
+                taken = []
+
+                def timed_step(gen):
+                    if len(taken) == 1:
+                        mark()
+                    step(gen)
+                    taken.append(1)
+                    if len(taken) > 1:
+                        mark()
+                real_run(timed_step, n, seeds, device, unroll, capture)
+            calls.append((marks, n))
+        return run_steps
+
+    def opt_tensors(opt):
+        opts = opt.values() if isinstance(opt, dict) else [opt]
+        return [v for o in opts for p in o.state for v in o.state[p].values() if isinstance(v, torch.Tensor)]
+
+    def run(graphs, unroll, steps, state=None, timing=True):
+        trainer.graphs, trainer.scan_unroll = graphs, unroll
+        params_c, opt_c = state or clone_custom_state(trainer)
+        calls = []
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mock.patch.object(step_graph, "run_steps", timed(calls)) if timing else contextlib.nullcontext():
+            params_o, opt_o, loss = trainer._epoch_fn(params_c, opt_c, trainer.epoch_generator(GRAPH_CUSTOM_EPOCH),
+                                                      GRAPH_CUSTOM_EPOCH, max_steps=steps)
+        torch.cuda.synchronize()
+        spans = [(m[0].elapsed_time(m[-1]), n - 1) for m, n in calls if len(m) > 1]
+        return {"loss": loss, "tensors": [p.detach() for _, p in param_leaves(params_o)] + opt_tensors(opt_o),
+                "s": time.perf_counter() - t, "passes": [n for _, n in calls], "launches": dict(_build.LAUNCHES),
+                "span_ms": sum(ms for ms, _ in spans) / max(sum(k for _, k in spans), 1) if spans else None}
+
+    def diff(a, b):
+        pairs = list(zip(a["tensors"], b["tensors"]))
+        return {"equal_bits": bool(len(a["tensors"]) == len(b["tensors"]) and torch.equal(a["loss"], b["loss"])
+                                   and all(torch.equal(x, y) for x, y in pairs)),
+                "loss_rel_diff": abs(float(a["loss"]) - float(b["loss"])) / max(abs(float(b["loss"])), 1e-30),
+                "param_max_abs_diff": max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())}
+
+    def device(graphs, unroll, passes):
+        """Device ms and kernels a step past the first, from the profiler."""
+        out = []
+        for steps in (GRAPH_CUSTOM_STEPS, 1):
+            states = [clone_custom_state(trainer) for _ in range(2)]  # the profiled window copies nothing
+            prof = traced(torch, lambda: run(graphs, unroll, steps, states.pop(), timing=False), 1)[0]
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+            out.append((sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)))
+        past_first = sum(passes) - len(passes)
+        return (out[0][0] - out[1][0]) / past_first, (out[0][1] - out[1][1]) / past_first
+
+    configs = [("eager", False, 1)] + [("graph_u%d" % u, True, u) for u in GRAPH_CUSTOM_UNROLLS]
+    rec = {"phase": "graph_custom_check", "path": label, "model": trainer.model.name, "steps": GRAPH_CUSTOM_STEPS,
+           "epoch": GRAPH_CUSTOM_EPOCH}
+    try:
+        runs = {name: run(g, u, GRAPH_CUSTOM_STEPS) for name, g, u in configs}
+        control = diff(run(False, 1, GRAPH_CUSTOM_STEPS), runs["eager"])
+        rec.update(eager_vs_eager=control, loss=float(runs["eager"]["loss"]), passes=runs["eager"]["passes"])
+        for name, g, u in configs:
+            r = runs[name]
+            steps = sum(r["passes"])
+            rec[name] = {"wall_ms_per_step": r["s"] * 1e3 / steps, "ms_per_step_past_first": r["span_ms"],
+                         "launches": {k: v for k, v in r["launches"].items() if v}}
+            require(r["passes"] == runs["eager"]["passes"] and min(r["passes"]) > 1,
+                    "%s %s: passes of %s steps, eager %s" % (label, name, r["passes"], runs["eager"]["passes"]))
+            if g:
+                d = rec[name]["vs_eager"] = diff(r, runs["eager"])
+                if control["equal_bits"]:
+                    require(d["equal_bits"], "%s %s: the captured steps differ from the eager ones (%s) where two "
+                            "eager runs agree to the bit" % (label, name, d))
+                else:
+                    rec[name]["differs"] = "eager runs differ as well: an op that adds in no fixed order"
+                    require(d["loss_rel_diff"] <= GRAPH_LOSS_RTOL and d["param_max_abs_diff"] <= GRAPH_ATOL,
+                            "%s %s: the captured steps are %s from the eager ones" % (label, name, d))
+        dev_ms, kernels = device(True, 1, runs["graph_u1"]["passes"])
+        rec.update(device_ms_per_step=dev_ms, kernels_per_step=kernels)
+        for name, g, u in configs:
+            rec[name]["idle_share"] = 1.0 - dev_ms / rec[name]["ms_per_step_past_first"]
+            if g:
+                rec[name]["kernels_per_replay"] = kernels * u
     finally:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved[0])
@@ -2285,7 +2466,7 @@ def main() -> int:
     emit({"phase": "train_plain_path", **kernel_vs_plain_steps(
         torch, trainer, draws, [(k2, "plan_spmm", k2.plan_spmm_reference)])})
     # phase 32 on the north star: the trained state, epoch 3's draws
-    graph_checks = []
+    graph_checks, custom_checks = [], []
     graph_checks.append(graph_vs_eager(
         torch, "northstar", trainer, EpochDraws(*(a[:GRAPH_NORTHSTAR_STEPS] for a in draws)), GRAPH_UNROLLS,
         ("plan_spmm", "plan_spmm_t", tmodel.n_layers), timing=True))
@@ -2528,6 +2709,8 @@ def main() -> int:
             graph_checks.append(graph_vs_eager(torch, name.lower(), trainer_z,
                                                graph_draws(torch, trainer_z, GRAPH_ZOO_STEPS, SEED),
                                                GRAPH_ZOO_UNROLLS))
+        elif name in GRAPH_CUSTOM_MODELS and name not in {c["model"] for c in custom_checks}:
+            custom_checks.append(custom_graph_check(torch, name.lower(), trainer_z))
         return trainer_z, {"model": name, "data_kind": kind, "steps": steps, "epochs": len(losses),
                            "steps_per_epoch": trainer_z.steps, "batch_size": trainer_z.model.batch_size,
                            "loss": losses[-1] if losses else None, "epoch_losses": losses, "train_s": train_z_s,
@@ -2779,6 +2962,8 @@ def main() -> int:
         if model_g.data_kind in BUILT_IN_KINDS:
             graph_checks.append(graph_vs_eager(torch, key, trainer_g, graph_draws(torch, trainer_g, GRAPH_ZOO_STEPS,
                                                                                   SEED), GRAPH_ZOO_UNROLLS))
+        else:
+            custom_checks.append(custom_graph_check(torch, key, trainer_g))
         _build.reset_launches()
         result_g, eval_g_s = zoo_eval(trainer_g, trainer_g.params)
         paths[key] = dict(_build.LAUNCHES)
@@ -2899,6 +3084,8 @@ def main() -> int:
         if model_h.data_kind in BUILT_IN_KINDS:
             graph_checks.append(graph_vs_eager(torch, key, trainer_h, graph_draws(torch, trainer_h, GRAPH_ZOO_STEPS,
                                                                                   SEED), GRAPH_ZOO_UNROLLS))
+        else:
+            custom_checks.append(custom_graph_check(torch, key, trainer_h))
         _build.reset_launches()
         result_h, eval_h_s = zoo_eval(trainer_h, trainer_h.params)
         paths[key] = dict(_build.LAUNCHES)
@@ -3521,6 +3708,22 @@ def main() -> int:
           "card": smi})
     require(len(graph_models) == GRAPH_MODELS, "phase 32 checked %d built-in-epoch models: %s"
             % (len(graph_models), graph_models))
+
+    # -- 33. graph_custom: the custom epochs' steps as CUDA-graph replays -------
+    # (each check ran beside its path's trainer: the graph_custom_check lines above)
+    custom_models = sorted(c["model"] for c in custom_checks)
+    modes = ("eager",) + tuple("graph_u%d" % u for u in GRAPH_CUSTOM_UNROLLS)
+    emit({"phase": "graph_custom", "checks": len(custom_checks), "models": custom_models,
+          "equal_bits": {c["path"]: all(c[k]["vs_eager"]["equal_bits"] for k in modes[1:]) for c in custom_checks},
+          "eager_runs_equal_bits": {c["path"]: c["eager_vs_eager"]["equal_bits"] for c in custom_checks},
+          "seconds": sum(c["seconds"] for c in custom_checks),
+          "ms_per_step_past_first": {c["path"]: {k: c[k]["ms_per_step_past_first"] for k in modes}
+                                     for c in custom_checks},
+          "device_ms_per_step": {c["path"]: c["device_ms_per_step"] for c in custom_checks},
+          "idle_share": {c["path"]: {k: c[k]["idle_share"] for k in modes} for c in custom_checks},
+          "card": smi})
+    require(custom_models == sorted(GRAPH_CUSTOM_MODELS), "phase 33 checked the custom epochs of %s, not %s"
+            % (custom_models, sorted(GRAPH_CUSTOM_MODELS)))
 
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)

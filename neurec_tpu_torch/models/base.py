@@ -38,6 +38,7 @@ from typing import Dict, Optional, Type
 
 import torch
 
+from neurec_tpu_torch import step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.parallel import tables
 
@@ -76,6 +77,15 @@ class Recommender:
     # ``split_draw``). A model whose loss has no such form sets it False
     # and its step runs whole on every rank.
     dp_split: bool = True
+
+    def take_steps(self, trainer, steps) -> torch.Tensor:
+        """A custom epoch's run of steps (``step_graph.Steps``): through
+        ``trainer`` (``Trainer.take_steps``: CUDA-graph replays where it
+        captures, the loss total summed over 'data' on a split run), or
+        eagerly without one. Returns the summed step losses."""
+        if trainer is None:
+            return step_graph.take_steps(steps, self.device)
+        return trainer.take_steps(steps)
 
     def on_mesh(self, mesh) -> None:
         """Hook: the Trainer announces its mesh before the first step.

@@ -16,8 +16,10 @@ CFGAN.py:30-193):
 * userBased or itemBased (the transposed matrix) mode.
 
 G and D have their own optimizers (``init_opt_state``: ``{"g", "d"}``,
-Adam or SGD at lr_G / lr_D). The masks and permutations come from the
-epoch's generator. ``eval_dense_scores`` exists only in itemBased mode,
+Adam or SGD at lr_G / lr_D). The permutations and a seed a step come from
+the epoch's generator, a step's masks from a generator of its own; on a
+CUDA device each sub-epoch's steps are CUDA-graph replays
+(``sub_epoch_steps``). ``eval_dense_scores`` exists only in itemBased mode,
 where ``predict`` runs the generator over the whole catalogue for any
 batch.
 
@@ -42,7 +44,8 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.general.ae_common import DenseRowMixin
 from neurec_tpu_torch.ops.initializers import glorot_uniform
 from neurec_tpu_torch.ops.losses import l2_loss
-from neurec_tpu_torch.parallel.mesh import batch_split, split_mean, whole_term
+from neurec_tpu_torch.parallel.mesh import split_mean, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -150,31 +153,38 @@ class CFGAN(Recommender):
         zr_loss = split_mean(torch.mean(torch.sum(torch.square(fake) * zr, dim=1)))
         return adv + whole_term(self.reg_G * l2_loss(*_leaves(gen))) + self.ZR_coefficient * zr_loss
 
-    def _sub_epochs(self, params, opt, generator, loss_fn, side, B, n_reps, max_steps, trainer=None):
-        """``n_reps`` sub-epochs of ``loss_fn``, whose gradient reaches
-        ``params[side]`` only: the last one's mean step loss."""
+    def sub_epoch_steps(self, params, opt, generator, loss_name, side, B, max_steps=None, trainer=None) -> Steps:
+        """One sub-epoch's steps (``step_graph.Steps``) of the loss method
+        ``loss_name`` ("d_loss" or "g_loss"), whose gradient reaches
+        ``params[side]`` only: the permutation and a seed a step drawn from
+        ``generator`` here; a step reads its rows at the cursor and draws
+        its masks from its own generator."""
         steps = max(self._n_rows // B, 1)
-        if max_steps is not None:
-            steps = min(steps, max_steps)
+        n_run = steps if max_steps is None else min(steps, max_steps)
+        perm = self._perm(generator, n_run, B)
+        seeds = step_seeds(generator, steps)[:n_run]
         split = None if trainer is None else trainer.dp_split_for(B)
-        loss = torch.zeros((), device=self.device)
-        for _ in range(n_reps):
-            total = torch.zeros((), device=self.device)
-            for idx in self._perm(generator, steps, B):
+
+        def make(cursor, total):
+            def step(gen):
+                idx = at(cursor, perm)
                 if split is not None:  # this rank's rows of the step
                     idx = trainer.dp_constrain(idx)
-                opt.zero_grad(set_to_none=True)
-                with batch_split(split):
-                    step_loss = loss_fn(params, idx, generator)
-                    step_loss.backward()
-                if trainer is not None:
-                    # the other player's leaves take no gradient of this loss
-                    trainer.dp_sync_grads(params[side], split)
-                opt.step()
-                total += step_loss.detach()
-            if trainer is not None:
-                total = trainer.dp_loss_total(total, split)
-            loss = total / steps
+                # the other player's leaves take no gradient of this loss
+                train_step(lambda: getattr(self, loss_name)(params, idx, gen), opt, cursor, total, trainer,
+                                split, params[side])
+            return step
+
+        return Steps(make, n_run, seeds, opt, split)
+
+    def _sub_epochs(self, params, opt, generator, loss_name, side, B, n_reps, max_steps, trainer=None):
+        """``n_reps`` sub-epochs (``sub_epoch_steps``), each one run of
+        steps, CUDA-graph replays where the trainer captures: the last one's
+        mean step loss."""
+        loss = torch.zeros((), device=self.device)
+        for _ in range(n_reps):
+            steps = self.sub_epoch_steps(params, opt, generator, loss_name, side, B, max_steps, trainer)
+            loss = self.take_steps(trainer, steps) / steps.n
         return loss
 
     def run_epoch(self, params, opt_state, generator, max_steps=None, trainer=None):
@@ -182,9 +192,9 @@ class CFGAN(Recommender):
         generator ones; the loss is the last generator sub-epoch's mean.
         With a ``trainer`` on a mesh each step is split over 'data'
         (``Trainer.dp_split_for``)."""
-        self._sub_epochs(params, opt_state["d"], generator, self.d_loss, "dis", self.batchSize_D, self.step_D,
+        self._sub_epochs(params, opt_state["d"], generator, "d_loss", "dis", self.batchSize_D, self.step_D,
                          max_steps, trainer)
-        g_loss = self._sub_epochs(params, opt_state["g"], generator, self.g_loss, "gen", self.batchSize_G,
+        g_loss = self._sub_epochs(params, opt_state["g"], generator, "g_loss", "gen", self.batchSize_G,
                                   self.step_G, max_steps, trainer)
         return params, opt_state, g_loss
 

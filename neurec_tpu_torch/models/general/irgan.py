@@ -18,9 +18,12 @@ IRGAN.py:15-250):
   reward 2 (sigmoid(D) - 0.5) prob / pn, an SGD step per user;
 * the evaluation uses G's factors (K1 at factors_num + 1, the bias folded in).
 
-Every draw (the D pass's negatives and permutation, the G pass's samples)
-comes from the epoch's generator: the same distributions as the JAX
-package's, not its draws. The softmax samples take ``torch.multinomial``.
+The D pass's negatives and permutation and a seed for each G step come
+from the epoch's generator, a G step's samples from a generator of its
+own: the same distributions as the JAX package's, not its draws. The
+softmax samples take ``torch.multinomial``. Both passes update their
+player's leaves in place (``_sgd_step``), and on a CUDA device their steps
+are CUDA-graph replays (``d_steps``, ``g_steps``).
 
 On a mesh the D pass's steps are split over 'data' as the JAX package's
 (``irgan.py:133-134,228``): the negatives and the permutation drawn whole
@@ -42,6 +45,7 @@ from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.parallel import tables
 from neurec_tpu_torch.parallel.mesh import all_sum_many, batch_split, batch_sum
 from neurec_tpu_torch.pretrain import as_tensor, try_load
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds
 
 # users of one (users, I) softmax block of the D pass's negatives
 _NEG_CHUNK = 2048
@@ -109,17 +113,28 @@ class IRGAN(Recommender):
     def _perm(generator, n):
         return torch.randperm(n, generator=generator, device=generator.device)
 
-    def _sgd_step(self, tree, loss, split=None):
-        """tree - lr * grad(loss), a fresh leaf for each tensor; in a split
-        step the gradients summed over 'data' first."""
+    def _sgd_step(self, tree, loss, split=None) -> None:
+        """``p <- p - lr * grad(loss)`` for each leaf of ``tree``, in place
+        (the leaves stay the same tensors, as a CUDA graph needs); in a
+        split step the gradients summed over 'data' first."""
         grads = torch.autograd.grad(loss, list(tree.values()))
         if split is not None:
             grads = all_sum_many(grads, split.mesh, "data")
-        return {k: (p - self.lr * g).detach().requires_grad_(True) for (k, p), g in zip(tree.items(), grads)}
+        with torch.no_grad():
+            for p, g in zip(tree.values(), grads):
+                p.sub_(self.lr * g)
 
-    def d_pass(self, params, generator, max_steps=None, trainer=None):
-        """One discriminator sub-epoch; returns (params, mean step loss).
-        With a ``trainer`` on a mesh each step is split over 'data'
+    @staticmethod
+    def _player(tree):
+        """A player's leaves for its pass: copies that take gradients."""
+        return {k: v.detach().clone().requires_grad_(True) for k, v in tree.items()}
+
+    def d_steps(self, params, generator, max_steps=None, trainer=None):
+        """The discriminator sub-epoch's steps (``step_graph.Steps``) and the
+        discriminator's leaves they update in place: the negatives (from G's
+        softmax) and the permutation drawn from ``generator`` here, a
+        step's pairs read at the cursor; a step draws nothing. With a
+        ``trainer`` on a mesh each step is split over 'data'
         (``Trainer.dp_split_for``)."""
         users, L, I, B = self._train_users, self.L, self.num_items, self.batch_size
         nU = users.shape[0]
@@ -139,22 +154,31 @@ class IRGAN(Recommender):
         idx = torch.where(perm < N, perm, 0).reshape(steps, B)
         # tail slots alias instance 0: they weigh 0
         tail_w = (perm < N).float().reshape(steps, B)
-        dis = {k: v.detach().requires_grad_(True) for k, v in params["dis"].items()}
-        total = torch.zeros((), device=users.device)
+        dis = self._player(params["dis"])
         n_steps = steps if max_steps is None else min(steps, max_steps)
         split = None if trainer is None else trainer.dp_split_for(B)
-        for s in range(n_steps):
-            bi, bw = idx[s], tail_w[s]
-            if split is not None:  # this rank's rows of the step
-                bi, bw = trainer.dp_constrain(bi, bw)
-            u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * bw
-            with batch_split(split):
-                loss = self._d_loss(dis, u, i, lbl, w)
-            dis = self._sgd_step(dis, loss, split)
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return dict(params, dis={k: v.detach() for k, v in dis.items()}), total / n_steps
+
+        def make(cursor, total):
+            def step(gen):
+                bi, bw = at(cursor, idx, tail_w)
+                if split is not None:  # this rank's rows of the step
+                    bi, bw = trainer.dp_constrain(bi, bw)
+                u, i, lbl, w = flat_users[bi], flat_items[bi], flat_labels[bi], flat_w[bi] * bw
+                with batch_split(split):
+                    loss = self._d_loss(dis, u, i, lbl, w)
+                self._sgd_step(dis, loss, split)
+                total.add_(loss.detach())
+                cursor.add_(1)
+            return step
+
+        return Steps(make, n_steps, None, None, split), dis
+
+    def d_pass(self, params, generator, max_steps=None, trainer=None):
+        """One discriminator sub-epoch (``d_steps``); returns (params, mean
+        step loss)."""
+        steps, dis = self.d_steps(params, generator, max_steps, trainer)
+        total = self.take_steps(trainer, steps)
+        return dict(params, dis={k: v.detach() for k, v in dis.items()}), total / steps.n
 
     def _d_loss(self, dis, u, i, lbl, w):
         """The D pass's loss on the pairs (u, i) labelled ``lbl``, weighing ``w``."""
@@ -170,42 +194,61 @@ class IRGAN(Recommender):
             + torch.sum(torch.square(dis["item_bias"][i] * w)))
         return torch.sum(ce * w) + reg
 
-    def g_pass(self, params, generator, max_steps=None):
-        """One generator sub-epoch: a REINFORCE step per train user, in turn."""
+    def g_steps(self, params, generator, max_steps=None):
+        """The generator sub-epoch's steps (``step_graph.Steps``), a
+        REINFORCE step per train user in turn, and the generator's leaves
+        they update in place: a seed a step drawn from ``generator`` here,
+        a step's user read at the cursor (a (1,) index: no host read) and
+        its samples drawn from its own generator."""
         users, I = self._train_users, self.num_items
         S = 2 * self.L
-        gen = {k: v.detach().requires_grad_(True) for k, v in params["gen"].items()}
+        gen = self._player(params["gen"])
         d = {k: v.detach() for k, v in params["dis"].items()}
-        total = torch.zeros((), device=users.device)
         n_steps = users.shape[0] if max_steps is None else min(users.shape[0], max_steps)
-        for u in users[:n_steps]:
-            with torch.no_grad():
-                n_pos = torch.clamp(self._lens[u].float(), min=1.0)
-                prob = torch.softmax(self._logits(gen, u), dim=-1)
-                pn = torch.cat([(1.0 - self.sample_lambda) * prob, prob.new_zeros(1)])
-                pn = pn.index_add(0, self._rows[u], (self.sample_lambda / n_pos).expand(self._rows.shape[1]))[:I]
-                sample = self._categorical(generator, torch.log(pn + 1e-24)[None, :], S)[0]
-                samp_w = (torch.arange(S, device=users.device, dtype=torch.float32) < 2.0 * n_pos).float()
-                d_logits = (torch.sum(self._emb(d, "dis", "user_emb", u) * self._emb(d, "dis", "item_emb", sample),
-                                      dim=-1) + d["item_bias"][sample])
-                reward = 2.0 * (torch.sigmoid(d_logits) - 0.5) * prob[sample] / torch.clamp(pn[sample], min=1e-24)
-            log_sm = torch.log_softmax(self._logits(gen, u), dim=-1)
-            gan = -torch.sum(log_sm[sample] * reward * samp_w) / torch.clamp(torch.sum(samp_w), min=1.0)
-            reg = self.g_reg * 0.5 * (torch.sum(torch.square(self._emb(gen, "gen", "user_emb", u)))
-                                      + torch.sum(torch.square(self._emb(gen, "gen", "item_emb", sample)
-                                                               * samp_w[:, None]))
-                                      + torch.sum(torch.square(gen["item_bias"][sample] * samp_w)))
-            loss = gan + reg
-            gen = self._sgd_step(gen, loss)
-            total += loss.detach()
-        return dict(params, gen={k: v.detach() for k, v in gen.items()}), total / n_steps
+        seeds = step_seeds(generator, users.shape[0])[:n_steps]
+        slots = torch.arange(S, device=users.device, dtype=torch.float32)
+
+        def make(cursor, total):
+            def step(g):
+                u = users.index_select(0, cursor)                                  # (1,)
+                rows_u = self._rows.index_select(0, u)[0]                          # (L,)
+                with torch.no_grad():
+                    n_pos = torch.clamp(self._lens.index_select(0, u)[0].float(), min=1.0)
+                    prob = torch.softmax(self._logits(gen, u)[0], dim=-1)
+                    pn = torch.cat([(1.0 - self.sample_lambda) * prob, prob.new_zeros(1)])
+                    pn = pn.index_add(0, rows_u, (self.sample_lambda / n_pos).expand(rows_u.shape[0]))[:I]
+                    sample = self._categorical(g, torch.log(pn + 1e-24)[None, :], S)[0]
+                    samp_w = (slots < 2.0 * n_pos).float()
+                    d_logits = (torch.sum(self._emb(d, "dis", "user_emb", u) * self._emb(d, "dis", "item_emb", sample),
+                                          dim=-1) + d["item_bias"][sample])
+                    reward = 2.0 * (torch.sigmoid(d_logits) - 0.5) * prob[sample] / torch.clamp(pn[sample], min=1e-24)
+                log_sm = torch.log_softmax(self._logits(gen, u)[0], dim=-1)
+                gan = -torch.sum(log_sm[sample] * reward * samp_w) / torch.clamp(torch.sum(samp_w), min=1.0)
+                reg = self.g_reg * 0.5 * (torch.sum(torch.square(self._emb(gen, "gen", "user_emb", u)))
+                                          + torch.sum(torch.square(self._emb(gen, "gen", "item_emb", sample)
+                                                                   * samp_w[:, None]))
+                                          + torch.sum(torch.square(gen["item_bias"][sample] * samp_w)))
+                loss = gan + reg
+                self._sgd_step(gen, loss)
+                total.add_(loss.detach())
+                cursor.add_(1)
+            return step
+
+        return Steps(make, n_steps, seeds), gen
+
+    def g_pass(self, params, generator, max_steps=None, trainer=None):
+        """One generator sub-epoch (``g_steps``); returns (params, mean step
+        loss). It runs whole on every rank of a mesh, as the JAX package's."""
+        steps, gen = self.g_steps(params, generator, max_steps)
+        total = self.take_steps(trainer, steps)
+        return dict(params, gen={k: v.detach() for k, v in gen.items()}), total / steps.n
 
     def run_epoch(self, params, generator, max_steps=None, trainer=None):
         loss = torch.zeros((), device=self.device)
         for _ in range(self.d_epoch):
             params, loss = self.d_pass(params, generator, max_steps, trainer)
         for _ in range(self.g_epoch):
-            params, loss = self.g_pass(params, generator, max_steps)
+            params, loss = self.g_pass(params, generator, max_steps, trainer)
         return params, loss
 
     def build_epoch(self, trainer):

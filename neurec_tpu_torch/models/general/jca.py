@@ -12,7 +12,9 @@ JCA.py:25-215):
   negative cells drawn in the same row of the block, + reg/4 * sum of the
   squared weights and biases;
 * one epoch walks the whole grid of random user blocks x item blocks
-  (JCA.py:128-160), row block major.
+  (JCA.py:128-160), row block major; each step's negative columns come
+  from a generator of its own, seeded from the epoch's table of seeds. On a
+  CUDA device the steps are CUDA-graph replays (``grid_steps``).
 
 The JAX package's documented deviation is kept: the negative columns are
 drawn uniformly in the block (the reference draws without replacement
@@ -41,7 +43,8 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, chunks, register
 from neurec_tpu_torch.ops.activations import activation_function
 from neurec_tpu_torch.ops.initializers import get_initializer
-from neurec_tpu_torch.parallel.mesh import batch_split, split_draw, whole_term
+from neurec_tpu_torch.parallel.mesh import split_draw, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 
 # elements of one (items, U) chunk of the item decoder in predict: 256 MB of f32
 _TRANSIENT = 1 << 26
@@ -133,38 +136,48 @@ class JCA(Recommender):
         nU, nI = -(-U // B), -(-I // B)
         rperm = torch.randperm(nU * B, generator=generator, device=generator.device)
         cperm = torch.randperm(nI * B, generator=generator, device=generator.device)
-        seeds = torch.randint(0, 2**62, (nU * nI,), generator=generator, device=generator.device).cpu()
+        seeds = step_seeds(generator, nU * nI)
         return GridDraws(torch.where(rperm < U, rperm, 0).reshape(nU, B), (rperm < U).float().reshape(nU, B),
                          torch.where(cperm < I, cperm, 0).reshape(nI, B), (cperm < I).float().reshape(nI, B),
                          seeds)
 
-    def run_epoch(self, params, opt_state, draws: GridDraws, max_steps=None, trainer=None):
-        """Every (row block, column block) pair, row block major; returns
-        ``(params, opt_state, summed step losses)``. With a ``trainer`` on
-        a mesh each step's row block is split over 'data'
-        (``Trainer.dp_split_for``)."""
+    def grid_steps(self, params, opt_state, draws: GridDraws, max_steps=None, trainer=None) -> Steps:
+        """The grid's steps (``step_graph.Steps``), every (row block, column
+        block) pair, row block major: step ``s`` reads its two block indices
+        at the cursor from an (nU * nI, 2) device table and draws its
+        negative columns from its own generator, seeded with
+        ``draws.seeds[s]``. With a ``trainer`` on a mesh each step's row
+        block is split over 'data' (``Trainer.dp_split_for``)."""
         nU, nI = draws.rows.shape[0], draws.cols.shape[0]
         B = draws.rows.shape[1]
+        dev = draws.rows.device
+        n_run = nU * nI if max_steps is None else min(max_steps, nU * nI)
+        blocks = torch.stack([torch.arange(nU, device=dev).repeat_interleave(nI),
+                              torch.arange(nI, device=dev).repeat(nU)], dim=1)
         split = None if trainer is None else trainer.dp_split_for(B)
-        total = torch.zeros((), device=draws.rows.device)
-        step_gen = torch.Generator(device=draws.rows.device)
-        for s in range(nU * nI if max_steps is None else min(max_steps, nU * nI)):
-            ri, ci = divmod(s, nI)
-            rows, row_w = draws.rows[ri], draws.row_w[ri]
-            if split is not None:  # this rank's rows of the row block
-                rows, row_w = trainer.dp_constrain(rows, row_w)
-            opt_state.zero_grad(set_to_none=True)
-            with batch_split(split):
-                neg_cols = self._neg_cols(step_gen.manual_seed(int(draws.seeds[s])), rows.shape[0], B)
-                loss = self.step_loss(params, rows, row_w, draws.cols[ci], draws.col_w[ci], neg_cols)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt_state.step()
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt_state, total
+
+        def make(cursor, total):
+            def step(gen):
+                ri, ci = at(cursor, blocks).split(1)
+                rows, row_w = draws.rows.index_select(0, ri)[0], draws.row_w.index_select(0, ri)[0]
+                cols, col_w = draws.cols.index_select(0, ci)[0], draws.col_w.index_select(0, ci)[0]
+                if split is not None:  # this rank's rows of the row block
+                    rows, row_w = trainer.dp_constrain(rows, row_w)
+
+                def loss():
+                    neg_cols = self._neg_cols(gen, rows.shape[0], B)
+                    return self.step_loss(params, rows, row_w, cols, col_w, neg_cols)
+
+                train_step(loss, opt_state, cursor, total, trainer, split, params)
+            return step
+
+        return Steps(make, n_run, draws.seeds[:n_run], opt_state, split)
+
+    def run_epoch(self, params, opt_state, draws: GridDraws, max_steps=None, trainer=None):
+        """The grid's steps (``grid_steps``): ``(params, opt_state, summed
+        step losses)``; CUDA-graph replays where the trainer captures."""
+        return params, opt_state, self.take_steps(trainer, self.grid_steps(params, opt_state, draws, max_steps,
+                                                                           trainer))
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

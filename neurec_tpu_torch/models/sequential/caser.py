@@ -19,8 +19,9 @@ recommender/Caser.py:40-209):
   (Caser.py:122), ``(z, P_u) . item_emb``: K1 at 2 x factors_num.
 
 The convolutions are einsums over the (B, L, d) window, as in the JAX
-package. A custom epoch: ``_perm``, then each step ``_negatives`` and the
-dropout mask (``_bernoulli``). On a mesh each step is split over 'data' as
+package. A custom epoch: ``_perm`` and a seed a step, then each step
+``_negatives`` and the dropout mask (``_bernoulli``) from its own generator;
+on a CUDA device the steps are CUDA-graph replays (``epoch_steps``). On a mesh each step is split over 'data' as
 the JAX package's (``caser.py:167-173``): the negatives drawn for the whole
 batch and cut to this rank's rows, the dropout mask likewise
 (``split_draw``), the means' weight counts the whole batch's
@@ -40,7 +41,8 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.initializers import glorot_uniform
-from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, whole_term
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -144,31 +146,36 @@ class Caser(SeqDraws, Recommender):
                                                  for k in ("user_emb", "seq_item_emb", "item_emb", "item_bias")))
         return pos_loss + neg_loss + reg
 
-    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
-        """One epoch: ``(params, opt, mean step loss)``; ``max_steps`` cuts
-        it to its first steps. With a ``trainer`` on a mesh each step is
-        split over 'data' (``Trainer.dp_split_for``)."""
+    def epoch_steps(self, params, opt, generator, max_steps=None, trainer=None) -> Steps:
+        """One epoch's steps (``step_graph.Steps``): the slots and a seed a
+        step drawn from ``generator`` here; a step reads its slots at the
+        cursor and draws its negatives and dropout mask from its own
+        generator. ``max_steps`` cuts it to its first steps. With a
+        ``trainer`` on a mesh each step is split over 'data'
+        (``Trainer.dp_split_for``)."""
         idx, w = self._epoch_slots(generator, int(self._users.shape[0]))
         n_run = idx.shape[0] if max_steps is None else min(idx.shape[0], max_steps)
+        seeds = step_seeds(generator, idx.shape[0])[:n_run]
         split = None if trainer is None else trainer.dp_split_for(idx.shape[1])
-        total = torch.zeros((), device=self.device)
-        for s in range(n_run):
-            negs = self._negatives(generator, self._padded_items[self._users[idx[s]]], self.neg_samples)
-            idx_s, w_s = idx[s], w[s]
-            if split is not None:  # this rank's rows of the step
-                idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
-            opt.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss = self.caser_loss(params, self._users[idx_s], self._seqs[idx_s], self._poss[idx_s], negs, w_s,
-                                       generator)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt.step()
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt, total / n_run
+
+        def make(cursor, total):
+            def step(gen):
+                idx_s, w_s = at(cursor, idx, w)
+                negs = self._negatives(gen, self._padded_items[self._users[idx_s]], self.neg_samples)
+                if split is not None:  # this rank's rows of the step
+                    idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
+                train_step(lambda: self.caser_loss(params, self._users[idx_s], self._seqs[idx_s],
+                                                        self._poss[idx_s], negs, w_s, gen),
+                                opt, cursor, total, trainer, split, params)
+            return step
+
+        return Steps(make, n_run, seeds, opt, split)
+
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
+        """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;
+        its steps CUDA-graph replays where the trainer captures."""
+        steps = self.epoch_steps(params, opt, generator, max_steps, trainer)
+        return params, opt, self.take_steps(trainer, steps) / max(steps.n, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

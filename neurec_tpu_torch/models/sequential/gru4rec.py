@@ -11,7 +11,10 @@ recommender/GRU4Rec.py:20-250):
   scatter (``_build_schedule``); its length is pinned up front to the
   list-scheduling bound (``_pin_sched_len``), so an epoch ends in pad steps
   where no entry is valid. A pad step is a true no-op: no forward, no
-  optimizer step (the JAX package's ``lax.cond``);
+  optimizer step (the JAX package's ``lax.cond``). The live steps are the
+  schedule's first ones (``live_prefix``), and only they are steps: on a
+  CUDA device, CUDA-graph replays with the GRU states carried in static
+  buffers (``schedule_steps``);
 * stacked tf-style GRU cells (gate bias 1.0, candidate act ``hidden_act``)
   written out as ``_gru_step``: the reset gate scales the state BEFORE the
   candidate's product, ``c = act([x, r * h] W_cand + b_cand)``, which is not
@@ -25,8 +28,9 @@ recommender/GRU4Rec.py:20-250):
   last layer's width + 1); the factorized form exists only with
   ``final_act=linear``.
 
-The epoch's draws are its session order (``_session_order``) and, in
-GRU4RecPlus, each step's extra negatives (``_extra_negatives``).
+The epoch's draws are its session order (``_session_order``) and a seed a
+step, and, in GRU4RecPlus, each step's extra negatives
+(``_extra_negatives``) from the step's own generator.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.initializers import get_initializer, glorot_uniform
 from neurec_tpu_torch.ops.losses import l2_loss, log_loss
-from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, current_split, slice_rows, whole_term
+from neurec_tpu_torch.parallel.mesh import batch_sum, current_split, slice_rows, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -63,6 +68,16 @@ def _gru_step(params: dict, act, x, h):
     r, u = torch.split(gates, h.shape[-1], dim=-1)
     c = act(torch.cat([x, r * h], dim=-1) @ params["w_cand"] + params["b_cand"])
     return u * h + (1.0 - u) * c
+
+
+def live_prefix(valids: np.ndarray) -> int:
+    """The steps of a schedule's (steps, B) ``valids`` before its first step
+    without a valid entry; the steps after it must have none."""
+    live = valids.any(axis=1)
+    n = int(np.argmin(live)) if not live.all() else len(live)
+    if live[n:].any():
+        raise ValueError("a schedule step without a valid entry comes before a live one")
+    return n
 
 
 @register("GRU4Rec")
@@ -239,40 +254,57 @@ class GRU4Rec(SeqDraws, Recommender):
                           + whole_term(l2_loss(items_bias * valid_cols)))
         return loss + reg, new_states
 
-    def run_schedule(self, params, opt, ins, outs, resets, valids, generator, max_steps=None, trainer=None):
-        """The steps of a schedule, ``(params, opt, loss)``: the sum of the
-        losses over the number of steps with a valid entry. A step without
-        one (a pad step) is skipped whole: it changes nothing. With a
-        ``trainer`` on a mesh the streams split over 'data': each rank
-        carries its streams' states and computes their rows."""
+    def schedule_steps(self, params, opt, ins, outs, resets, valids, generator, max_steps=None,
+                       trainer=None) -> Steps:
+        """The steps of a schedule (``step_graph.Steps``): its steps with a
+        valid entry, which are its first ones (every stream runs from step
+        0 without a gap, so the last stream to finish is busy at every step
+        before the end: the pad steps are the tail); a pad step is no step
+        at all, as the JAX package's ``lax.cond`` makes it one. A seed a
+        step of the schedule is drawn from ``generator`` here; a step reads
+        its streams at the cursor, resets and carries the GRU states in
+        static buffers, and draws GRU4RecPlus's extra negatives from its own
+        generator. With a ``trainer`` on a mesh the streams split over
+        'data': each rank carries its streams' states and computes their
+        rows."""
         B = self.batch_size
         n_run = ins.shape[0] if max_steps is None else min(ins.shape[0], max_steps)
-        live = valids[:n_run].any(axis=1)
+        n_live = live_prefix(valids[:n_run])
         dev = self.device
-        ins_d, outs_d = (torch.from_numpy(a[:n_run]).long().to(dev) for a in (ins, outs))
-        resets_d, valids_d = (torch.from_numpy(a[:n_run].astype(np.float32)).to(dev) for a in (resets, valids))
+        ins_d, outs_d = (torch.from_numpy(a[:n_live]).long().to(dev) for a in (ins, outs))
+        resets_d, valids_d = (torch.from_numpy(a[:n_live].astype(np.float32)).to(dev) for a in (resets, valids))
+        seeds = step_seeds(generator, ins.shape[0])[:n_live]
         split = None if trainer is None else trainer.dp_split_for(B)
         n_rows = B if split is None else B // split.count
         states = [torch.zeros((n_rows, n), device=dev) for n in self.layers]
-        total = torch.zeros((), device=dev)
-        for s in range(n_run):
-            if not live[s]:
-                continue
-            reset = resets_d[s] if split is None else slice_rows(resets_d[s], split.mesh)
-            states = [st * (1.0 - reset[:, None]) for st in states]
-            extra = self._extra_negatives(generator)
-            opt.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss, new_states = self.step_loss(params, states, ins_d[s], outs_d[s], valids_d[s], extra)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt.step()
-            states = [st.detach() for st in new_states]
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt, total / max(int(live.sum()), 1)
+
+        def make(cursor, total):
+            def step(gen):
+                in_s, out_s, reset, valid = at(cursor, ins_d, outs_d, resets_d, valids_d)
+                if split is not None:
+                    reset = slice_rows(reset, split.mesh)
+                carried = [st * (1.0 - reset[:, None]) for st in states]
+                extra = self._extra_negatives(gen)
+                new_states = []
+
+                def loss():
+                    loss_s, new = self.step_loss(params, carried, in_s, out_s, valid, extra)
+                    new_states.extend(new)
+                    return loss_s
+
+                train_step(loss, opt, cursor, total, trainer, split, params)
+                for st, new in zip(states, new_states):
+                    st.copy_(new.detach())
+            return step
+
+        return Steps(make, n_live, seeds, opt, split)
+
+    def run_schedule(self, params, opt, ins, outs, resets, valids, generator, max_steps=None, trainer=None):
+        """The steps of a schedule (``schedule_steps``), ``(params, opt,
+        loss)``: the sum of the losses over the number of steps with a valid
+        entry; CUDA-graph replays where the trainer captures."""
+        steps = self.schedule_steps(params, opt, ins, outs, resets, valids, generator, max_steps, trainer)
+        return params, opt, self.take_steps(trainer, steps) / max(steps.n, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

@@ -17,9 +17,10 @@ recommender/SASRec.py:268-443):
   factorized for the evaluator (K1 at hidden_units).
 
 A custom epoch (``build_epoch``): a permutation of ``steps * B`` user
-slots (``_perm``), then each step its negatives (``_negatives``) and its
-dropout masks (``_bernoulli``, in the order the encoder applies them), all
-from the epoch's generator.
+slots (``_perm``) and a seed a step from the epoch's generator, then each
+step its negatives (``_negatives``) and its dropout masks (``_bernoulli``,
+in the order the encoder applies them) from its own generator; on a CUDA
+device the steps are CUDA-graph replays (``epoch_steps``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
 from neurec_tpu_torch.ops.attention import feedforward, init_dense, init_layer_norm, layer_norm, multihead_attention
 from neurec_tpu_torch.ops.initializers import glorot_uniform
-from neurec_tpu_torch.parallel.mesh import batch_split, batch_sum, whole_term
+from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -126,33 +128,37 @@ class SASRec(SeqDraws, Recommender):
                                                           + torch.sum(torch.square(params["pos_emb"]))))
         return loss
 
-    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
-        """One epoch: ``(params, opt, mean step loss)``; ``max_steps`` cuts
-        it to its first steps. With a ``trainer`` on a mesh each step is
-        split over 'data' as the JAX package's (``sasrec.py:180-185``): the
-        negatives drawn for the whole batch, then this rank's rows of the
-        slots, weights and negatives (``Trainer.dp_constrain``)."""
+    def epoch_steps(self, params, opt, generator, max_steps=None, trainer=None) -> Steps:
+        """One epoch's steps (``step_graph.Steps``): the slots and a seed a
+        step drawn from ``generator`` here; a step reads its slots at the
+        cursor and draws its negatives and dropout masks from its own
+        generator. ``max_steps`` cuts it to its first steps. With a
+        ``trainer`` on a mesh each step is split over 'data' as the JAX
+        package's (``sasrec.py:180-185``): the negatives drawn for the
+        whole batch, then this rank's rows of the slots, weights and
+        negatives (``Trainer.dp_constrain``)."""
         idx, w = self._epoch_slots(generator, int(self._train_users.shape[0]))
         n_run = idx.shape[0] if max_steps is None else min(idx.shape[0], max_steps)
+        seeds = step_seeds(generator, idx.shape[0])[:n_run]
         split = None if trainer is None else trainer.dp_split_for(idx.shape[1])
-        total = torch.zeros((), device=self.device)
-        for s in range(n_run):
-            users = self._train_users[idx[s]]
-            negs = self._negatives(generator, self._padded_items[users], self.max_len)
-            idx_s, w_s = idx[s], w[s]
-            if split is not None:
-                idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
-            opt.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss = self.seq_loss(params, self._seq[idx_s], self._pos[idx_s], negs, w_s, generator)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt.step()
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt, total / n_run
+
+        def make(cursor, total):
+            def step(gen):
+                idx_s, w_s = at(cursor, idx, w)
+                negs = self._negatives(gen, self._padded_items[self._train_users[idx_s]], self.max_len)
+                if split is not None:
+                    idx_s, w_s, negs = trainer.dp_constrain(idx_s, w_s, negs)
+                train_step(lambda: self.seq_loss(params, self._seq[idx_s], self._pos[idx_s], negs, w_s, gen),
+                                opt, cursor, total, trainer, split, params)
+            return step
+
+        return Steps(make, n_run, seeds, opt, split)
+
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
+        """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;
+        its steps CUDA-graph replays where the trainer captures."""
+        steps = self.epoch_steps(params, opt, generator, max_steps, trainer)
+        return params, opt, self.take_steps(trainer, steps) / max(steps.n, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

@@ -21,7 +21,9 @@ recommender/SRGNN.py:20-236):
   batch_size`` steps (SRGNN.py:138-143).
 
 A custom epoch: one permutation of the instances (``_perm``), ``N // B``
-steps, the batch clamped to N when the data is smaller than one batch. On
+steps, the batch clamped to N when the data is smaller than one batch; on
+a CUDA device the steps are CUDA-graph replays (``epoch_steps``), the
+decayed learning rate read from a device table of the block's steps. On
 a mesh each step is split over 'data' as the JAX package's
 (``srgnn.py:217-218``): a rank builds its rows' session graphs, its mean
 cross-entropy is its share of the whole batch's (``split_mean``) and the
@@ -42,7 +44,8 @@ from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.gru4rec import _gru_step
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
-from neurec_tpu_torch.parallel.mesh import batch_split, split_mean, whole_term
+from neurec_tpu_torch.parallel.mesh import split_mean, whole_term
+from neurec_tpu_torch.step_graph import Steps, at, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
 
 
@@ -72,17 +75,37 @@ def session_graphs(seq: torch.Tensor, sess_len: torch.Tensor, num_items: int, dt
 
 class _DecayedAdam(OptaxAdam):
     """``optax.adam(optax.exponential_decay(lr, transition, rate,
-    staircase=True))``: step t (from 0) at lr * rate^(t // transition), in f32."""
+    staircase=True))``: step t (from 0) at lr * rate^(t // transition), in f32.
+    Outside ``count_steps`` the rate is a host float from the host count;
+    inside (the steps of ``take_steps``, captured or not) a 0-d device
+    tensor read at the device count from a table of the block's rates, built
+    at its first step, as ``OptaxAdam`` reads its bias corrections."""
 
     def __init__(self, params, lr: float, transition: int, rate: float):
         super().__init__(params, lr=lr)
         self.base_lr, self.transition, self.rate = lr, transition, rate
 
+    def lr_at(self, t: int) -> float:
+        """The rate of step ``t`` (from 0), an f32 value."""
+        return float(np.float32(self.base_lr) * np.float32(self.rate) ** np.float32(t // self.transition))
+
     def step(self, closure=None):
-        for group in self.param_groups:
+        count = self._count
+        for gi, group in enumerate(self.param_groups):
             state = self.state.get(group["params"][0])
-            count = int(state["step"]) if state else 0
-            group["lr"] = float(np.float32(self.base_lr) * np.float32(self.rate) ** np.float32(count // self.transition))
+            t0 = int(state["step"]) if state else 0
+            if count is None:
+                group["lr"] = self.lr_at(t0)
+                continue
+            table = count.tables.get(("lr", gi))
+            if table is None:
+                device = group["params"][0].device
+                table = torch.tensor([self.lr_at(t0 + j) for j in range(count.steps)], dtype=torch.float32,
+                                     device=device)
+                count.tables[("lr", gi)] = table
+                if count.cursor is None:
+                    count.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+            group["lr"] = table.index_select(0, count.cursor)[0]
         return super().step(closure)
 
 
@@ -183,11 +206,12 @@ class SRGNN(SeqDraws, Recommender):
         l2 = sum(0.5 * torch.sum(torch.square(p)) for _, p in param_leaves(self.whole_tree(params)))
         return split_mean(F.cross_entropy(self._forward(params, seq, sess_len), tar)) + whole_term(self.L2 * l2)
 
-    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
-        """One epoch: ``(params, opt, mean step loss)``. The reference drops
-        the last partial batch; on data smaller than one batch the batch
-        is clamped to N, so that one full batch still trains. With a
-        ``trainer`` on a mesh each step is split over 'data'
+    def epoch_steps(self, params, opt, generator, max_steps=None, trainer=None) -> Steps:
+        """One epoch's steps (``step_graph.Steps``): the permutation drawn
+        here, a step's instances read at the cursor; a step draws nothing.
+        The reference drops the last partial batch; on data smaller than
+        one batch the batch is clamped to N, so that one full batch still
+        trains. With a ``trainer`` on a mesh each step is split over 'data'
         (``Trainer.dp_split_for``)."""
         N = self._n_inst
         B = max(min(self.batch_size, N), 1)
@@ -195,20 +219,22 @@ class SRGNN(SeqDraws, Recommender):
         idx_all = self._perm(generator, N)[: steps * B].reshape(steps, B)
         n_run = steps if max_steps is None else min(steps, max_steps)
         split = None if trainer is None else trainer.dp_split_for(B)
-        total = torch.zeros((), device=self.device)
-        for s in range(n_run):
-            idx = idx_all[s] if split is None else trainer.dp_constrain(idx_all[s])
-            opt.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss = self.batch_loss(params, idx)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt.step()
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt, total / n_run
+
+        def make(cursor, total):
+            def step(gen):
+                idx = at(cursor, idx_all)
+                if split is not None:
+                    idx = trainer.dp_constrain(idx)
+                train_step(lambda: self.batch_loss(params, idx), opt, cursor, total, trainer, split, params)
+            return step
+
+        return Steps(make, n_run, None, opt, split)
+
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
+        """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;
+        its steps CUDA-graph replays where the trainer captures."""
+        steps = self.epoch_steps(params, opt, generator, max_steps, trainer)
+        return params, opt, self.take_steps(trainer, steps) / max(steps.n, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

@@ -24,9 +24,11 @@ same order as the JAX model's loops. As in the JAX package they do not go
 through the Trainer's exclusion-table budget: ``table_bytes`` says what
 they hold.
 
-A custom epoch: ``_perm``, then each step ``_social_slot`` (the raw
-``randint(0, 2**30)`` that the model reduces modulo the user's social
-count) and ``_negatives``. On a mesh each step is split over 'data' as the
+A custom epoch: ``_perm`` and a seed a step, then each step
+``_social_slot`` (the raw ``randint(0, 2**30)`` that the model reduces
+modulo the user's social count) and ``_negatives`` from the step's own
+generator; on a CUDA device the steps are CUDA-graph replays
+(``epoch_steps``, ``step_graph.py``). On a mesh each step is split over 'data' as the
 JAX package's (``sbpr.py:116,118``): the draws made for the whole batch,
 then this rank's rows of the slots, weights, social slots and negatives.
 Every term of the loss is a sum over the batch's rows.
@@ -46,7 +48,7 @@ from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss, pairwise_loss
 from neurec_tpu_torch.ops.sampling import sample_negatives
-from neurec_tpu_torch.parallel.mesh import batch_split
+from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 
 
 class SocialTables(NamedTuple):
@@ -195,11 +197,13 @@ class SBPR(Recommender):
             + self.reg_mf * l2_loss(u * w2, q2 * w2, q1 * w2, q3 * w2, b1 * w, b2 * w, b3 * w)
         )
 
-    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
-        """One epoch over the positives of the users with social items:
-        ``(params, opt, mean step loss)``; ``max_steps`` cuts it. With a
-        ``trainer`` on a mesh each step is split over 'data'
-        (``Trainer.dp_split_for``)."""
+    def epoch_steps(self, params, opt, generator, max_steps=None, trainer=None) -> Steps:
+        """One epoch's steps over the positives of the users with social
+        items (``step_graph.Steps``): the permutation and a seed a step
+        drawn from ``generator`` here; a step reads its slots at the cursor
+        and draws its social slots and negatives from its own generator.
+        ``max_steps`` cuts it. With a ``trainer`` on a mesh each step is
+        split over 'data' (``Trainer.dp_split_for``)."""
         B = self.batch_size
         N = int(self._users_flat.shape[0])
         steps = -(-N // B)
@@ -207,30 +211,32 @@ class SBPR(Recommender):
         idx = torch.where(perm < N, perm, torch.zeros_like(perm)).reshape(steps, B)
         w = (perm < N).float().reshape(steps, B)
         n_run = steps if max_steps is None else min(steps, max_steps)
+        seeds = step_seeds(generator, steps)[:n_run]
         split = None if trainer is None else trainer.dp_split_for(B)
-        total = torch.zeros((), device=self.device)
-        for s in range(n_run):
-            users = self._users_flat[idx[s]]
-            slot = self._social_slot(generator, B) % self._social_len[users]
-            negs = self._negatives(generator, self._excl_rows[users])
-            idx_s, w_s = idx[s], w[s]
-            if split is not None:  # this rank's rows of the step
-                idx_s, w_s, slot, negs = trainer.dp_constrain(idx_s, w_s, slot, negs)
+
+        def make(cursor, total):
+            def step(gen):
+                idx_s, w_s = at(cursor, idx, w)
                 users = self._users_flat[idx_s]
-            pos = self._pos_flat[idx_s]
-            soc = self._social_items[users, slot].long()
-            suk = self._social_suk[users, slot]
-            opt.zero_grad(set_to_none=True)
-            with batch_split(split):
-                loss = self.sbpr_loss(params, users, pos, soc, suk, negs, w_s)
-                loss.backward()
-            if trainer is not None:
-                trainer.dp_sync_grads(params, split)
-            opt.step()
-            total += loss.detach()
-        if trainer is not None:
-            total = trainer.dp_loss_total(total, split)
-        return params, opt, total / max(n_run, 1)
+                slot = self._social_slot(gen, B) % self._social_len[users]
+                negs = self._negatives(gen, self._excl_rows[users])
+                if split is not None:  # this rank's rows of the step
+                    idx_s, w_s, slot, negs = trainer.dp_constrain(idx_s, w_s, slot, negs)
+                    users = self._users_flat[idx_s]
+                pos = self._pos_flat[idx_s]
+                soc = self._social_items[users, slot].long()
+                suk = self._social_suk[users, slot]
+                train_step(lambda: self.sbpr_loss(params, users, pos, soc, suk, negs, w_s), opt, cursor, total,
+                                trainer, split, params)
+            return step
+
+        return Steps(make, n_run, seeds, opt, split)
+
+    def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
+        """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;
+        its steps CUDA-graph replays where the trainer captures."""
+        steps = self.epoch_steps(params, opt, generator, max_steps, trainer)
+        return params, opt, self.take_steps(trainer, steps) / max(steps.n, 1)
 
     def build_epoch(self, trainer):
         def epoch(params, opt_state, generator, epoch, max_steps=None):

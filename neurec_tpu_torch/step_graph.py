@@ -35,15 +35,30 @@ ends. A failed capture raises; nothing falls back to eager steps.
 Kernel launch counts (``ops/_build.py::LAUNCHES``): a replay calls no
 wrapper, so each graph's launches are taken while it is captured and added
 once a replay.
+
+``take_steps(Steps(make, n, seeds, opt, split), device, unroll, capture)``
+is a run of steps as an epoch holds it: a fresh device cursor and loss
+total, ``make(cursor, total)`` the step function over them, ``run_steps``
+inside ``opt``'s device count (``OptaxAdam.count_steps``), the gradients
+released at the end (a captured run's live in the graphs' pool). The
+built-in epochs (``Trainer.run_epoch``) and the custom ones (each model's
+``build_epoch``: SBPR, SASRec, Caser, SRGNN, GRU4Rec, GRU4RecPlus, JCA,
+CFGAN's sub-epochs, IRGAN's passes) take their steps through it, by
+``Trainer.take_steps``. A step reads the epoch's tensors at the cursor
+(``at``), draws from the generator it is handed, seeded from
+``step_seeds``, which the epoch's generator draws on the host before the
+steps, and ends in ``train_step``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import contextlib
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
 from neurec_tpu_torch.ops import _build
+from neurec_tpu_torch.parallel.mesh import batch_split
 
 Step = Callable[[Optional[torch.Generator]], None]
 
@@ -143,3 +158,61 @@ def run_steps(step: Step, n: int, seeds: Optional[torch.Tensor], device: torch.d
                 cuda.replay(graph)
                 _build.add_launches(launches)
                 s += count
+
+
+class Steps(NamedTuple):
+    """A run of ``n`` steps: ``make(cursor, total)`` builds the step function
+    over a (1,) int64 device cursor and a 0-d f32 device loss total; the
+    steps' ``seeds`` (n,) on the host, or None where a step draws nothing;
+    ``opt`` the optimizer they step, or None (IRGAN's SGD by hand); ``split``
+    the step's 'data' split on a mesh (``Trainer.dp_split_for``), or None."""
+
+    make: Callable[[torch.Tensor, torch.Tensor], Step]
+    n: int
+    seeds: Optional[torch.Tensor] = None
+    opt: Any = None
+    split: Any = None
+
+
+def at(cursor: torch.Tensor, *tensors: torch.Tensor):
+    """Row ``cursor`` of each tensor, read on the device (``index_select``,
+    no host sync): one tensor for one, a tuple for several."""
+    rows = tuple(t.index_select(0, cursor)[0] for t in tensors)
+    return rows[0] if len(rows) == 1 else rows
+
+
+def train_step(loss_fn: Callable[[], torch.Tensor], opt, cursor: torch.Tensor, total: torch.Tensor, trainer=None,
+               split=None, synced=None) -> torch.Tensor:
+    """The tail of a training step: ``loss_fn()`` and its backward inside
+    the step's 'data' split, the gradients of the tree ``synced`` summed
+    over 'data' (``Trainer.dp_sync_grads``; a whole step has nothing to
+    sum), ``opt``'s step; the loss is added to ``total`` and ``cursor``
+    advanced, on the device. Returns the loss."""
+    opt.zero_grad(set_to_none=True)
+    with batch_split(split):
+        loss = loss_fn()
+        loss.backward()
+    if trainer is not None:
+        trainer.dp_sync_grads(synced, split)
+    opt.step()
+    total.add_(loss.detach())
+    cursor.add_(1)
+    return loss
+
+
+def step_seeds(generator: torch.Generator, n: int) -> torch.Tensor:
+    """(n,) int64 seeds on the host, one a step, drawn from ``generator``."""
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).cpu()
+
+
+def take_steps(steps: Steps, device: torch.device, unroll: int = 1, capture: bool = False) -> torch.Tensor:
+    """Run ``steps`` (see the module's docstring): the summed step losses,
+    a 0-d f32 tensor on ``device``."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    cursor = torch.zeros(1, dtype=torch.int64, device=device)
+    count = getattr(steps.opt, "count_steps", None)
+    with count(steps.n) if count is not None else contextlib.nullcontext():
+        run_steps(steps.make(cursor, total), steps.n, steps.seeds, device, unroll, capture)
+    if steps.opt is not None:
+        steps.opt.zero_grad(set_to_none=True)
+    return total

@@ -1,10 +1,11 @@
 """The training loop (port of ``neurec_tpu/trainer.py``).
 
 The JAX package runs a whole epoch as one jitted ``lax.scan`` with
-``scan_unroll`` steps an iteration; here a built-in epoch's steps are one
-step function (``_step``) that ``step_graph.run_steps`` replays as CUDA
-graphs of ``scan_unroll`` steps on a CUDA device, and calls step by step on
-the CPU (``Trainer(graphs=False)`` and a mesh of more than one rank too).
+``scan_unroll`` steps an iteration; here an epoch's steps are one step
+function (a built-in epoch's ``_step``, a custom epoch's from its model)
+that ``step_graph.run_steps`` replays as CUDA graphs of ``scan_unroll``
+steps on a CUDA device (``take_steps``), and calls step by step on the CPU
+(``Trainer(graphs=False)`` and a mesh of more than one rank too).
 An epoch has two parts:
 
 * ``draw_epoch(generator) -> (inst, w, negs, seeds)`` holds all of the
@@ -42,7 +43,12 @@ The other epochs (``neurec_tpu/trainer.py:138-160,425-475,507``):
   ``(epoch - 1) * steps + s`` (MultiVAE's KL anneal);
 * ``custom``: the model's ``build_epoch(trainer)`` returns its epoch,
   ``epoch(params, opt_state, generator, epoch, max_steps=None) -> (params,
-  opt_state, loss)`` (WRMF's ALS, JCA's block grid, the GANs' sub-epochs);
+  opt_state, loss)`` (WRMF's ALS, JCA's block grid, the GANs' sub-epochs,
+  SBPR's, the sequential models' and GRU4Rec's schedule). Each run of its
+  steps is a ``step_graph.Steps`` that the epoch hands to ``take_steps``
+  (``Recommender.take_steps``), so it is captured as a built-in epoch's
+  is; its draws are made before the steps, a seed a step among them.
+  WRMF's epoch, one ALS solve, has no steps and runs eagerly;
 * ``none``, as ``epochs == 0``: one evaluation, no training.
 
 ``Trainer.train_epoch(epoch, max_steps)`` runs one epoch from the trainer's
@@ -123,10 +129,10 @@ from neurec_tpu_torch.ops.bloom import build_pair_bloom, is_positive_bloom, sele
 from neurec_tpu_torch.ops.sampling import sample_negatives
 from neurec_tpu_torch.parallel.distributed import is_primary_host
 from neurec_tpu_torch.parallel.mesh import (
-    BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, batch_split, shard_params, slice_rows,
+    BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, shard_params, slice_rows,
 )
 from neurec_tpu_torch.profiling import device_trace
-from neurec_tpu_torch.step_graph import run_steps
+from neurec_tpu_torch.step_graph import Steps, step_seeds, take_steps, train_step
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
 # through the pair Bloom filter
@@ -413,8 +419,8 @@ class Trainer:
         self.config = config
         self.seed = seed
         self.mesh = mesh
-        # the built-in epochs' steps as CUDA-graph replays on a CUDA device
-        # (run_epoch), ``scan_unroll`` steps a graph, read as the JAX trainer
+        # every epoch's steps as CUDA-graph replays on a CUDA device
+        # (take_steps), ``scan_unroll`` steps a graph, read as the JAX trainer
         # reads it
         self.graphs = graphs
         self.scan_unroll = max(int(config.get("scan_unroll", 1) or 1), 1)
@@ -538,8 +544,7 @@ class Trainer:
                 sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
                 for s in range(steps)
             ])
-        seeds = torch.randint(0, 2**62, (steps,), generator=generator, device=self.device).cpu()
-        return EpochDraws(inst, w, negs, seeds)
+        return EpochDraws(inst, w, negs, step_seeds(generator, steps))
 
     def _base(self, inst: torch.Tensor) -> torch.Tensor:
         return (inst if self._pairwise or self._dense_row else inst % self.n_positives).long()
@@ -572,7 +577,7 @@ class Trainer:
         the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``,
         a 0-d int64 tensor on the device.
 
-        The steps are ``_step`` driven by ``step_graph.run_steps``: on a
+        The steps are ``_step`` driven by ``take_steps``: on a
         CUDA device, replays of CUDA graphs of ``scan_unroll`` steps (the
         JAX package's jitted ``lax.scan``); eagerly on the CPU, with
         ``Trainer(graphs=False)`` and on a mesh of more than one rank
@@ -583,17 +588,25 @@ class Trainer:
         epoch's live in the graphs' memory pool."""
         steps = inst.shape[0]
         split = self.dp_split_for(inst.shape[1])
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
-        step = partial(self._step, params, opt_state, (inst, w, negs), cursor, total, split, epoch)
-        count = getattr(opt_state, "count_steps", None)
-        with count(steps) if count is not None else contextlib.nullcontext():
-            run_steps(step, steps, seeds, self.device, self.scan_unroll, capture=self._captures())
-        opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, self.dp_loss_total(total, split) / steps
+
+        def make(cursor, total):
+            return partial(self._step, params, opt_state, (inst, w, negs), cursor, total, split, epoch)
+
+        total = self.take_steps(Steps(make, steps, seeds, opt_state, split))
+        return params, opt_state, total / steps
+
+    def take_steps(self, steps: Steps) -> torch.Tensor:
+        """A run of steps (``step_graph.take_steps``) as this trainer runs
+        them: CUDA-graph replays of ``scan_unroll`` steps where it captures
+        (``_captures``), eagerly elsewhere. Returns the summed step losses,
+        over 'data' on a split run. ``run_epoch`` and the custom epochs
+        (``Recommender.take_steps``) take their steps here."""
+        total = take_steps(steps, self.device, self.scan_unroll, capture=self._captures())
+        return self.dp_loss_total(total, steps.split)
 
     def _captures(self) -> bool:
-        """Whether ``run_epoch`` runs its steps as CUDA-graph replays."""
+        """Whether ``take_steps`` runs its steps as CUDA-graph replays: on a
+        CUDA device, with ``graphs``, without a mesh of more than one rank."""
         return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
 
     def _step(self, params: Params, opt_state, xs, cursor: torch.Tensor, total: torch.Tensor,
@@ -613,14 +626,7 @@ class Trainer:
             batch["step"] = (epoch - 1) * self.steps + cursor[0]
         if generator is not None:
             batch["generator"] = generator
-        opt_state.zero_grad(set_to_none=True)
-        with batch_split(split):
-            loss = self.model.loss(params, batch, w_s)
-            loss.backward()
-        self.dp_sync_grads(params, split)
-        opt_state.step()
-        total += loss.detach()
-        cursor += 1
+        train_step(lambda: self.model.loss(params, batch, w_s), opt_state, cursor, total, self, split, params)
 
     # -- data parallelism ---------------------------------------------------
     def dp_constrain(self, *arrays):
