@@ -52,7 +52,11 @@ failure exits non-zero before the result line):
    read just after: full evaluation of every test user (twice: cold, then
    warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
    masked), plus a k-clamp request; then one evaluation on the ``pallas``
-   tier (K1's int8 mode, ``NEUREC_EVAL_PREMASK=0``), counted apart;
+   tier (K1's int8 mode, ``NEUREC_EVAL_PREMASK=0``), counted apart. Every
+   evaluation and export of every phase runs as CUDA graphs kept across
+   calls (phase 34): an evaluator's first call of a program runs eagerly
+   and captures it, later calls replay it, and each call counts a kernel's
+   launches as an eager call does;
 5. the same path through the plain versions: metrics within 1e-5 and
    top-20 ids agreeing in >= 99.9% of positions, near-ties the only
    difference;
@@ -309,7 +313,25 @@ failure exits non-zero before the result line):
    replays, summed over the passes), the captured run the device ms a step
    and the kernels a step from the profiler, and each run its idle share.
    Phase 31's runs stay eager. The summary line ``phase: graph_custom``
-   names the nine models checked.
+   names the nine models checked;
+34. ``eval_graph``: beside the north star's, path A's, path B's, path C's
+   (NeuMF), NAIS's (path D) and GRU4Rec's (path G) trainers
+   (``eval_graph_check``, an ``eval_graph_check`` line each), the trained
+   params evaluated by two fresh evaluators, ``graphs=False`` and the
+   default (``step_graph.KeptProgram``: a prologue graph, the hoisted
+   tables, and a body graph a batch), a cold and ``EVAL_GRAPH_WARM`` warm
+   calls each: ``eval_cold_s`` and ``eval_warm_s``, the device ms of a warm
+   call and the card's idle share over it (profiler), the kernels'
+   launches a call (equal in both modes), the graph launches a warm call
+   (one a batch plus the prologue; none for NAIS, eager by declaration)
+   and each program's pool bytes; the metric strings and every recorded
+   top-K id must be equal. On the north star a warm replay also runs
+   under ``torch.cuda.set_sync_debug_mode("error")``, and the phase-4
+   requests go through ``batch_topk`` both ways from an empty export cache
+   (``serving_graph_check``: ``serving_request_s``, device ms, graph
+   launches a request, pool bytes; the ids and scores equal). The summary
+   line ``phase: eval_graph`` gathers them. The captured calls' launches
+   count in the kernels line (paths ``eval_graph_*`` and ``serve_graph``).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -323,7 +345,8 @@ in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
 DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
 path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole;
 phase 31 trains 5-20 steps of each pass of one epoch, phase 33 24 of each
-pass of epoch 2.
+pass of epoch 2; phase 34 evaluates NeuMF's first 4,096 test users,
+GRU4Rec's first 2,048 and NAIS's first 128 (``EVAL_GRAPH_USERS``).
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -658,6 +681,14 @@ GRAPH_MODELS = 23
 GRAPH_CUSTOM_MODELS = ("SBPR", "SASRec", "Caser", "SRGNN", "GRU4Rec", "GRU4RecPlus", "JCA", "CFGAN", "IRGAN")
 GRAPH_CUSTOM_STEPS, GRAPH_CUSTOM_EPOCH = 24, 2
 GRAPH_CUSTOM_UNROLLS = (1, 3)
+# phase 34, eval_graph: each path's evaluation as CUDA graphs kept across
+# calls (the default) against graphs=False, on fresh evaluators: a cold
+# call (captured: eager, then the captures) and EVAL_GRAPH_WARM warm ones,
+# the metric strings and the recorded ids equal; the predict-heavy models
+# evaluate their first EVAL_GRAPH_USERS test users (the only cut)
+EVAL_GRAPH_WARM = 3
+EVAL_GRAPH_USERS = {"NeuMF": 4096, "GRU4Rec": 2048, "NAIS": 128}
+EVAL_GRAPH_PATHS = ("northstar", "pack2", "ngcf", "neumf", "gru4rec", "nais")
 
 
 class SmokeFailure(RuntimeError):
@@ -1823,6 +1854,172 @@ def custom_graph_check(torch, label, trainer):
     return rec
 
 
+def _replay_counter(step_graph):
+    """A patch of ``_CudaGraphs.replay`` that counts the graph launches in
+    a list it returns beside it."""
+    real, replays = step_graph._CudaGraphs.replay, []
+
+    def replay(graph):
+        replays.append(1)
+        real(graph)
+    return mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay)), replays
+
+
+def _device_ms(torch, fn):
+    """The summed device time of the CUDA kernels of one call of ``fn``
+    (``traced``), or None where the window kept none."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in traced(torch, fn, 1)[0].key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 if kernels else None
+
+
+def _delta(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def eval_graph_check(torch, label, trainer, paths, n_users=None, sync_check=False):
+    """Phase 34 beside a path's trainer: its evaluation by two fresh
+    evaluators, ``graphs=False`` and the default (CUDA graphs kept across
+    calls where the model allows), a cold call and ``EVAL_GRAPH_WARM`` warm
+    ones each, over all test users or the first ``n_users``. Each mode's
+    seconds a call, its kernels' launches a call, its graph launches a
+    warm call, the device ms of a warm call (profiler), the card's idle
+    share over it (1 - device ms / the warm call's median wall ms) and its
+    programs' pool bytes; the metric strings and every recorded top-K id
+    must be equal and the captured mode's kernels launched as often as the
+    eager mode's. The captured mode's launches are the path
+    ``eval_graph_<label>``. With ``sync_check`` a warm replay runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+
+    from neurec_tpu_torch import step_graph
+    from neurec_tpu_torch.eval import Evaluator
+    from neurec_tpu_torch.ops import _build
+
+    t_check = time.perf_counter()
+    saved = dict(_build.LAUNCHES)
+    model, params = trainer.model, trainer.params
+    counting, replays = _replay_counter(step_graph)
+    rec = {"phase": "eval_graph_check", "path": label, "model": model.name, "eval_graphs": model.eval_graphs}
+    runs = {}
+    try:
+        with counting:
+            for mode, graphs in (("eager", False), ("graph", True)):
+                ev = Evaluator.from_dataset(trainer.dataset, trainer.config, graphs=graphs).evaluator
+                users = None if n_users is None else ev.test_users[:n_users]
+                ev.record_ids = True
+
+                def call():
+                    return ev.evaluate(model.predict, params, users)
+
+                _build.reset_launches()
+                secs, launches, graph_launches = [], [], []
+                for _ in range(1 + EVAL_GRAPH_WARM):
+                    before, n_replays = dict(_build.LAUNCHES), len(replays)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    result = call()
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                    launches.append(_delta(_build.LAUNCHES, before))
+                    graph_launches.append(len(replays) - n_replays)
+                if graphs:
+                    paths["eval_graph_" + label] = dict(_build.LAUNCHES)
+                warm_ms = float(np.median(secs[1:])) * 1e3
+                device = _device_ms(torch, call)
+                n_batches = sum(k.batches[0].shape[0] for k in ev._kept.values())
+                runs[mode] = {"result": result, "ids": ev.last_ids.cpu(), "n_batches": n_batches}
+                rec[mode] = {"eval_cold_s": secs[0], "eval_warm_s": secs[1:], "launches_cold": launches[0],
+                             "launches_warm": launches[1], "graph_launches_per_warm_call": graph_launches[1],
+                             "device_ms": device, "idle_share": None if device is None else 1.0 - device / warm_ms,
+                             "pool_bytes": [k.program.pool_bytes for k in ev._kept.values()]}
+                if graphs and sync_check and model.eval_graphs:
+                    (kept,) = ev._kept.values()
+                    kept.args["params"] = params
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        kept.program.run(n_batches)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                        kept.args["params"] = None
+                    torch.cuda.synchronize()
+                    rec[mode]["sync_debug"] = "quiet over a warm replay"
+                del ev
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+    eager, graph = runs["eager"], runs["graph"]
+    rec.update(eval_users=int(eager["ids"].shape[0]), n_batches=eager["n_batches"], result=graph["result"],
+               equal=graph["result"] == eager["result"] and torch.equal(graph["ids"], eager["ids"]),
+               seconds=time.perf_counter() - t_check)
+    emit(rec)
+    require(rec["equal"], "%s: the captured evaluation differs from the eager one" % label)
+    require(rec["graph"]["launches_warm"] == rec["eager"]["launches_warm"] == rec["eager"]["launches_cold"]
+            == rec["graph"]["launches_cold"], "%s: kernel launches a call differ: %s" % (label, rec))
+    want = eager["n_batches"] + 1 if model.eval_graphs else 0
+    require(rec["graph"]["graph_launches_per_warm_call"] == want and rec["eager"]["graph_launches_per_warm_call"] == 0,
+            "%s: %d graph launches a warm call, expected %d" % (label, rec["graph"]["graph_launches_per_warm_call"],
+                                                               want))
+    return rec
+
+
+def serving_graph_check(torch, model, params, requests, train_matrix, paths):
+    """Phase 34's serving: the phase-4 requests through ``batch_topk``
+    with ``graphs=False`` and by default (the export captured per request
+    size and kept per model), from an empty cache: seconds a request (the
+    first cold), device ms of a warm request, graph launches a warm
+    request, pool bytes a program; the ids and scores equal. The captured
+    mode's launches are the path ``serve_graph``."""
+    import numpy as np
+
+    from neurec_tpu_torch import recommend, step_graph
+    from neurec_tpu_torch.ops import _build
+    from neurec_tpu_torch.recommend import batch_topk
+
+    saved = dict(_build.LAUNCHES)
+    counting, replays = _replay_counter(step_graph)
+    rec, outs = {"phase": "serving_graph_check", "requests": len(requests), "users_per_request": SERVING_USERS,
+                 "k": SERVING_K}, {}
+    try:
+        with counting:
+            for mode, graphs in (("eager", False), ("graph", True)):
+                for key in [k for k in recommend._EXPORT_CACHE if k[0] == id(model)]:
+                    recommend._release(key)
+
+                def serve(req):
+                    return batch_topk(model, params, SERVING_K, users=req, train_matrix=train_matrix,
+                                      batch_size=SERVING_USERS, graphs=graphs)
+
+                _build.reset_launches()
+                secs, out, graph_launches = [], [], []
+                for req in requests:
+                    n_replays = len(replays)
+                    t = time.perf_counter()
+                    out.append(serve(req))
+                    secs.append(time.perf_counter() - t)
+                    graph_launches.append(len(replays) - n_replays)
+                if graphs:
+                    paths["serve_graph"] = dict(_build.LAUNCHES)
+                warm_ms = float(np.median(secs[1:])) * 1e3
+                device = _device_ms(torch, lambda: serve(requests[-1]))
+                exports = [e for k, e in recommend._EXPORT_CACHE.items() if k[0] == id(model)]
+                outs[mode] = out
+                rec[mode] = {"serving_request_s": secs, "graph_launches_per_request": graph_launches,
+                             "device_ms": device, "idle_share": None if device is None else 1.0 - device / warm_ms,
+                             "programs": len(exports), "pool_bytes": [e.program.pool_bytes for e in exports]}
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+    rec["equal"] = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                       for a, b in zip(outs["eager"], outs["graph"]))
+    emit(rec)
+    require(rec["equal"], "serving: the captured export differs from the eager one")
+    return rec
+
+
 def step_ms(torch, trainer, draws):
     """CUDA-event time of one training step (forward, backward, Adam)."""
     params_c, opt_c = clone_state(trainer)
@@ -2470,6 +2667,9 @@ def main() -> int:
     graph_checks.append(graph_vs_eager(
         torch, "northstar", trainer, EpochDraws(*(a[:GRAPH_NORTHSTAR_STEPS] for a in draws)), GRAPH_UNROLLS,
         ("plan_spmm", "plan_spmm_t", tmodel.n_layers), timing=True))
+    # phase 34 on the north star: the trained state's evaluation and serving
+    eval_checks = [eval_graph_check(torch, "northstar", trainer, paths, sync_check=True)]
+    serving_check = serving_graph_check(torch, tmodel, trainer.params, requests, dataset.train_matrix, paths)
 
     # -- 9. path A: LightGCN chunk512_pack2 (K3) -----------------------------
     with env_vars(PACK2_ENV):
@@ -2525,6 +2725,7 @@ def main() -> int:
         graph_checks.append(graph_vs_eager(
             torch, "pack2", trainer_a, EpochDraws(*(a[:GRAPH_PACK2_STEPS] for a in draws_a)), GRAPH_UNROLLS,
             ("plan_spmm_packed", "plan_spmm_packed_t", 3)))
+        eval_checks.append(eval_graph_check(torch, "pack2", trainer_a, paths))
 
         # -- 10. the other variants, each a path ------------------------------
         some = EpochDraws(*(a[:VARIANT_STEPS] for a in draws_a))
@@ -2644,6 +2845,7 @@ def main() -> int:
     graph_checks.append(graph_vs_eager(
         torch, "ngcf", trainer_b, EpochDraws(*(a[:GRAPH_NGCF_STEPS] for a in draws_b)), GRAPH_UNROLLS,
         ("plan_spmm", "plan_spmm_t", 3), timing=True))
+    eval_checks.append(eval_graph_check(torch, "ngcf", trainer_b, paths))
 
     # -- 12. K4, the copy-rate probe -------------------------------------------
     _build.reset_launches()
@@ -2753,6 +2955,7 @@ def main() -> int:
     require(warm_started(mf_path) and warm_started(mlp_path), "NeuMF did not load its pretrain pickles")
     result_c, eval_c_s = zoo_eval(trainer_c, trainer_c.params)
     paths["neumf"] = dict(_build.LAUNCHES)
+    eval_checks.append(eval_graph_check(torch, "neumf", trainer_c, paths, EVAL_GRAPH_USERS["NeuMF"]))
     model_c = trainer_c.model
     few = torch.from_numpy(eval_users[:CHUNK_CHECK_USERS]).long().cuda()
     with torch.no_grad():
@@ -2831,6 +3034,8 @@ def main() -> int:
         trainer_z, rec_z = zoo_trainer(name, args, ZOO_STEPS[name])
         result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params, ZOO_EVAL_USERS[name])
         paths[name.lower()] = dict(_build.LAUNCHES)
+        if name in EVAL_GRAPH_USERS:
+            eval_checks.append(eval_graph_check(torch, name.lower(), trainer_z, paths, EVAL_GRAPH_USERS[name]))
         emit({"phase": name.lower(), **rec_z, "warm_start": warm, "eval_users": ZOO_EVAL_USERS[name],
               "result": result_z, "eval_s": eval_z_s, "eval_users_per_s": ZOO_EVAL_USERS[name] / eval_z_s,
               "launches": paths[name.lower()],
@@ -2967,6 +3172,8 @@ def main() -> int:
         _build.reset_launches()
         result_g, eval_g_s = zoo_eval(trainer_g, trainer_g.params)
         paths[key] = dict(_build.LAUNCHES)
+        if name in EVAL_GRAPH_USERS:
+            eval_checks.append(eval_graph_check(torch, key, trainer_g, paths, EVAL_GRAPH_USERS[name]))
         n_batches_g = -(-n_eval_g // EVAL_USERS_PER_BATCH)
         rec_g = {"phase": key, "model": name, "flags": flags, "setup_s": setup_s, "data_kind": model_g.data_kind, "steps": n_steps, "epochs": epochs,
                  "batch_size": model_g.batch_size, "epoch_losses": losses, "train_s": train_s,
@@ -3725,11 +3932,31 @@ def main() -> int:
     require(custom_models == sorted(GRAPH_CUSTOM_MODELS), "phase 33 checked the custom epochs of %s, not %s"
             % (custom_models, sorted(GRAPH_CUSTOM_MODELS)))
 
+    # -- 34. eval_graph: the evaluation and the serving export as CUDA graphs ---
+    # (each check ran beside its path's trainer: the eval_graph_check lines above)
+    by_mode = lambda f: {c["path"]: {m: f(c[m]) for m in ("eager", "graph")} for c in eval_checks}  # noqa: E731
+    emit({"phase": "eval_graph", "checks": len(eval_checks), "paths": [c["path"] for c in eval_checks],
+          "eval_users": {c["path"]: c["eval_users"] for c in eval_checks},
+          "equal": dict({c["path"]: c["equal"] for c in eval_checks}, serving=serving_check["equal"]),
+          "eval_cold_s": by_mode(lambda r: r["eval_cold_s"]),
+          "eval_warm_s": by_mode(lambda r: float(np.median(r["eval_warm_s"]))),
+          "device_ms": by_mode(lambda r: r["device_ms"]), "idle_share": by_mode(lambda r: r["idle_share"]),
+          "graph_launches_per_warm_call": by_mode(lambda r: r["graph_launches_per_warm_call"]),
+          "pool_bytes": {c["path"]: c["graph"]["pool_bytes"] for c in eval_checks},
+          "serving_request_s": {m: serving_check[m]["serving_request_s"] for m in ("eager", "graph")},
+          "serving_device_ms": {m: serving_check[m]["device_ms"] for m in ("eager", "graph")},
+          "serving_idle_share": {m: serving_check[m]["idle_share"] for m in ("eager", "graph")},
+          "serving_pool_bytes": serving_check["graph"]["pool_bytes"],
+          "seconds": sum(c["seconds"] for c in eval_checks), "card": smi})
+    require(sorted(c["path"] for c in eval_checks) == sorted(EVAL_GRAPH_PATHS),
+            "phase 34 checked %s, not %s" % ([c["path"] for c in eval_checks], list(EVAL_GRAPH_PATHS)))
+
     # -- the kernels line ----------------------------------------------------
     lightgcn_paths = ("serve", "train", "pack2") + tuple(v[0] for v in VARIANT_PATHS)
     entry_paths = {
         "masked_scores": ("masked_scores", lightgcn_paths + ("apr", "stream", "cut", "resume", "final_eval",
-                                                             "native_device", "mesh1", "tp2", "tp2_mf")),
+                                                             "native_device", "mesh1", "tp2", "tp2_mf",
+                                                             "eval_graph_northstar")),
         "masked_scores[dp]": ("masked_scores", ("dp2",)),
         "masked_scores[d16,dp]": ("masked_scores", ("dp2_sbpr",)),
         "masked_scores[d21,dp]": ("masked_scores", ("dp2_irgan",)),
@@ -3737,7 +3964,7 @@ def main() -> int:
         "masked_scores[block]": ("masked_scores", ("itemshard2", "tp2_item_shard")),
         "masked_scores[d17]": ("masked_scores", ("fism",)),
         "masked_scores[int8]": ("masked_scores", ("serve_int8", "itemshard2_rows")),
-        "masked_scores[d256]": ("masked_scores", ("ngcf",)),
+        "masked_scores[d256]": ("masked_scores", ("ngcf", "eval_graph_ngcf")),
         "masked_scores[d1]": ("masked_scores", ("pop",)),
         "masked_scores[d16]": ("masked_scores", ("wrmf", "sbpr", "diffnet")),
         "masked_scores[d21]": ("masked_scores", ("irgan",)),
@@ -3751,9 +3978,10 @@ def main() -> int:
         "masked_scores[d64,ml1m]": ("masked_scores", ("npe",)),
         "masked_scores[d50]": ("masked_scores", ("sasrec",)),
         "masked_scores[d100]": ("masked_scores", ("caser",)),
-        "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus")),
+        "masked_scores[d101]": ("masked_scores", ("gru4rec", "gru4recplus", "eval_graph_gru4rec")),
         "plan_spmm": ("plan_spmm", ("serve", "train", "ngcf", "cut", "resume", "final_eval", "native",
-                                    "native_device", "mesh1", "tp2", "tp2_item_shard")),
+                                    "native_device", "mesh1", "tp2", "tp2_item_shard", "eval_graph_northstar",
+                                    "eval_graph_ngcf", "serve_graph")),
         "plan_spmm[bwd]": ("plan_spmm_t", ("train", "ngcf", "cut", "resume", "mesh1", "tp2")),
         "plan_spmm[block]": ("plan_spmm", ("dp2", "itemshard2", "itemshard2_rows")),
         "plan_spmm[bwd,block]": ("plan_spmm_t", ("dp2",)),
@@ -3763,7 +3991,8 @@ def main() -> int:
     for pack in (2, 4):
         for dt, suffix in (("", ""), ("_bf16", ",bf16")):
             path = "pack%d%s" % (pack, dt)
-            entry_paths["plan_spmm_packed[pack%d%s]" % (pack, suffix)] = ("plan_spmm_packed", (path,))
+            entry_paths["plan_spmm_packed[pack%d%s]" % (pack, suffix)] = (
+                "plan_spmm_packed", (path,) + (("eval_graph_pack2",) if path == "pack2" else ()))
             entry_paths["plan_spmm_packed[bwd,pack%d%s]" % (pack, suffix)] = ("plan_spmm_packed_t", (path,))
     for rows in dma_rate.ROWS_LIST:
         for mode in dma_rate.MODES:

@@ -55,6 +55,31 @@ candidates) run whole on every rank. ``backend="native"`` is
 single-process only, as ``docs/parallelism.md`` says, and raises under a
 group of more than one process.
 
+A call is one program, as the JAX package's jitted ``full_catalog_all`` /
+``candidate_all`` (``neurec_tpu/eval/evaluator.py:572-678``): a prologue
+(the hoisted ``eval_tables`` / ``eval_dense_scores``, the totals zeroed)
+and a body a batch that reads its batch at a device cursor
+(``step_graph.at``): the mask, the score, the top-K, the hits, the metric
+sums added in place, and with ``record_ids`` the batch's ids copied into a
+static buffer. Nothing in them reads the host; ``_mean`` reads the totals
+once at the end. On a CUDA device (``_captures``: ``graphs``, no mesh of
+more than one rank, a model without ``eval_graphs = False``) the program is
+a ``step_graph.KeptProgram``: its first call runs eagerly and captures the
+prologue and the body as CUDA graphs, which every later call replays,
+prologue once and body once a batch, as the JAX package keeps its jitted
+programs. Programs are kept per predict function and batch set (the
+default set or a cached subset, an LRU of ``KEPT_MAX``, pools released on
+eviction) and captured anew when a ``params`` leaf moves or changes shape
+(``step_graph.signature``), when the batches or the tier's mask data are
+rebuilt, or when ``NEUREC_SPMM_PACK`` / ``NEUREC_SPMM_DTYPE`` /
+``NEUREC_SPMM_PALLAS`` or a kernel's wrapper change
+(``step_graph.routes``). The optimizers update ``params`` in place, so an
+evaluation after training steps replays its graphs on the new weights.
+``graphs=False``, the CPU, a mesh of more than one rank (gloo stages
+collectives through the host) and the two models whose ``predict`` cuts
+rows on the host (NAIS, DeepICF: ``eval_graphs = False``) run the same
+program eagerly.
+
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
 """
 
@@ -67,7 +92,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neurec_tpu_torch import native
+from neurec_tpu_torch import native, step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import tiers
 from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
@@ -78,6 +103,23 @@ from neurec_tpu_torch.parallel.distributed import is_primary_host, process_count
 from neurec_tpu_torch.parallel.mesh import Mesh, axis_size, slice_rows
 
 PredictFn = Callable[[object, torch.Tensor], torch.Tensor]
+
+
+class _Kept(NamedTuple):
+    """One evaluation program kept across calls, with what it was made for:
+    ``sig`` (``params``' leaves, capture, ``record_ids``,
+    ``step_graph.routes``), the batch set and the tier's mask data (held,
+    compared by identity), its ``args`` (``params`` during a run), its
+    output buffers."""
+
+    sig: tuple
+    batches: tuple
+    mask_data: object
+    program: step_graph.KeptProgram
+    args: dict
+    total: torch.Tensor
+    count: torch.Tensor
+    ids: Optional[torch.Tensor]
 
 
 class EvalProgram(NamedTuple):
@@ -92,6 +134,9 @@ class EvalProgram(NamedTuple):
 
 
 _log = logging.getLogger("neurec_tpu_torch.eval")
+
+# evaluation programs (captured graphs and their pools) an evaluator keeps
+KEPT_MAX = 8
 
 NATIVE_SINGLE_PROCESS = (
     "the eval_backend=native host tier assumes fully-addressable score arrays and is single-process "
@@ -135,9 +180,12 @@ class UniEvaluator:
         backend: str = "device",
         mesh: Optional[Mesh] = None,
         item_shard: str = "auto",
+        graphs: bool = True,
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
+        # each call's program as CUDA graphs kept across calls (_captures)
+        self.graphs = graphs
         self._item_shard_flag = _item_shard_flag(item_shard)
         self.num_thread = int(num_thread)
         if backend not in ("device", "native"):
@@ -217,6 +265,8 @@ class UniEvaluator:
         # per slot of its batches) in last_ids
         self.record_ids = False
         self.last_ids: Optional[torch.Tensor] = None
+        # the programs of the calls, keyed by (predict function, batch set)
+        self._kept: "OrderedDict[tuple, _Kept]" = OrderedDict()
 
     def _host_rows(self, users, min_len: int = 1, pad_to: Optional[int] = None) -> np.ndarray:
         """Padded sorted train rows for the given users, padded with
@@ -413,13 +463,17 @@ class UniEvaluator:
             factorized=getattr(model, "eval_embeddings", None),
         )
 
-    def _get_program(self, predict_fn: PredictFn) -> EvalProgram:
+    @staticmethod
+    def _program_key(predict_fn: PredictFn) -> Tuple[int, int]:
         # bound methods are re-created on every attribute access, so key on
         # (underlying function, instance)
-        key = (
+        return (
             id(getattr(predict_fn, "__func__", predict_fn)),
             id(getattr(predict_fn, "__self__", None)),
         )
+
+    def _get_program(self, predict_fn: PredictFn) -> EvalProgram:
+        key = self._program_key(predict_fn)
         if key not in self._programs:
             self._programs[key] = self._make_program(predict_fn)
         return self._programs[key]
@@ -483,11 +537,9 @@ class UniEvaluator:
             self._subset_batch_cache.move_to_end(ck)
         if n_users == 0:
             return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
-        if self.user_neg_test is not None:
-            return self._run_candidates(prog, predict_fn, params, batches)
         if plan.stream:
             mask_data = self._get_edges(ck, batches)
-        return self._run(prog, predict_fn, params, batches, mask_data)
+        return self._run(prog, predict_fn, params, batches, mask_data, ck)
 
     def _mean(self, total: torch.Tensor, count: torch.Tensor) -> np.ndarray:
         mean = (
@@ -496,47 +548,111 @@ class UniEvaluator:
         k_idx = np.minimum(self.top_show, self.num_items) - 1
         return mean[self._metric_rows][:, k_idx]
 
-    @torch.no_grad()
-    def _run_candidates(self, prog: EvalProgram, predict_fn, params, batches):
-        """The sampled-candidates protocol over the batches."""
-        users_b, sel_b, valid_b = batches
-        K = min(self.max_top, self.num_items)
-        dense_scores = prog.dense_fn(params).float() if prog.dense_fn is not None else None
-        total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
-        count = torch.zeros((), dtype=torch.float32, device=self.device)
-        for users, sel, valid in zip(users_b, sel_b, valid_b):
-            scores = dense_scores[users] if dense_scores is not None else predict_fn(params, users).float()
-            m = candidate_metrics(scores, self._cand_rows[sel], self._n_pos[sel], K)
-            total = total + torch.sum(m * valid[:, None, None], dim=0)
-            count = count + torch.sum(valid)
-        return self._mean(total, count)
+    def _captures(self, predict_fn: PredictFn) -> bool:
+        """Whether a call's program runs as CUDA graphs kept across calls:
+        on a CUDA device, with ``graphs``, without a mesh of more than one
+        rank (as ``Trainer._captures``), for a model that does not declare
+        ``eval_graphs = False``."""
+        model = getattr(predict_fn, "__self__", None)
+        return (self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
+                and getattr(model, "eval_graphs", True))
 
     @torch.no_grad()
-    def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data):
-        plan = prog.plan
-        users_b, sel_b, valid_b = batches
-        K = min(self.max_top, self.num_items)
-        hoisted = None
-        if prog.tables_fn is not None:
-            u_table, item_table = prog.tables_fn(params)
-            hoisted = (u_table.float(), item_table.float())
-        dense_scores = prog.dense_fn(params).float() if prog.dense_fn is not None else None
+    def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data, ck: Optional[bytes]):
+        """One call: the kept program for (``predict_fn``, the batch set),
+        made or captured anew where what it was made for changed, run over
+        the batches; the mean of its totals."""
+        capture = self._captures(predict_fn)
+        sig = (step_graph.signature(params), capture, self.record_ids, step_graph.routes())
+        key = (self._program_key(predict_fn), ck)
+        kept = self._kept.get(key)
+        if kept is None or kept.sig != sig or kept.batches is not batches or kept.mask_data is not mask_data:
+            if kept is not None:
+                kept.program.release()
+            kept = self._kept[key] = self._make_kept(prog, predict_fn, batches, mask_data, sig, capture)
+            while len(self._kept) > KEPT_MAX:
+                self._kept.popitem(last=False)[1].program.release()
+        self._kept.move_to_end(key)
+        kept.args["params"] = params
+        try:
+            kept.program.run(batches[0].shape[0])
+        finally:
+            kept.args["params"] = None
+        if kept.ids is not None:
+            self.last_ids = kept.ids.reshape(-1, kept.ids.shape[2]).clone()
+        return self._mean(kept.total, kept.count)
 
-        total = torch.zeros((5, K), dtype=torch.float32, device=self.device)
-        count = torch.zeros((), dtype=torch.float32, device=self.device)
+    def _make_kept(self, prog: EvalProgram, predict_fn, batches, mask_data, sig, capture: bool) -> _Kept:
+        """The program of one call: a prologue (the totals and the cursor
+        zeroed, the hoisted tables) and the protocol's body a batch."""
+        users_b = batches[0]
+        K = min(self.max_top, self.num_items)
+        dev = self.device
+        cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+        total = torch.zeros((5, K), dtype=torch.float32, device=dev)
+        count = torch.zeros((), dtype=torch.float32, device=dev)
+        ids = None
+        if self.record_ids and self.user_neg_test is None:
+            ids = torch.zeros((users_b.shape[0], users_b.shape[1], K), dtype=torch.int64, device=dev)
+        args, tables = {"params": None}, {}
+
+        def prologue():
+            cursor.zero_()
+            total.zero_()
+            count.zero_()
+            # user-independent tables (graph propagation) once a call, not a batch
+            if prog.tables_fn is not None:
+                u_table, item_table = prog.tables_fn(args["params"])
+                tables["hoisted"] = (u_table.float(), item_table.float())
+            if prog.dense_fn is not None:
+                tables["dense"] = prog.dense_fn(args["params"]).float()
+
+        make = self._candidates_body if self.user_neg_test is not None else self._catalogue_body
+        body = make(prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids)
+        program = step_graph.KeptProgram(prologue, body, dev, capture)
+        return _Kept(sig, batches, mask_data, program, args, total, count, ids)
+
+    # The bodies hold what they read, not the evaluator: a kept program
+    # that held it would make a reference cycle, and its pool would wait
+    # for the garbage collector.
+    def _candidates_body(self, prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids):
+        """The sampled-candidates protocol's batch at ``cursor``."""
+        K = min(self.max_top, self.num_items)
+        cand_rows, n_pos = self._cand_rows, self._n_pos
+
+        def body():
+            users, sel, valid = step_graph.at(cursor, *batches)
+            dense_scores = tables.get("dense")
+            scores = dense_scores[users] if dense_scores is not None else predict_fn(args["params"], users).float()
+            m = candidate_metrics(scores, cand_rows[sel], n_pos[sel], K)
+            total.add_(torch.sum(m * valid[:, None, None], dim=0))
+            count.add_(torch.sum(valid))
+            cursor.add_(1)
+
+        return body
+
+    def _catalogue_body(self, prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids):
+        """The full-catalogue protocol's batch at ``cursor``: the tier's
+        mask, the score, the top-K, the metric sums."""
+        plan, mesh = prog.plan, self.mesh
+        test_rows, test_lens = self._test_rows, self._test_lens
+        train_rows = None if plan.bits else self._train_rows
         pack = None
         if plan.stream:  # the item-sharded tier packs its own block
             pack = (tiers.make_edge_pack(plan.pack_block, plan.pack_block) if plan.item_shard
                     else tiers.make_edge_pack(plan.pack_block, plan.bits_width))
-        ids = []
-        for j, (users, sel, valid) in enumerate(zip(users_b, sel_b, valid_b)):
+
+        def body():
+            params = args["params"]
+            users, sel, valid = step_graph.at(cursor, *batches)
             # the splitting tiers score this rank's rows; their top-K come back whole
-            users_l, sel_l = (slice_rows(users, self.mesh), slice_rows(sel, self.mesh)) if plan.dp else (users, sel)
+            users_l, sel_l = (slice_rows(users, mesh), slice_rows(sel, mesh)) if plan.dp else (users, sel)
             if plan.stream:
-                mask = pack(*self._local_edges(plan, mask_data[0][j], mask_data[1][j], users.shape[0]),
-                            users_l.shape[0])
+                e_items, e_slots = step_graph.at(cursor, *mask_data)
+                mask = pack(*_local_edges(mesh, plan, e_items, e_slots, users.shape[0]), users_l.shape[0])
             else:
-                mask = mask_data[sel_l] if plan.bits else self._train_rows[users_l]
+                mask = mask_data[sel_l] if plan.bits else train_rows[users_l]
+            hoisted, dense_scores = tables.get("hoisted"), tables.get("dense")
             if hoisted is not None:
                 u_table, item_table = hoisted
                 topk = prog.fact_topk(u_table[users_l], item_table, mask)
@@ -544,36 +660,17 @@ class UniEvaluator:
                 u_vecs, item_table = prog.factorized(params, users_l)
                 topk = prog.fact_topk(u_vecs.float(), item_table.float(), mask)
             else:
-                scores = (
-                    dense_scores[users] if dense_scores is not None
-                    else predict_fn(params, users).float()
-                )
+                scores = dense_scores[users] if dense_scores is not None else predict_fn(params, users).float()
                 topk = prog.pred_topk(scores, mask)
-            if self.record_ids:
-                ids.append(topk)
-            hits = hit_matrix(topk, self._test_rows[sel], self._test_lens[sel])
-            m = all_metrics(hits, self._test_lens[sel])  # (B, 5, K)
-            total = total + torch.sum(m * valid[:, None, None], dim=0)
-            count = count + torch.sum(valid)
-        if self.record_ids:
-            self.last_ids = torch.cat(ids)
-        return self._mean(total, count)
+            hits = hit_matrix(topk, test_rows[sel], test_lens[sel])
+            m = all_metrics(hits, test_lens[sel])  # (B, 5, K)
+            total.add_(torch.sum(m * valid[:, None, None], dim=0))
+            count.add_(torch.sum(valid))
+            if ids is not None:
+                ids.index_copy_(0, cursor, topk[None])
+            cursor.add_(1)
 
-    def _local_edges(self, plan: TierPlan, e_items: torch.Tensor, e_slots: torch.Tensor, B: int):
-        """A streamed batch's (item, slot) edges as this rank packs them:
-        slots of its rows of the batch (a splitting tier), items of its
-        block (the item-sharded tier), each made local; the other edges
-        get the dropped slot (the local row count)."""
-        if not plan.dp:
-            return e_items, e_slots
-        k = B // axis_size(self.mesh, "data")
-        lo = self.mesh.coordinate["data"] * k
-        keep = (e_slots >= lo) & (e_slots < lo + k)
-        if plan.item_shard:
-            off = self.mesh.coordinate["model"] * plan.pack_block
-            keep &= (e_items >= off) & (e_items < off + plan.pack_block)
-            e_items = torch.where(keep, e_items - off, torch.zeros_like(e_items))
-        return e_items, torch.where(keep, e_slots - lo, torch.full_like(e_slots, k))
+        return body
 
     @torch.no_grad()
     def _evaluate_raw_native(
@@ -627,6 +724,23 @@ class UniEvaluator:
         return "\t".join(("%.8f" % x).ljust(12) for x in result)
 
 
+def _local_edges(mesh: Optional[Mesh], plan: TierPlan, e_items: torch.Tensor, e_slots: torch.Tensor, B: int):
+    """A streamed batch's (item, slot) edges as this rank packs them:
+    slots of its rows of the batch (a splitting tier), items of its
+    block (the item-sharded tier), each made local; the other edges
+    get the dropped slot (the local row count)."""
+    if not plan.dp:
+        return e_items, e_slots
+    k = B // axis_size(mesh, "data")
+    lo = mesh.coordinate["data"] * k
+    keep = (e_slots >= lo) & (e_slots < lo + k)
+    if plan.item_shard:
+        off = mesh.coordinate["model"] * plan.pack_block
+        keep &= (e_items >= off) & (e_items < off + plan.pack_block)
+        e_items = torch.where(keep, e_items - off, torch.zeros_like(e_items))
+    return e_items, torch.where(keep, e_slots - lo, torch.full_like(e_slots, k))
+
+
 def candidate_metrics(scores: torch.Tensor, cand_rows: torch.Tensor, n_pos: torch.Tensor, K: int) -> torch.Tensor:
     """(B, 5, K) metrics of the sampled-candidates protocol: ``scores``
     (B, I) with a ``-inf`` column appended, gathered at ``cand_rows`` (B, C)
@@ -664,6 +778,7 @@ class GroupedEvaluator:
         backend="device",
         mesh: Optional[Mesh] = None,
         item_shard="auto",
+        graphs: bool = True,
     ):
         if not isinstance(group_view, list):
             raise TypeError("The type of 'group_view' must be `list`!")
@@ -680,6 +795,7 @@ class GroupedEvaluator:
             backend=backend,
             mesh=mesh,
             item_shard=item_shard,
+            graphs=graphs,
         )
         group_list = [0] + group_view
         group_info = [
@@ -726,11 +842,12 @@ class Evaluator:
         backend="device",
         mesh: Optional[Mesh] = None,
         item_shard="auto",
+        graphs: bool = True,
     ):
         kwargs = dict(
             metric=metric, top_k=top_k, batch_size=batch_size,
             num_items=num_items, device=device, num_thread=num_thread, backend=backend,
-            mesh=mesh, item_shard=item_shard,
+            mesh=mesh, item_shard=item_shard, graphs=graphs,
         )
         if group_view is not None:
             self.evaluator = GroupedEvaluator(
@@ -743,7 +860,8 @@ class Evaluator:
             )
 
     @classmethod
-    def from_dataset(cls, dataset, config, device: DeviceLike = None, mesh: Optional[Mesh] = None) -> "Evaluator":
+    def from_dataset(cls, dataset, config, device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                     graphs: bool = True) -> "Evaluator":
         return cls(
             dataset.get_user_train_dict(),
             dataset.get_user_test_dict(),
@@ -758,6 +876,7 @@ class Evaluator:
             backend=config.get("eval_backend", "device"),
             mesh=mesh,
             item_shard=str(config.get("eval_item_shard", "auto")).lower(),
+            graphs=graphs,
         )
 
     def metrics_info(self) -> str:

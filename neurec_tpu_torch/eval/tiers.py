@@ -299,18 +299,23 @@ def make_item_shard_rows_topk(K: int, mesh, num_items: int):
 
 def make_scatter_topk(K: int, num_items: int):
     """``scatter``: concat a dump column, scatter -inf at the padded train
-    rows (pads point at the dump column), slice."""
+    rows (pads point at the dump column), slice. The scatter is one fill
+    at flat offsets of the (B, num_items + 1) block, as
+    ``build_train_mask`` writes its mask: a dropped id is sent past the
+    block, so no boolean index reads the host."""
 
     def topk_fn(scores, train_rows):
         B = scores.shape[0]
-        ext = torch.cat(
-            [scores, torch.zeros((B, 1), dtype=torch.float32, device=scores.device)], dim=1
-        )
+        n = B * (num_items + 1)
+        flat = torch.empty(n + 1, dtype=torch.float32, device=scores.device)
+        ext = flat[:n].view(B, num_items + 1)
+        ext[:, :num_items] = scores
+        ext[:, num_items] = 0.0
         # as JAX's .at[] over the num_items + 1 columns: negative ids wrap,
         # ids past the dump column drop
         rows, keep = wrap_ids(train_rows, num_items + 1)
-        slot = torch.arange(B, device=scores.device)[:, None].expand_as(rows)
-        ext[slot[keep], rows[keep]] = float("-inf")
+        slot = torch.arange(B, device=scores.device)[:, None] * (num_items + 1)
+        flat.index_fill_(0, torch.where(keep, slot + rows, n).reshape(-1), float("-inf"))
         return top_k(ext[:, :num_items], K)[1]
 
     return topk_fn

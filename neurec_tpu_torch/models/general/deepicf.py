@@ -32,6 +32,10 @@ from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 @register("DeepICF")
 class DeepICF(NAIS):
+    # NAIS's ``_user_rows`` reads each row's length on the host: eager
+    # evaluation and export, not CUDA graphs
+    eval_graphs = False
+
     def __init__(self, dataset, config, device=None):
         super().__init__(dataset, config, device)
         self.n_hidden = list(config.get("layers", [64, 32, 16]))

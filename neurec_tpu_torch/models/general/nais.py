@@ -50,6 +50,11 @@ def _parse_act(value):
 
 @register("NAIS")
 class NAIS(Recommender):
+    # ``predict`` cuts each user's train row to its length on the host
+    # (``_user_rows``), where the JAX package maps over the padded row: its
+    # evaluation and export run eagerly, not as CUDA graphs
+    eval_graphs = False
+
     def __init__(self, dataset, config, device: DeviceLike = None):
         super().__init__(dataset, config, device)
         self.embedding_size = int(config.get("embedding_size", 16))

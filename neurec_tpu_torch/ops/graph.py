@@ -13,7 +13,10 @@ users, U..U+I-1 items; A = [[0, R], [R^T, 0]]. Normalizations:
 ``DENSE_LIMIT`` entries, the plan SpMM above it (``ops/spmm.py``: K2, or
 K3 under ``NEUREC_SPMM_PACK``, in the dtype ``NEUREC_SPMM_DTYPE`` gives),
 and the sorted COO segment-sum (``index_add_``) when a graph carries
-neither — as after ``with_vals`` (node dropout). The plan branch is
+neither — as after ``with_vals`` (node dropout) — or when
+``NEUREC_SPMM_PALLAS=0`` turns the plan kernels off (read at each call,
+as the JAX package's ``_pallas_spmm_enabled``; the segment sum runs on
+the graph's device, so it is no CPU fallback). The plan branch is
 differentiable through ``PlanSpmm``, whose backward runs the same routing
 over the transposed plan (``neurec_tpu/ops/pallas_spmm.py`` ``make_spmm``);
 the other two keep autograd's own gradient, as JAX's ``jnp.dot`` and
@@ -172,11 +175,20 @@ class PlanSpmm(torch.autograd.Function):
         return spmm_ops.plan_spmm(ctx.plan_t, g), None, None, None
 
 
+def plan_kernels_enabled() -> bool:
+    """False under ``NEUREC_SPMM_PALLAS=0``: ``spmm`` and ``spmm_sharded``
+    then take the segment sum over a graph that has plans. The JAX
+    package's ``NEUREC_PALLAS_INTERPRET`` has no counterpart here."""
+    import os
+
+    return os.environ.get("NEUREC_SPMM_PALLAS", "auto") != "0"
+
+
 def spmm(adj: SparseAdj, x: torch.Tensor) -> torch.Tensor:
     """(n_nodes x n_nodes) adjacency @ dense (n_nodes, d), in f32."""
     if adj.dense is not None:
         return torch.matmul(adj.dense, x)
-    if adj.plan is not None:
+    if adj.plan is not None and plan_kernels_enabled():
         return PlanSpmm.apply(x, adj.plan, adj.plan_t, spmm_ops.spmm_compute_dtype())
     gathered = x[adj.cols.long()] * adj.vals[:, None]
     out = torch.zeros((adj.n_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
@@ -296,10 +308,11 @@ def spmm_sharded(adj: ShardedAdj, x: torch.Tensor) -> torch.Tensor:
     sums the partials: sum_r A_r^T (sum_s G_s)_r = A^T (sum_s G_s), the
     whole batch's gradient, as the JAX ``f_bwd`` gives with its ``psum``.
 
-    A block without plans (new values: NGCF's node dropout) takes the
-    plain segment-sum over its edges.
+    A block without plans (new values: NGCF's node dropout), or any block
+    under ``NEUREC_SPMM_PALLAS=0``, takes the plain segment-sum over its
+    edges.
     """
-    if adj.plan is not None:
+    if adj.plan is not None and plan_kernels_enabled():
         part = PlanSpmm.apply(x, adj.plan, adj.plan_t, spmm_ops.spmm_compute_dtype())
     else:
         gathered = x[adj.cols.long()] * adj.vals[:, None]

@@ -8,23 +8,95 @@ top K with the lowest item id first among ties.
 
 Consumed items travel as per-batch (item, local-slot) edge pairs, so
 memory is bounded by the interactions of one batch, never by
-num_users * max_row.
+num_users * max_row. A batch's edge count is padded to a power of two (at
+least 8) with pairs whose slot is B, which the mask drops, so requests of
+one size share one program.
+
+The export is one program, as the JAX package's jitted ``lax.scan``
+(``neurec_tpu/recommend.py:156-190``): a prologue (the cursor zeroed, the
+dense hook's all-users scores) and a body a batch that reads its users and
+edges at a device cursor (``step_graph.at``), scores, sets the consumed
+items to -inf by one fill at flat offsets (a pad's offset lies past the
+block, as JAX's ``mode="drop"``), and writes its top-K into static
+(n_batches, B, k) buffers; the host reads them once at the end. The
+programs are kept per live model in ``_EXPORT_CACHE``, keyed by (B, k,
+masked, use_dense), the batch and edge counts and the kernels' routes
+(``step_graph.routes``), with a weakref finalizer on the model and an LRU
+of ``_EXPORT_CACHE_MAX``; a program holds the model weakly. On a CUDA device (``_captures``: a model
+without ``eval_graphs = False``, and ``graphs``) a program is a
+``step_graph.KeptProgram`` captured as CUDA graphs at its first call and
+replayed by later ones; a call copies its users and edges into the
+program's static inputs, and a program whose ``params`` leaves moved is
+captured anew. Elsewhere the same program runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from neurec_tpu_torch import step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.ops.topk import top_k
 
 
+class _Export(NamedTuple):
+    """A kept export program, its static inputs and outputs, ``args``
+    (``params`` during a run) and ``sig`` (``step_graph.signature`` of the
+    params it was made for)."""
+
+    program: step_graph.KeptProgram
+    users_b: torch.Tensor
+    e_items: torch.Tensor
+    e_users: torch.Tensor
+    scores: torch.Tensor
+    items: torch.Tensor
+    args: dict
+    sig: tuple
+
+
+_EXPORT_CACHE: "OrderedDict[tuple, _Export]" = OrderedDict()
+_EXPORT_CACHE_MAX = 8
+
+
+def _release(key) -> None:
+    export = _EXPORT_CACHE.pop(key, None)
+    if export is not None:
+        export.program.release()
+
+
+def _cache_get(model, sub_key) -> Optional[_Export]:
+    key = (id(model), sub_key)
+    export = _EXPORT_CACHE.get(key)
+    if export is not None:
+        _EXPORT_CACHE.move_to_end(key)
+    return export
+
+
+def _cache_put(model, sub_key, export: _Export) -> None:
+    key = (id(model), sub_key)
+    _release(key)
+    _EXPORT_CACHE[key] = export
+    mid = id(model)
+    weakref.finalize(model, lambda mid=mid: [_release(k) for k in [k for k in _EXPORT_CACHE if k[0] == mid]])
+    while len(_EXPORT_CACHE) > _EXPORT_CACHE_MAX:
+        _release(next(iter(_EXPORT_CACHE)))
+
+
+def _captures(model, device: torch.device) -> bool:
+    """Whether the export runs as CUDA graphs kept across calls (unless
+    the caller passes ``graphs=False``)."""
+    return device.type == "cuda" and getattr(model, "eval_graphs", True)
+
+
 def _batch_edges_from_csr(csr, users_pad, n_valid, n_batches, B):
     """(edge_items, edge_users) (n_batches, E_max): batch j's consumed
-    items as (item, local-slot) pairs, padded with slot == B."""
+    items as (item, local-slot) pairs, padded with slot == B; E_max a power
+    of two, at least 8."""
     slots = users_pad.astype(np.int64)
     lens = (csr.indptr[slots + 1] - csr.indptr[slots]).astype(np.int64)
     lens[n_valid:] = 0  # pad slots contribute nothing
@@ -44,8 +116,7 @@ def _batch_edges_from_csr(csr, users_pad, n_valid, n_batches, B):
     within = np.arange(total, dtype=np.int64) - np.repeat(
         batch_starts, np.diff(np.concatenate([batch_starts, [total]]))
     )
-    e_max = int(within.max()) + 1
-    e_max += (-e_max) % 8
+    e_max = max(1 << int(within.max()).bit_length(), 8)  # a power of two > max index
     e_items = np.zeros((n_batches, e_max), np.int32)
     e_users = np.full((n_batches, e_max), B, np.int32)
     e_items[batch_of, within] = csr.indices[src]
@@ -62,6 +133,7 @@ def batch_topk(
     train_matrix=None,
     batch_size: int = 512,
     device: DeviceLike = None,
+    graphs: bool = True,
 ):
     """Top-K items per user.
 
@@ -73,6 +145,7 @@ def batch_topk(
       train_matrix: optional CSR of already-consumed items to exclude.
       batch_size: users per batch.
       device: ``None`` = cuda (raises without one); tests pass "cpu".
+      graphs: False runs the program eagerly on the card too.
 
     Returns:
       (item_ids, scores): int32/float32 numpy arrays of shape (len(users), k).
@@ -90,36 +163,72 @@ def batch_topk(
     n_batches = -(-n // B)
     users_pad = np.zeros(n_batches * B, np.int32)
     users_pad[:n] = users
-    users_b = torch.from_numpy(users_pad.reshape(n_batches, B)).long().to(dev)
 
     masked = train_matrix is not None
     if masked:
-        e_items, e_users = _batch_edges_from_csr(
-            train_matrix.tocsr(), users_pad, n, n_batches, B
-        )
-        e_items_b = torch.from_numpy(e_items).long().to(dev)
-        e_users_b = torch.from_numpy(e_users).long().to(dev)
+        e_items, e_users = _batch_edges_from_csr(train_matrix.tocsr(), users_pad, n, n_batches, B)
+    else:  # shape-stable dummies, as the JAX package's
+        e_items, e_users = np.zeros((n_batches, 8), np.int32), np.full((n_batches, 8), B, np.int32)
 
     # dense-hoist hook: only for full-catalogue exports — a subset query
     # must not pay the all-users score matrix
     dense_hook = getattr(model, "eval_dense_scores", None)
-    dense_scores = (
-        dense_hook(params).float() if callable(dense_hook) and n == model.num_users else None
-    )
+    use_dense = callable(dense_hook) and n == model.num_users
 
-    out_scores, out_items = [], []
-    for j in range(n_batches):
-        bu = users_b[j]
-        scores = (
-            dense_scores[bu] if dense_scores is not None
-            else model.predict(params, bu).float()
-        )
-        if masked:
-            keep = e_users_b[j] < B  # pad slots (== B) drop
-            scores[e_users_b[j][keep], e_items_b[j][keep]] = float("-inf")
-        s, idx = top_k(scores, k)
-        out_scores.append(s)
-        out_items.append(idx)
-    items = torch.cat(out_items).cpu().numpy()[:n]
-    scores = torch.cat(out_scores).cpu().numpy()[:n]
+    capture = graphs and _captures(model, dev)
+    sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capture, step_graph.routes())
+    sig = step_graph.signature(params)
+    export = _cache_get(model, sub_key)
+    if export is None or export.sig != sig:
+        export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], dev, capture, sig)
+        _cache_put(model, sub_key, export)
+    export.users_b.copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
+    export.e_items.copy_(torch.from_numpy(e_items))
+    export.e_users.copy_(torch.from_numpy(e_users))
+    export.args["params"] = params
+    try:
+        export.program.run(n_batches)
+    finally:
+        export.args["params"] = None
+    items = export.items.reshape(-1, k).cpu().numpy()[:n]
+    scores = export.scores.reshape(-1, k).cpu().numpy()[:n]
     return items.astype(np.int32), scores.astype(np.float32)
+
+
+def _make_export(model, B, k, masked, use_dense, n_batches, e_max, dev, capture, sig) -> _Export:
+    """The export program over static inputs (users, edge items, edge
+    slots) and outputs (scores, ids); it reaches the model through a weak
+    reference, so the cache does not keep the model alive."""
+    model_ref = weakref.ref(model)
+    num_items = model.num_items
+    cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+    users_b = torch.zeros((n_batches, B), dtype=torch.int64, device=dev)
+    e_items = torch.zeros((n_batches, e_max), dtype=torch.int64, device=dev)
+    e_users = torch.zeros((n_batches, e_max), dtype=torch.int64, device=dev)
+    out_scores = torch.zeros((n_batches, B, k), dtype=torch.float32, device=dev)
+    out_items = torch.zeros((n_batches, B, k), dtype=torch.int64, device=dev)
+    args, tables = {"params": None}, {}
+
+    def prologue():
+        cursor.zero_()
+        if use_dense:
+            tables["dense"] = model_ref().eval_dense_scores(args["params"]).float()
+
+    def body():
+        bu, ei, eu = step_graph.at(cursor, users_b, e_items, e_users)
+        scores = tables["dense"][bu] if use_dense else model_ref().predict(args["params"], bu).float()
+        if masked:
+            # one fill at flat offsets of a copy with one element past the
+            # block: a pad pair (slot == B) writes there, as mode="drop"
+            n = B * num_items
+            flat = torch.empty(n + 1, dtype=torch.float32, device=dev)
+            flat[:n].view(B, num_items).copy_(scores)
+            flat.index_fill_(0, torch.where(eu < B, eu * num_items + ei, n), float("-inf"))
+            scores = flat[:n].view(B, num_items)
+        s, idx = top_k(scores, k)
+        out_scores.index_copy_(0, cursor, s[None])
+        out_items.index_copy_(0, cursor, idx[None])
+        cursor.add_(1)
+
+    program = step_graph.KeptProgram(prologue, body, dev, capture)
+    return _Export(program, users_b, e_items, e_users, out_scores, out_items, args, sig)

@@ -48,11 +48,21 @@ CFGAN's sub-epochs, IRGAN's passes) take their steps through it, by
 (``at``), draws from the generator it is handed, seeded from
 ``step_seeds``, which the epoch's generator draws on the host before the
 steps, and ends in ``train_step``.
+
+``KeptProgram(prologue, body, device, capture)`` is the other form: a
+program kept across calls, the evaluator's and the serving export's (the
+JAX package's jitted evaluation and export, cached per predict function
+and per model). Its first call runs eagerly and captures a graph of the
+prologue and one of the body; later calls replay the prologue once and
+the body once a batch. The caller keeps it while what it captured holds:
+``signature`` of the tensors it reads (an update in place keeps it) and
+``routes``, the SpMM variables and the kernels' wrappers at capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
@@ -66,24 +76,32 @@ Step = Callable[[Optional[torch.Generator]], None]
 class _CudaGraphs:
     """The CUDA side of a captured run, a context on ``device``: a side
     stream, one memory pool and the graphs captured on them, released at
-    exit."""
+    exit, or with ``keep`` by ``release`` (a ``KeptProgram``'s, entered
+    again for each call's replays)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, keep: bool = False):
         self.device = device
+        self.keep = keep
         self.graphs: List[torch.cuda.CUDAGraph] = []
-        self._device_ctx = torch.cuda.device(device)
+        self.stream = self.pool = None
 
     def __enter__(self) -> "_CudaGraphs":
+        self._device_ctx = torch.cuda.device(self.device)
         self._device_ctx.__enter__()
-        self.stream = torch.cuda.Stream(self.device)
-        self.pool = torch.cuda.graph_pool_handle()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
         return self
 
     def __exit__(self, *exc) -> None:
+        if not self.keep:
+            self.release()
+        self._device_ctx.__exit__(*exc)
+
+    def release(self) -> None:
         for graph in self.graphs:
             graph.reset()
         self.graphs.clear()
-        self._device_ctx.__exit__(*exc)
 
     def warm_up(self, fn: Callable[[], None]) -> None:
         """``fn`` run eagerly on the side stream, ordered after and before
@@ -106,6 +124,15 @@ class _CudaGraphs:
     @staticmethod
     def replay(graph: torch.cuda.CUDAGraph) -> None:
         graph.replay()
+
+    def reserved(self, empty: bool = False) -> int:
+        """The caching allocator's reserved bytes on the device; with
+        ``empty`` after freeing its unused cached blocks
+        (``torch.cuda.empty_cache``, as a capture does when it begins)."""
+        if empty:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
 
 
 def _seed(generators: List[torch.Generator], seeds, s: int, count: int) -> None:
@@ -216,3 +243,107 @@ def take_steps(steps: Steps, device: torch.device, unroll: int = 1, capture: boo
     if steps.opt is not None:
         steps.opt.zero_grad(set_to_none=True)
     return total
+
+
+# the variables a SpMM call reads when it runs (``ops/graph.py``,
+# ``ops/spmm.py``): a kept program holds the branch they chose at capture
+SPMM_ENV = ("NEUREC_SPMM_PACK", "NEUREC_SPMM_DTYPE", "NEUREC_SPMM_PALLAS")
+
+
+def routes() -> tuple:
+    """What a capture holds besides the tensors it reads: the values of
+    ``SPMM_ENV`` now (None where unset) and the module-level kernel
+    wrappers the ops look up at each call (K1's, K2's, K3's), so that a
+    kept program is captured anew after a change of either (a wrapper
+    replaced by its plain version, say)."""
+    from neurec_tpu_torch.ops import masked_scores as k1, spmm as k2
+
+    wrappers = (k1.masked_scores, k1.masked_scores_bits, k2.plan_spmm, k2.plan_scatter, k2.plan_spmm_packed)
+    return tuple(os.environ.get(name) for name in SPMM_ENV) + wrappers
+
+
+def signature(tree) -> tuple:
+    """What a captured graph holds of a tree of tensors (dicts, lists and
+    tuples of them): each tensor's (data pointer, shape, dtype, strides),
+    other leaves as they are. Equal signatures mean a graph captured over
+    one tree reads the other's values; an update in place keeps it. Other
+    objects stand for themselves by identity."""
+    if isinstance(tree, torch.Tensor):
+        return (tree.data_ptr(), tuple(tree.shape), tree.dtype, tree.stride())
+    if isinstance(tree, dict):
+        return tuple((k, signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(signature(v) for v in tree)
+    return (tree,) if isinstance(tree, (int, float, str, bool, type(None))) else (id(tree),)
+
+
+class KeptProgram:
+    """A program of ``prologue`` once and ``body`` n times, kept across
+    calls: the counterpart of a jitted ``lax.scan`` that the JAX package
+    keeps in its cache (the evaluator's ``full_catalog_all`` /
+    ``candidate_all``, the serving export).
+
+    Both run over device state they own (a cursor that ``prologue`` zeroes
+    and ``body`` reads at and advances, totals, static input and output
+    buffers) and read no host value that changes from call to call.
+
+    With ``capture`` the first ``run`` is the warm-up that capture needs:
+    the call runs eagerly on a side stream (the kernel libraries load, what
+    they cache is built, and the call's results are real), then the
+    prologue and the body are each captured into a graph on one memory
+    pool, which runs nothing. Every later ``run`` replays the prologue's
+    graph once and the body's ``n`` times: ``n + 1`` graph launches, no host
+    sync. So every call counts each kernel's launches once, as an eager
+    call does: the first by its wrappers, the later ones by the launches a
+    capture took, added once a replay (as in ``run_steps``). ``pool_bytes``
+    is the allocator's reserved memory grown over the captures. A failed
+    capture raises and leaves no graph; ``release`` resets the graphs.
+    """
+
+    def __init__(self, prologue: Callable[[], None], body: Callable[[], None], device: torch.device,
+                 capture: bool):
+        self.prologue, self.body = prologue, body
+        self.device, self.capture = device, capture
+        self.pool_bytes = 0
+        self._graphs = None
+
+    def _eager(self, n: int) -> None:
+        self.prologue()
+        for _ in range(n):
+            self.body()
+
+    def run(self, n: int) -> None:
+        if not self.capture:
+            self._eager(n)
+        elif self._graphs is None:
+            self._capture(n)
+        else:
+            cuda, (prologue, p_launches), (body, b_launches) = self._graphs
+            with cuda:
+                cuda.replay(prologue)
+                _build.add_launches(p_launches)
+                for _ in range(n):
+                    cuda.replay(body)
+                    _build.add_launches(b_launches)
+
+    def _capture(self, n: int) -> None:
+        cuda = _CudaGraphs(self.device, keep=True)
+        try:
+            with cuda:
+                cuda.warm_up(lambda: self._eager(n))
+                before = cuda.reserved(empty=True)
+                with _build.captured_launches() as p_launches:
+                    prologue = cuda.capture(self.prologue, [])
+                with _build.captured_launches() as b_launches:
+                    body = cuda.capture(self.body, [])
+                self.pool_bytes = cuda.reserved() - before
+        except BaseException:
+            cuda.release()
+            raise
+        self._graphs = cuda, (prologue, p_launches), (body, b_launches)
+
+    def release(self) -> None:
+        if self._graphs is not None:
+            self._graphs[0].release()
+            self._graphs = None
+        self.prologue = self.body = None

@@ -6,6 +6,8 @@ function (a built-in epoch's ``_step``, a custom epoch's from its model)
 that ``step_graph.run_steps`` replays as CUDA graphs of ``scan_unroll``
 steps on a CUDA device (``take_steps``), and calls step by step on the CPU
 (``Trainer(graphs=False)`` and a mesh of more than one rank too).
+``graphs`` reaches the evaluator too: its programs are CUDA graphs kept
+across calls where the steps' are (``eval/evaluator.py``).
 An epoch has two parts:
 
 * ``draw_epoch(generator) -> (inst, w, negs, seeds)`` holds all of the
@@ -421,7 +423,7 @@ class Trainer:
         self.mesh = mesh
         # every epoch's steps as CUDA-graph replays on a CUDA device
         # (take_steps), ``scan_unroll`` steps a graph, read as the JAX trainer
-        # reads it
+        # reads it; the evaluator's programs as graphs kept across calls
         self.graphs = graphs
         self.scan_unroll = max(int(config.get("scan_unroll", 1) or 1), 1)
         self._dp_warned = set()
@@ -429,7 +431,7 @@ class Trainer:
             self.logger = _SilentLogger()
         else:
             self.logger = logger or run_logger(config, dataset.dataset_name)
-        self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device, mesh=mesh)
+        self.evaluator = Evaluator.from_dataset(dataset, config, device=self.device, mesh=mesh, graphs=graphs)
         if mesh is not None:
             model.on_mesh(mesh)
         # the optimizer factory: over the tensors of params (the learner's),
