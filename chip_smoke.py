@@ -35,7 +35,12 @@ failure exits non-zero before the result line):
    beyond the bound's bytes. K1 takes f32 FMAs up to d = 40 and the 3xTF32
    split above (``path``): on the f32 path each score must lie within
    d 2^-24 sum |u_k i_k| of the f64 product (``err_over_f32_bound`` <= 1),
-   and its bound is the bytes or the f32 FMAs. K1 also runs at d 40 on randn
+   and its bound is the bytes or the f32 FMAs. Every f32-path K1 check is
+   also held bit for bit to the fmaf chain a thread a score
+   (``k1.fma_chain_scores``, with -inf where the plain version has it:
+   ``chain_mismatches`` 0) and times K1, cuBLAS's product alone and matmul +
+   ``where`` in turns, K1 first and last (``turns_ms``, ``k1_over_matmul``,
+   ``phase: kernel_f32_path``). K1 also runs at d 40 on randn
    factors (``masked_scores[d40]``, the f32 path's edge, on no path). Before them,
    the skew of each plan (``phase: skew``: its tiles, the heaviest tile's
    and the heaviest warp's edges under a row-tile split with 16 warps
@@ -1387,6 +1392,28 @@ def k1_errors(torch, got, u, items):
     return out
 
 
+def k1_chain_mismatches(torch, k1, got, want, u, items) -> int:
+    """K1's f32 path against the fmaf chain a thread a score
+    (``k1.fma_chain_scores``, the f32 path's arithmetic without its tiles)
+    with -inf where the plain version ``want`` has it: the number of scores
+    whose bits differ, 0 where the path keeps its bits."""
+    chain = k1.fma_chain_scores(u, items[: got.shape[1]])
+    oracle = torch.where(torch.isneginf(want), float("-inf"), chain)
+    n = int((got.view(torch.int32) != oracle.view(torch.int32)).sum())
+    del chain, oracle
+    return n
+
+
+def k1_turns(torch, fns, iters=50):
+    """CUDA-event ms of each of ``fns`` (name -> call), timed in turns in
+    one call, A B C C B A: ``{name: [first, second]}``."""
+    order = list(fns) + list(reversed(list(fns)))
+    out = {name: [] for name in fns}
+    for name in order:
+        out[name].append(time_ms(torch, fns[name], iters=iters, warmup=10))
+    return out
+
+
 def compare(torch, got, want):
     """(max_abs_err, ok): -inf at the same places, finite values within
     ATOL + RTOL * |want|."""
@@ -2315,6 +2342,18 @@ def main() -> int:
             # f32 FMAs: every score within d 2^-24 sum |u_k i_k| of the f64 product
             require(rec["err_over_f32_bound"] <= 1.0,
                     "%s is %g of the f32 bound from the f64 product" % (name, rec["err_over_f32_bound"]))
+            # and the fmaf chain a thread a score, bit for bit
+            rec["chain_mismatches"] = k1_chain_mismatches(torch, k1, got, plain(), uu, items)
+            # K1, cuBLAS's product alone and matmul + where, in turns in this call
+            turns = k1_turns(torch, {"k1": run_fn, "matmul": product, "library": library})
+            rec["turns_ms"] = turns
+            rec["k1_over_matmul"] = sum(turns["k1"]) / sum(turns["matmul"])
+            emit({"phase": "kernel_f32_path", "name": name, "shape": rec.get("shape"),
+                  "chain_mismatches": rec["chain_mismatches"], "turns_ms": turns,
+                  "k1_over_matmul": rec["k1_over_matmul"], "device_ms": rec["device_ms"],
+                  "matmul_device_ms": rec["matmul_device_ms"], "bound_ms": rec["bound_ms"]})
+            require(rec["chain_mismatches"] == 0,
+                    "%s: %d scores differ from the fmaf chain's bits" % (name, rec["chain_mismatches"]))
         else:
             # the split: no farther from the f64 product than the plain f32
             # product (d 64, 256), or within the split's own bound
@@ -2367,6 +2406,13 @@ def main() -> int:
               "path": "f32" if k1.k1_path(d_c) == "fma" else "split, cp.async",
               "ms": time_ms(torch, lambda: k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I))})
         require(ok_c and ok8_c, "K1 %s disagrees with its plain version: %g, %g" % (case, err_c, err8_c))
+        if k1.k1_path(d_c) == "fma":
+            mism_c = (k1_chain_mismatches(torch, k1, got_c, k1.masked_scores_bits_reference(u_c, i_c, bits_c, w_c, I),
+                                          u_c, i_c)
+                      + k1_chain_mismatches(torch, k1, got8_c, k1.masked_scores_reference(u_c, i_c, train_rows),
+                                            u_c, i_c))
+            emit({"phase": "kernel_case", "case": "masked_scores[%s]" % case, "chain_mismatches": mism_c})
+            require(mism_c == 0, "K1 %s: %d scores differ from the fmaf chain's bits" % (case, mism_c))
         require(torch.equal(got_c, k1.masked_scores_bits(u_c, i_c, bits_c, w_c, I)),
                 "K1 %s is not deterministic" % case)
     # K1 at the f32 path's widest d, 40, on randn factors: a width no model
@@ -3205,9 +3251,13 @@ def main() -> int:
             near_tie = float((v_k - v_p).abs().max())
             if record in records:  # a width an earlier model of the path gave K1
                 err_g, ok_g = compare(torch, got_g, want_g)
+                mism_g = k1_chain_mismatches(torch, k1, got_g, want_g, u_g, items_g) \
+                    if k1.k1_path(d_g) == "fma" else None
                 emit({"phase": "kernel_case", "case": "%s[%s]" % (record, key), "shape": [u_g.shape[0], I_g, d_g],
-                      "max_abs_err": err_g, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL)})
+                      "max_abs_err": err_g, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
+                      "chain_mismatches": mism_g})
                 require(ok_g, "K1 at %s's factors disagrees with its plain version: %g" % (name, err_g))
+                require(not mism_g, "K1 at %s's factors: %s scores differ from the fmaf chain's bits" % (name, mism_g))
             else:
                 k1_check(record, lambda: k1.masked_scores_bits(u_g, items_g, bits_g, width_g, I_g),
                          lambda: k1.masked_scores_bits_reference(u_g, items_g, bits_g, width_g, I_g),
@@ -3317,10 +3367,14 @@ def main() -> int:
                 if lo == 0:
                     err_h, ok_h = compare(torch, got_h, want_h)
                     d_h = u_h.shape[1]
+                    mism_h = k1_chain_mismatches(torch, k1, got_h, want_h, u_h, items_h) \
+                        if k1.k1_path(d_h) == "fma" else None
             del tables, got_h, want_h
         emit({"phase": "kernel_case", "case": "masked_scores[d16][%s]" % key, "shape": [EVAL_USERS_PER_BATCH, I, d_h],
-              "max_abs_err": err_h, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL)})
+              "max_abs_err": err_h, "tol": "atol %g + rtol %g, -inf identical" % (ATOL, RTOL),
+              "chain_mismatches": mism_h})
         require(ok_h, "K1 at %s's factors disagrees with its plain version: %g" % (name, err_h))
+        require(not mism_h, "K1 at %s's factors: %s scores differ from the fmaf chain's bits" % (name, mism_h))
         # one step's device time (the profiler) and wall time, over 5 steps
         if model_h.data_kind == "custom":
             prof = profile_steps(torch, lambda: trainer_h.train_epoch(2, max_steps=5), n=1)
@@ -4008,7 +4062,8 @@ def main() -> int:
     # device times where they were taken (the SpMM kernels), None elsewhere
     extra_keys = ("path", "mesh", "device_ms", "host_ms", "library_device_ms", "bound_f32_ms", "max_scaled_err",
                   "err_vs_f64", "plain_err_vs_f64", "err_over_f32_bound", "err_over_split_bound", "matmul_ms",
-                  "matmul_device_ms", "mask_build_ms", "kernel_ms")
+                  "matmul_device_ms", "mask_build_ms", "kernel_ms", "chain_mismatches", "turns_ms",
+                  "k1_over_matmul")
     emit({"kernels": [dict({k: records[n][k] for k in keys}, **{k: records[n].get(k) for k in extra_keys})
                       for n in entry_paths]})
     stack.close()

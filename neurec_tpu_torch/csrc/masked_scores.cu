@@ -91,15 +91,58 @@
 // split keeps 22 of 24 significand bits of each operand, ~2^-21 of each
 // product, while f32 FMAs add d * 2^-24 of sum |u_k i_k| at most: at small d
 // the split is farther from the exact product than f32 itself. There each
-// score is one fmaf chain over k in order, on the CUDA cores: the products
-// cost 2 B I d / 67 TFLOP/s, under the output's bytes (B I 4 / 3.35 TB/s)
-// for every d <= 2 * 67 / 3.35 = 40. One 128 x 128 tile a block, the whole
-// depth copied to shared memory k-major by cp.async, 16 x 4 outputs a
-// thread: a warp owns 16 rows, a lane every 32nd column, so each store is
-// 128 contiguous bytes of a row (plain stores, not st.global.cs: a sector
-// one store leaves partial is finished by the next store or the next
-// tile's block). The mask is read from global memory (through L1 and L2),
-// all of a thread's marks before its first store.
+// score is one fmaf chain from 0 over k in order, on the CUDA cores
+// (neurec_fma_chain, a test entry, computes the same chain a thread a score,
+// and the tests hold this path to its bits). The products cost
+// 2 B I d / 67 TFLOP/s, under the output's bytes (B I 4 / 3.35 TB/s) for every
+// d <= 2 * 67 / 3.35 = 40, so the stores bound it. The design (PERF.md, §6):
+//  - A persistent grid of two blocks a SM (the occupancy query's count, 128
+//    registers a thread) walks 128 x 128 tiles in row bands, as the split
+//    does: the tiles in flight share their users' rows and mask rows in L2.
+//    Each block takes its tiles' steps in turn (copies landed, pack and
+//    marks, FMAs, epilogue); the other block's steps run beside them.
+//  - Output sectors: I is odd in general, so a row's 128 items start
+//    anywhere in a 32-byte sector, and with tiles 128 items apart the two
+//    tiles beside a boundary each wrote part of its sector: that ran slower
+//    than rows of whole sectors (I a multiple of 8). So item tiles
+//    start F_STEP = 120 apart and span 128: of each row a tile writes the
+//    sectors that start in its 120 items, all inside its 128, and every
+//    sector of the output is written whole by one tile (those across a row's
+//    end aside). The 8 items a tile computes twice cost 1/15 more FMAs.
+//  - Operands: a tile's rows of a contiguous (n, d) f32 array are one run of
+//    128 d floats that starts 16-byte aligned at every d (ragged d too)
+//    wherever the base is (512 d bytes a user tile, 480 d an item tile), so
+//    the run is copied as it lies by 16-byte cp.async (4-byte copies for an
+//    unaligned base; a ragged run's last copy reads what is there). The next
+//    tile's runs and mask bytes are in flight while this tile multiplies
+//    and stores. Each run is packed to rows at a pitch of d rounded up to an
+//    odd multiple of 4 floats, so that a quarter warp's 16-byte reads of 8
+//    consecutive item rows hit 8 distinct bank groups at every d (at the
+//    run's own pitch an even d conflicts): one float4 of 4 depths a column,
+//    one broadcast float4 a user row, 20 shared loads to 256 FMAs (16 x 4
+//    scores a thread: a warp 16 rows, a lane every 32nd column); the last
+//    d % 4 depths take the float4 and use only its first components, so
+//    each chain stops at d.
+//  - The mask: a tile's 128 x 128 mask bytes copied once, 8 bytes a copy (an
+//    item tile 120 apart is 8-byte aligned), each copy inside one bit plane;
+//    a tile spans at most two planes (W/8 >= 128), its plane boundary one
+//    compare. All of a thread's marks are read into a 64-bit word as the
+//    tile starts, so the mask room takes the next tile's bytes at once. A
+//    layout the copy cannot take (W/8 not a multiple of 8 or under 128, an
+//    unaligned table) is read from global memory (marked_global).
+//  - The epilogue, a warp at a time: the split's staging (the masked rows, 8
+//    at a time, over the packed rows the FMAs are done with, each shifted by
+//    its misalignment in the output), then each row's aligned part as one
+//    bulk copy to global memory (cp.async.bulk, evict-first in L2: streaming
+//    16-byte-aligned stores issued by the copy engine, a lane a row), its
+//    unaligned ends at a row's start or end by st.global.cs.
+//  Tried and slower: 4 store warps beside 8 compute warps (one block a SM, as
+//  the TMA path), which kept too few stores in flight; the same stores from
+//  the warps themselves (store_slot, st.global.cs), which slowed the FMAs
+//  beside them; 64 x 128 tiles at three blocks a SM. What holds it back: a
+//  block's FMAs wait for the copy engine to read its staged rows, and the
+//  staged rows go over the packed ones for want of shared memory, so at d >=
+//  16 the FMAs and the stores add up rather than overlap.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
 #include <cudaTypedefs.h>
@@ -767,96 +810,283 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 // -- the f32 path --------------------------------------------------------------
-constexpr int FMA_MAX_D = 40;   // ops/masked_scores.py K1_FMA_MAX_D
-constexpr int F_THREADS = 256;  // 8 warps, each 16 rows of the tile
-constexpr int F_TM = 16;        // rows a thread (its warp's)
-constexpr int F_TN = 4;         // columns a thread: lane + 32 j
-constexpr int F_LD = BM + 4;    // a staged k row (floats), 16-byte aligned
-static_assert(BM == (F_THREADS / 32) * F_TM && BN == 32 * F_TN, "8 warps x 32 lanes cover a tile");
+constexpr int FMA_MAX_D = 40;                  // ops/masked_scores.py K1_FMA_MAX_D
+constexpr int F_WARPS = 8;                     // each 16 rows of a tile
+constexpr int F_THREADS = F_WARPS * 32;
+constexpr int F_BLOCKS_PER_SM = 2;             // one block's FMAs under the other's copies and stores
+constexpr int F_TM = 16;                       // rows a thread (its warp's)
+constexpr int F_TN = 4;                        // columns a thread: lane + 32 j
+constexpr int F_EPI_ROWS = 8;                  // rows a warp stages at once
+constexpr int F_STEP = BN - 8;                 // item tiles start 120 apart and overlap by a sector
+constexpr int F_CHUNK = 8;                     // mask bytes a copy
 
-template <int MODE>
-__global__ void __launch_bounds__(F_THREADS) masked_scores_fma_kernel(const Args a) {
-  __shared__ __align__(16) float Us[FMA_MAX_D][F_LD];
-  __shared__ __align__(16) float Is[FMA_MAX_D][F_LD];
-  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
-  const int lane = (int)threadIdx.x & 31, row0 = ((int)threadIdx.x >> 5) * F_TM;
-  const int d = a.d;
-  // both operand tiles k-major, zero-filled past B and I: a warp copies a
-  // row at a time, lane k its depth k (one coalesced read of the row's d
-  // floats), as 4-byte cp.async, all in flight at once (a load into a
-  // register, then a store, would wait out each load's latency in turn)
-  for (int r = (int)threadIdx.x >> 5; r < BM; r += F_THREADS / 32) {
-    const bool u_ok = m0 + r < a.B, i_ok = n0 + r < a.I;
-    for (int k = lane; k < d; k += 32) {
-      cp_async<4>(&Us[k][r], u_ok ? a.u + (size_t)(m0 + r) * d + k : a.u, u_ok ? 4 : 0);
-      cp_async<4>(&Is[k][r], i_ok ? a.items + (size_t)(n0 + r) * d + k : a.items, i_ok ? 4 : 0);
+// The pitch (floats) of a packed row: d rounded up to an odd multiple of 4.
+// A quarter warp's 16-byte reads of 8 consecutive rows then start 16 * pitch
+// / 4 bytes apart, an odd number of 16-byte bank groups: 8 distinct groups.
+__host__ __device__ constexpr int fma_pitch(int d) {
+  return ((d + 3) & ~3) % 8 == 0 ? ((d + 3) & ~3) + 4 : (d + 3) & ~3;
+}
+
+constexpr int F_RUN = BM * FMA_MAX_D;          // a tile's rows as they lie (floats)
+constexpr int F_PACKED = BM * fma_pitch(FMA_MAX_D);  // the same rows at the pitch (floats)
+constexpr int F_RUN_U = 0, F_RUN_I = F_RUN;    // offsets in floats
+constexpr int F_UP = 2 * F_RUN, F_IP = F_UP + F_PACKED;
+constexpr int F_MASK_OFF = (F_IP + F_PACKED) * 4;  // a tile's mask bytes (bytes)
+constexpr int F_SMEM_BYTES = F_MASK_OFF + MASK_TILE;
+static_assert(BM == F_WARPS * F_TM && BN == 32 * F_TN, "8 warps x 32 lanes cover a tile");
+static_assert(F_WARPS * F_EPI_ROWS * T_STG_LD <= 2 * F_PACKED, "the staged rows fit the packed rows' room");
+static_assert(F_STEP % 8 == 0 && F_STEP + 7 < BN, "a tile holds every sector that starts in its step");
+static_assert(MASK_TILE / F_CHUNK % F_THREADS == 0, "the mask copies spread evenly");
+
+// item tiles of the f32 path: a window of BN items every F_STEP
+int fma_item_tiles(int I) { return I <= BN ? 1 : 1 + (I - BN + F_STEP - 1) / F_STEP; }
+
+// 8-byte cp.async; src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// `floats` floats from `src` into `run` as they lie: 16 bytes a copy where
+// the source is 16-byte aligned (a ragged run's last copy reads only what is
+// there and zero-fills the rest), else 4
+__device__ __forceinline__ void load_run(float* run, const float* src, int floats, bool aligned) {
+  const int t = (int)threadIdx.x;
+  if (aligned) {
+    for (int c = 4 * t; c < floats; c += 4 * F_THREADS) cp_async<16>(run + c, src + c, min(4, floats - c) * 4);
+  } else {
+    for (int c = t; c < floats; c += F_THREADS) cp_async<4>(run + c, src + c, 4);
+  }
+}
+
+// A run of rows of d floats into rows at `pitch`: thread t moves elements t,
+// t + F_THREADS, ... (row and depth stepped by q = F_THREADS / d rows and
+// rmd = F_THREADS % d depths)
+__device__ __forceinline__ void pack_run(float* packed, const float* run, int floats, int d, int pitch, int q,
+                                         int rmd) {
+  int e = (int)threadIdx.x, n = e / d, k = e - n * d;
+  for (; e < floats; e += F_THREADS) {
+    packed[n * pitch + k] = run[e];
+    n += q;
+    k += rmd;
+    if (k >= d) {
+      k -= d;
+      ++n;
     }
   }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  // rows row0 + i, columns lane + 32 j: one store or mask read of a warp is
-  // 32 consecutive columns of one row
+// The mask bytes of the tile at (m0, n0), 128 a row, 8 bytes a copy: item
+// n0 + c of row b is byte n0 + c (int8) or (n0 + c) % P (bit planes; a copy
+// never straddles planes, P % 8 == 0); bytes past an int8 row read as 0
+template <int MODE>
+__device__ __forceinline__ void load_mask_window(const Args& a, uint8_t* Ms, int m0, int n0) {
+#pragma unroll
+  for (int i = 0; i < MASK_TILE / F_CHUNK / F_THREADS; ++i) {
+    const int c = (int)threadIdx.x + i * F_THREADS;
+    const int row = c / (BN / F_CHUNK), col = (c % (BN / F_CHUNK)) * F_CHUNK;
+    const long long off = MODE == 0 ? n0 + col : (n0 + col) % a.plane_bytes;
+    const bool ok = m0 + row < a.B && off + F_CHUNK <= a.mask_stride;
+    cp_async8(Ms + row * BN + col, ok ? a.mask + (m0 + row) * a.mask_stride + off : a.mask, ok ? F_CHUNK : 0);
+  }
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// shared to global memory by the copy engine, evict-first in L2
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes, uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(F_THREADS, F_BLOCKS_PER_SM) masked_scores_fma_kernel(const Args a,
+                                                                                      const int aligned) {
+  extern __shared__ __align__(16) float fs[];
+  float* const run_u = fs + F_RUN_U;
+  float* const run_i = fs + F_RUN_I;
+  float* const Up = fs + F_UP;
+  float* const Ip = fs + F_IP;
+  uint8_t* const Ms = reinterpret_cast<uint8_t*>(fs) + F_MASK_OFF;
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+  const int row0 = warp * F_TM;
+  float* const eb = Up + warp * F_EPI_ROWS * T_STG_LD;  // the warp's staged rows, over the packed ones
+  const int d = a.d, pitch = fma_pitch(d), d1 = max(d, 1);
+  const int q = F_THREADS / d1, rmd = F_THREADS % d1;
+  const int d4 = d & ~3, rem = d & 3;
+
+  // tile t: users (t / n_tiles) * BM, items (t % n_tiles) * F_STEP, in row bands
+  const int tiles = a.m_tiles * a.n_tiles;
+  int t = (int)blockIdx.x;
+  auto m0_of = [&](int s) { return s / a.n_tiles * BM; };
+  auto n0_of = [&](int s) { return s % a.n_tiles * F_STEP; };
+  auto load = [&](int s) {  // a tile's runs and mask bytes, one commit group
+    const int m0 = m0_of(s), n0 = n0_of(s);
+    load_run(run_u, a.u + (size_t)m0 * d, min(BM, a.B - m0) * d, aligned);
+    load_run(run_i, a.items + (size_t)n0 * d, min(BN, a.I - n0) * d, aligned);
+    if (a.mask_tiles) load_mask_window<MODE>(a, Ms, m0, n0);
+    cp_async_commit();
+  };
+
   float acc[F_TM][F_TN];
 #pragma unroll
   for (int i = 0; i < F_TM; ++i)
 #pragma unroll
     for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < d; ++k) {
-    float uv[F_TM], iv[F_TN];
-#pragma unroll
-    for (int q = 0; q < F_TM / 4; ++q) {
-      const float4 v = *reinterpret_cast<const float4*>(&Us[k][row0 + 4 * q]);  // a broadcast
-      uv[4 * q] = v.x, uv[4 * q + 1] = v.y, uv[4 * q + 2] = v.z, uv[4 * q + 3] = v.w;
-    }
-#pragma unroll
-    for (int j = 0; j < F_TN; ++j) iv[j] = Is[k][lane + 32 * j];
-#pragma unroll
-    for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-      for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(uv[i], iv[j], acc[i][j]);
-  }
 
-  // the marks of the thread's outputs, all read before the first store: a
-  // store to out may alias the mask, so a load after it would wait for it.
-  // Where the tile's mask bytes are in bounds (the int8 mask spans the
-  // items rounded up to the tile; a bit-plane tile inside one plane) a
-  // mark is one byte read; elsewhere marked_global takes the division
-  const int plane0 = MODE == 1 ? n0 / a.plane_bytes : 0;
-  const int pb = plane0 * a.plane_bytes;
-  const bool direct = MODE == 0 ? a.mask_stride >= (long long)a.n_tiles * BN : n0 - pb + BN <= a.plane_bytes;
-  uint64_t marks = 0;  // bit i * F_TN + j
-  static_assert(F_TM * F_TN <= 64, "a thread's marks fit 64 bits");
+  load(t);
+  for (; t < tiles; t += (int)gridDim.x) {
+    const int m0 = m0_of(t), n0 = n0_of(t), last_n = t % a.n_tiles == a.n_tiles - 1;
+    cp_async_wait_all();
+    __syncthreads();  // the tile's runs and mask bytes have landed; the last epilogue is done
+    pack_run(Up, run_u, min(BM, a.B - m0) * d, d1, pitch, q, rmd);
+    pack_run(Ip, run_i, min(BN, a.I - n0) * d, d1, pitch, q, rmd);
+    // the marks of the thread's scores, bit i * F_TN + j: the mask tile
+    // (one or two planes a window), else global memory
+    uint64_t marks = 0;
+    {
+      const int p0 = MODE == 1 ? n0 / a.plane_bytes : 0;
+      const int cb = (p0 + 1) * a.plane_bytes - n0;  // the window's first item of plane p0 + 1
 #pragma unroll
-  for (int i = 0; i < F_TM; ++i) {
-    const int r = min(m0 + row0 + i, a.B - 1);
-    const uint8_t* mrow = a.mask + (long long)r * a.mask_stride + (MODE == 0 ? 0 : -pb);
+      for (int i = 0; i < F_TM; ++i) {
+        const int rr = row0 + i, r = m0 + rr;
 #pragma unroll
-    for (int j = 0; j < F_TN; ++j) {
-      const int c = n0 + lane + 32 * j;
-      const bool m = direct ? byte_marks<MODE>(mrow[c], plane0)
-                            : c < a.I && marked_global<MODE>(a, r, c, plane0, pb);
-      marks |= (uint64_t)m << (i * F_TN + j);
+        for (int j = 0; j < F_TN; ++j) {
+          const int c = lane + 32 * j;
+          bool m;
+          if (a.mask_tiles)
+            m = byte_marks<MODE>(Ms[rr * BN + c], c < cb ? p0 : p0 + 1);
+          else
+            m = r < a.B && n0 + c < a.I && marked_global<MODE>(a, r, n0 + c, p0, p0 * a.plane_bytes);
+          marks |= (uint64_t)m << (i * F_TN + j);
+        }
+      }
     }
-  }
+    __syncthreads();  // packed, marks read: the runs and the mask room are free
+    if (t + (int)gridDim.x < tiles) load(t + (int)gridDim.x);
+
+    // rows row0 + i, columns lane + 32 j: each score one fmaf chain over k in order
+    const float* up = Up + row0 * pitch;
+    const float* ip = Ip + lane * pitch;
+    for (int k = 0; k < d4; k += 4) {
+      float4 iv[F_TN];
 #pragma unroll
-  for (int i = 0; i < F_TM; ++i) {
-    const int r = m0 + row0 + i;
-    if (r >= a.B) break;
-    float* orow = a.out + (long long)r * a.I;
+      for (int j = 0; j < F_TN; ++j) iv[j] = *reinterpret_cast<const float4*>(ip + 32 * j * pitch + k);
 #pragma unroll
-    for (int j = 0; j < F_TN; ++j) {
-      const int c = n0 + lane + 32 * j;
-      if (c < a.I) orow[c] = (marks >> (i * F_TN + j)) & 1 ? -INFINITY : acc[i][j];
+      for (int i = 0; i < F_TM; ++i) {
+        const float4 uv = *reinterpret_cast<const float4*>(up + i * pitch + k);  // a broadcast
+#pragma unroll
+        for (int j = 0; j < F_TN; ++j) {
+          acc[i][j] = fmaf(uv.x, iv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(uv.y, iv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(uv.z, iv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(uv.w, iv[j].w, acc[i][j]);
+        }
+      }
+    }
+    if (rem) {  // the last d % 4 depths: the float4's first components only
+      float4 iv[F_TN];
+#pragma unroll
+      for (int j = 0; j < F_TN; ++j) iv[j] = *reinterpret_cast<const float4*>(ip + 32 * j * pitch + d4);
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i) {
+        const float4 uv = *reinterpret_cast<const float4*>(up + i * pitch + d4);
+#pragma unroll
+        for (int j = 0; j < F_TN; ++j) {
+          acc[i][j] = fmaf(uv.x, iv[j].x, acc[i][j]);
+          if (rem > 1) acc[i][j] = fmaf(uv.y, iv[j].y, acc[i][j]);
+          if (rem > 2) acc[i][j] = fmaf(uv.z, iv[j].z, acc[i][j]);
+        }
+      }
+    }
+
+    // -- the tile's epilogue: each warp stages its masked rows over the
+    // packed ones, F_EPI_ROWS at a time, each shifted by (r * I + n0) % 4
+    // floats, and writes the sectors its tile owns: of row r, items [lo, hi)
+    // between the first sector boundaries at or past n0 and n0 + F_STEP
+    // (from 0 in the first tile, to I in the last)
+    __syncthreads();  // every warp is done with the packed rows
+#pragma unroll
+    for (int h = 0; h < F_TM / F_EPI_ROWS; ++h) {
+#pragma unroll
+      for (int e = 0; e < F_EPI_ROWS; ++e) {
+        const int i = h * F_EPI_ROWS + e, r = m0 + row0 + i;
+        float* dst = eb + e * T_STG_LD + (((r & 3) * (a.I & 3) + n0) & 3) + lane;
+#pragma unroll
+        for (int j = 0; j < F_TN; ++j) {
+          dst[32 * j] = (marks >> (i * F_TN + j)) & 1 ? -INFINITY : acc[i][j];
+          acc[i][j] = 0.f;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the staged rows, to the copy engine
+      __syncwarp();
+      const int r = m0 + row0 + h * F_EPI_ROWS + lane;
+      if (lane < F_EPI_ROWS && r < a.B) {  // a lane a row
+        const int x8 = (r & 7) * (a.I & 7);  // r * I, mod 8
+        const int lo = n0 == 0 ? 0 : n0 + ((8 - ((x8 + n0) & 7)) & 7);
+        const int hi = last_n ? a.I : n0 + F_STEP + ((8 - ((x8 + n0 + F_STEP) & 7)) & 7);
+        // 16-byte aligned from lo_a to hi_a, by the copy engine; the row's
+        // own ends (the first and last tiles' unaligned ends) by hand
+        const int lo_a = lo + ((4 - ((x8 + lo) & 3)) & 3), hi_a = max(lo_a, hi - ((x8 + hi) & 3));
+        const float* srow = eb + lane * T_STG_LD + ((x8 + n0) & 3);  // srow[c - n0]: item c
+        float* orow = a.out + (long long)r * a.I;
+        uint64_t policy;
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+        if (hi_a > lo_a) bulk_store(orow + lo_a, srow + lo_a - n0, (hi_a - lo_a) * 4, policy);
+        for (int c = lo; c < min(lo_a, hi); ++c) __stcs(orow + c, srow[c - n0]);
+        for (int c = max(hi_a, lo); c < hi; ++c) __stcs(orow + c, srow[c - n0]);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the staged rows are free
+      }
+      __syncwarp();
     }
   }
 }
 
+// F_BLOCKS_PER_SM blocks a SM (the occupancy query's count) and the SMs of
+// each device, found once per kernel and device; `aligned`: u and items
+// 16-byte aligned
 template <int MODE>
-int launch_fma(const Args& a, cudaStream_t stream) {
-  masked_scores_fma_kernel<MODE><<<dim3(a.n_tiles, a.m_tiles), F_THREADS, 0, stream>>>(a);
+int launch_fma(const Args& a, int aligned, cudaStream_t stream) {
+  static int blocks_per_sm[MAX_DEVICES], sms[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  auto kernel = masked_scores_fma_kernel<MODE>;
+  if (blocks_per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm[dev], kernel, F_THREADS, F_SMEM_BYTES);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks_per_sm[dev] == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  Args f = a;
+  f.n_tiles = fma_item_tiles(a.I);
+  // 8-byte copies of the mask: an 8-byte aligned table, rows and planes
+  // (bit planes of at least a tile's items: a tile spans two planes at most)
+  f.mask_tiles = reinterpret_cast<uintptr_t>(a.mask) % 8 == 0 && a.mask_stride % 8 == 0 &&
+                 (MODE == 0 || (a.plane_bytes % 8 == 0 && a.plane_bytes >= BN));
+  const long long tiles = (long long)f.m_tiles * f.n_tiles;
+  const long long fit = (long long)blocks_per_sm[dev] * sms[dev];
+  const int grid = (int)(tiles < fit ? tiles : fit);
+  kernel<<<grid, F_THREADS, F_SMEM_BYTES, stream>>>(f, aligned);
   return (int)cudaGetLastError();
+}
+
+// The f32 path's arithmetic a thread a score: one fmaf chain from 0 over k
+// in order, no mask. A test entry (neurec_fma_chain), on no path.
+__global__ void fma_chain_kernel(const float* __restrict__ u, const float* __restrict__ items,
+                                 float* __restrict__ out, int B, int I, int d) {
+  const long long n = (long long)B * I;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const long long b = idx / I, i = idx - b * I;
+    float acc = 0.f;
+    for (int k = 0; k < d; ++k) acc = fmaf(u[b * d + k], items[i * d + k], acc);
+    out[idx] = acc;
+  }
 }
 
 // the card's own rounding instruction, which rna_tf32 reproduces on every
@@ -872,26 +1102,38 @@ __global__ void round_tf32_kernel(const float* __restrict__ x, float* __restrict
 
 }  // namespace
 
-// vec16: d % 4 == 0 and u, items 16-byte aligned (16-byte cp.async). The
-// f32 path takes d <= FMA_MAX_D, the 3xTF32 split every wider d.
+// aligned: u and items 16-byte aligned (16-byte copies). The f32 path takes
+// d <= FMA_MAX_D, the 3xTF32 split every wider d (16-byte rows where d % 4 == 0).
 extern "C" int neurec_masked_scores(const float* u, const float* items, const uint8_t* mask,
                                     float* out, int B, int I, int d, long long mask_stride,
-                                    int plane_bytes, int mode, int vec16, cudaStream_t stream) {
+                                    int plane_bytes, int mode, int aligned, cudaStream_t stream) {
   if (B <= 0 || I <= 0) return 0;
   Args a{u, items, mask, out, B, I, d, mask_stride, plane_bytes,
          (B + BM - 1) / BM, (I + BN - 1) / BN, 0};
-  if (d <= FMA_MAX_D) return mode == 0 ? launch_fma<0>(a, stream) : launch_fma<1>(a, stream);
-  const bool aligned = reinterpret_cast<uintptr_t>(mask) % 16 == 0 && mask_stride % 16 == 0;
+  if (d <= FMA_MAX_D) return mode == 0 ? launch_fma<0>(a, aligned, stream) : launch_fma<1>(a, aligned, stream);
+  const int vec16 = aligned && d % 4 == 0;
+  const bool mask_aligned = reinterpret_cast<uintptr_t>(mask) % 16 == 0 && mask_stride % 16 == 0;
   // the int8 mask spans the items rounded up to 512 (ops/masked_scores.py),
   // so a tile's 128 bytes stay in the row; bit planes of W/8 % 128 == 0
   // bytes hold whole tiles
-  a.mask_tiles = aligned && (mode == 0 ? mask_stride >= (long long)a.n_tiles * BN : plane_bytes % BN == 0);
+  a.mask_tiles = mask_aligned && (mode == 0 ? mask_stride >= (long long)a.n_tiles * BN : plane_bytes % BN == 0);
   if (vec16 && a.mask_tiles) {  // the TMA path takes 16-byte rows and whole mask tiles
     const int code = mode == 0 ? launch_tma<0>(a, stream) : launch_tma<1>(a, stream);
     if (code != -1) return code;
   }
   if (mode == 0) return vec16 ? launch<0, 16>(a, stream) : launch<0, 4>(a, stream);
   return vec16 ? launch<1, 16>(a, stream) : launch<1, 4>(a, stream);
+}
+
+// The f32 path's chain a thread a score, unmasked: out[b, i] = fmaf chain of
+// u[b] and items[i] over k in order. For the tests that hold the f32 path's
+// bits (ops/masked_scores.py::fma_chain_scores); never called by the wrapper.
+extern "C" int neurec_fma_chain(const float* u, const float* items, float* out, int B, int I, int d,
+                                cudaStream_t stream) {
+  if (B <= 0 || I <= 0) return 0;
+  const long long blocks = ((long long)B * I + 255) / 256;
+  fma_chain_kernel<<<(int)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(u, items, out, B, I, d);
+  return (int)cudaGetLastError();
 }
 
 // cvt.rna.tf32.f32 over n floats, for the tests that hold K1's rounding

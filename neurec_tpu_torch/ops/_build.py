@@ -54,7 +54,7 @@ NVCC_FLAGS = [
 # (the backward of A @ x) apart from their forward ones, the probe's by mode
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "masked_scores", "plan_spmm", "plan_spmm_t", "plan_spmm_packed", "plan_spmm_packed_t",
-    "dma_rate_serial", "dma_rate_pipelined", "round_tf32",
+    "dma_rate_serial", "dma_rate_pipelined", "round_tf32", "fma_chain",
 )}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,7 +24,8 @@ has two arithmetic paths, chosen by the width alone (``k1_path``): f32 FMAs
 on the CUDA cores, one chain per score over k in order, for
 d <= ``K1_FMA_MAX_D``; above it a 3xTF32 split on the tensor cores (see the
 source). ``round_tf32`` is the TF32 rounding the split applies to each
-operand, for the tests of the split's numbers.
+operand, for the tests of the split's numbers; ``fma_chain_scores`` is the
+f32 path's chain a thread a score, for the tests of the f32 path's bits.
 """
 
 from __future__ import annotations
@@ -145,6 +146,42 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fma_chain_scores_reference(u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """(B, I) unmasked scores, each one fmaf chain from 0 over k in order as
+    K1's f32 path forms it, emulated in f64: a step's product is exact in
+    f64 and its sum is rounded to f64, then to f32. That is fmaf's one
+    rounding except where the f64 sum lands on the midpoint of two floats
+    (double rounding, ~2^-29 of steps), so the card's chain is the oracle of
+    the f32 path's bits, this its plain version."""
+    u64, i64 = u.double(), items.double()
+    acc = torch.zeros((u.shape[0], items.shape[0]), dtype=torch.float32, device=u.device)
+    for k in range(u.shape[1]):
+        acc = (u64[:, k, None] * i64[None, :, k] + acc.double()).float()
+    return acc
+
+
+def fma_chain_scores(u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """(B, I) f32 u @ items^T, each score one fmaf chain from 0 over k in
+    order, a thread a score on the card: the f32 path's arithmetic without
+    its tiles, copies or mask, which a test holds K1's f32 path to bit for
+    bit. Never called by the wrappers."""
+    _check_factors(u, items, items.shape[0])
+    if u.device.type == "cpu":
+        return fma_chain_scores_reference(u, items)
+    u, items = u.contiguous(), items.contiguous()
+    out = torch.empty((u.shape[0], items.shape[0]), dtype=torch.float32, device=u.device)
+    lib = _build.load("masked_scores", u.device)
+    fn = lib.neurec_fma_chain
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), items.data_ptr(), out.data_ptr(), u.shape[0], items.shape[0], u.shape[1],
+                  torch.cuda.current_stream(u.device).cuda_stream)
+    _build.check(lib, code, "fma_chain")
+    _build.LAUNCHES["fma_chain"] += 1
+    return out
+
+
 def masked_scores_reference(
     u: torch.Tensor, items: torch.Tensor, train_rows: torch.Tensor
 ) -> torch.Tensor:
@@ -174,6 +211,15 @@ def _check_factors(u: torch.Tensor, items: torch.Tensor, num_items: int) -> None
         raise ValueError("u on %s, items on %s" % (u.device, items.device))
 
 
+def aligned16(u: torch.Tensor, items: torch.Tensor) -> bool:
+    """Whether K1 copies its operands 16 bytes at a time: both bases
+    16-byte aligned. The f32 path then copies a tile's rows (512 d bytes a
+    user tile and 480 d an item tile from the base) by 16-byte copies at
+    every d, ragged d included; the split needs d % 4 == 0 as well (16-byte
+    rows). 4-byte copies otherwise."""
+    return u.data_ptr() % 16 == 0 and items.data_ptr() % 16 == 0
+
+
 def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
     """Run the K1 kernel; ``mask`` is a (B, mask_stride) uint8/int8 tensor."""
     if u.device.type != "cuda":
@@ -183,8 +229,7 @@ def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
     B, d = u.shape
     u, items = u.contiguous(), items.contiguous()
     out = torch.empty((B, num_items), dtype=torch.float32, device=u.device)
-    # 16-byte copies need 16-byte rows and bases; 4-byte copies otherwise
-    vec16 = int(d % 4 == 0 and u.data_ptr() % 16 == 0 and items.data_ptr() % 16 == 0)
+    aligned = int(aligned16(u, items))
     lib = _build.load("masked_scores", u.device)
     fn = lib.neurec_masked_scores
     fn.restype = ctypes.c_int
@@ -193,7 +238,7 @@ def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
     with torch.cuda.device(u.device):
         code = fn(
             u.data_ptr(), items.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, num_items, d, mask_stride, plane_bytes, mode, vec16,
+            B, num_items, d, mask_stride, plane_bytes, mode, aligned,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(lib, code, "masked_scores")

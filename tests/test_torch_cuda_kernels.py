@@ -8,7 +8,8 @@ on a machine that has only PyTorch:
 
 Tolerance: atol/rtol 1e-5 — both sides compute in f32, with another
 summation order (K1 in f32 FMAs up to d = 40, above on the tensor cores
-through a 3xTF32 split). At d = 256
+through a 3xTF32 split). K1's f32 path is also held bit for bit to the
+fmaf chain a thread a score (``k1.fma_chain_scores``). At d = 256
 with randn factors no two f32 orders agree to 1e-5, so there K1 is held to
 be no farther from the f64 product than the plain f32 product is.
 """
@@ -365,25 +366,105 @@ def test_dma_rate_kernel_writes_the_plain_versions_rows(cuda, mode, rows):
         assert torch.equal(got, dma_rate.dma_copies_reference(offs, n_dma, rows))
 
 
-@pytest.mark.parametrize("d", [1, 16, 17, 21, 33, 40, 41, 64, 65])
+def _check_f32_path_bits(u, items, rows, width=None):
+    """K1's f32 path in both mask modes, bit for bit against the fmaf chain
+    a thread a score (``k1.fma_chain_scores``) with -inf where the plain
+    version has it; the same bits on a second call; every finite score
+    within d 2^-24 sum_k |u_k i_k| of the f64 product."""
+    I, d = items.shape
+    assert k1.k1_path(d) == "fma"
+    width = global_bits_width(I) if width is None else width
+    bits = k1.pack_train_bits(rows, I, block_items=width)
+    chain = k1.fma_chain_scores(u, items)
+    exact = u.double() @ items.double().T
+    bound = d * 2.0 ** -24 * (u.double().abs() @ items.double().abs().T)
+    runs = (
+        (lambda: k1.masked_scores(u, items, rows), k1.masked_scores_reference(u, items, rows)),
+        (lambda: k1.masked_scores_bits(u, items, bits, width, I),
+         k1.masked_scores_bits_reference(u, items, bits, width, I)),
+    )
+    for run, want in runs:
+        got = run()
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        oracle = torch.where(torch.isneginf(want), float("-inf"), chain)
+        assert torch.equal(got.view(torch.int32), oracle.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), run().view(torch.int32))
+        finite = torch.isfinite(got)
+        assert bool(((got.double() - exact).abs() <= bound)[finite].all())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 16, 17, 21, 33, 40, 41, 64, 65])
 def test_masked_scores_kernel_at_the_factorized_models_widths(cuda, d):
     """K1 at the evaluation shape and the widths the models give it (Pop 1,
     WRMF 16, FISM 17, IRGAN 21, MultiDAE and MultiVAE 33, APR 64, CDAE 65,
-    and the f32 path's edges 40 and 41), bits and int8 masks, against its
-    plain version. Where the f32 path runs (d <= 40) each score is within
-    d 2^-24 sum_k |u_k i_k| of the f64 product."""
+    the f32 path's edges 40 and 41, and d 2 and 3, whose runs are shorter
+    than a 16-byte copy a row), bits and int8 masks, against its plain
+    version. Where the f32 path runs (d <= 40) each score is the fmaf chain
+    a thread a score bit for bit, and within d 2^-24 sum_k |u_k i_k| of the
+    f64 product."""
     B, I = 2048, 38546
     u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(21 + d, B, I, d, 64))
     _check_both_modes(u, items, rows)
-    if k1.k1_path(d) != "fma":
-        return
-    exact = u.double() @ items.double().T
-    bound = d * 2.0 ** -24 * (u.double().abs() @ items.double().abs().T)
-    width = global_bits_width(I)
-    bits = k1.pack_train_bits(rows, I, block_items=width)
-    for got in (k1.masked_scores(u, items, rows), k1.masked_scores_bits(u, items, bits, width, I)):
-        finite = torch.isfinite(got)
-        assert bool(((got.double() - exact).abs() <= bound)[finite].all())
+    if k1.k1_path(d) == "fma":
+        _check_f32_path_bits(u, items, rows)
+
+
+F32_PATH_WIDTHS = [1, 2, 3, 16, 17, 21, 33, 40]
+# every (B, I) of B in {1, 127, 129, 2048} and I in {1, 127, 129, 700, 3706,
+# 38546} but (2048, 38546), which the factorized models' widths test runs
+F32_PATH_SHAPES = [(B, I) for B in (1, 127, 129, 2048) for I in (1, 127, 129, 700, 3706, 38546)
+                   if (B, I) != (2048, 38546)]
+
+
+@pytest.mark.parametrize("B,I", F32_PATH_SHAPES)
+@pytest.mark.parametrize("d", F32_PATH_WIDTHS)
+def test_masked_scores_f32_path_bits_across_shapes(cuda, d, B, I):
+    """The f32 path's persistent row-band schedule at the shapes it can get
+    wrong: one user or item, a ragged last tile either way (127, 129),
+    serving's and ml-1m's and gowalla's catalogues (a band of 6, 29 or 302
+    item tiles), at every width class (runs of whole and ragged 16-byte
+    copies): the chain's bits in both masks."""
+    u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(B + I + d, B, I, d, 40))
+    _check_f32_path_bits(u, items, rows)
+
+
+@pytest.mark.parametrize("d", F32_PATH_WIDTHS)
+def test_masked_scores_f32_path_bits_on_straddling_planes_and_unaligned_bases(cuda, d):
+    """The f32 path off the evaluator's layouts: bit planes of W/8 = 376
+    bytes (W 3,008, not a multiple of 1024: tiles straddle two planes) and
+    of 375 (W 3,000: 8-byte mask copies do not apply, the marks are read
+    from global memory), and u and items one float off a 16-byte boundary
+    (4-byte copies of the runs); each against the chain's bits, and the
+    unaligned call equal to the aligned one."""
+    B, I = 300, 3000
+    u, items, rows = _scores_inputs(d, B, I, d, 80)
+    rows = torch.from_numpy(rows).to(cuda)
+    u_a, i_a = torch.from_numpy(u).to(cuda), torch.from_numpy(items).to(cuda)
+    _check_f32_path_bits(u_a, i_a, rows, width=3008)
+    _check_f32_path_bits(u_a, i_a, rows, width=3000)
+    u_buf = torch.empty(B * d + 1, device=cuda)
+    i_buf = torch.empty(I * d + 1, device=cuda)
+    u_off = u_buf[1:].view(B, d).copy_(u_a)
+    i_off = i_buf[1:].view(I, d).copy_(i_a)
+    assert not k1.aligned16(u_off, i_a) and not k1.aligned16(u_a, i_off) and k1.aligned16(u_a, i_a)
+    for uu, ii in ((u_off, i_a), (u_a, i_off), (u_off, i_off)):
+        _check_f32_path_bits(uu, ii, rows)
+        _check_f32_path_bits(uu, ii, rows, width=3008)
+        assert torch.equal(k1.masked_scores(uu, ii, rows).view(torch.int32),
+                           k1.masked_scores(u_a, i_a, rows).view(torch.int32))
+
+
+def test_fma_chain_kernel_is_the_cpu_chain(cuda):
+    """The card's chain a thread a score against its plain version (the
+    chain emulated in f64) on the CPU, bit for bit at a small shape, and
+    on the case where one fmaf differs from a product and a sum."""
+    u, items, _ = _scores_inputs(5, 64, 300, 21, 1)
+    u, items = torch.from_numpy(u), torch.from_numpy(items)
+    got = k1.fma_chain_scores(u.to(cuda), items.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), k1.fma_chain_scores_reference(u, items).view(torch.int32))
+    x = 1 + 2.0 ** -12  # x * x = 1 + 2^-11 + 2^-24: rounded alone, its last bit is lost
+    u1, i1 = torch.tensor([[-1.0, x]], device=cuda), torch.tensor([[1.0, x]], device=cuda)
+    assert float(k1.fma_chain_scores(u1, i1)) == 2.0 ** -11 + 2.0 ** -24
 
 
 def _stable_sort_topk(x, k):
@@ -418,6 +499,7 @@ def test_masked_scores_kernel_at_the_sequential_models_widths(cuda, d):
     """K1 at the sequential models' evaluation shape (ml-1m: 3,706 items,
     eval batch 2048) and widths (HRM 16, Fossil 17, FPMC 32, SASRec 50, NPE
     64, Caser 100, GRU4Rec and GRU4RecPlus 101: f32 FMAs at 16, 17 and 32,
+    there the fmaf chain's bits,
     the split's cp.async path at the ragged 50 and 101, its TMA path at 64
     and 100), both masks: -inf where the plain version has it, the same bits
     twice, and every score within the bound of the path it takes from the
@@ -432,6 +514,8 @@ def test_masked_scores_kernel_at_the_sequential_models_widths(cuda, d):
     u, items, rows = (torch.from_numpy(a).to(cuda) for a in _scores_inputs(50 + d, B, I, d, 64))
     if d <= 64:
         _check_both_modes(u, items, rows)
+    if k1.k1_path(d) == "fma":
+        _check_f32_path_bits(u, items, rows)
     rel = d * 2.0 ** -24 + (0.0 if k1.k1_path(d) == "fma" else 3 * 2.0 ** -22)
     exact = u.double() @ items.double().T
     bound = rel * (u.double().abs() @ items.double().abs().T)
