@@ -127,8 +127,12 @@ failure exits non-zero before the result line):
    through K1's plain version (metrics within 1e-5), and K1 is held to
    its plain version at their own factors (FISM's a kernel record,
    ``masked_scores[d17]``); NAIS and DeepICF warm-start from FISM's
-   pickle, ConvNCF from an MF's at embedding 64; they and DMF evaluate the
-   first ``ZOO_EVAL_USERS`` test users;
+   pickle and evaluate all test users over their batches' train edges, a
+   cold call (eager, then the captures) and a warm one (``edge_eval``:
+   seconds, device ms, idle share, users/s, the capacity E_max against
+   the batches' exact edge count, pool bytes; the warm metric string the
+   cold one's); ConvNCF warm-starts from an MF's at embedding 64; it and
+   DMF evaluate the first ``ZOO_EVAL_USERS`` test users;
 15. ``run.main`` (``python -m neurec_tpu_torch.run``) on the card for each
    model of paths C to F (``RUN_MODELS``): one epoch (Pop and ItemKNN: none)
    and an evaluation at its ``conf/*.properties`` widths on a rating file
@@ -320,7 +324,7 @@ failure exits non-zero before the result line):
    Phase 31's runs stay eager. The summary line ``phase: graph_custom``
    names the nine models checked;
 34. ``eval_graph``: beside the north star's, path A's, path B's, path C's
-   (NeuMF), NAIS's (path D) and GRU4Rec's (path G) trainers
+   (NeuMF), NAIS's and DeepICF's (path D) and GRU4Rec's (path G) trainers
    (``eval_graph_check``, an ``eval_graph_check`` line each), the trained
    params evaluated by two fresh evaluators, ``graphs=False`` and the
    default (``step_graph.KeptProgram``: a prologue graph, the hoisted
@@ -328,21 +332,24 @@ failure exits non-zero before the result line):
    calls each: ``eval_cold_s`` and ``eval_warm_s``, the device ms of a warm
    call and the card's idle share over it (profiler), the kernels'
    launches a call (equal in both modes), the graph launches a warm call
-   (one a batch plus the prologue; none for NAIS, eager by declaration)
-   and each program's pool bytes; the metric strings and every recorded
-   top-K id must be equal. On the north star a warm replay also runs
-   under ``torch.cuda.set_sync_debug_mode("error")``, and the phase-4
-   requests go through ``batch_topk`` both ways from an empty export cache
+   (one a batch plus the prologue, every model) and each program's pool
+   bytes; the metric strings and every recorded top-K id must be equal.
+   On the north star a warm replay also runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the phase-4 requests
+   go through ``batch_topk`` both ways from an empty export cache
    (``serving_graph_check``: ``serving_request_s``, device ms, graph
-   launches a request, pool bytes; the ids and scores equal). The summary
-   line ``phase: eval_graph`` gathers them. The captured calls' launches
-   count in the kernels line (paths ``eval_graph_*`` and ``serve_graph``).
+   launches a request, pool bytes; the ids and scores equal); so does one
+   request of 512 users to NAIS's export, made twice
+   (``NAIS_SERVING_REQUESTS``: the second replays). The
+   summary line ``phase: eval_graph`` gathers them. The captured calls'
+   launches count in the kernels line (paths ``eval_graph_*``,
+   ``serve_graph`` and ``serve_graph_nais``).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
 NeuMF 300 (an epoch is 3,670); path D trains 20-100 steps of its models'
-first epochs, and NAIS, DeepICF (1,024 users), ConvNCF (32) and DMF
-(2,048) evaluate a subset of the 14,821 test users; path E trains 59-200
+first epochs, and ConvNCF (32 users) and DMF (2,048) evaluate a subset
+of the 14,821 test users (NAIS and DeepICF all of them); path E trains 59-200
 steps (WRMF 2 of its 300 epochs) and JCA evaluates 2,048 users; path F
 trains 100 of 315 steps of one epoch of its 300; path G trains 200-2,000
 steps of epochs of thousands (SASRec 8 epochs of 48 steps; GRU4Rec's cut
@@ -350,8 +357,9 @@ in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
 DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
 path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole;
 phase 31 trains 5-20 steps of each pass of one epoch, phase 33 24 of each
-pass of epoch 2; phase 34 evaluates NeuMF's first 4,096 test users,
-GRU4Rec's first 2,048 and NAIS's first 128 (``EVAL_GRAPH_USERS``).
+pass of epoch 2; phase 34 evaluates NeuMF's, NAIS's and DeepICF's first
+4,096 test users (two batches of 2,048) and GRU4Rec's first 2,048
+(``EVAL_GRAPH_USERS``).
 
 Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
@@ -476,9 +484,9 @@ NEUMF_STEPS = 300
 # users of the chunked-against-unchunked predict check
 CHUNK_CHECK_USERS = 8
 # path D: the other models at their conf/*.properties, each for a few steps
-# of its first epoch; NAIS, DeepICF, ConvNCF and DMF evaluate the first
-# ZOO_EVAL_USERS test users (their predict is per pair or per user: ConvNCF
-# ~3 MFLOP a pair, NAIS ~49 TFLOP of attention for all 14,821 users)
+# of its first epoch; ConvNCF and DMF evaluate the first ZOO_EVAL_USERS
+# test users (their predict is per pair: ConvNCF ~3 MFLOP a pair); NAIS and
+# DeepICF evaluate all 14,821 over their batches' train edges
 # path E: the rest of the general zoo at their conf/*.properties, a few steps
 # each (None: the whole epoch; each pass of a custom epoch is cut alike:
 # CFGAN's D and G sub-epochs, IRGAN's D batches and G users); WRMF takes 2
@@ -487,7 +495,7 @@ CHUNK_CHECK_USERS = 8
 ZOO_STEPS = {"APR": 50, "FISM": 100, "NAIS": 30, "DeepICF": 30, "MF": 50, "ConvNCF": 20, "DMF": 20,
              "MultiDAE": 59, "MultiVAE": 59, "DAE": 117, "CDAE": 100, "JCA": 100, "CFGAN": 100, "IRGAN": 200,
              "SpectralCF": 100}
-ZOO_EVAL_USERS = {"NAIS": 1024, "DeepICF": 1024, "ConvNCF": 32, "DMF": 2048, "JCA": 2048}
+ZOO_EVAL_USERS = {"ConvNCF": 32, "DMF": 2048, "JCA": 2048}
 # (model, K1 record at its width, epochs) of the path-E models K1 ranks; the
 # others rank on the bits predict tier
 E_FACTORIZED = (("Pop", "masked_scores[d1]", 1), ("MultiDAE", "masked_scores[d33]", 1), ("MultiVAE", None, 1),
@@ -690,10 +698,13 @@ GRAPH_CUSTOM_UNROLLS = (1, 3)
 # calls (the default) against graphs=False, on fresh evaluators: a cold
 # call (captured: eager, then the captures) and EVAL_GRAPH_WARM warm ones,
 # the metric strings and the recorded ids equal; the predict-heavy models
-# evaluate their first EVAL_GRAPH_USERS test users (the only cut)
+# evaluate their first EVAL_GRAPH_USERS test users (the only cut: two
+# batches or more, so the body replays); NAIS's export serves one request
+# of SERVING_USERS users NAIS_SERVING_REQUESTS times both ways
 EVAL_GRAPH_WARM = 3
-EVAL_GRAPH_USERS = {"NeuMF": 4096, "GRU4Rec": 2048, "NAIS": 128}
-EVAL_GRAPH_PATHS = ("northstar", "pack2", "ngcf", "neumf", "gru4rec", "nais")
+EVAL_GRAPH_USERS = {"NeuMF": 4096, "GRU4Rec": 2048, "NAIS": 4096, "DeepICF": 4096}
+EVAL_GRAPH_PATHS = ("northstar", "pack2", "ngcf", "neumf", "gru4rec", "nais", "deepicf")
+NAIS_SERVING_REQUESTS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1929,7 +1940,7 @@ def eval_graph_check(torch, label, trainer, paths, n_users=None, sync_check=Fals
     saved = dict(_build.LAUNCHES)
     model, params = trainer.model, trainer.params
     counting, replays = _replay_counter(step_graph)
-    rec = {"phase": "eval_graph_check", "path": label, "model": model.name, "eval_graphs": model.eval_graphs}
+    rec = {"phase": "eval_graph_check", "path": label, "model": model.name}
     runs = {}
     try:
         with counting:
@@ -1962,7 +1973,7 @@ def eval_graph_check(torch, label, trainer, paths, n_users=None, sync_check=Fals
                              "launches_warm": launches[1], "graph_launches_per_warm_call": graph_launches[1],
                              "device_ms": device, "idle_share": None if device is None else 1.0 - device / warm_ms,
                              "pool_bytes": [k.program.pool_bytes for k in ev._kept.values()]}
-                if graphs and sync_check and model.eval_graphs:
+                if graphs and sync_check:
                     (kept,) = ev._kept.values()
                     kept.args["params"] = params
                     torch.cuda.synchronize()
@@ -1986,20 +1997,20 @@ def eval_graph_check(torch, label, trainer, paths, n_users=None, sync_check=Fals
     require(rec["equal"], "%s: the captured evaluation differs from the eager one" % label)
     require(rec["graph"]["launches_warm"] == rec["eager"]["launches_warm"] == rec["eager"]["launches_cold"]
             == rec["graph"]["launches_cold"], "%s: kernel launches a call differ: %s" % (label, rec))
-    want = eager["n_batches"] + 1 if model.eval_graphs else 0
+    want = eager["n_batches"] + 1
     require(rec["graph"]["graph_launches_per_warm_call"] == want and rec["eager"]["graph_launches_per_warm_call"] == 0,
             "%s: %d graph launches a warm call, expected %d" % (label, rec["graph"]["graph_launches_per_warm_call"],
                                                                want))
     return rec
 
 
-def serving_graph_check(torch, model, params, requests, train_matrix, paths):
-    """Phase 34's serving: the phase-4 requests through ``batch_topk``
-    with ``graphs=False`` and by default (the export captured per request
-    size and kept per model), from an empty cache: seconds a request (the
-    first cold), device ms of a warm request, graph launches a warm
-    request, pool bytes a program; the ids and scores equal. The captured
-    mode's launches are the path ``serve_graph``."""
+def serving_graph_check(torch, model, params, requests, train_matrix, paths, label="serve_graph"):
+    """Phase 34's serving: ``requests`` (the phase-4 ones, or NAIS's)
+    through ``batch_topk`` with ``graphs=False`` and by default (the export
+    captured per request size and kept per model), from an empty cache:
+    seconds a request (the first cold), device ms of a warm request, graph
+    launches a warm request, pool bytes a program; the ids and scores
+    equal. The captured mode's launches are the path ``label``."""
     import numpy as np
 
     from neurec_tpu_torch import recommend, step_graph
@@ -2008,8 +2019,8 @@ def serving_graph_check(torch, model, params, requests, train_matrix, paths):
 
     saved = dict(_build.LAUNCHES)
     counting, replays = _replay_counter(step_graph)
-    rec, outs = {"phase": "serving_graph_check", "requests": len(requests), "users_per_request": SERVING_USERS,
-                 "k": SERVING_K}, {}
+    rec, outs = {"phase": "serving_graph_check", "path": label, "model": model.name, "requests": len(requests),
+                 "users_per_request": SERVING_USERS, "k": SERVING_K}, {}
     try:
         with counting:
             for mode, graphs in (("eager", False), ("graph", True)):
@@ -2029,7 +2040,7 @@ def serving_graph_check(torch, model, params, requests, train_matrix, paths):
                     secs.append(time.perf_counter() - t)
                     graph_launches.append(len(replays) - n_replays)
                 if graphs:
-                    paths["serve_graph"] = dict(_build.LAUNCHES)
+                    paths[label] = dict(_build.LAUNCHES)
                 warm_ms = float(np.median(secs[1:])) * 1e3
                 device = _device_ms(torch, lambda: serve(requests[-1]))
                 exports = [e for k, e in recommend._EXPORT_CACHE.items() if k[0] == id(model)]
@@ -2043,7 +2054,45 @@ def serving_graph_check(torch, model, params, requests, train_matrix, paths):
     rec["equal"] = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                        for a, b in zip(outs["eager"], outs["graph"]))
     emit(rec)
-    require(rec["equal"], "serving: the captured export differs from the eager one")
+    require(rec["equal"], "%s: the captured export differs from the eager one" % label)
+    return rec
+
+
+def edge_eval(torch, trainer, result_cold, cold_s):
+    """Path D's NAIS or DeepICF over all test users, scored over their
+    batches' train edges: after the cold call (``result_cold`` in
+    ``cold_s``: eager, then the captures) a warm call (replays) and the
+    device ms of another (profiler), the idle share, users/s, the
+    capacity E_max against the batches' exact edge count (the real users'
+    train pairs) and the slots the padding adds, and the program's pool
+    bytes; the warm call's metric string must be the cold one's."""
+    import numpy as np
+
+    ev, model, params = trainer.evaluator.evaluator, trainer.model, trainer.params
+
+    def call():
+        return ev.evaluate(model.predict, params)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    result = call()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    device = _device_ms(torch, call)
+    (kept,) = ev._kept.values()
+    users_b, valid = kept.batches[0].cpu().numpy(), kept.batches[2].cpu().numpy()
+    capacity = model.predict_capacity(users_b, valid)
+    exact = int((model._lens_host[users_b] * valid).sum())
+    rec = {"eval_users": len(ev.test_users), "n_batches": int(users_b.shape[0]), "batch_size": int(users_b.shape[1]),
+           "eval_cold_s": cold_s, "eval_warm_s": warm_s, "device_ms": device,
+           "idle_share": None if device is None else 1.0 - device / (warm_s * 1e3),
+           "eval_users_per_s": len(ev.test_users) / warm_s, "e_max": capacity,
+           "edges_exact": exact, "edge_slots": capacity * int(users_b.shape[0]),
+           "slots_per_edge": capacity * int(users_b.shape[0]) / max(exact, 1),
+           "captured": kept.program.capture and kept.program._graphs is not None,
+           "pool_bytes": kept.program.pool_bytes, "warm_equals_cold": result == result_cold}
+    require(rec["captured"], "%s: its evaluation was not captured" % model.name)
+    require(rec["warm_equals_cold"], "%s: the warm evaluation differs from the cold one" % model.name)
     return rec
 
 
@@ -2715,7 +2764,7 @@ def main() -> int:
         ("plan_spmm", "plan_spmm_t", tmodel.n_layers), timing=True))
     # phase 34 on the north star: the trained state's evaluation and serving
     eval_checks = [eval_graph_check(torch, "northstar", trainer, paths, sync_check=True)]
-    serving_check = serving_graph_check(torch, tmodel, trainer.params, requests, dataset.train_matrix, paths)
+    serving_checks = [serving_graph_check(torch, tmodel, trainer.params, requests, dataset.train_matrix, paths)]
 
     # -- 9. path A: LightGCN chunk512_pack2 (K3) -----------------------------
     with env_vars(PACK2_ENV):
@@ -3078,13 +3127,20 @@ def main() -> int:
                              ("DMF", [], None)):
         _build.reset_launches()
         trainer_z, rec_z = zoo_trainer(name, args, ZOO_STEPS[name])
-        result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params, ZOO_EVAL_USERS[name])
+        n_z = ZOO_EVAL_USERS.get(name, n_eval)
+        result_z, eval_z_s = zoo_eval(trainer_z, trainer_z.params, ZOO_EVAL_USERS.get(name))
         paths[name.lower()] = dict(_build.LAUNCHES)
+        edges_z = edge_eval(torch, trainer_z, result_z, eval_z_s) if name in ("NAIS", "DeepICF") else None
         if name in EVAL_GRAPH_USERS:
             eval_checks.append(eval_graph_check(torch, name.lower(), trainer_z, paths, EVAL_GRAPH_USERS[name]))
-        emit({"phase": name.lower(), **rec_z, "warm_start": warm, "eval_users": ZOO_EVAL_USERS[name],
-              "result": result_z, "eval_s": eval_z_s, "eval_users_per_s": ZOO_EVAL_USERS[name] / eval_z_s,
-              "launches": paths[name.lower()],
+        if name == "NAIS":
+            users_n = np.asarray(trainer_z.evaluator.evaluator.test_users)
+            serving_checks.append(serving_graph_check(
+                torch, trainer_z.model, trainer_z.params, [users_n[:SERVING_USERS]] * NAIS_SERVING_REQUESTS,
+                dataset.train_matrix, paths, "serve_graph_nais"))
+        emit({"phase": name.lower(), **rec_z, "warm_start": warm, "eval_users": n_z,
+              "result": result_z, "eval_s": eval_z_s, "eval_users_per_s": n_z / eval_z_s,
+              "launches": paths[name.lower()], **({"edge_eval": edges_z} if edges_z else {}),
               **({"warm_start_from_mf": rec_mf64} if name == "ConvNCF" else {})})
         require(warm is None or warm_started(warm), "%s did not load %s" % (name, warm))
         del trainer_z
@@ -3991,16 +4047,18 @@ def main() -> int:
     by_mode = lambda f: {c["path"]: {m: f(c[m]) for m in ("eager", "graph")} for c in eval_checks}  # noqa: E731
     emit({"phase": "eval_graph", "checks": len(eval_checks), "paths": [c["path"] for c in eval_checks],
           "eval_users": {c["path"]: c["eval_users"] for c in eval_checks},
-          "equal": dict({c["path"]: c["equal"] for c in eval_checks}, serving=serving_check["equal"]),
+          "equal": dict({c["path"]: c["equal"] for c in eval_checks + serving_checks}),
           "eval_cold_s": by_mode(lambda r: r["eval_cold_s"]),
           "eval_warm_s": by_mode(lambda r: float(np.median(r["eval_warm_s"]))),
           "device_ms": by_mode(lambda r: r["device_ms"]), "idle_share": by_mode(lambda r: r["idle_share"]),
           "graph_launches_per_warm_call": by_mode(lambda r: r["graph_launches_per_warm_call"]),
           "pool_bytes": {c["path"]: c["graph"]["pool_bytes"] for c in eval_checks},
-          "serving_request_s": {m: serving_check[m]["serving_request_s"] for m in ("eager", "graph")},
-          "serving_device_ms": {m: serving_check[m]["device_ms"] for m in ("eager", "graph")},
-          "serving_idle_share": {m: serving_check[m]["idle_share"] for m in ("eager", "graph")},
-          "serving_pool_bytes": serving_check["graph"]["pool_bytes"],
+          "serving_request_s": {c["path"]: {m: c[m]["serving_request_s"] for m in ("eager", "graph")}
+                                for c in serving_checks},
+          "serving_device_ms": {c["path"]: {m: c[m]["device_ms"] for m in ("eager", "graph")} for c in serving_checks},
+          "serving_idle_share": {c["path"]: {m: c[m]["idle_share"] for m in ("eager", "graph")}
+                                 for c in serving_checks},
+          "serving_pool_bytes": {c["path"]: c["graph"]["pool_bytes"] for c in serving_checks},
           "seconds": sum(c["seconds"] for c in eval_checks), "card": smi})
     require(sorted(c["path"] for c in eval_checks) == sorted(EVAL_GRAPH_PATHS),
             "phase 34 checked %s, not %s" % ([c["path"] for c in eval_checks], list(EVAL_GRAPH_PATHS)))

@@ -62,12 +62,14 @@ and a body a batch that reads its batch at a device cursor
 (``step_graph.at``): the mask, the score, the top-K, the hits, the metric
 sums added in place, and with ``record_ids`` the batch's ids copied into a
 static buffer. Nothing in them reads the host; ``_mean`` reads the totals
-once at the end. On a CUDA device (``_captures``: ``graphs``, no mesh of
-more than one rank, a model without ``eval_graphs = False``) the program is
-a ``step_graph.KeptProgram``: its first call runs eagerly and captures the
-prologue and the body as CUDA graphs, which every later call replays,
-prologue once and body once a batch, as the JAX package keeps its jitted
-programs. Programs are kept per predict function and batch set (the
+once at the end. A model whose ``predict`` takes an edge capacity (NAIS,
+DeepICF: ``predict_capacity``, the most train pairs of the real users of
+any batch of the set, rounded up to 8) gets it once a program, as a host
+int. On a CUDA device (``_captures``: ``graphs``, no mesh of more than
+one rank) the program is a ``step_graph.KeptProgram``: its first call runs eagerly and
+captures the prologue and the body as CUDA graphs, which every later call
+replays, prologue once and body once a batch, as the JAX package keeps
+its jitted programs. Programs are kept per predict function and batch set (the
 default set or a cached subset, an LRU of ``KEPT_MAX``, pools released on
 eviction) and captured anew when a ``params`` leaf moves or changes shape
 (``step_graph.signature``), when the batches or the tier's mask data are
@@ -75,16 +77,15 @@ rebuilt, or when ``NEUREC_SPMM_PACK`` / ``NEUREC_SPMM_DTYPE`` /
 ``NEUREC_SPMM_PALLAS`` or a kernel's wrapper change
 (``step_graph.routes``). The optimizers update ``params`` in place, so an
 evaluation after training steps replays its graphs on the new weights.
-``graphs=False``, the CPU, a mesh of more than one rank (gloo stages
-collectives through the host) and the two models whose ``predict`` cuts
-rows on the host (NAIS, DeepICF: ``eval_graphs = False``) run the same
-program eagerly.
+``graphs=False``, the CPU and a mesh of more than one rank (gloo stages
+collectives through the host) run the same program eagerly.
 
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from collections import OrderedDict
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -551,11 +552,8 @@ class UniEvaluator:
     def _captures(self, predict_fn: PredictFn) -> bool:
         """Whether a call's program runs as CUDA graphs kept across calls:
         on a CUDA device, with ``graphs``, without a mesh of more than one
-        rank (as ``Trainer._captures``), for a model that does not declare
-        ``eval_graphs = False``."""
-        model = getattr(predict_fn, "__self__", None)
-        return (self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
-                and getattr(model, "eval_graphs", True))
+        rank (as ``Trainer._captures``)."""
+        return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
 
     @torch.no_grad()
     def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data, ck: Optional[bytes]):
@@ -608,6 +606,7 @@ class UniEvaluator:
                 tables["dense"] = prog.dense_fn(args["params"]).float()
 
         make = self._candidates_body if self.user_neg_test is not None else self._catalogue_body
+        predict_fn = sized_predict(predict_fn, users_b, batches[2])
         body = make(prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids)
         program = step_graph.KeptProgram(prologue, body, dev, capture)
         return _Kept(sig, batches, mask_data, program, args, total, count, ids)
@@ -692,7 +691,7 @@ class UniEvaluator:
         for lo in range(0, len(users), B):
             batch = users[lo : lo + B]
             idx = torch.from_numpy(batch.astype(np.int64)).to(self.device)
-            scores = predict_fn(params, idx).float().cpu().numpy()
+            scores = sized_predict(predict_fn, batch[None])(params, idx).float().cpu().numpy()
             nb = scores.shape[0]
             ext = np.concatenate([scores, np.full((nb, 1), -np.inf, np.float32)], axis=1)
             if self.user_neg_test is not None:
@@ -722,6 +721,20 @@ class UniEvaluator:
     ) -> str:
         result = self.evaluate_raw(predict_fn, params, test_users).reshape(-1)
         return "\t".join(("%.8f" % x).ljust(12) for x in result)
+
+
+def sized_predict(predict_fn: PredictFn, users_b, valid_b=None) -> PredictFn:
+    """``predict_fn`` with the edge capacity of the batches ``users_b``
+    ((n_batches, B) ids, their real slots ``valid_b``; read on the host
+    here) where it is the ``predict`` of a model that takes one
+    (``predict_capacity``: NAIS, DeepICF), else ``predict_fn``."""
+    model = getattr(predict_fn, "__self__", None)
+    capacity = getattr(model, "predict_capacity", None)
+    if capacity is None or getattr(predict_fn, "__func__", None) is not getattr(type(model), "predict", None):
+        return predict_fn
+    if isinstance(users_b, torch.Tensor):
+        users_b, valid_b = users_b.cpu().numpy(), None if valid_b is None else valid_b.cpu().numpy()
+    return functools.partial(predict_fn, capacity=capacity(users_b, valid_b))
 
 
 def _local_edges(mesh: Optional[Mesh], plan: TierPlan, e_items: torch.Tensor, e_slots: torch.Tensor, B: int):

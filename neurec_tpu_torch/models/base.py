@@ -78,14 +78,6 @@ class Recommender:
     # and its step runs whole on every rank.
     dp_split: bool = True
 
-    # Whether the evaluator and the serving export may capture this model's
-    # ``predict`` / ``eval_*`` hooks as CUDA graphs kept across calls
-    # (``eval/evaluator.py``, ``recommend.py``). A model whose prediction
-    # reads the host (a shape cut to a value on the device) sets it False
-    # and is evaluated eagerly; a capture of any other model that reads the
-    # host raises.
-    eval_graphs: bool = True
-
     def take_steps(self, trainer, steps) -> torch.Tensor:
         """A custom epoch's run of steps (``step_graph.Steps``): through
         ``trainer`` (``Trainer.take_steps``: CUDA-graph replays where it

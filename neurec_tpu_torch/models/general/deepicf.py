@@ -13,29 +13,31 @@ DeepICF.py:100-175):
   and bias (NAIS's path; the reference's broken two-pickle leg is not kept).
 
 Mirrored deviation: batch norm uses the statistics of the call (the
-reference keeps moving averages for inference): over all leading axes, so
-over the batch in ``loss`` and over one user's whole catalogue in
-``predict``, which runs one user at a time (``lax.map`` in the JAX
-package) and so never mixes users' statistics.
+reference keeps moving averages for inference): over the batch in
+``loss``, and over one user's whole catalogue in ``predict``, as the JAX
+package's ``lax.map`` sees one user's (I, d) at a time. ``predict`` takes
+NAIS's attention over the batch's train edges into a (B, I, d) input and
+runs the tower over static groups of users (``_TOWER`` elements of its
+widest layer at most), its statistics over the item axis alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from neurec_tpu_torch.models.base import register
+from neurec_tpu_torch.models.base import chunks, register
 from neurec_tpu_torch.models.general.nais import NAIS
 from neurec_tpu_torch.ops.initializers import get_initializer
 from neurec_tpu_torch.ops.losses import l2_loss
 from neurec_tpu_torch.parallel.mesh import batch_sum, whole_term
 
 
+# elements of one (users, items, layer) tower transient in predict: 256 MB of f32
+_TOWER = 1 << 26
+
+
 @register("DeepICF")
 class DeepICF(NAIS):
-    # NAIS's ``_user_rows`` reads each row's length on the host: eager
-    # evaluation and export, not CUDA graphs
-    eval_graphs = False
-
     def __init__(self, dataset, config, device=None):
         super().__init__(dataset, config, device)
         self.n_hidden = list(config.get("layers", [64, 32, 16]))
@@ -82,6 +84,22 @@ class DeepICF(NAIS):
     def _prob(self, params, p_scaled, q, items):
         return torch.sigmoid(self._tower(params, p_scaled * q) + params["bias"][items])
 
+    def _catalogue_tower(self, params, x):
+        """x (g, I, d) -> (g, I): ``_tower`` with each user's batch norm over
+        its catalogue (axis 1), in fewer passes over the (g, I, h)
+        activations: the bias in the product (``addmm``), the statistics
+        in one (``var_mean``), the normalization as ``x - mean`` then one
+        ``addcmul`` by gamma / sqrt(var + eps)."""
+        g, n = x.shape[:2]
+        for i in range(len(self.n_hidden)):
+            x = torch.addmm(params["deep_b"][i], x.reshape(g * n, -1), params["deep_w"][i]).view(g, n, -1)
+            if self.use_batch_norm:
+                var, mean = torch.var_mean(x, dim=1, keepdim=True, correction=0)
+                scale = params["bn"][i]["gamma"] * torch.rsqrt(var + 1e-3)
+                x = torch.addcmul(params["bn"][i]["beta"], x - mean, scale)
+            x = torch.relu_(x)
+        return torch.addmm(params["out_b"], x.view(g * n, -1), params["out_w"]).view(g, n)
+
     def loss(self, params, batch, weights):
         items, labels = batch["items"], batch["labels"]
         p, n, _, q = self._attended(params, batch["users"], items, labels)
@@ -94,14 +112,14 @@ class DeepICF(NAIS):
             + self.gamma_bilinear * l2_loss(self.whole(params, "Q_set"))
             + self.eta_bilinear * l2_loss(params["W"]))
 
-    def predict(self, params, users):
-        set_table = self._set_table(params)
-        Q = self.whole(params, "Q")
-        all_items = torch.arange(self.num_items, device=Q.device)
-        out = []
-        for row, n in self._user_rows(users):
-            p = self._attend_catalogue(params, set_table, row, Q)
-            coeff = torch.pow(torch.clamp(n, min=1.0), self.alpha)
-            # the tower's batch norm reduces over this user's catalogue only
-            out.append(self._prob(params, coeff * p, Q, all_items))
-        return torch.stack(out)
+    def predict(self, params, users, capacity=None):
+        """(B, I) probabilities of ``users`` over ``capacity`` edge slots
+        (NAIS's ``predict``); the tower's batch norm reduces over each
+        user's catalogue only."""
+        coeff = self._coeff(users)[:, :, None]
+        x = coeff.new_empty((users.shape[0], self.num_items, self.embedding_size))
+        for sl, p, q in self._attend_edges(params, users, self._capacity(users, capacity)):
+            x[:, sl] = coeff * p * q
+        g = max(1, _TOWER // (self.num_items * max(self.n_hidden + [self.embedding_size])))
+        return torch.cat([torch.sigmoid(self._catalogue_tower(params, x[sl]) + params["bias"])
+                          for sl in chunks(users.shape[0], g)], dim=0)

@@ -16,10 +16,23 @@ NAIS.py:85-180):
 Mirrored deviation: the attention masks by real slot validity (the
 reference's sequence mask lets one padding row into a negative's softmax).
 
-``predict`` is attention conditioned on each candidate item, one user at a
-time as the JAX package's ``lax.map``: each user's row is cut to its own
-length (its masked pad slots add exact zeros) and the (items, L, d)
-transient runs over item chunks of at most ``_TRANSIENT`` elements.
+``predict`` is attention conditioned on each candidate item. The JAX
+package maps over the users' padded rows (``lax.map``); here a batch is
+scored over its train edges: the (slot, item) pairs of its users' rows,
+derived on the device (``_edges``: an inclusive cumsum of the lengths and
+a ``searchsorted`` over ``arange(capacity)``), one user's contiguous and
+in its row's order, padded with slot B to a static ``capacity``. Per item
+chunk (``capacity x I_c x max(d, w)`` within ``_TRANSIENT`` elements)
+the logits of every (edge, item) and their ``exp`` are computed, and the
+per-slot sums of the exps and of the exps times <q'_j, q_i> (DeepICF:
+times q'_j, the attended rep) are ordered segment sums
+(``torch.segment_reduce``, no atomics), the pads in short segments past
+the last slot's that no slot reads; so a call reads nothing on the host
+and gives the same bits each time. The capacity is a host int that the
+caller knows when it makes its program (``predict_capacity``: the most
+edges of the real users of any batch of a batch set, rounded up to 8);
+without one it is ``B * L_max``, the JAX form's own bound. An empty row
+attends to nothing (p = 0), as the JAX form's all-pad row.
 """
 
 from __future__ import annotations
@@ -37,9 +50,12 @@ from neurec_tpu_torch.pretrain import as_tensor, try_load
 
 _ACTS = {0: torch.relu, 1: torch.sigmoid, 2: torch.tanh,
          "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
+_IN_PLACE = {torch.relu: torch.relu_, torch.sigmoid: torch.sigmoid_, torch.tanh: torch.tanh_}
 
-# elements of one (items, L, width) attention transient in predict: 128 MB of f32
-_TRANSIENT = 1 << 25
+# elements of one (edges, items, max(d, w)) attention transient in predict: 256 MB of f32
+_TRANSIENT = 1 << 26
+# most pad edges in one segment of predict's sums (a segment is summed in order by one thread)
+_PAD_SEGMENT = 64
 
 
 def _parse_act(value):
@@ -50,11 +66,6 @@ def _parse_act(value):
 
 @register("NAIS")
 class NAIS(Recommender):
-    # ``predict`` cuts each user's train row to its length on the host
-    # (``_user_rows``), where the JAX package maps over the padded row: its
-    # evaluation and export run eagerly, not as CUDA graphs
-    eval_graphs = False
-
     def __init__(self, dataset, config, device: DeviceLike = None):
         super().__init__(dataset, config, device)
         self.embedding_size = int(config.get("embedding_size", 16))
@@ -150,34 +161,99 @@ class NAIS(Recommender):
                 + self.lambda_bilinear * l2_loss(set_emb * w3)
                 + self.gamma_bilinear * l2_loss(q * w) + reg_w)
 
-    # -- full-catalogue prediction, one user at a time ------------------------
-    def _user_rows(self, users):
-        """(row, n) of each user: the sorted train row cut to its length (at
-        least one slot) and n = |set| as f32 on the device."""
-        ids = users.cpu().numpy()
-        return [(self._rows[u, : max(int(self._lens_host[u]), 1)], self._lens[u].float()) for u in ids]
+    # -- full-catalogue prediction over a batch's train edges -----------------
+    def predict_capacity(self, users_b, valid_b=None) -> int:
+        """The edge capacity of ``predict`` over the batches ``users_b``
+        ((n_batches, B) host ids): the most train pairs of any batch's
+        real users (``valid_b`` nonzero; default all), rounded up to 8. A
+        batch's pad users trail its real ones, so only their own edges
+        fall past it (dropped: their scores are computed and ignored)."""
+        lens = self._lens_host[np.asarray(users_b, dtype=np.int64)]
+        if valid_b is not None:
+            lens = lens * (np.asarray(valid_b) != 0)
+        most = int(lens.sum(axis=-1).max()) if lens.size else 0
+        return max(8, most + (-most) % 8)
 
-    def _attend_catalogue(self, params, set_table, row, Q=None):
-        """(I, d) attended reps of one user's set for every candidate item
-        (``set_table`` whole; ``Q`` the whole target table, gathered here
-        when None)."""
-        if Q is None:
-            Q = self.whole(params, "Q")
-        set_emb = set_table[row]  # (L, d)
-        L = row.shape[0]
-        slot_mask = (row < self.num_items).float()[None, :]
-        width = max((self.algorithm + 1) * self.embedding_size, self.weight_size)
-        return torch.cat([
-            self._att_pool(params, set_emb[None].expand(sl.stop - sl.start, L, set_emb.shape[1]), Q[sl], slot_mask)
-            for sl in chunks(self.num_items, max(1, _TRANSIENT // (L * width)))
-        ], dim=0)
+    def _edges(self, users, capacity: int):
+        """The train edges of ``users`` (B,) in ``capacity`` static slots:
+        (item (E,), slot (E,), segment lengths (B + ceil(E / _PAD_SEGMENT),)).
+        A user's edges are contiguous and in its row's order; the pads
+        after them have slot B and item ``num_items`` (the set table's
+        zero row) and fill the segments past B, ``_PAD_SEGMENT`` at most
+        each (one long pad segment would be one thread's serial sum).
+        ``capacity`` must hold the pairs of the users that count, which
+        come first (``predict_capacity``); the edges past it are
+        dropped."""
+        B, L = users.shape[0], self._rows.shape[1]
+        ends = torch.clamp(torch.cumsum(self._lens[users].long(), 0), max=capacity)
+        starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+        e = torch.arange(capacity, device=users.device)
+        slot = torch.searchsorted(ends, e, right=True)  # B past the last user's edges
+        own = slot.clamp(max=B - 1)
+        pos = (e - starts[own]).clamp(max=L - 1)
+        item = torch.where(slot < B, self._rows[users[own], pos], self.num_items)
+        pads = torch.arange(-(-capacity // _PAD_SEGMENT), device=users.device) * _PAD_SEGMENT
+        return item, slot, torch.cat([ends - starts, torch.clamp(capacity - ends[-1] - pads, 0, _PAD_SEGMENT)])
 
-    def predict(self, params, users):
-        set_table = self._set_table(params)
-        Q, bias = self.whole(params, "Q"), params["bias"]
+    def _attention_chunks(self, params, users, capacity: int):
+        """(set_emb (E, d), segment lengths (``_edges``), chunks) of the
+        batch's edges; ``chunks`` yields, per item chunk, (item slice, Q
+        chunk, exp of the logits (E, I_c), each slot's (sum of exp)^beta
+        (B, I_c)). The pads sit in the segments past B, which no slot
+        reads. The logits' first layer is one product: ``(s * q) @ W + b``
+        as ``[s, 1]`` against W scaled by each item's q with b below
+        (``algorithm=0``), ``[s; q] @ W + b`` as ``s @ W_s`` once plus
+        ``q @ W_q + b`` a chunk (``algorithm=1``); the activation runs in
+        place."""
+        B, d, w = users.shape[0], self.embedding_size, self.weight_size
+        item, _, lengths = self._edges(users, capacity)
+        set_emb = self._set_table(params)[item]  # (E, d); a pad's row is zero
+        E = set_emb.shape[0]
+        Q, W, b, h = self.whole(params, "Q"), params["W"], params["b"], params["h"]
+        lhs = torch.cat([set_emb, set_emb.new_ones((E, 1))], dim=1) if self.algorithm == 0 else set_emb @ W[:d]
+        act = _IN_PLACE[self.activation]
+
+        def parts():
+            for sl in chunks(self.num_items, max(1, _TRANSIENT // (capacity * max(d, w)))):
+                q = Q[sl]
+                n = q.shape[0]
+                if self.algorithm == 0:
+                    pre = lhs @ torch.cat([(q.t()[:, :, None] * W[:, None, :]).reshape(d, n * w), b.repeat(1, n)])
+                else:
+                    pre = (lhs[:, None, :] + (q @ W[d:] + b)[None]).view(E, n * w)
+                exp_a = torch.exp_((act(pre).view(E * n, w) @ h).view(E, n))
+                exp_sum = torch.segment_reduce(exp_a, "sum", lengths=lengths, axis=0, unsafe=True)[:B]
+                yield sl, q, exp_a, torch.pow(torch.clamp(exp_sum, min=1e-12), self.beta)
+
+        return set_emb, lengths, parts()
+
+    def _attend_edges(self, params, users, capacity: int):
+        """Yields (item slice, attended reps (B, I_c, d), Q chunk) over the
+        catalogue in item chunks: each user's set attended for every item
+        through ordered segment sums over the batch's edges."""
+        B = users.shape[0]
+        set_emb, lengths, parts = self._attention_chunks(params, users, capacity)
+        for sl, q, exp_a, den in parts:
+            p = torch.segment_reduce(exp_a[:, :, None] * set_emb[:, None, :], "sum", lengths=lengths, axis=0,
+                                     unsafe=True)[:B]
+            yield sl, p / den[:, :, None], q
+
+    def _coeff(self, users):
+        """n^alpha of each user's set, (B, 1)."""
+        return torch.pow(torch.clamp(self._lens[users].float(), min=1.0), self.alpha)[:, None]
+
+    def _capacity(self, users, capacity) -> int:
+        return int(capacity) if capacity is not None else users.shape[0] * self._rows.shape[1]
+
+    def predict(self, params, users, capacity=None):
+        """(B, I) scores of ``users`` over ``capacity`` edge slots (the
+        caller's ``predict_capacity``; None: B * L_max): <p, q_i> as each
+        slot's sum over its edges of exp * <q'_j, q_i>, over the sum of
+        exp to the beta."""
+        B, coeff, bias = users.shape[0], self._coeff(users), params["bias"]
+        set_emb, lengths, parts = self._attention_chunks(params, users, self._capacity(users, capacity))
         out = []
-        for row, n in self._user_rows(users):
-            p = self._attend_catalogue(params, set_table, row, Q)
-            coeff = torch.pow(torch.clamp(n, min=1.0), self.alpha)
-            out.append(coeff * torch.sum(p * Q, dim=-1) + bias)
-        return torch.stack(out)
+        for sl, q, exp_a, den in parts:
+            num = torch.segment_reduce(exp_a * (set_emb @ q.t()), "sum", lengths=lengths, axis=0, unsafe=True)[:B]
+            out.append(coeff * (num / den) + bias[sl])
+        return torch.cat(out, dim=1)

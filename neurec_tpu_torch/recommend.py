@@ -18,12 +18,15 @@ dense hook's all-users scores) and a body a batch that reads its users and
 edges at a device cursor (``step_graph.at``), scores, sets the consumed
 items to -inf by one fill at flat offsets (a pad's offset lies past the
 block, as JAX's ``mode="drop"``), and writes its top-K into static
-(n_batches, B, k) buffers; the host reads them once at the end. The
-programs are kept per live model in ``_EXPORT_CACHE``, keyed by (B, k,
-masked, use_dense), the batch and edge counts and the kernels' routes
-(``step_graph.routes``), with a weakref finalizer on the model and an LRU
-of ``_EXPORT_CACHE_MAX``; a program holds the model weakly. On a CUDA device (``_captures``: a model
-without ``eval_graphs = False``, and ``graphs``) a program is a
+(n_batches, B, k) buffers; the host reads them once at the end. A model
+whose ``predict`` takes an edge capacity (NAIS, DeepICF:
+``predict_capacity``) gets the request's, rounded up to a power of two as
+the edge count is. The programs are kept per live model in
+``_EXPORT_CACHE``, keyed by (B, k, masked, use_dense), the batch, edge and
+capacity counts and the kernels' routes (``step_graph.routes``), with a
+weakref finalizer on the model and an LRU of ``_EXPORT_CACHE_MAX``; a
+program holds the model weakly. On a CUDA device (``_captures``, and
+``graphs``) a program is a
 ``step_graph.KeptProgram`` captured as CUDA graphs at its first call and
 replayed by later ones; a call copies its users and edges into the
 program's static inputs, and a program whose ``params`` leaves moved is
@@ -90,7 +93,7 @@ def _cache_put(model, sub_key, export: _Export) -> None:
 def _captures(model, device: torch.device) -> bool:
     """Whether the export runs as CUDA graphs kept across calls (unless
     the caller passes ``graphs=False``)."""
-    return device.type == "cuda" and getattr(model, "eval_graphs", True)
+    return device.type == "cuda"
 
 
 def _batch_edges_from_csr(csr, users_pad, n_valid, n_batches, B):
@@ -175,12 +178,17 @@ def batch_topk(
     dense_hook = getattr(model, "eval_dense_scores", None)
     use_dense = callable(dense_hook) and n == model.num_users
 
+    capacity = None
+    if not use_dense and callable(getattr(model, "predict_capacity", None)):
+        real = (np.arange(n_batches * B) < n).reshape(n_batches, B)
+        capacity = max(1 << (model.predict_capacity(users_pad.reshape(n_batches, B), real) - 1).bit_length(), 8)
     capture = graphs and _captures(model, dev)
-    sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capture, step_graph.routes())
+    sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, capture, step_graph.routes())
     sig = step_graph.signature(params)
     export = _cache_get(model, sub_key)
     if export is None or export.sig != sig:
-        export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], dev, capture, sig)
+        export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, dev, capture,
+                              sig)
         _cache_put(model, sub_key, export)
     export.users_b.copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
     export.e_items.copy_(torch.from_numpy(e_items))
@@ -195,10 +203,12 @@ def batch_topk(
     return items.astype(np.int32), scores.astype(np.float32)
 
 
-def _make_export(model, B, k, masked, use_dense, n_batches, e_max, dev, capture, sig) -> _Export:
+def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev, capture, sig) -> _Export:
     """The export program over static inputs (users, edge items, edge
-    slots) and outputs (scores, ids); it reaches the model through a weak
-    reference, so the cache does not keep the model alive."""
+    slots) and outputs (scores, ids), ``predict`` given ``capacity`` where
+    it is not None; it reaches the model through a weak reference, so the
+    cache does not keep the model alive."""
+    sized = {} if capacity is None else {"capacity": capacity}
     model_ref = weakref.ref(model)
     num_items = model.num_items
     cursor = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -216,7 +226,7 @@ def _make_export(model, B, k, masked, use_dense, n_batches, e_max, dev, capture,
 
     def body():
         bu, ei, eu = step_graph.at(cursor, users_b, e_items, e_users)
-        scores = tables["dense"][bu] if use_dense else model_ref().predict(args["params"], bu).float()
+        scores = tables["dense"][bu] if use_dense else model_ref().predict(args["params"], bu, **sized).float()
         if masked:
             # one fill at flat offsets of a copy with one element past the
             # block: a pad pair (slot == B) writes there, as mode="drop"

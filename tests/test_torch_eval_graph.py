@@ -25,11 +25,13 @@ prologue and body run eagerly. Held here:
   captured launches once a replay;
 * the serving cache: a weak hold on the model (its death evicts and
   releases), an LRU of 8, a capture per request size, anew for new params;
-* the models that evaluate eagerly by declaration are NAIS and DeepICF;
+* no model evaluates eagerly by declaration: NAIS and DeepICF, the last
+  two, score over their batch's train edges at a capacity the caller
+  gives (``predict_capacity``);
 * every registered model's evaluation program, captured through the stub
   under a guard that raises on a host read (a sync op, a boolean index,
   ``.cpu()``, ``.numpy()``, host data copied in): the guard stays quiet,
-  and the captured result equals the eager one. NAIS and DeepICF trip it.
+  and the captured result equals the eager one, NAIS and DeepICF too.
 """
 
 import gc
@@ -302,9 +304,8 @@ def stubbed(monkeypatch):
     where they would on a card."""
     StubGraphs.made = []
     monkeypatch.setattr(step_graph, "_CudaGraphs", StubGraphs)
-    monkeypatch.setattr(UniEvaluator, "_captures",
-                        lambda self, fn: self.graphs and getattr(getattr(fn, "__self__", None), "eval_graphs", True))
-    monkeypatch.setattr(recommend, "_captures", lambda model, device: getattr(model, "eval_graphs", True))
+    monkeypatch.setattr(UniEvaluator, "_captures", lambda self, fn: self.graphs)
+    monkeypatch.setattr(recommend, "_captures", lambda model, device: True)
     return StubGraphs.made
 
 
@@ -481,8 +482,12 @@ def test_serving_captures_once_a_request_size(stubbed):
 
 
 def test_the_eager_models_are_nais_and_deepicf():
-    eager = [name for name in registered_models() if not get_model(name).eval_graphs]
-    assert eager == ["DeepICF", "NAIS"]
+    """None evaluates eagerly any more: the flag that declared it is gone,
+    and the two that set it take their edge capacity from the caller."""
+    assert [name for name in registered_models() if hasattr(get_model(name), "eval_graphs")] == []
+    sized = [name for name in registered_models() if hasattr(get_model(name), "predict_capacity")]
+    assert sized == ["DeepICF", "NAIS"]
+    assert recommend._captures(None, torch.device("cuda")) and not recommend._captures(None, torch.device("cpu"))
 
 
 # -- every model's program captured under a guard against host reads ------
@@ -563,13 +568,9 @@ def test_every_model_captures_without_a_host_read(name, tmp_path, monkeypatch):
     monkeypatch.setattr(step_graph, "_CudaGraphs", GuardedGraphs)
     forced = evaluator_mod.Evaluator.from_dataset(ds, conf, device="cpu")
     monkeypatch.setattr(forced.evaluator, "_captures", lambda fn: True)
-    if model.eval_graphs:
-        # the first call runs eagerly, then captures: the guard runs the
-        # captures' host code, and its CPU ops spoil that call's totals
-        forced.evaluate(model.predict, params)
-        assert forced.evaluate(model.predict, params) == eager  # replays
-        assert forced.evaluate(model.predict, params) == eager
-        assert len(GuardedGraphs.made) == 1
-    else:  # the declared reason holds: its prediction reads the host
-        with pytest.raises(HostRead):
-            forced.evaluate(model.predict, params)
+    # the first call runs eagerly, then captures: the guard runs the
+    # captures' host code, and its CPU ops spoil that call's totals
+    forced.evaluate(model.predict, params)
+    assert forced.evaluate(model.predict, params) == eager  # replays
+    assert forced.evaluate(model.predict, params) == eager
+    assert len(GuardedGraphs.made) == 1

@@ -8,9 +8,12 @@ one. The file imports neither jax nor neurec_tpu:
   first call runs eagerly and captures, the next two replay) and
   ``graphs=False`` give the same metric string and the same recorded
   top-K ids, bit for bit, on the full catalogue and through a
-  ``GroupedEvaluator``'s subsets. NAIS and
-  DeepICF run eagerly by declaration (``eval_graphs = False``) and open no
-  graph.
+  ``GroupedEvaluator``'s subsets; every model's programs capture.
+* NAIS and DeepICF at their conf's widths, scored over their batches'
+  train edges: captured == ``graphs=False`` == a second ``graphs=False``
+  bit for bit over several batches, on the full catalogue and the
+  sampled candidates, with one graph launch a batch and one prologue a
+  warm call; their export likewise.
 * Serving: captured ``batch_topk`` equals ``graphs=False``, ids and
   scores, and a second request of the same size replays the same program.
 * An evaluation, 5 training steps (the optimizer updates the params in
@@ -26,6 +29,7 @@ import os
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from neurec_tpu_torch import step_graph
@@ -175,11 +179,10 @@ def test_captured_evaluation_equals_the_eager_one(cuda, name, grouped, tmp_path)
         assert got == want, (name, call)
         assert len(got_ids) == len(want_ids) and all(torch.equal(a, b) for a, b in zip(got_ids, want_ids))
     inner = getattr(captured.evaluator, "evaluator", captured.evaluator)
-    assert all(k.program.capture == t.model.eval_graphs for k in inner._kept.values())
-    assert all((k.program._graphs is not None) == t.model.eval_graphs for k in inner._kept.values())
+    assert all(k.program.capture and k.program._graphs is not None for k in inner._kept.values())
 
 
-@pytest.mark.parametrize("name", ["MF", "LightGCN", "NeuMF", "CFGAN", "GRU4Rec", "NAIS"])
+@pytest.mark.parametrize("name", ["MF", "LightGCN", "NeuMF", "CFGAN", "GRU4Rec", "NAIS", "DeepICF"])
 def test_captured_serving_equals_the_eager_one(cuda, name, tmp_path):
     extra = {"mode": "itemBased"} if name == "CFGAN" else {}
     t = trainer(name, tmp_path, **extra)
@@ -189,6 +192,76 @@ def test_captured_serving_equals_the_eager_one(cuda, name, tmp_path):
         want = batch_topk(t.model, t.params, 10, users=sel, train_matrix=csr, batch_size=64, graphs=False)
         for _ in range(2):
             got = batch_topk(t.model, t.params, 10, users=sel, train_matrix=csr, batch_size=64)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+
+
+# NAIS's and DeepICF's conf widths (conf/NAIS.properties, conf/DeepICF.properties)
+EDGE_CONFS = {
+    "NAIS": dict(recommender="NAIS", embedding_size=16, weight_size=16, alpha=0.0, beta=0.5, algorithm=0,
+                 activation=0, is_pairwise=False, loss_function="cross_entropy", num_neg=4),
+    "DeepICF": dict(recommender="DeepICF", embedding_size=16, weight_size=16, layers=[64, 32, 16], batch_norm=True,
+                    alpha=0.0, beta=0.5, algorithm=0, activation=0, num_neg=4),
+}
+
+
+@pytest.mark.parametrize("neg", [False, True], ids=["catalogue", "candidates"])
+@pytest.mark.parametrize("name", sorted(EDGE_CONFS))
+def test_edge_predict_captures_bit_equal(cuda, name, neg, monkeypatch):
+    """NAIS and DeepICF at their conf's widths over 5 batches of skewed
+    rows: the captured evaluation equals ``graphs=False`` (itself equal
+    over two calls), each warm call one graph a batch and one prologue."""
+    ds = random_dataset(num_users=300, num_items=500, min_per_user=2, max_per_user=60, seed=5)
+    if neg:
+        rng = np.random.RandomState(1)
+        rows, cols = [], []
+        for u in range(ds.num_users):
+            seen = set(ds.train_matrix[u].indices) | set(ds.test_matrix[u].indices)
+            free = [i for i in range(ds.num_items) if i not in seen]
+            cols += list(rng.choice(free, 20, replace=False))
+            rows += [u] * 20
+        ds.negative_matrix = sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=ds.train_matrix.shape)
+    conf = DictConfig(dict(EDGE_CONFS[name], **EVAL))
+    model = get_model(name)(ds, conf, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():  # weights off their init, so the attention is not flat
+        for leaf in (params["Q_set"], params["Q"], params["W"]):
+            leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                                   device="cuda") * 0.3)
+    eager, control = (Evaluator.from_dataset(ds, conf, device="cuda", graphs=False) for _ in range(2))
+    captured = Evaluator.from_dataset(ds, conf, device="cuda")
+
+    def call(ev):  # the candidates protocol records no ids
+        if neg:
+            return ev.evaluate(model.predict, params), []
+        return recorded(ev, model.predict, params)
+
+    want, want_ids = call(eager)
+    again, again_ids = call(control)
+    assert want == again and all(torch.equal(a, b) for a, b in zip(want_ids, again_ids))
+    replays = []
+    real = step_graph._CudaGraphs.replay
+
+    def replay(g):
+        replays.append(g)
+        real(g)
+
+    monkeypatch.setattr(step_graph._CudaGraphs, "replay", staticmethod(replay))
+    for turn in range(3):  # the eager call and the capture, then replays
+        n = len(replays)
+        got, got_ids = call(captured)
+        assert got == want, (name, turn)
+        assert all(torch.equal(a, b) for a, b in zip(got_ids, want_ids))
+        (kept,) = captured.evaluator._kept.values()
+        n_batches = kept.batches[0].shape[0]
+        assert n_batches >= 2 and kept.program._graphs is not None
+        if turn:
+            assert len(replays) - n == n_batches + 1
+    if not neg:
+        csr = ds.train_matrix
+        want = batch_topk(model, params, 10, train_matrix=csr, batch_size=64, graphs=False)
+        for _ in range(2):
+            got = batch_topk(model, params, 10, train_matrix=csr, batch_size=64)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
 

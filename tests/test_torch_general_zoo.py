@@ -247,9 +247,9 @@ def test_deepicf_batch_norm_statistics_are_per_user_in_predict():
     with torch.no_grad():
         batch_rows = model.predict(params, users)
         alone = torch.cat([model.predict(params, users[i:i + 1]) for i in range(3)])
-        set_table = model._set_table(params)
-        p = torch.stack([model._attend_catalogue(params, set_table, row) * n.clamp(min=1.0) ** model.alpha
-                         for row, n in model._user_rows(users)])  # (3, I, d)
+        capacity = model.predict_capacity(users.numpy()[None])
+        p = torch.cat([p * model._coeff(users)[:, :, None]
+                       for _, p, _ in model._attend_edges(params, users, capacity)], dim=1)  # (3, I, d)
         across_users = model._prob(params, p, params["Q"], torch.arange(model.num_items))
     np.testing.assert_allclose(batch_rows.numpy(), alone.numpy(), rtol=1e-6, atol=1e-7)
     want = np.asarray(model_j.predict(jax.tree_util.tree_map(jnp.asarray, params_np), jnp.asarray(users.numpy())))
