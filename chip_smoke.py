@@ -290,37 +290,59 @@ failure exits non-zero before the result line):
 32. ``graph``: every phase that trains runs the built-in epochs' steps
    as CUDA-graph replays (``Trainer``'s default; ``step_graph.py``), and
    beside each path's trainer (``graph_vs_eager``, a ``graph_check`` line
-   each) the same steps run eagerly (``Trainer(graphs=False)``), twice, and
-   captured, from copies of one state on one set of draws: the north star
+   each) ``KEPT_CALLS`` (3) epoch calls of the same steps (call ``c``
+   rotated by ``c`` steps, as epoch ``c + 1``) run eagerly
+   (``Trainer(graphs=False)``), twice, and through the trainer's kept
+   program (``step_graph.KeptSteps``: captured at the first call,
+   replayed at the later ones), from copies of one state: the north star
    ``GRAPH_NORTHSTAR_STEPS`` (50) steps of epoch 3's draws at
    ``scan_unroll`` 1 and 8, with each run's ms a step past the first (CUDA
-   events around steps 1..49: the eager steps, or the replays), its device
-   ms a step from the profiler (``GRAPH_SHORT_STEPS`` steps) and the card's
-   idle share; NGCF at path B's widths (message
-   dropout 0.1) 20 steps and path A (K3, pack 2) 10, the same way; every
-   other built-in-epoch model (paths C-H: MF, MLP, NeuMF, APR, FISM, NAIS,
-   DeepICF, ConvNCF, DMF, MultiDAE, MultiVAE, DAE, CDAE, SpectralCF, FPMC,
-   FPMCplus, Fossil, HRM, NPE, TransRec, DiffNet) ``GRAPH_ZOO_STEPS`` (5)
-   at its ``conf`` widths on its path's data at ``scan_unroll`` 3 (a
-   remainder graph). A captured run's epoch loss, params and optimizer
-   state must equal the eager run's bit for bit, or, where the two eager
-   runs differ too, lie within 1e-6; K2 (K3 on path A) runs 3 forward and 3
-   backward a step on every run. The summary line ``phase: graph`` names
-   the 23 models checked;
+   events around steps 1..49 of its first call: the eager steps, or the
+   replays), its ms a step over the later calls' replays, its device ms a
+   step from the profiler (``GRAPH_SHORT_STEPS`` steps) and the card's
+   idle share; NGCF at path B's widths (message dropout 0.1) 20 steps and
+   path A (K3, pack 2) 10, the same way; every other built-in-epoch model
+   (paths C-H: MF, MLP, NeuMF, APR, FISM, NAIS, DeepICF, ConvNCF, DMF,
+   MultiDAE, MultiVAE, DAE, CDAE, SpectralCF, FPMC, FPMCplus, Fossil, HRM,
+   NPE, TransRec, DiffNet) ``GRAPH_ZOO_STEPS`` (5) at its ``conf`` widths
+   on its path's data at ``scan_unroll`` 3. Where the steps do not divide
+   by ``scan_unroll`` the first call captures the graph of ``scan_unroll``
+   steps, its own remainder and a later call's (the zoo: 3, 1 and 2; the
+   north star at 8: 8, 1 and 2), and the later calls replay the graphs of
+   3 and 2 (8 and 2), out of their capture order. A kept run's epoch
+   losses, params and optimizer state must equal the eager run's bit for
+   bit, or, where the two eager runs differ too, lie within 1e-6; its
+   second and third calls capture no graph (each call's graphs captured,
+   the step counts of the graphs held, wall ms a step and pool bytes are
+   printed); K2
+   (K3 on path A) runs 3 forward and 3 backward a step in every call. APR
+   also runs its kept program with ``adv_epoch`` 2 and again without the
+   adversarial term: the first call's losses equal, the later calls'
+   differ. The summary line ``phase: graph`` names the 23 models checked.
+   ``kept_train``: the north star at full width through ``Trainer.train``,
+   ``KEPT_TRAIN_EPOCHS`` (3) whole epochs, twice from one seed: each
+   epoch's wall ms a step, graphs captured (none past epoch 1) and loss,
+   then, under the profiler, its device ms a step, and the idle share of
+   the unprofiled epoch;
 33. ``graph_custom``: every phase that trains a custom epoch runs its
    steps as CUDA-graph replays too (SBPR, SASRec, Caser, SRGNN, GRU4Rec,
    GRU4RecPlus, JCA, CFGAN's sub-epochs, IRGAN's D and G passes; WRMF's ALS
    epoch has no steps), and beside each such path's trainer
-   (``custom_graph_check``, a ``graph_custom_check`` line each) the same
-   epoch cut to ``GRAPH_CUSTOM_STEPS`` (24) steps of each pass runs
-   eagerly, twice, and captured at ``scan_unroll`` 1 and 3, from copies
-   of one state on one epoch's seeds, at the model's ``conf`` widths on its
-   path's data (paths E, G and H). A captured run's loss, params and
-   optimizer state must equal the eager run's bit for bit, or, where the
-   two eager runs differ too, lie within 1e-6. Each run gives its ms a step
-   past the first (CUDA events around the eager steps 1..n-1 or the
-   replays, summed over the passes), the captured run the device ms a step
-   and the kernels a step from the profiler, and each run its idle share.
+   (``custom_graph_check``, a ``graph_custom_check`` line each)
+   ``KEPT_CALLS`` (3) calls of the epoch (epochs 2, 3 and 4), each cut to
+   ``GRAPH_CUSTOM_STEPS`` (24) steps of each pass, run eagerly, twice, and
+   through the trainer's kept programs (one a run of steps: the epoch's,
+   or CFGAN's and IRGAN's D and G passes) at ``scan_unroll`` 1 and 3, from
+   copies of one state, at the model's ``conf`` widths on its path's data
+   (paths E, G and H). A kept run's losses, params and optimizer state
+   must equal the eager run's bit for bit, or, where the two eager runs
+   differ too, lie within 1e-6, and its second and third calls capture no
+   graph where each pass takes the same steps in every call. Each call
+   gives its graphs captured, wall ms a step and pool bytes; each run its
+   ms a step past the first (CUDA events around the eager steps 1..n-1 or
+   the replays, summed over the passes) and over the later calls'
+   replays, the kept run the device ms a step and the kernels a step from
+   the profiler, and each run its idle share.
    Phase 31's runs stay eager. The summary line ``phase: graph_custom``
    names the nine models checked;
 34. ``eval_graph``: beside the north star's, path A's, path B's, path C's
@@ -357,7 +379,7 @@ in steps of its schedule); path H trains 300 steps of SBPR's 367 and of
 DiffNet's 4,037 (of 500 and 300 epochs), on a seeded graph, not Ciao's;
 path I trains 300 of MF's ~15,600 steps of one epoch, the pre-draw whole;
 phase 31 trains 5-20 steps of each pass of one epoch, phase 33 24 of each
-pass of epoch 2; phase 34 evaluates NeuMF's, NAIS's and DeepICF's first
+pass of epochs 2-4; phase 34 evaluates NeuMF's, NAIS's and DeepICF's first
 4,096 test users (two batches of 2,048) and GRU4Rec's first 2,048
 (``EVAL_GRAPH_USERS``).
 
@@ -668,14 +690,23 @@ CUSTOM_RUNS = (
 CUSTOM_LOSSES = {"SBPR": ("sbpr_loss",), "Caser": ("caser_loss",), "SRGNN": ("batch_loss",), "JCA": ("step_loss",),
                  "CFGAN": ("d_loss", "g_loss"), "IRGAN": ("_d_loss",)}
 CUSTOM_LOSS_RTOL = 1e-5
+# phases 32 and 33: each trainer runs KEPT_CALLS epoch calls, from one state,
+# eagerly and through the programs it keeps (captured at the first call,
+# replayed at the later ones)
+KEPT_CALLS = 3
+# kept_train: the north star through Trainer.train, whole epochs
+KEPT_TRAIN_EPOCHS = 3
 # phase 32, graph: the built-in epochs' steps captured as CUDA graphs
 # against the same steps run eagerly (graphs=False), from one state on the
 # same draws: the north star GRAPH_NORTHSTAR_STEPS steps at scan_unroll 1 and
 # 8 (and GRAPH_SHORT_STEPS under the profiler for the device time a step),
 # NGCF at path B's widths GRAPH_NGCF_STEPS, path A GRAPH_PACK2_STEPS, every
-# other built-in-epoch model GRAPH_ZOO_STEPS at scan_unroll 3 (a warm-up
-# step, a graph of 3 and a remainder of 1). Where two eager runs differ (an
-# op that adds in no fixed order) a captured run is held within
+# other built-in-epoch model GRAPH_ZOO_STEPS at scan_unroll 3 (at the first
+# call a warm-up step, then the graph of 3, the remainder of 1 and the
+# remainder of 2 that the later calls take are captured: the later calls
+# replay the graphs of 3 and 2, out of capture order, and capture
+# nothing). Where two eager runs
+# differ (an op that adds in no fixed order) a kept run is held within
 # GRAPH_ATOL (params) and GRAPH_LOSS_RTOL; else to the bit
 GRAPH_NORTHSTAR_STEPS, GRAPH_SHORT_STEPS = 50, 10
 GRAPH_NGCF_STEPS, GRAPH_PACK2_STEPS, GRAPH_ZOO_STEPS = 20, 10, 5
@@ -685,9 +716,9 @@ BUILT_IN_KINDS = ("pairwise", "pointwise", "time_pairwise", "time_pointwise", "d
 GRAPH_MODELS = 23
 # phase 33, graph_custom: the custom epochs' steps captured as CUDA graphs
 # against the same steps run eagerly (graphs=False), beside each path's
-# trainer, from copies of its state on one epoch's seeds (GRAPH_CUSTOM_EPOCH):
+# trainer, from copies of its state, epochs GRAPH_CUSTOM_EPOCH .. + 2:
 # GRAPH_CUSTOM_STEPS steps of each pass at scan_unroll 1 and 3 (a warm-up
-# step, graphs of 3 and a remainder of 2); the device ms a step past the
+# step, graphs of 3 and a remainder of 2 at the first call); the device ms a step past the
 # first from the profiler over the captured run of GRAPH_CUSTOM_STEPS steps
 # less a 1-step one (the epoch's own draws and step 0 cancel). WRMF's epoch,
 # one ALS solve, has no steps and stays eager
@@ -1495,23 +1526,32 @@ def hub_coo(np):
     return rows, cols, vals
 
 
-def profile_steps(torch, step, n=10):
+def profile_steps(torch, step, n=10, tries=6):
     """``torch.profiler`` over ``n`` calls of ``step`` (``traced``): device
     time per kernel (their sum is the device's busy time; one stream, so
     kernels do not overlap) and host time per operator, per step, the
-    largest first. None where the profiler shows no kernel."""
+    largest first. A window that shows no kernel (the card's profiler now
+    and then loses a window's kernel records, as ``device_ms`` says) is
+    dropped and reported (``phase: profiler_window``) and another opened,
+    up to ``tries``; None where none shows a kernel."""
     from torch.autograd import DeviceType
 
-    prof, wall_ms = traced(torch, step, n)
-    kernels, ops = [], []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            # a user range on the device (Optimizer.step) spans kernels counted on their own
-            if not getattr(e, "is_user_annotation", False):
-                kernels.append((e.self_device_time_total, e.key, e.count))
-        elif e.self_cpu_time_total > 0:
-            ops.append((e.self_cpu_time_total, e.key, e.count))
-    if not kernels:
+    for attempt in range(tries):
+        prof, wall_ms = traced(torch, step, n)
+        events = list(prof.key_averages())
+        kernels, ops = [], []
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                # a user range on the device (Optimizer.step) spans kernels counted on their own
+                if not getattr(e, "is_user_annotation", False):
+                    kernels.append((e.self_device_time_total, e.key, e.count))
+            elif e.self_cpu_time_total > 0:
+                ops.append((e.self_cpu_time_total, e.key, e.count))
+        if kernels:
+            break
+        emit({"phase": "profiler_window", "dropped": True, "attempt": attempt, "calls": n, "kernels": {},
+              "host_events": {e.key[:40]: e.count for e in events if e.device_type != DeviceType.CUDA}})
+    else:
         return None
 
     def top(rows):
@@ -1524,13 +1564,15 @@ def profile_steps(torch, step, n=10):
             "kernels": top(kernels), "host_ops": top(ops)}
 
 
-def clone_state(trainer):
-    """A copy of the trainer's params and optimizer state."""
+def clone_state(trainer, params=None, opt=None):
+    """A copy of the trainer's params and optimizer state (of ``params``
+    and ``opt`` where given)."""
     from neurec_tpu_torch.bridge import map_params
 
-    params_c = map_params(lambda v: v.detach().clone().requires_grad_(True), trainer.params)
+    params_c = map_params(lambda v: v.detach().clone().requires_grad_(True),
+                          trainer.params if params is None else params)
     opt_c = trainer.init_opt_state(params_c)
-    opt_c.load_state_dict(copy.deepcopy(trainer.opt_state.state_dict()))
+    opt_c.load_state_dict(copy.deepcopy((trainer.opt_state if opt is None else opt).state_dict()))
     return params_c, opt_c
 
 
@@ -1619,22 +1661,50 @@ def graph_draws(torch, trainer, steps, seed):
     return EpochDraws(inst, w, negs, seeds)
 
 
+def kept_calls_draws(torch, draws, call):
+    """The draws of call ``call`` (from 0) of a kept-program check: the
+    steps of ``draws`` rotated by ``call``, so that each call copies other
+    tensors into the program's buffers."""
+    from neurec_tpu_torch.trainer import EpochDraws
+
+    return EpochDraws(*(torch.roll(a, call, 0) for a in draws))
+
+
+def kept_record(trainer):
+    """What a call leaves in the trainer's kept runs: the graphs they
+    captured in it, the step counts of the graphs they hold and their
+    pools' bytes (nothing where it ran eagerly)."""
+    if not trainer._captures():
+        return {}
+    return {"captured": sum(k.captured for k in trainer.kept.values()),
+            "held": sorted(c for k in trainer.kept.values() for c in k.graphs.graphs),
+            "pool_bytes": sum(k.pool_bytes for k in trainer.kept.values())}
+
+
 def graph_vs_eager(torch, label, trainer, draws, unrolls, counts=None, timing=False):
-    """Phase 32 on one trainer: the steps of ``draws`` from the trainer's
-    state, eagerly twice (``graphs=False``; the second a control) and
-    captured at each ``scan_unroll`` of ``unrolls``, each from a copy of the
-    state. A captured run's epoch loss, params and optimizer state must be
-    the eager run's bit for bit, or, where the two eager runs differ too,
-    within GRAPH_LOSS_RTOL and GRAPH_ATOL. ``counts`` ``(fwd, bwd, n)``:
-    each run launches ``n`` of each kernel a step. Each run gives its wall
-    ms a step (the whole call: the warm-up step and the captures included)
-    and its ms a step past the first step: CUDA events before the second
-    step (eager) or the first replay (captured) and after the last, so the
-    span holds steps 1..n-1 as the device ran them, any wait for the host
-    included. ``timing`` adds the device ms a step (``torch.profiler``
-    over GRAPH_SHORT_STEPS steps, the kernels' summed time) and the card's
-    idle share of a step past the first. The launch counts and the
-    trainer's settings are put back."""
+    """Phase 32 on one trainer: KEPT_CALLS epoch calls of the steps of
+    ``draws`` (call ``c`` takes them rotated by ``c``, as epoch ``c + 1``)
+    from a copy of the trainer's state, eagerly twice (``graphs=False``;
+    the second a control) and as the trainer's kept program at each
+    ``scan_unroll`` of ``unrolls`` (captured at the first call, replayed at
+    the later ones). A kept run's losses, params and optimizer state must
+    be the eager run's bit for bit, or, where the two eager runs differ
+    too, within GRAPH_LOSS_RTOL and GRAPH_ATOL; its calls past the first
+    must capture no graph (the first captures the remainder graph that the
+    later calls of the same steps take).
+    ``counts`` ``(fwd, bwd, n)``: each call launches
+    ``n`` of each kernel a step. Each call gives its wall ms a step, the
+    graphs it captured and the pools' bytes; each run its ms a step past
+    the first step of its first call (CUDA events before the second step
+    (eager) or the first replay and after the last, so the span holds
+    steps 1..n-1 as the device ran them, any wait for the host included)
+    and, over its later calls, its ms a step as replayed. ``timing`` adds
+    the device ms a step (``torch.profiler`` over GRAPH_SHORT_STEPS steps,
+    the kernels' summed time) and the card's idle share of a step past the
+    first. APR also runs its kept program with ``adv_epoch`` 2 and without
+    the adversarial term: the first call's losses equal, the later ones
+    differ. The launch counts, the trainer's settings and its kept
+    programs are put back or released."""
     from torch.autograd import DeviceType
 
     from neurec_tpu_torch import step_graph
@@ -1646,133 +1716,272 @@ def graph_vs_eager(torch, label, trainer, draws, unrolls, counts=None, timing=Fa
     saved = dict(_build.LAUNCHES), trainer.graphs, trainer.scan_unroll
     t_check = time.perf_counter()
 
-    def run(graphs, unroll, n, state=None):
+    def run(graphs, unroll, n, state=None, calls=KEPT_CALLS, start=0, record=None):
         trainer.graphs, trainer.scan_unroll = graphs, unroll
         params_c, opt_c = state or clone_state(trainer)
-        marks = []
+        losses, per_call, spans = [], [], []
+        for c in range(start, start + calls):
+            if record is not None:  # the state before each call, and after the last
+                record.append(clone_state(trainer, params_c, opt_c))
+            marks = []
 
-        def mark():
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
+            def mark():
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
 
-        if graphs:
-            real_replay = step_graph._CudaGraphs.replay
+            if graphs:
+                real_replay = step_graph._CudaGraphs.replay
 
-            def replay(graph):
-                if not marks:
+                def replay(graph):
+                    if not marks:
+                        mark()
+                    real_replay(graph)
                     mark()
-                real_replay(graph)
-                mark()
-            spans = mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay))
-        else:
-            real_step, taken = trainer._step, []
+                hook = mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay))
+                spanned = n - 1 if c == 0 else n
+            else:
+                real_step, taken = trainer._step, []
 
-            def step(*args):
-                if len(taken) == 1:
-                    mark()
-                real_step(*args)
-                taken.append(1)
-                if len(taken) > 1:
-                    mark()
-            spans = mock.patch.object(trainer, "_step", step)
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with spans:
-            loss = trainer.run_epoch(params_c, opt_c, *EpochDraws(*(a[:n] for a in draws)))[2]
-        torch.cuda.synchronize()
-        return {"loss": loss, "params": dict(param_leaves(params_c)), "opt": opt_c.state_dict()["state"],
-                "s": time.perf_counter() - t, "launches": dict(_build.LAUNCHES),
-                "span_ms": marks[0].elapsed_time(marks[-1]) / (n - 1) if len(marks) > 1 else None}
+                def step(*args):
+                    if len(taken) == 1:
+                        mark()
+                    real_step(*args)
+                    taken.append(1)
+                    if len(taken) > 1:
+                        mark()
+                hook = mock.patch.object(trainer, "_step", step)
+                spanned = n - 1
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with hook:
+                loss = trainer.run_epoch(params_c, opt_c, *EpochDraws(*(a[:n] for a in kept_calls_draws(
+                    torch, draws, c))), epoch=c + 1)[2]
+            torch.cuda.synchronize()
+            losses.append(loss)
+            span = marks[0].elapsed_time(marks[-1]) / spanned if len(marks) > 1 else None
+            spans.append(span)
+            per_call.append(dict(wall_ms_per_step=(time.perf_counter() - t) * 1e3 / n, ms_per_step_spanned=span,
+                                 launches=dict(_build.LAUNCHES), **kept_record(trainer)))
+        if record is not None:
+            record.append(clone_state(trainer, params_c, opt_c))
+        out = {"loss": torch.stack(losses), **result_of(params_c, opt_c), "calls": per_call, "span_ms": spans[0],
+               "kept_span_ms": (sum(spans[1:]) / len(spans[1:])) if len(spans) > 1 and None not in spans else None}
+        trainer.release_kept()
+        return out
+
+    def result_of(params, opt):
+        return {"params": dict(param_leaves(params)), "opt": opt.state_dict()["state"]}
 
     def diff(a, b):
         floats = [(x, b["opt"][i][k]) for i, st in a["opt"].items() for k, x in st.items()
                   if isinstance(x, torch.Tensor) and x.is_floating_point() and x.dim()]
         pairs = [(a["params"][k], b["params"][k]) for k in a["params"]] + floats
+        rel = (a["loss"].double() - b["loss"].double()).abs() / b["loss"].double().abs().clamp(min=1e-30)
         return {"equal_bits": bool(torch.equal(a["loss"], b["loss"]) and all(torch.equal(x, y) for x, y in pairs)
                                    and all(float(x.get("step", 0)) == float(b["opt"][i].get("step", 0))
                                            for i, x in a["opt"].items())),
-                "loss_rel_diff": abs(float(a["loss"]) - float(b["loss"])) / max(abs(float(b["loss"])), 1e-30),
+                "loss_rel_diff": float(rel.max()),
                 "param_max_abs_diff": max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())}
 
     configs = [("eager", False, 1)] + [("graph_u%d" % u, True, u) for u in unrolls]
     rec = {"phase": "graph_check", "path": label, "model": trainer.model.name, "data_kind": trainer.model.data_kind,
-           "steps": steps, "batch_size": trainer.model.batch_size, "steps_per_epoch": trainer.steps}
+           "steps": steps, "calls": KEPT_CALLS, "batch_size": trainer.model.batch_size,
+           "steps_per_epoch": trainer.steps}
     try:
-        runs = {name: run(g, u, steps) for name, g, u in configs}
+        runs = {"eager": run(False, 1, steps)}
         control = diff(run(False, 1, steps), runs["eager"])
+        states = {}
+        for name, g, u in configs[1:]:
+            # where eager runs differ, each call is held to an eager call
+            # from the kept run's state before it: the calls' sums compound
+            states[name] = None if control["equal_bits"] else []
+            runs[name] = run(g, u, steps, record=states[name])
         rec["eager_vs_eager"] = control
-        rec["loss"] = float(runs["eager"]["loss"])
+        rec["loss"] = [float(x) for x in runs["eager"]["loss"]]
         for name, g, u in configs:
             r = runs[name]
-            rec[name] = {"wall_ms_per_step": r["s"] * 1e3 / steps, "ms_per_step_past_first": r["span_ms"]}
+            rec[name] = {"wall_ms_per_step": r["calls"][0]["wall_ms_per_step"],
+                         "ms_per_step_past_first": r["span_ms"], "ms_per_step_kept": r["kept_span_ms"],
+                         "calls": [{k: v for k, v in call.items() if k != "launches"} for call in r["calls"]]}
             if counts is not None:
                 fwd, bwd, n = counts
-                rec[name]["launches"] = {fwd: r["launches"][fwd], bwd: r["launches"][bwd]}
-                require((r["launches"][fwd], r["launches"][bwd]) == (n * steps, n * steps),
-                        "%s %s: launches %s, expected %d %s and %d %s a step"
-                        % (label, name, r["launches"], n, fwd, n, bwd))
+                rec[name]["launches"] = [{fwd: call["launches"][fwd], bwd: call["launches"][bwd]}
+                                         for call in r["calls"]]
+                for call in r["calls"]:
+                    require((call["launches"][fwd], call["launches"][bwd]) == (n * steps, n * steps),
+                            "%s %s: launches %s, expected %d %s and %d %s a step"
+                            % (label, name, call["launches"], n, fwd, n, bwd))
             if g:
                 d = rec[name]["vs_eager"] = diff(r, runs["eager"])
+                later = [call["captured"] for call in r["calls"][1:]]
+                require(r["calls"][0]["captured"] > 0 or steps == 1, "%s %s: the first call captured no graph"
+                        % (label, name))
+                require(not any(later), "%s %s: calls past the first captured %s graphs" % (label, name, later))
                 if control["equal_bits"]:
-                    require(d["equal_bits"], "%s %s: the captured steps differ from the eager ones (%s) where two "
-                            "eager runs agree to the bit" % (label, name, d))
+                    require(d["equal_bits"], "%s %s: the kept program's calls differ from the eager ones (%s) "
+                            "where two eager runs agree to the bit" % (label, name, d))
                 else:
-                    rec[name]["differs"] = "eager runs differ as well: an op that adds in no fixed order"
-                    require(d["loss_rel_diff"] <= GRAPH_LOSS_RTOL and d["param_max_abs_diff"] <= GRAPH_ATOL,
-                            "%s %s: the captured steps are %s from the eager ones" % (label, name, d))
+                    rec[name]["differs"] = ("eager runs differ as well: an op that adds in no fixed order; each "
+                                            "call held to an eager call from the kept run's state before it")
+                    by_call = rec[name]["vs_eager_by_call"] = [
+                        diff({"loss": r["loss"][c:c + 1], **result_of(*states[name][c + 1])},
+                             run(False, 1, steps, clone_state(trainer, *states[name][c]), calls=1, start=c))
+                        for c in range(KEPT_CALLS)]
+                    require(all(x["loss_rel_diff"] <= GRAPH_LOSS_RTOL and x["param_max_abs_diff"] <= GRAPH_ATOL
+                                for x in by_call),
+                            "%s %s: the kept program's calls are %s from eager calls from the same states"
+                            % (label, name, by_call))
             if timing:
                 states = [clone_state(trainer) for _ in range(2)]  # the profiled window copies nothing
-                prof = traced(torch, lambda: run(g, u, GRAPH_SHORT_STEPS, states.pop()), 1)[0]
+                prof = traced(torch, lambda: run(g, u, GRAPH_SHORT_STEPS, states.pop(), calls=1), 1)[0]
                 kernels = [e for e in prof.key_averages()
                            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
                 device = sum(e.self_device_time_total for e in kernels) / 1e3 / GRAPH_SHORT_STEPS if kernels else None
                 rec[name].update(device_ms_per_step=device,
                                  kernels_per_step=sum(e.count for e in kernels) / GRAPH_SHORT_STEPS,
                                  idle_share=None if device is None else 1.0 - device / r["span_ms"])
+        model = trainer.model
+        if getattr(model, "adver", False) and hasattr(model, "adv_epoch"):
+            keep = model.adv_epoch, model.reg_adv
+            try:
+                model.adv_epoch = 2
+                on = run(True, 1, steps)["loss"]
+                model.reg_adv = 0.0
+                off = run(True, 1, steps)["loss"]
+            finally:
+                model.adv_epoch, model.reg_adv = keep
+            rec["adv_switch"] = {"adv_epoch": 2, "losses": [float(x) for x in on],
+                                 "losses_without_adv": [float(x) for x in off]}
+            require(torch.equal(on[0], off[0]) and not torch.equal(on[1], off[1])
+                    and not torch.equal(on[2], off[2]),
+                    "%s: the kept program's adversarial term is not off at epoch 1 and on at 2 and 3: %s"
+                    % (label, rec["adv_switch"]))
     finally:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved[0])
         trainer.graphs, trainer.scan_unroll = saved[1], saved[2]
+        trainer.release_kept()
     rec["seconds"] = time.perf_counter() - t_check
     emit(rec)
     return rec
 
 
-def clone_custom_state(trainer):
+def kept_train(torch, trainer):
+    """The north star's ``Trainer.train`` for KEPT_TRAIN_EPOCHS whole
+    epochs from the seed of ``trainer`` (its model, data and config; one
+    evaluation, after the last epoch), twice: each epoch's wall ms a step,
+    graphs captured, pool bytes and loss, then again under
+    ``torch.profiler`` for each epoch's device ms a step (the kernels'
+    summed time), and the idle share of the unprofiled epoch. The first
+    epoch must capture and the later ones must not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from neurec_tpu_torch.trainer import Trainer
+
+    model = trainer.model
+    saved = model.epochs, model.verbose
+    t_check = time.perf_counter()
+
+    def train(profiled):
+        t = Trainer(model, trainer.dataset, trainer.config, logger=SilentLogger(), seed=trainer.seed,
+                    device=trainer.device)
+        epochs, real = [], t.train_epoch
+
+        def train_epoch(epoch, max_steps=None):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = real(epoch, max_steps)
+                    torch.cuda.synchronize()
+                kernels = [e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+                rec = {"device_ms_per_step": sum(e.self_device_time_total for e in kernels) / 1e3 / t.steps,
+                       "kernels_per_step": sum(e.count for e in kernels) / t.steps}
+            else:
+                out = real(epoch, max_steps)
+                torch.cuda.synchronize()
+                rec = {"wall_ms_per_step": (time.perf_counter() - start) * 1e3 / t.steps}
+            kept = t.kept["epoch"]
+            rec.update(epoch=epoch, captured=kept.captured, calls=kept.calls, pool_bytes=kept.pool_bytes,
+                       loss=float(out[2]))
+            epochs.append(rec)
+            return out
+
+        t.train_epoch = train_epoch
+        result = t.train()
+        t.release_kept()
+        return epochs, result, t.steps
+
+    try:
+        model.epochs = model.verbose = KEPT_TRAIN_EPOCHS
+        plain, result, steps = train(False)
+        profiled, result_p, _ = train(True)
+    finally:
+        model.epochs, model.verbose = saved
+    for rec, prof in zip(plain, profiled):
+        rec.update(device_ms_per_step=prof["device_ms_per_step"], kernels_per_step=prof["kernels_per_step"],
+                   idle_share=1.0 - prof["device_ms_per_step"] / rec["wall_ms_per_step"],
+                   profiled_wall_loss_equal=rec["loss"] == prof["loss"])
+    out = {"phase": "kept_train", "model": model.name, "steps_per_epoch": steps, "batch_size": model.batch_size,
+           "epochs": plain, "result": result, "profiled_result_equal": result == result_p,
+           "seconds": time.perf_counter() - t_check}
+    emit(out)
+    captured = [r["captured"] for r in plain + profiled]
+    require(len(plain) == KEPT_TRAIN_EPOCHS and all(np.isfinite(r["loss"]) for r in plain),
+            "kept_train: epochs %s" % plain)
+    require(plain[0]["captured"] > 0 and profiled[0]["captured"] > 0 and not any(
+        r["captured"] for r in plain[1:] + profiled[1:]), "kept_train: graphs captured by epoch: %s" % captured)
+    require(all(0 <= float(v) <= 1 for v in parse_metrics(result)), "kept_train: result %s" % result)
+    return out
+
+
+def clone_custom_state(trainer, params=None, opt=None):
     """A copy of a custom-epoch trainer's params and of its optimizer (a
-    dict of them: CFGAN's ``{"g", "d"}``, IRGAN's none)."""
+    dict of them: CFGAN's ``{"g", "d"}``, IRGAN's none); of ``params`` and
+    ``opt`` where given."""
     from neurec_tpu_torch.bridge import map_params
 
-    params_c = map_params(lambda v: v.detach().clone().requires_grad_(v.is_floating_point()), trainer.params)
+    params_c = map_params(lambda v: v.detach().clone().requires_grad_(v.is_floating_point()),
+                          trainer.params if params is None else params)
     opt_c = trainer.init_opt_state(params_c)
-    pairs = zip(opt_c.values(), trainer.opt_state.values()) if isinstance(opt_c, dict) else \
-        [(opt_c, trainer.opt_state)]
+    opt = trainer.opt_state if opt is None else opt
+    pairs = zip(opt_c.values(), opt.values()) if isinstance(opt_c, dict) else [(opt_c, opt)]
     for mine, theirs in pairs:
         mine.load_state_dict(copy.deepcopy(theirs.state_dict()))
     return params_c, opt_c
 
 
 def custom_graph_check(torch, label, trainer):
-    """Phase 33 on one custom-epoch trainer: epoch GRAPH_CUSTOM_EPOCH cut to
-    GRAPH_CUSTOM_STEPS steps of each pass (``train_epoch(max_steps)``) from
-    copies of the trainer's state, eagerly twice (``graphs=False``; the
-    second a control) and captured at each of GRAPH_CUSTOM_UNROLLS. A
-    captured run's loss, params and optimizer state must be the eager run's
-    bit for bit, or, where the two eager runs differ too (a backward that
-    adds through atomics), within GRAPH_LOSS_RTOL and GRAPH_ATOL. Each run
-    gives its wall ms a step (the whole epoch call: its draws, the warm-up
-    steps and the captures included) and its ms a step past the first: CUDA
-    events before each pass's second step (eager) or first replay
-    (captured) and after its last, summed over the passes. The captured run
-    at scan_unroll 1 also gives the device ms a step past the first
-    (``torch.profiler``: the kernels' summed time over the cut epoch less a
-    1-step one) and the kernels a step; the eager steps run the same
-    kernels (bit-equal results), so each run's idle share reads that device
-    time against its ms a step past the first; a replay holds
-    ``scan_unroll`` steps' kernels. The launch counts and the trainer's
-    settings are put back."""
+    """Phase 33 on one custom-epoch trainer: KEPT_CALLS calls of its epoch
+    (epochs GRAPH_CUSTOM_EPOCH, GRAPH_CUSTOM_EPOCH + 1, ...), each cut to
+    GRAPH_CUSTOM_STEPS steps of each pass (``train_epoch(max_steps)``),
+    from copies of the trainer's state, eagerly twice (``graphs=False``;
+    the second a control) and through the trainer's kept programs at each
+    of GRAPH_CUSTOM_UNROLLS (a program a run of steps, captured at its
+    first call). A kept run's losses, params and optimizer state must be
+    the eager run's bit for bit, or, where the two eager runs differ too
+    (a backward that adds through atomics), within GRAPH_LOSS_RTOL and
+    GRAPH_ATOL; its calls past the first must capture no graph where every
+    pass takes the same steps in every call (a remainder graph of a count
+    not seen before is captured when it is first needed). Each call gives its wall ms a
+    step (the whole epoch call: its draws, the warm-up steps and the
+    captures included), the graphs captured and the pools' bytes; each run
+    its ms a step past the first of its first call (CUDA events before
+    each pass's second step (eager) or first replay (kept) and after its
+    last, summed over the passes) and, over its later calls, as replayed.
+    The kept run at scan_unroll 1 also gives the device ms a step past the
+    first (``torch.profiler``: the kernels' summed time over the cut epoch
+    less a 1-step one) and the kernels a step; the eager steps run the
+    same kernels (bit-equal results), so each run's idle share reads that
+    device time against its ms a step past the first; a replay holds
+    ``scan_unroll`` steps' kernels. The launch counts, the trainer's
+    settings and its kept programs are put back or released."""
     from torch.autograd import DeviceType
 
     from neurec_tpu_torch import step_graph
@@ -1781,103 +1990,155 @@ def custom_graph_check(torch, label, trainer):
 
     saved = dict(_build.LAUNCHES), trainer.graphs, trainer.scan_unroll
     t_check = time.perf_counter()
-    real_run, real_replay = step_graph.run_steps, step_graph._CudaGraphs.replay
+    real_run, real_kept_run = step_graph.run_steps, step_graph._StepGraphs.run
+    real_replay = step_graph._CudaGraphs.replay
 
-    def timed(calls):
-        """``step_graph.run_steps`` with CUDA events around steps 1..n-1."""
-        def run_steps(step, n, seeds, device, unroll=1, capture=False):
-            marks = []
+    def marker(marks):
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        return mark
 
-            def mark():
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append(ev)
+    def timed(passes):
+        """``step_graph.run_steps`` (eager) and ``_StepGraphs.run`` (kept)
+        with CUDA events around steps 1..n-1, or around every step of a
+        later call's replays; each pass's ``(marks, steps spanned, n)``."""
+        def run_steps(step, n, seeds, device):
+            marks, taken = [], []
+            mark = marker(marks)
 
-            if capture:
-                def replay(graph):
-                    if not marks:
-                        mark()
-                    real_replay(graph)
+            def timed_step(gen):
+                if len(taken) == 1:
                     mark()
-                with mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay)):
-                    real_run(step, n, seeds, device, unroll, capture)
-            else:
-                taken = []
+                step(gen)
+                taken.append(1)
+                if len(taken) > 1:
+                    mark()
+            real_run(timed_step, n, seeds, device)
+            passes.append((marks, n - 1, n))
 
-                def timed_step(gen):
-                    if len(taken) == 1:
-                        mark()
-                    step(gen)
-                    taken.append(1)
-                    if len(taken) > 1:
-                        mark()
-                real_run(timed_step, n, seeds, device, unroll, capture)
-            calls.append((marks, n))
-        return run_steps
+        def kept_run(self, n, seeds):
+            marks = []
+            mark = marker(marks)
+            spanned = n - 1 if self.width is None else n
+
+            def replay(graph):
+                if not marks:
+                    mark()
+                real_replay(graph)
+                mark()
+            with mock.patch.object(step_graph._CudaGraphs, "replay", staticmethod(replay)):
+                real_kept_run(self, n, seeds)
+            passes.append((marks, spanned, n))
+        return [mock.patch.object(step_graph, "run_steps", run_steps),
+                mock.patch.object(step_graph._StepGraphs, "run", kept_run)]
 
     def opt_tensors(opt):
         opts = opt.values() if isinstance(opt, dict) else [opt]
         return [v for o in opts for p in o.state for v in o.state[p].values() if isinstance(v, torch.Tensor)]
 
-    def run(graphs, unroll, steps, state=None, timing=True):
+    def run(graphs, unroll, steps, state=None, timing=True, calls=KEPT_CALLS, start=0, record=None):
         trainer.graphs, trainer.scan_unroll = graphs, unroll
         params_c, opt_c = state or clone_custom_state(trainer)
-        calls = []
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with mock.patch.object(step_graph, "run_steps", timed(calls)) if timing else contextlib.nullcontext():
-            params_o, opt_o, loss = trainer._epoch_fn(params_c, opt_c, trainer.epoch_generator(GRAPH_CUSTOM_EPOCH),
-                                                      GRAPH_CUSTOM_EPOCH, max_steps=steps)
-        torch.cuda.synchronize()
-        spans = [(m[0].elapsed_time(m[-1]), n - 1) for m, n in calls if len(m) > 1]
-        return {"loss": loss, "tensors": [p.detach() for _, p in param_leaves(params_o)] + opt_tensors(opt_o),
-                "s": time.perf_counter() - t, "passes": [n for _, n in calls], "launches": dict(_build.LAUNCHES),
-                "span_ms": sum(ms for ms, _ in spans) / max(sum(k for _, k in spans), 1) if spans else None}
+        losses, per_call, spans = [], [], []
+        for c in range(start, start + calls):
+            if record is not None:  # the state before each call, and after the last
+                record.append(clone_custom_state(trainer, params_c, opt_c))
+            passes = []
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for patch in timed(passes) if timing else []:
+                    stack.enter_context(patch)
+                epoch = GRAPH_CUSTOM_EPOCH + c
+                params_c, opt_c, loss = trainer._epoch_fn(params_c, opt_c, trainer.epoch_generator(epoch), epoch,
+                                                          max_steps=steps)
+            torch.cuda.synchronize()
+            losses.append(loss)
+            done = [(m[0].elapsed_time(m[-1]), k) for m, k, _ in passes if len(m) > 1]
+            spans.append(sum(ms for ms, _ in done) / max(sum(k for _, k in done), 1) if done else None)
+            pass_steps = [n for _, _, n in passes]
+            per_call.append(dict(pass_steps=pass_steps,
+                                 wall_ms_per_step=(time.perf_counter() - t) * 1e3 / max(sum(pass_steps), 1),
+                                 ms_per_step_spanned=spans[-1],
+                                 launches={k: v for k, v in _build.LAUNCHES.items() if v}, **kept_record(trainer)))
+        if record is not None:
+            record.append(clone_custom_state(trainer, params_c, opt_c))
+        later = [x for x in spans[1:] if x is not None]
+        trainer.release_kept()
+        return {"loss": torch.stack(losses), "tensors": tensors_of(params_c, opt_c),
+                "calls": per_call, "span_ms": spans[0], "kept_span_ms": sum(later) / len(later) if later else None}
+
+    def tensors_of(params, opt):
+        return [p.detach() for _, p in param_leaves(params)] + opt_tensors(opt)
 
     def diff(a, b):
         pairs = list(zip(a["tensors"], b["tensors"]))
+        rel = (a["loss"].double() - b["loss"].double()).abs() / b["loss"].double().abs().clamp(min=1e-30)
         return {"equal_bits": bool(len(a["tensors"]) == len(b["tensors"]) and torch.equal(a["loss"], b["loss"])
                                    and all(torch.equal(x, y) for x, y in pairs)),
-                "loss_rel_diff": abs(float(a["loss"]) - float(b["loss"])) / max(abs(float(b["loss"])), 1e-30),
+                "loss_rel_diff": float(rel.max()),
                 "param_max_abs_diff": max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())}
 
-    def device(graphs, unroll, passes):
+    def device(graphs, unroll, pass_steps):
         """Device ms and kernels a step past the first, from the profiler."""
         out = []
         for steps in (GRAPH_CUSTOM_STEPS, 1):
             states = [clone_custom_state(trainer) for _ in range(2)]  # the profiled window copies nothing
-            prof = traced(torch, lambda: run(graphs, unroll, steps, states.pop(), timing=False), 1)[0]
+            prof = traced(torch, lambda: run(graphs, unroll, steps, states.pop(), timing=False, calls=1), 1)[0]
             kernels = [e for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
             out.append((sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)))
-        past_first = sum(passes) - len(passes)
+        past_first = sum(pass_steps) - len(pass_steps)
         return (out[0][0] - out[1][0]) / past_first, (out[0][1] - out[1][1]) / past_first
 
     configs = [("eager", False, 1)] + [("graph_u%d" % u, True, u) for u in GRAPH_CUSTOM_UNROLLS]
     rec = {"phase": "graph_custom_check", "path": label, "model": trainer.model.name, "steps": GRAPH_CUSTOM_STEPS,
-           "epoch": GRAPH_CUSTOM_EPOCH}
+           "epochs": [GRAPH_CUSTOM_EPOCH + c for c in range(KEPT_CALLS)]}
     try:
-        runs = {name: run(g, u, GRAPH_CUSTOM_STEPS) for name, g, u in configs}
+        runs = {"eager": run(False, 1, GRAPH_CUSTOM_STEPS)}
         control = diff(run(False, 1, GRAPH_CUSTOM_STEPS), runs["eager"])
-        rec.update(eager_vs_eager=control, loss=float(runs["eager"]["loss"]), passes=runs["eager"]["passes"])
+        states = {}
+        for name, g, u in configs[1:]:
+            # where eager runs differ, each call is held to an eager call
+            # from the kept run's state before it: the calls' sums compound
+            # (IRGAN's through its sampled negatives and samples)
+            states[name] = None if control["equal_bits"] else []
+            runs[name] = run(g, u, GRAPH_CUSTOM_STEPS, record=states[name])
+        eager_steps = [c["pass_steps"] for c in runs["eager"]["calls"]]
+        rec.update(eager_vs_eager=control, loss=[float(x) for x in runs["eager"]["loss"]], pass_steps=eager_steps)
         for name, g, u in configs:
             r = runs[name]
-            steps = sum(r["passes"])
-            rec[name] = {"wall_ms_per_step": r["s"] * 1e3 / steps, "ms_per_step_past_first": r["span_ms"],
-                         "launches": {k: v for k, v in r["launches"].items() if v}}
-            require(r["passes"] == runs["eager"]["passes"] and min(r["passes"]) > 1,
-                    "%s %s: passes of %s steps, eager %s" % (label, name, r["passes"], runs["eager"]["passes"]))
+            rec[name] = {"wall_ms_per_step": r["calls"][0]["wall_ms_per_step"],
+                         "ms_per_step_past_first": r["span_ms"], "ms_per_step_kept": r["kept_span_ms"],
+                         "calls": [{k: v for k, v in c.items() if k != "pass_steps"} for c in r["calls"]]}
+            got_steps = [c["pass_steps"] for c in r["calls"]]
+            require(got_steps == eager_steps and min(eager_steps[0]) > 1,
+                    "%s %s: passes of %s steps, eager %s" % (label, name, got_steps, eager_steps))
             if g:
                 d = rec[name]["vs_eager"] = diff(r, runs["eager"])
+                later = [c["captured"] for c in r["calls"][1:]]
+                require(r["calls"][0]["captured"] > 0, "%s %s: the first call captured no graph" % (label, name))
+                if all(call == got_steps[0] for call in got_steps):  # no count of steps new past the first call
+                    require(not any(later), "%s %s: calls past the first captured %s graphs" % (label, name, later))
                 if control["equal_bits"]:
-                    require(d["equal_bits"], "%s %s: the captured steps differ from the eager ones (%s) where two "
-                            "eager runs agree to the bit" % (label, name, d))
+                    require(d["equal_bits"], "%s %s: the kept programs' calls differ from the eager ones (%s) where "
+                            "two eager runs agree to the bit" % (label, name, d))
                 else:
-                    rec[name]["differs"] = "eager runs differ as well: an op that adds in no fixed order"
-                    require(d["loss_rel_diff"] <= GRAPH_LOSS_RTOL and d["param_max_abs_diff"] <= GRAPH_ATOL,
-                            "%s %s: the captured steps are %s from the eager ones" % (label, name, d))
-        dev_ms, kernels = device(True, 1, runs["graph_u1"]["passes"])
+                    rec[name]["differs"] = ("eager runs differ as well: an op that adds in no fixed order; each "
+                                            "call held to an eager call from the kept run's state before it")
+                    by_call = rec[name]["vs_eager_by_call"] = [
+                        diff({"loss": r["loss"][c:c + 1], "tensors": tensors_of(*states[name][c + 1])},
+                             run(False, 1, GRAPH_CUSTOM_STEPS, clone_custom_state(trainer, *states[name][c]),
+                                 timing=False, calls=1, start=c))
+                        for c in range(KEPT_CALLS)]
+                    require(all(x["loss_rel_diff"] <= GRAPH_LOSS_RTOL and x["param_max_abs_diff"] <= GRAPH_ATOL
+                                for x in by_call),
+                            "%s %s: the kept programs' calls are %s from eager calls from the same states"
+                            % (label, name, by_call))
+        dev_ms, kernels = device(True, 1, eager_steps[0])
         rec.update(device_ms_per_step=dev_ms, kernels_per_step=kernels)
         for name, g, u in configs:
             rec[name]["idle_share"] = 1.0 - dev_ms / rec[name]["ms_per_step_past_first"]
@@ -1887,6 +2148,7 @@ def custom_graph_check(torch, label, trainer):
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved[0])
         trainer.graphs, trainer.scan_unroll = saved[1], saved[2]
+        trainer.release_kept()
     rec["seconds"] = time.perf_counter() - t_check
     emit(rec)
     return rec
@@ -2757,7 +3019,9 @@ def main() -> int:
     # -- 8. training steps through the plain versions ------------------------
     emit({"phase": "train_plain_path", **kernel_vs_plain_steps(
         torch, trainer, draws, [(k2, "plan_spmm", k2.plan_spmm_reference)])})
-    # phase 32 on the north star: the trained state, epoch 3's draws
+    # phase 32 on the north star: 3 whole epochs through Trainer.train, then
+    # the trained state, epoch 3's draws
+    kept_train(torch, trainer)
     graph_checks, custom_checks = [], []
     graph_checks.append(graph_vs_eager(
         torch, "northstar", trainer, EpochDraws(*(a[:GRAPH_NORTHSTAR_STEPS] for a in draws)), GRAPH_UNROLLS,
@@ -4017,8 +4281,12 @@ def main() -> int:
                          for c in graph_checks},
           "eager_runs_equal_bits": {c["path"]: c["eager_vs_eager"]["equal_bits"] for c in graph_checks},
           "seconds": sum(c["seconds"] for c in graph_checks),
+          "captured_by_call": {c["path"]: {k: [call["captured"] for call in c[k]["calls"]] for k in c
+                                           if k.startswith("graph_u")} for c in graph_checks},
           "ms_per_step_past_first": {c["path"]: {k: c[k]["ms_per_step_past_first"] for k in c
                                                  if k == "eager" or k.startswith("graph_u")} for c in graph_checks},
+          "ms_per_step_kept": {c["path"]: {k: c[k]["ms_per_step_kept"] for k in c
+                                           if k == "eager" or k.startswith("graph_u")} for c in graph_checks},
           "device_ms_per_step": {c["path"]: {k: (c[k]["device_ms_per_step"], c[k]["idle_share"]) for k in c
                                              if k == "eager" or k.startswith("graph_u")}
                                  for c in graph_checks if "device_ms_per_step" in c["eager"]},
@@ -4034,13 +4302,18 @@ def main() -> int:
           "equal_bits": {c["path"]: all(c[k]["vs_eager"]["equal_bits"] for k in modes[1:]) for c in custom_checks},
           "eager_runs_equal_bits": {c["path"]: c["eager_vs_eager"]["equal_bits"] for c in custom_checks},
           "seconds": sum(c["seconds"] for c in custom_checks),
+          "captured_by_call": {c["path"]: {k: [call["captured"] for call in c[k]["calls"]] for k in modes[1:]}
+                               for c in custom_checks},
           "ms_per_step_past_first": {c["path"]: {k: c[k]["ms_per_step_past_first"] for k in modes}
                                      for c in custom_checks},
+          "ms_per_step_kept": {c["path"]: {k: c[k]["ms_per_step_kept"] for k in modes} for c in custom_checks},
           "device_ms_per_step": {c["path"]: c["device_ms_per_step"] for c in custom_checks},
           "idle_share": {c["path"]: {k: c[k]["idle_share"] for k in modes} for c in custom_checks},
           "card": smi})
     require(custom_models == sorted(GRAPH_CUSTOM_MODELS), "phase 33 checked the custom epochs of %s, not %s"
             % (custom_models, sorted(GRAPH_CUSTOM_MODELS)))
+    require(len(graph_models) + len(custom_models) == GRAPH_MODELS + len(GRAPH_CUSTOM_MODELS) == 32,
+            "phases 32 and 33 checked %d stepped models, not 32" % (len(graph_models) + len(custom_models)))
 
     # -- 34. eval_graph: the evaluation and the serving export as CUDA graphs ---
     # (each check ran beside its path's trainer: the eval_graph_check lines above)

@@ -80,9 +80,11 @@ class Recommender:
 
     def take_steps(self, trainer, steps) -> torch.Tensor:
         """A custom epoch's run of steps (``step_graph.Steps``): through
-        ``trainer`` (``Trainer.take_steps``: CUDA-graph replays where it
-        captures, the loss total summed over 'data' on a split run), or
-        eagerly without one. Returns the summed step losses."""
+        ``trainer`` (``Trainer.take_steps``: where it captures, the replays
+        of the program it keeps under the run's key, ``steps.name``, from
+        the epoch's first call on; the loss total summed over 'data' on a
+        split run), or eagerly without one. Returns the summed step
+        losses."""
         if trainer is None:
             return step_graph.take_steps(steps, self.device)
         return trainer.take_steps(steps)

@@ -11,7 +11,9 @@ perturbed embeddings:
 * ``adv=random``: delta = eps * row-normalized 0.01 * truncated normal
   noise over the full tables, drawn from ``batch["generator"]``;
 * loss = bpr + reg * l2(tables) + [epoch >= adv_epoch] * reg_adv * bpr_adv,
-  the switch on ``batch["epoch"]``.
+  the switch computed on the device from ``batch["epoch"]`` (a 0-d device
+  tensor, as the JAX package's traced epoch), so that a graph of the steps
+  kept across epochs turns the term on at ``adv_epoch``.
 
 The adversarial term gathers the batch's rows of P + delta_P and
 Q + delta_Q, the same values and gradients as the JAX package's full-table
@@ -84,7 +86,9 @@ class APR(Recommender):
             return opt_loss
         dP, dQ = self._deltas(P, Q, users, pos, neg, weights, batch.get("generator"))
         adv_loss = _bpr(P[users] + dP[users], Q[pos] + dQ[pos], Q[neg] + dQ[neg], weights)
-        adv_on = float(batch["epoch"] >= self.adv_epoch)
+        # on from adv_epoch, read on the device (a kept graph of the steps
+        # holds the epoch as a tensor it is handed each epoch)
+        adv_on = (torch.as_tensor(batch["epoch"], device=P.device) >= self.adv_epoch).to(P.dtype)
         return opt_loss + adv_on * self.reg_adv * adv_loss
 
     def predict(self, params, users):

@@ -165,7 +165,7 @@ class CFGAN(Recommender):
         seeds = step_seeds(generator, steps)[:n_run]
         split = None if trainer is None else trainer.dp_split_for(B)
 
-        def make(cursor, total):
+        def make(cursor, total, perm):
             def step(gen):
                 idx = at(cursor, perm)
                 if split is not None:  # this rank's rows of the step
@@ -175,7 +175,7 @@ class CFGAN(Recommender):
                                 split, params[side])
             return step
 
-        return Steps(make, n_run, seeds, opt, split)
+        return Steps(make, n_run, seeds, opt, split, inputs=dict(perm=perm), reads=params, name=side)
 
     def _sub_epochs(self, params, opt, generator, loss_name, side, B, n_reps, max_steps, trainer=None):
         """``n_reps`` sub-epochs (``sub_epoch_steps``), each one run of

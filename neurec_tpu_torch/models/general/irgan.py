@@ -21,7 +21,10 @@ IRGAN.py:15-250):
 The D pass's negatives and permutation and a seed for each G step come
 from the epoch's generator, a G step's samples from a generator of its
 own: the same distributions as the JAX package's, not its draws. The
-softmax samples take ``torch.multinomial``. Both passes update their
+softmax samples invert each row's CDF at uniform draws (``categorical``),
+a CDF summed in a fixed order, so that the draws do not depend on the
+device's timing (``torch.multinomial`` sums a one-row CDF by a scan whose
+order of addition does, on a CUDA device). Both passes update their
 player's leaves in place (``_sgd_step``), and on a CUDA device their steps
 are CUDA-graph replays (``d_steps``, ``g_steps``).
 
@@ -49,6 +52,26 @@ from neurec_tpu_torch.step_graph import Steps, at, step_seeds
 
 # users of one (users, I) softmax block of the D pass's negatives
 _NEG_CHUNK = 2048
+# items of one block of a CDF (``categorical``)
+_CDF_BLOCK = 512
+
+
+def categorical(generator: torch.Generator, logits: torch.Tensor, n: int) -> torch.Tensor:
+    """(rows, n) int64 draws of each row's softmax(logits), with
+    replacement: the first item whose CDF exceeds ``u * total``, ``u``
+    uniform from ``generator``. The CDF is summed in a fixed order, within
+    blocks of ``_CDF_BLOCK`` items (a cumsum over the last dimension of
+    many rows) and then over the blocks' totals (a sum over a dimension),
+    so the same inputs give the same draws on every run."""
+    p = torch.softmax(logits, dim=-1)
+    rows, items = p.shape
+    n_blocks = -(-items // _CDF_BLOCK)
+    within = torch.cumsum(F.pad(p, (0, n_blocks * _CDF_BLOCK - items)).reshape(rows, n_blocks, _CDF_BLOCK), dim=-1)
+    earlier = torch.ones(n_blocks, n_blocks, device=p.device).triu(1)  # block j before block k
+    before = torch.sum(within[:, :, -1:] * earlier, dim=1)             # (rows, blocks)
+    cdf = (within + before[:, :, None]).reshape(rows, -1)
+    u = torch.rand((rows, n), generator=generator, device=p.device) * cdf[:, -1:]
+    return torch.clamp(torch.searchsorted(cdf, u, right=True), max=items - 1)
 
 
 @register("IRGAN")
@@ -106,8 +129,9 @@ class IRGAN(Recommender):
 
     @staticmethod
     def _categorical(generator, logits, n):
-        """(rows, n) draws of each row's softmax(logits), with replacement."""
-        return torch.multinomial(torch.softmax(logits, dim=-1), n, replacement=True, generator=generator)
+        """(rows, n) draws of each row's softmax(logits), with replacement
+        (``categorical``)."""
+        return categorical(generator, logits, n)
 
     @staticmethod
     def _perm(generator, n):
@@ -131,7 +155,9 @@ class IRGAN(Recommender):
 
     def d_steps(self, params, generator, max_steps=None, trainer=None):
         """The discriminator sub-epoch's steps (``step_graph.Steps``) and the
-        discriminator's leaves they update in place: the negatives (from G's
+        discriminator's leaves they update in place (a fresh copy of the
+        player, an input of the run that a kept run copies into its own
+        buffers and back, ``Steps.updates``): the negatives (from G's
         softmax) and the permutation drawn from ``generator`` here, a
         step's pairs read at the cursor; a step draws nothing. With a
         ``trainer`` on a mesh each step is split over 'data'
@@ -158,7 +184,7 @@ class IRGAN(Recommender):
         n_steps = steps if max_steps is None else min(steps, max_steps)
         split = None if trainer is None else trainer.dp_split_for(B)
 
-        def make(cursor, total):
+        def make(cursor, total, idx, tail_w, flat_users, flat_items, flat_labels, flat_w, dis):
             def step(gen):
                 bi, bw = at(cursor, idx, tail_w)
                 if split is not None:  # this rank's rows of the step
@@ -171,7 +197,9 @@ class IRGAN(Recommender):
                 cursor.add_(1)
             return step
 
-        return Steps(make, n_steps, None, None, split), dis
+        inputs = dict(idx=idx, tail_w=tail_w, flat_users=flat_users, flat_items=flat_items, flat_labels=flat_labels,
+                      flat_w=flat_w, dis=dis)
+        return Steps(make, n_steps, None, None, split, inputs=inputs, updates=("dis",), name="dis"), dis
 
     def d_pass(self, params, generator, max_steps=None, trainer=None):
         """One discriminator sub-epoch (``d_steps``); returns (params, mean
@@ -197,7 +225,9 @@ class IRGAN(Recommender):
     def g_steps(self, params, generator, max_steps=None):
         """The generator sub-epoch's steps (``step_graph.Steps``), a
         REINFORCE step per train user in turn, and the generator's leaves
-        they update in place: a seed a step drawn from ``generator`` here,
+        they update in place (copied in and back by a kept run, as
+        ``d_steps``' player; the discriminator's leaves are an input too):
+        a seed a step drawn from ``generator`` here,
         a step's user read at the cursor (a (1,) index: no host read) and
         its samples drawn from its own generator."""
         users, I = self._train_users, self.num_items
@@ -208,7 +238,7 @@ class IRGAN(Recommender):
         seeds = step_seeds(generator, users.shape[0])[:n_steps]
         slots = torch.arange(S, device=users.device, dtype=torch.float32)
 
-        def make(cursor, total):
+        def make(cursor, total, gen, d, slots):
             def step(g):
                 u = users.index_select(0, cursor)                                  # (1,)
                 rows_u = self._rows.index_select(0, u)[0]                          # (L,)
@@ -234,7 +264,8 @@ class IRGAN(Recommender):
                 cursor.add_(1)
             return step
 
-        return Steps(make, n_steps, seeds), gen
+        return Steps(make, n_steps, seeds, inputs=dict(gen=gen, d=d, slots=slots), updates=("gen",),
+                     name="gen"), gen
 
     def g_pass(self, params, generator, max_steps=None, trainer=None):
         """One generator sub-epoch (``g_steps``); returns (params, mean step

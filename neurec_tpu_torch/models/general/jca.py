@@ -156,11 +156,11 @@ class JCA(Recommender):
                               torch.arange(nI, device=dev).repeat(nU)], dim=1)
         split = None if trainer is None else trainer.dp_split_for(B)
 
-        def make(cursor, total):
+        def make(cursor, total, blocks, rows_d, row_w_d, cols_d, col_w_d):
             def step(gen):
                 ri, ci = at(cursor, blocks).split(1)
-                rows, row_w = draws.rows.index_select(0, ri)[0], draws.row_w.index_select(0, ri)[0]
-                cols, col_w = draws.cols.index_select(0, ci)[0], draws.col_w.index_select(0, ci)[0]
+                rows, row_w = rows_d.index_select(0, ri)[0], row_w_d.index_select(0, ri)[0]
+                cols, col_w = cols_d.index_select(0, ci)[0], col_w_d.index_select(0, ci)[0]
                 if split is not None:  # this rank's rows of the row block
                     rows, row_w = trainer.dp_constrain(rows, row_w)
 
@@ -171,7 +171,9 @@ class JCA(Recommender):
                 train_step(loss, opt_state, cursor, total, trainer, split, params)
             return step
 
-        return Steps(make, n_run, draws.seeds[:n_run], opt_state, split)
+        return Steps(make, n_run, draws.seeds[:n_run], opt_state, split,
+                     inputs=dict(blocks=blocks, rows_d=draws.rows, row_w_d=draws.row_w, cols_d=draws.cols,
+                                 col_w_d=draws.col_w), reads=params)
 
     def run_epoch(self, params, opt_state, draws: GridDraws, max_steps=None, trainer=None):
         """The grid's steps (``grid_steps``): ``(params, opt_state, summed

@@ -9,7 +9,9 @@ MultiVAE.py:15-204):
 * p-net -> logits -> log-softmax; neg-ELBO = multinomial NLL + anneal * KL
   + 2 * l2_regularizer(reg)(weights);
 * KL annealing: anneal = min(anneal_cap, step / total_anneal_steps), the
-  global step from the trainer's dense_row epoch (``batch["step"]``).
+  global step from the trainer's dense_row epoch (``batch["step"]``, a 0-d
+  device tensor made from the device epoch and cursor), computed on the
+  device, so that a graph kept across epochs anneals as the eager steps do.
 
 The dropout mask and eps come from the step's generator. The evaluation
 decodes mu; the decoder's last layer is linear over the items, so the

@@ -158,7 +158,7 @@ class Caser(SeqDraws, Recommender):
         seeds = step_seeds(generator, idx.shape[0])[:n_run]
         split = None if trainer is None else trainer.dp_split_for(idx.shape[1])
 
-        def make(cursor, total):
+        def make(cursor, total, idx, w):
             def step(gen):
                 idx_s, w_s = at(cursor, idx, w)
                 negs = self._negatives(gen, self._padded_items[self._users[idx_s]], self.neg_samples)
@@ -169,7 +169,7 @@ class Caser(SeqDraws, Recommender):
                                 opt, cursor, total, trainer, split, params)
             return step
 
-        return Steps(make, n_run, seeds, opt, split)
+        return Steps(make, n_run, seeds, opt, split, inputs=dict(idx=idx, w=w), reads=params)
 
     def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;

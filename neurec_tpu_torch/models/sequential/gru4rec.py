@@ -266,19 +266,22 @@ class GRU4Rec(SeqDraws, Recommender):
         static buffers, and draws GRU4RecPlus's extra negatives from its own
         generator. With a ``trainer`` on a mesh the streams split over
         'data': each rank carries its streams' states and computes their
-        rows."""
+        rows. The run's tensors span the schedule's ``n_run`` steps (its
+        pinned length, or ``max_steps``), the same shapes every epoch, of
+        which the steps take the live prefix: a kept run holds across
+        epochs whose live prefixes differ (``Steps.most``)."""
         B = self.batch_size
         n_run = ins.shape[0] if max_steps is None else min(ins.shape[0], max_steps)
         n_live = live_prefix(valids[:n_run])
         dev = self.device
-        ins_d, outs_d = (torch.from_numpy(a[:n_live]).long().to(dev) for a in (ins, outs))
-        resets_d, valids_d = (torch.from_numpy(a[:n_live].astype(np.float32)).to(dev) for a in (resets, valids))
+        ins_d, outs_d = (torch.from_numpy(a[:n_run]).long().to(dev) for a in (ins, outs))
+        resets_d, valids_d = (torch.from_numpy(a[:n_run].astype(np.float32)).to(dev) for a in (resets, valids))
         seeds = step_seeds(generator, ins.shape[0])[:n_live]
         split = None if trainer is None else trainer.dp_split_for(B)
         n_rows = B if split is None else B // split.count
         states = [torch.zeros((n_rows, n), device=dev) for n in self.layers]
 
-        def make(cursor, total):
+        def make(cursor, total, ins_d, outs_d, resets_d, valids_d, states):
             def step(gen):
                 in_s, out_s, reset, valid = at(cursor, ins_d, outs_d, resets_d, valids_d)
                 if split is not None:
@@ -297,7 +300,8 @@ class GRU4Rec(SeqDraws, Recommender):
                     st.copy_(new.detach())
             return step
 
-        return Steps(make, n_live, seeds, opt, split)
+        inputs = dict(ins_d=ins_d, outs_d=outs_d, resets_d=resets_d, valids_d=valids_d, states=states)
+        return Steps(make, n_live, seeds, opt, split, inputs=inputs, reads=params, most=n_run)
 
     def run_schedule(self, params, opt, ins, outs, resets, valids, generator, max_steps=None, trainer=None):
         """The steps of a schedule (``schedule_steps``), ``(params, opt,

@@ -79,7 +79,8 @@ class _DecayedAdam(OptaxAdam):
     Outside ``count_steps`` the rate is a host float from the host count;
     inside (the steps of ``take_steps``, captured or not) a 0-d device
     tensor read at the device count from a table of the block's rates, built
-    at its first step, as ``OptaxAdam`` reads its bias corrections."""
+    at its first step and refilled in place for each call of a kept run, as
+    ``OptaxAdam`` reads its bias corrections."""
 
     def __init__(self, params, lr: float, transition: int, rate: float):
         super().__init__(params, lr=lr)
@@ -92,20 +93,17 @@ class _DecayedAdam(OptaxAdam):
     def step(self, closure=None):
         count = self._count
         for gi, group in enumerate(self.param_groups):
-            state = self.state.get(group["params"][0])
-            t0 = int(state["step"]) if state else 0
+            first = group["params"][0]
             if count is None:
-                group["lr"] = self.lr_at(t0)
+                state = self.state.get(first)
+                group["lr"] = self.lr_at(int(state["step"]) if state else 0)
                 continue
-            table = count.tables.get(("lr", gi))
-            if table is None:
-                device = group["params"][0].device
-                table = torch.tensor([self.lr_at(t0 + j) for j in range(count.steps)], dtype=torch.float32,
-                                     device=device)
-                count.tables[("lr", gi)] = table
-                if count.cursor is None:
-                    count.cursor = torch.zeros(1, dtype=torch.int64, device=device)
-            group["lr"] = table.index_select(0, count.cursor)[0]
+
+            def rows_of(n, first=first):
+                state = self.state.get(first)
+                t0 = int(state["step"]) if state else 0
+                return np.asarray([self.lr_at(t0 + j) for j in range(n)], dtype=np.float32)
+            group["lr"] = count.row(("lr", gi), rows_of, first.device)
         return super().step(closure)
 
 
@@ -220,7 +218,7 @@ class SRGNN(SeqDraws, Recommender):
         n_run = steps if max_steps is None else min(steps, max_steps)
         split = None if trainer is None else trainer.dp_split_for(B)
 
-        def make(cursor, total):
+        def make(cursor, total, idx_all):
             def step(gen):
                 idx = at(cursor, idx_all)
                 if split is not None:
@@ -228,7 +226,7 @@ class SRGNN(SeqDraws, Recommender):
                 train_step(lambda: self.batch_loss(params, idx), opt, cursor, total, trainer, split, params)
             return step
 
-        return Steps(make, n_run, None, opt, split)
+        return Steps(make, n_run, None, opt, split, inputs=dict(idx_all=idx_all), reads=params)
 
     def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;

@@ -214,7 +214,7 @@ class SBPR(Recommender):
         seeds = step_seeds(generator, steps)[:n_run]
         split = None if trainer is None else trainer.dp_split_for(B)
 
-        def make(cursor, total):
+        def make(cursor, total, idx, w):
             def step(gen):
                 idx_s, w_s = at(cursor, idx, w)
                 users = self._users_flat[idx_s]
@@ -230,7 +230,7 @@ class SBPR(Recommender):
                                 trainer, split, params)
             return step
 
-        return Steps(make, n_run, seeds, opt, split)
+        return Steps(make, n_run, seeds, opt, split, inputs=dict(idx=idx, w=w), reads=params)
 
     def run_epoch(self, params, opt, generator, max_steps=None, trainer=None):
         """One epoch (``epoch_steps``): ``(params, opt, mean step loss)``;

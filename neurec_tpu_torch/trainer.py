@@ -1,11 +1,14 @@
 """The training loop (port of ``neurec_tpu/trainer.py``).
 
 The JAX package runs a whole epoch as one jitted ``lax.scan`` with
-``scan_unroll`` steps an iteration; here an epoch's steps are one step
-function (a built-in epoch's ``_step``, a custom epoch's from its model)
-that ``step_graph.run_steps`` replays as CUDA graphs of ``scan_unroll``
-steps on a CUDA device (``take_steps``), and calls step by step on the CPU
-(``Trainer(graphs=False)`` and a mesh of more than one rank too).
+``scan_unroll`` steps an iteration, compiled once in ``initialize`` and
+called every epoch; here an epoch's steps are one step function (a
+built-in epoch's ``_step``, a custom epoch's from its model) that, on a
+CUDA device, a ``step_graph.KeptSteps`` captures as CUDA graphs of
+``scan_unroll`` steps at the first epoch and replays at every later one
+(``take_steps``, the programs kept in ``Trainer.kept``), and that runs step
+by step on the CPU (``Trainer(graphs=False)`` and a mesh of more than one
+rank too).
 ``graphs`` reaches the evaluator too: its programs are CUDA graphs kept
 across calls where the steps' are (``eval/evaluator.py``).
 An epoch has two parts:
@@ -20,9 +23,9 @@ An epoch has two parts:
   steps: loss, backward, optimizer step; the epoch loss is sum(step
   losses) / steps. Step ``s`` gets a device generator seeded with
   ``seeds[s]`` as ``batch["generator"]`` (NGCF's and ConvNCF's dropout,
-  APR's random perturbation) and the epoch number as ``batch["epoch"]``
-  (APR's ``adv_epoch`` switch), as the JAX package's steps get ``rng`` and
-  ``epoch``.
+  APR's random perturbation) and the epoch number as ``batch["epoch"]``, a
+  0-d device tensor (APR's ``adv_epoch`` switch), as the JAX package's
+  steps get ``rng`` and a traced ``epoch``.
 
 A test can therefore hand both packages the same draws. Epoch semantics
 are the JAX package's (pairwise: every train positive once per epoch with
@@ -42,14 +45,16 @@ The other epochs (``neurec_tpu/trainer.py:138-160,425-475,507``):
   draws the step seeds (``negs`` is empty), and step ``s`` of ``run_epoch``
   hands the model ``{"users", "rows", "generator", "step"}``: the users'
   dense 0/1 train rows (the model's ``make_rows``) and the global step
-  ``(epoch - 1) * steps + s`` (MultiVAE's KL anneal);
+  ``(epoch - 1) * steps + s``, on the device (MultiVAE's KL anneal);
 * ``custom``: the model's ``build_epoch(trainer)`` returns its epoch,
   ``epoch(params, opt_state, generator, epoch, max_steps=None) -> (params,
   opt_state, loss)`` (WRMF's ALS, JCA's block grid, the GANs' sub-epochs,
   SBPR's, the sequential models' and GRU4Rec's schedule). Each run of its
   steps is a ``step_graph.Steps`` that the epoch hands to ``take_steps``
-  (``Recommender.take_steps``), so it is captured as a built-in epoch's
-  is; its draws are made before the steps, a seed a step among them.
+  (``Recommender.take_steps``), so it is captured and kept across epochs
+  as a built-in epoch's is, under the run's name; its draws are made
+  before the steps, a seed a step among them, and reach the steps as the
+  run's ``inputs``.
   WRMF's epoch, one ALS solve, has no steps and runs eagerly;
 * ``none``, as ``epochs == 0``: one evaluation, no training.
 
@@ -134,7 +139,7 @@ from neurec_tpu_torch.parallel.mesh import (
     BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, shard_params, slice_rows,
 )
 from neurec_tpu_torch.profiling import device_trace
-from neurec_tpu_torch.step_graph import Steps, step_seeds, take_steps, train_step
+from neurec_tpu_torch.step_graph import KeptSteps, Steps, step_seeds, take_steps, train_step
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
 # through the pair Bloom filter
@@ -222,15 +227,53 @@ def bias_corrections(b: float, t0: int, n: int) -> np.ndarray:
 
 class _DeviceCount:
     """The step count of ``OptaxAdam.count_steps``: ``cursor`` (1,) int64 on
-    the device counts the steps taken; ``tables`` holds each param group's
-    (steps, 2) f32 bias corrections, ``stepped`` the tensors stepped."""
+    the device counts the block's steps taken; ``tables`` holds, by key (a
+    param group's index, SRGNN's ``("lr", index)``), a device table of
+    ``rows`` rows and the function of ``n`` that gives its next ``n`` rows
+    from the host counts; ``stepped`` the tensors stepped. A kept run keeps
+    the count across its calls: ``refill`` puts each table's rows for the
+    call's steps in place and zeroes the cursor, so that the graphs that
+    read them read this call's."""
 
-    def __init__(self, steps: int):
+    def __init__(self, steps: int, most: Optional[int] = None):
         self.steps = steps
+        self.rows = max(steps, most or 0)
         self.opened = False  # the block's first step() has run
         self.cursor: Optional[torch.Tensor] = None
-        self.tables: Dict[int, torch.Tensor] = {}
+        self.tables: Dict[object, tuple] = {}
         self.stepped: Dict[int, torch.Tensor] = {}
+
+    def row(self, key, rows_of: Callable[[int], np.ndarray], device) -> torch.Tensor:
+        """This step's row of table ``key``, read at the cursor on the
+        device; the table is made at the block's first step from
+        ``rows_of(steps)``."""
+        entry = self.tables.get(key)
+        if entry is None:
+            first = rows_of(self.steps)
+            table = torch.zeros((self.rows,) + first.shape[1:], dtype=torch.float32, device=device)
+            table[:self.steps].copy_(torch.from_numpy(first))
+            self.tables[key] = entry = (table, rows_of)
+            if self.cursor is None:
+                self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        return entry[0].index_select(0, self.cursor)[0]
+
+    def refill(self, steps: int) -> None:
+        """A new block of ``steps`` steps over the same tables."""
+        if steps > self.rows:
+            raise ValueError("a counted block of %d steps over tables of %d rows" % (steps, self.rows))
+        self.steps = steps
+        for table, rows_of in self.tables.values():
+            table[:steps].copy_(torch.from_numpy(rows_of(steps)))
+        if self.cursor is not None:
+            self.cursor.zero_()
+
+
+def _host_count(states) -> int:
+    """The one host step count of a param group's states."""
+    steps = {int(s["step"]) for s in states}
+    if len(steps) != 1:
+        raise ValueError("Adam state steps differ across parameters: %s" % sorted(steps))
+    return steps.pop()
 
 
 class OptaxAdam(torch.optim.Optimizer):
@@ -248,20 +291,28 @@ class OptaxAdam(torch.optim.Optimizer):
     could not hold it. Inside ``count_steps(n)`` it changes no host state:
     the corrections come from a device table of the next ``n`` steps'
     (``bias_corrections``, built at the first step), indexed by a device
-    count, and the host counts advance by ``n`` when the block ends."""
+    count, and the host counts advance by ``n`` when the block ends. A kept
+    run hands its count back each call, and the same tables are refilled
+    in place for that call's steps."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
         self._count: Optional[_DeviceCount] = None
 
     @contextlib.contextmanager
-    def count_steps(self, steps: int):
+    def count_steps(self, steps: int, count: Optional[_DeviceCount] = None, most: Optional[int] = None):
         """A block of ``steps`` calls of ``step()`` counted on the device
-        (see the class docstring); the host counts of the tensors stepped
-        in it advance by ``steps`` at its end."""
-        self._count = count = _DeviceCount(steps)
+        (see the class docstring), yielding its count; ``count`` an earlier
+        block's, whose tables are refilled for this one, else a fresh one
+        whose tables hold ``max(steps, most)`` rows. The host counts of the
+        tensors stepped in it advance by ``steps`` at its end."""
+        if count is None:
+            count = _DeviceCount(steps, most)
+        else:
+            count.refill(steps)
+        self._count = count
         try:
-            yield
+            yield count
         finally:
             self._count = None
         for p in count.stepped.values():
@@ -270,23 +321,18 @@ class OptaxAdam(torch.optim.Optimizer):
     def _corrections(self, gi: int, group, states, device):
         """The group's ``(1 - b1^t, 1 - b2^t)`` of this step: host floats, or
         0-d device tensors inside ``count_steps``."""
-        steps = {int(s["step"]) for s in states}
-        if len(steps) != 1:
-            raise ValueError("Adam state steps differ across parameters: %s" % sorted(steps))
-        t0 = steps.pop()
         count = self._count
         if count is None:
+            t0 = _host_count(states)
             return float(bias_corrections(group["b1"], t0, 1)[0]), float(bias_corrections(group["b2"], t0, 1)[0])
-        table = count.tables.get(gi)
-        if table is None:
+        if gi not in count.tables:
             if count.opened:
                 raise ValueError("Adam param group %d took no step at the start of a counted block" % gi)
-            table = torch.from_numpy(np.stack([bias_corrections(group["b1"], t0, count.steps),
-                                               bias_corrections(group["b2"], t0, count.steps)], axis=1)).to(device)
-            count.tables[gi] = table
-            if count.cursor is None:
-                count.cursor = torch.zeros(1, dtype=torch.int64, device=device)
-        row = table.index_select(0, count.cursor)[0]
+
+        def rows_of(n):
+            t0 = _host_count(states)
+            return np.stack([bias_corrections(group["b1"], t0, n), bias_corrections(group["b2"], t0, n)], axis=1)
+        row = count.row(gi, rows_of, device)
         return row[0], row[1]
 
     @torch.no_grad()
@@ -421,9 +467,10 @@ class Trainer:
         self.config = config
         self.seed = seed
         self.mesh = mesh
-        # every epoch's steps as CUDA-graph replays on a CUDA device
-        # (take_steps), ``scan_unroll`` steps a graph, read as the JAX trainer
-        # reads it; the evaluator's programs as graphs kept across calls
+        # every epoch's steps as CUDA-graph replays on a CUDA device, captured
+        # once and kept across epochs (take_steps), ``scan_unroll`` steps a
+        # graph, read as the JAX trainer reads it; the evaluator's programs
+        # as graphs kept across calls
         self.graphs = graphs
         self.scan_unroll = max(int(config.get("scan_unroll", 1) or 1), 1)
         self._dp_warned = set()
@@ -470,6 +517,9 @@ class Trainer:
         self.params: Optional[Params] = None
         self.opt_state = None
         self._epoch_fn: Optional[Callable] = None
+        # the runs of steps captured where the trainer captures, kept for its
+        # life by run name (Steps.name): the built-in epoch, each custom pass
+        self.kept: Dict[str, KeptSteps] = {}
 
     def _build_exclusion(self, train_matrix) -> None:
         """The sampler's exclusion: the padded positive rows, or the pair
@@ -575,36 +625,67 @@ class Trainer:
         the device seeded with ``seeds[s]``, as ``batch["generator"]`` (the
         JAX package's per-step ``batch["rng"]``); without, the batch has
         none and a model draws nothing (no dropout). Every batch carries
-        ``epoch`` (1-based) as ``batch["epoch"]``, and on a dense_row epoch
-        the global step ``(epoch - 1) * self.steps + s`` as ``batch["step"]``,
-        a 0-d int64 tensor on the device.
+        ``epoch`` (1-based) as ``batch["epoch"]``, a 0-d int64 tensor on the
+        device, and on a dense_row epoch the global step
+        ``(epoch - 1) * self.steps + s`` as ``batch["step"]``, computed on
+        the device from it.
 
-        The steps are ``_step`` driven by ``take_steps``: on a
-        CUDA device, replays of CUDA graphs of ``scan_unroll`` steps (the
-        JAX package's jitted ``lax.scan``); eagerly on the CPU, with
-        ``Trainer(graphs=False)`` and on a mesh of more than one rank
-        (gloo stages every collective through the host, which a graph
-        cannot hold). A loss must therefore synchronise nothing with the
-        host and draw only from ``batch["generator"]``. The
-        gradients are released at the end (``set_to_none``): a captured
-        epoch's live in the graphs' memory pool."""
+        The steps are ``_step`` driven by ``take_steps``. The JAX trainer
+        compiles its epoch once and calls it every epoch with the epoch as
+        a traced argument; here, on a CUDA device, the epoch's steps are a
+        ``step_graph.KeptSteps`` that this trainer captures at its first
+        call (step 0 eagerly, then graphs of ``scan_unroll`` steps) and
+        replays at every later one, over buffers into which each call
+        copies its ``inst``, ``w``, ``negs`` and epoch. They run eagerly on
+        the CPU, with ``Trainer(graphs=False)`` and on a mesh of more than
+        one rank (gloo stages every collective through the host, which a
+        graph cannot hold). A loss must therefore synchronise nothing with
+        the host, read the epoch and step only as device tensors and draw
+        only from ``batch["generator"]``. The gradients are released at
+        the end (``set_to_none``): a captured epoch's live in the graphs'
+        memory pool."""
         steps = inst.shape[0]
         split = self.dp_split_for(inst.shape[1])
+        epoch_t = torch.tensor(epoch, dtype=torch.int64, device=self.device)
 
-        def make(cursor, total):
+        def make(cursor, total, inst, w, negs, epoch):
             return partial(self._step, params, opt_state, (inst, w, negs), cursor, total, split, epoch)
 
-        total = self.take_steps(Steps(make, steps, seeds, opt_state, split))
+        inputs = dict(inst=inst, w=w, negs=negs, epoch=epoch_t)
+        total = self.take_steps(Steps(make, steps, seeds, opt_state, split, inputs=inputs, reads=params))
         return params, opt_state, total / steps
 
     def take_steps(self, steps: Steps) -> torch.Tensor:
-        """A run of steps (``step_graph.take_steps``) as this trainer runs
-        them: CUDA-graph replays of ``scan_unroll`` steps where it captures
-        (``_captures``), eagerly elsewhere. Returns the summed step losses,
-        over 'data' on a split run. ``run_epoch`` and the custom epochs
-        (``Recommender.take_steps``) take their steps here."""
-        total = take_steps(steps, self.device, self.scan_unroll, capture=self._captures())
+        """A run of steps as this trainer runs them: where it captures
+        (``_captures``), the ``step_graph.KeptSteps`` it keeps under
+        ``steps.name``, captured at the run's first call and replayed at
+        every later one while it holds (``KeptSteps.holds``), else captured
+        anew; eagerly elsewhere (``step_graph.take_steps``). Returns the
+        summed step losses, over 'data' on a split run. ``run_epoch`` and
+        the custom epochs (``Recommender.take_steps``) take their steps
+        here."""
+        if not self._captures():
+            return self.dp_loss_total(take_steps(steps, self.device), steps.split)
+        kept = self.kept.get(steps.name)
+        if kept is not None and not kept.holds(steps, self.scan_unroll):
+            self.release_kept(steps.name)
+            kept = None
+        if kept is None:
+            kept = self.kept[steps.name] = KeptSteps(steps, self.device, self.scan_unroll)
+        try:
+            total = kept.run(steps)
+        except BaseException:
+            self.release_kept(steps.name)
+            raise
         return self.dp_loss_total(total, steps.split)
+
+    def release_kept(self, name: Optional[str] = None) -> None:
+        """Release the kept run ``name`` (every kept run without one): its
+        graphs, their pool and its buffers."""
+        for key in [name] if name is not None else list(self.kept):
+            kept = self.kept.pop(key, None)
+            if kept is not None:
+                kept.release()
 
     def _captures(self) -> bool:
         """Whether ``take_steps`` runs its steps as CUDA-graph replays: on a
@@ -612,13 +693,14 @@ class Trainer:
         return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
 
     def _step(self, params: Params, opt_state, xs, cursor: torch.Tensor, total: torch.Tensor,
-              split: Optional[BatchSplit], epoch: int, generator: Optional[torch.Generator]) -> None:
+              split: Optional[BatchSplit], epoch: torch.Tensor, generator: Optional[torch.Generator]) -> None:
         """One training step, the one at ``cursor`` (a (1,) int64 device
-        index into the rows of ``xs = (inst, w, negs)``): the batch, the
-        loss, its backward and the optimizer's step; the loss is added to
-        ``total`` and ``cursor`` advanced, on the device. It synchronises
-        nothing with the host and reads no Python value that changes from
-        step to step, so a CUDA graph can hold it."""
+        index into the rows of ``xs = (inst, w, negs)``) of epoch ``epoch``
+        (a 0-d int64 device tensor): the batch, the loss, its backward and
+        the optimizer's step; the loss is added to ``total`` and ``cursor``
+        advanced, on the device. It synchronises nothing with the host and
+        reads no Python value that changes from step to step or from epoch
+        to epoch, so a CUDA graph kept across epochs can hold it."""
         inst_s, w_s, negs_s = (a.index_select(0, cursor)[0] for a in xs)
         if split is not None:  # this rank's rows of the step
             inst_s, w_s, negs_s = self.dp_constrain(inst_s, w_s, negs_s)

@@ -16,7 +16,7 @@ functions run eagerly. Held here, at small widths:
 * through the runner's captured path with the CUDA side stubbed (a warm-up
   step, graphs of ``scan_unroll`` 1 and 3 steps and a remainder, each
   graph position on a generator of its own), two epochs equal the eager
-  ones bit for bit, one graph run per pass of steps;
+  ones bit for bit, one graph set a run of steps, kept across the epochs;
 * through that captured path, the epoch with the JAX package's draws
   injected through the model's draw methods still matches the JAX
   package's ``lax.scan`` epoch, by the existing parity tests run under it,
@@ -148,12 +148,12 @@ def test_a_step_closure_built_once_equals_closures_rebuilt_at_each_cursor(run, t
         with counted(steps):
             if not rebuilt:
                 cursor = torch.zeros(1, dtype=torch.int64)
-                step_graph.run_steps(steps.make(cursor, total), steps.n, steps.seeds, CPU)
+                step_graph.run_steps(steps.make(cursor, total, **steps.inputs), steps.n, steps.seeds, CPU)
                 assert int(cursor) == steps.n
             else:
                 gen = torch.Generator()
                 for s in range(steps.n):
-                    step = steps.make(torch.tensor([s]), total)
+                    step = steps.make(torch.tensor([s]), total, **steps.inputs)
                     step(None if steps.seeds is None else gen.manual_seed(int(steps.seeds[s])))
         out.append((total, state, opt))
     assert float(out[0][0]) != 0.0
@@ -196,7 +196,9 @@ def _stub_graphs(monkeypatch):
 def test_captured_epochs_equal_the_eager_ones(name, unroll, tmp_path, monkeypatch):
     """Two epochs through ``train_epoch``: eagerly, and through the
     runner's captured path with the CUDA side stubbed (the trainer's
-    ``_captures`` true), one graph run per pass of steps."""
+    ``_captures`` true), one graph set per run of steps (the epoch's, or
+    each kind of pass: CFGAN's D and G sub-epochs, IRGAN's D and G passes),
+    captured at epoch 1 and kept: epoch 2 replays it."""
     opened = _stub_graphs(monkeypatch)
     results = []
     for captured in (False, True):
@@ -211,10 +213,8 @@ def test_captured_epochs_equal_the_eager_ones(name, unroll, tmp_path, monkeypatc
         results.append((torch.stack(losses), trainer.params, trainer.opt_state))
         if not captured:
             assert not opened
-    model = trainer.model
-    passes = (model.step_D + model.step_G if name == "cfgan" else model.d_epoch + model.g_epoch if name == "irgan"
-              else 1)
-    assert len(opened) == 2 * passes
+    runs = 2 if name in ("cfgan", "irgan") else 1
+    assert len(opened) == runs and len(trainer.kept) == runs
     # the generators each graph holds, one a position (none where a step draws nothing)
     widths = [g.captured for g in opened if any(g.captured)]
     assert all(max(w) <= unroll for w in widths) and (name == "srgnn" or any(w[0] == unroll for w in widths)), widths
@@ -223,7 +223,13 @@ def test_captured_epochs_equal_the_eager_ones(name, unroll, tmp_path, monkeypatc
 
 
 def _captured_take_steps(self, trainer, steps):
-    total = step_graph.take_steps(steps, self.device, unroll=3, capture=True)
+    """A run of steps through a ``KeptSteps`` of ``scan_unroll`` 3, released
+    at its end."""
+    kept = step_graph.KeptSteps(steps, self.device, 3)
+    try:
+        total = kept.run(steps)
+    finally:
+        kept.release()
     return total if trainer is None else trainer.dp_loss_total(total, steps.split)
 
 
