@@ -80,6 +80,11 @@ evaluation after training steps replays its graphs on the new weights.
 ``graphs=False``, the CPU and a mesh of more than one rank (gloo stages
 collectives through the host) run the same program eagerly.
 
+While tracing is on (``profiling``), a device-backend call is the span
+``neurec.evaluate`` (attribute ``captured``, the graphs a capture made),
+with the program's capture or replay and ``neurec.eval.read`` (the
+totals' read and the ids' clone) inside it.
+
 Result strings: metric-major, ``("%.8f" % x).ljust(12)`` tab-joined.
 """
 
@@ -93,7 +98,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neurec_tpu_torch import native, step_graph
+from neurec_tpu_torch import native, profiling, step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import tiers
 from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
@@ -508,39 +513,40 @@ class UniEvaluator:
         """Mean per-user metric matrix, shape (metrics_num, len(top_show))."""
         if self.backend == "native":
             return self._evaluate_raw_native(predict_fn, params, test_users)
-        prog = self._get_program(predict_fn)
-        plan = prog.plan
-        mask_data = None
-        if plan.bits and plan.table:
-            part = self.mesh.coordinate["model"] if plan.item_shard else None
-            mask_data = self._get_bits_table(plan.pack_block, plan.bits_width, part)
-        ck = None
-        if test_users is None:
-            if self._default_batches is None:
-                self._default_batches = self._make_batches(
-                    self.test_users, np.arange(len(self.test_users), dtype=np.int32)
-                )
-            batches = self._default_batches
-            n_users = len(self.test_users)
-        else:
-            users = np.asarray(list(test_users), dtype=np.int32)
-            n_users = len(users)
-            ck = users.tobytes()
-            batches = self._subset_batch_cache.get(ck)
-            if batches is None:
-                positions = np.asarray(
-                    [self._user_pos_index[int(u)] for u in users], dtype=np.int32
-                )
-                batches = self._make_batches(users, positions)
-                self._subset_batch_cache[ck] = batches
-                while len(self._subset_batch_cache) > self._subset_cache_max:
-                    self._subset_batch_cache.popitem(last=False)
-            self._subset_batch_cache.move_to_end(ck)
-        if n_users == 0:
-            return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
-        if plan.stream:
-            mask_data = self._get_edges(ck, batches)
-        return self._run(prog, predict_fn, params, batches, mask_data, ck)
+        with profiling.span("neurec.evaluate"):
+            prog = self._get_program(predict_fn)
+            plan = prog.plan
+            mask_data = None
+            if plan.bits and plan.table:
+                part = self.mesh.coordinate["model"] if plan.item_shard else None
+                mask_data = self._get_bits_table(plan.pack_block, plan.bits_width, part)
+            ck = None
+            if test_users is None:
+                if self._default_batches is None:
+                    self._default_batches = self._make_batches(
+                        self.test_users, np.arange(len(self.test_users), dtype=np.int32)
+                    )
+                batches = self._default_batches
+                n_users = len(self.test_users)
+            else:
+                users = np.asarray(list(test_users), dtype=np.int32)
+                n_users = len(users)
+                ck = users.tobytes()
+                batches = self._subset_batch_cache.get(ck)
+                if batches is None:
+                    positions = np.asarray(
+                        [self._user_pos_index[int(u)] for u in users], dtype=np.int32
+                    )
+                    batches = self._make_batches(users, positions)
+                    self._subset_batch_cache[ck] = batches
+                    while len(self._subset_batch_cache) > self._subset_cache_max:
+                        self._subset_batch_cache.popitem(last=False)
+                self._subset_batch_cache.move_to_end(ck)
+            if n_users == 0:
+                return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
+            if plan.stream:
+                mask_data = self._get_edges(ck, batches)
+            return self._run(prog, predict_fn, params, batches, mask_data, ck)
 
     def _mean(self, total: torch.Tensor, count: torch.Tensor) -> np.ndarray:
         mean = (
@@ -576,9 +582,10 @@ class UniEvaluator:
             kept.program.run(batches[0].shape[0])
         finally:
             kept.args["params"] = None
-        if kept.ids is not None:
-            self.last_ids = kept.ids.reshape(-1, kept.ids.shape[2]).clone()
-        return self._mean(kept.total, kept.count)
+        with profiling.span("neurec.eval.read"):
+            if kept.ids is not None:
+                self.last_ids = kept.ids.reshape(-1, kept.ids.shape[2]).clone()
+            return self._mean(kept.total, kept.count)
 
     def _make_kept(self, prog: EvalProgram, predict_fn, batches, mask_data, sig, capture: bool) -> _Kept:
         """The program of one call: a prologue (the totals and the cursor

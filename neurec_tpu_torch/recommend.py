@@ -31,6 +31,13 @@ program holds the model weakly. On a CUDA device (``_captures``, and
 replayed by later ones; a call copies its users and edges into the
 program's static inputs, and a program whose ``params`` leaves moved is
 captured anew. Elsewhere the same program runs eagerly.
+
+While tracing is on (``profiling``), a call is the span
+``neurec.batch_topk`` (attribute ``captured``, the graphs a capture
+made), with children ``neurec.serve.edges`` (the edges and the padding),
+``neurec.serve.h2d`` (the three copies in; attribute ``h2d_bytes``, the
+bytes of the device buffers they fill), the program's capture or replay,
+and ``neurec.serve.read`` (the two reads back).
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from neurec_tpu_torch import step_graph
+from neurec_tpu_torch import profiling, step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.ops.topk import top_k
 
@@ -156,51 +163,57 @@ def batch_topk(
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError("model lives on %s, batch_topk asked for %s" % (model.device, dev))
-    num_items = model.num_items
-    k = min(int(k), num_items)
-    if users is None:
-        users = np.arange(model.num_users, dtype=np.int32)
-    users = np.asarray(users, dtype=np.int32)
-    n = len(users)
-    B = min(batch_size, max(n, 1))
-    n_batches = -(-n // B)
-    users_pad = np.zeros(n_batches * B, np.int32)
-    users_pad[:n] = users
+    with profiling.span("neurec.batch_topk"):
+        num_items = model.num_items
+        k = min(int(k), num_items)
+        if users is None:
+            users = np.arange(model.num_users, dtype=np.int32)
+        users = np.asarray(users, dtype=np.int32)
+        n = len(users)
+        B = min(batch_size, max(n, 1))
+        n_batches = -(-n // B)
 
-    masked = train_matrix is not None
-    if masked:
-        e_items, e_users = _batch_edges_from_csr(train_matrix.tocsr(), users_pad, n, n_batches, B)
-    else:  # shape-stable dummies, as the JAX package's
-        e_items, e_users = np.zeros((n_batches, 8), np.int32), np.full((n_batches, 8), B, np.int32)
+        masked = train_matrix is not None
+        with profiling.span("neurec.serve.edges"):
+            users_pad = np.zeros(n_batches * B, np.int32)
+            users_pad[:n] = users
+            if masked:
+                e_items, e_users = _batch_edges_from_csr(train_matrix.tocsr(), users_pad, n, n_batches, B)
+            else:  # shape-stable dummies, as the JAX package's
+                e_items, e_users = np.zeros((n_batches, 8), np.int32), np.full((n_batches, 8), B, np.int32)
 
-    # dense-hoist hook: only for full-catalogue exports — a subset query
-    # must not pay the all-users score matrix
-    dense_hook = getattr(model, "eval_dense_scores", None)
-    use_dense = callable(dense_hook) and n == model.num_users
+        # dense-hoist hook: only for full-catalogue exports — a subset query
+        # must not pay the all-users score matrix
+        dense_hook = getattr(model, "eval_dense_scores", None)
+        use_dense = callable(dense_hook) and n == model.num_users
 
-    capacity = None
-    if not use_dense and callable(getattr(model, "predict_capacity", None)):
-        real = (np.arange(n_batches * B) < n).reshape(n_batches, B)
-        capacity = max(1 << (model.predict_capacity(users_pad.reshape(n_batches, B), real) - 1).bit_length(), 8)
-    capture = graphs and _captures(model, dev)
-    sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, capture, step_graph.routes())
-    sig = step_graph.signature(params)
-    export = _cache_get(model, sub_key)
-    if export is None or export.sig != sig:
-        export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, dev, capture,
-                              sig)
-        _cache_put(model, sub_key, export)
-    export.users_b.copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
-    export.e_items.copy_(torch.from_numpy(e_items))
-    export.e_users.copy_(torch.from_numpy(e_users))
-    export.args["params"] = params
-    try:
-        export.program.run(n_batches)
-    finally:
-        export.args["params"] = None
-    items = export.items.reshape(-1, k).cpu().numpy()[:n]
-    scores = export.scores.reshape(-1, k).cpu().numpy()[:n]
-    return items.astype(np.int32), scores.astype(np.float32)
+        capacity = None
+        if not use_dense and callable(getattr(model, "predict_capacity", None)):
+            real = (np.arange(n_batches * B) < n).reshape(n_batches, B)
+            capacity = max(1 << (model.predict_capacity(users_pad.reshape(n_batches, B), real) - 1).bit_length(), 8)
+        capture = graphs and _captures(model, dev)
+        sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, capture, step_graph.routes())
+        sig = step_graph.signature(params)
+        export = _cache_get(model, sub_key)
+        if export is None or export.sig != sig:
+            export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, dev, capture,
+                                  sig)
+            _cache_put(model, sub_key, export)
+        with profiling.span("neurec.serve.h2d") as sp:
+            if sp:
+                sp.attrs["h2d_bytes"] = export.users_b.nbytes + export.e_items.nbytes + export.e_users.nbytes
+            export.users_b.copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
+            export.e_items.copy_(torch.from_numpy(e_items))
+            export.e_users.copy_(torch.from_numpy(e_users))
+        export.args["params"] = params
+        try:
+            export.program.run(n_batches)
+        finally:
+            export.args["params"] = None
+        with profiling.span("neurec.serve.read"):
+            items = export.items.reshape(-1, k).cpu().numpy()[:n]
+            scores = export.scores.reshape(-1, k).cpu().numpy()[:n]
+        return items.astype(np.int32), scores.astype(np.float32)
 
 
 def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev, capture, sig) -> _Export:

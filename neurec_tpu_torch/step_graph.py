@@ -69,6 +69,14 @@ replay the prologue once and the body once a batch. The caller keeps it
 while what it captured holds: ``signature`` of the tensors it reads (an
 update in place keeps it) and ``routes``, the SpMM variables and the
 kernels' wrappers at capture. A ``KeptSteps`` holds by the same rule.
+
+Spans (``profiling.span``, recorded only while tracing is on): a kept
+run's ``neurec.steps.inputs`` (the copies into its buffers),
+``neurec.steps.capture`` and ``neurec.steps.replay`` (the seeding and the
+graph launches); an eager run's ``neurec.steps.eager``; a
+``KeptProgram``'s ``neurec.program.capture``, ``neurec.program.replay``
+or ``neurec.program.eager``. The graphs a capture makes are added to the
+call's top span as ``captured`` (``profiling.count``).
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
+from neurec_tpu_torch import profiling
 from neurec_tpu_torch.ops import _build
 from neurec_tpu_torch.parallel.mesh import batch_split
 
@@ -198,19 +207,22 @@ class _StepGraphs:
             needed = [count for count, _ in runs] + [n % k] * s
             missing = [count for count in dict.fromkeys(needed) if count and count not in self.graphs]
             if missing:
-                before = cuda.reserved(empty=True)
-                for count in missing:
-                    with _build.captured_launches() as launches:
-                        self.graphs[count] = cuda.capture(self._steps_at(count), self.gens[:count]), launches
-                self.captured = len(missing)
-                self.pool_bytes += cuda.reserved() - before
-            for count, times in runs:
-                graph, launches = self.graphs[count]
-                for _ in range(times):
-                    _seed(self.gens, seeds, s, count)
-                    cuda.replay(graph)
-                    _build.add_launches(launches)
-                    s += count
+                with profiling.span("neurec.steps.capture"):
+                    before = cuda.reserved(empty=True)
+                    for count in missing:
+                        with _build.captured_launches() as launches:
+                            self.graphs[count] = cuda.capture(self._steps_at(count), self.gens[:count]), launches
+                    self.captured = len(missing)
+                    self.pool_bytes += cuda.reserved() - before
+                profiling.count(captured=len(missing))
+            with profiling.span("neurec.steps.replay"):
+                for count, times in runs:
+                    graph, launches = self.graphs[count]
+                    for _ in range(times):
+                        _seed(self.gens, seeds, s, count)
+                        cuda.replay(graph)
+                        _build.add_launches(launches)
+                        s += count
 
     def release(self) -> None:
         self.cuda.release()
@@ -299,7 +311,7 @@ def take_steps(steps: Steps, device: torch.device) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float32, device=device)
     cursor = torch.zeros(1, dtype=torch.int64, device=device)
     count = getattr(steps.opt, "count_steps", None)
-    with count(steps.n) if count is not None else contextlib.nullcontext():
+    with count(steps.n) if count is not None else contextlib.nullcontext(), profiling.span("neurec.steps.eager"):
         run_steps(steps.make(cursor, total, **steps.inputs), steps.n, steps.seeds, device)
     if steps.opt is not None:
         steps.opt.zero_grad(set_to_none=True)
@@ -407,10 +419,10 @@ class KeptSteps:
         if steps.n <= 0:
             return torch.zeros((), dtype=torch.float32, device=self.device)
         if self.calls:
-            with torch.no_grad():
+            with profiling.span("neurec.steps.inputs"), torch.no_grad():
                 _copy_tree(self.inputs, steps.inputs)
-            self.cursor.zero_()
-            self.total.zero_()
+                self.cursor.zero_()
+                self.total.zero_()
         count = getattr(steps.opt, "count_steps", None)
         with count(steps.n, self.count, steps.most) if count is not None else contextlib.nullcontext() as held:
             self.count = held
@@ -499,12 +511,15 @@ class KeptProgram:
 
     def run(self, n: int) -> None:
         if not self.capture:
-            self._eager(n)
+            with profiling.span("neurec.program.eager"):
+                self._eager(n)
         elif self._graphs is None:
-            self._capture(n)
+            with profiling.span("neurec.program.capture"):
+                self._capture(n)
+            profiling.count(captured=2)
         else:
             cuda, (prologue, p_launches), (body, b_launches) = self._graphs
-            with cuda:
+            with profiling.span("neurec.program.replay"), cuda:
                 cuda.replay(prologue)
                 _build.add_launches(p_launches)
                 for _ in range(n):

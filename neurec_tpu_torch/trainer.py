@@ -112,7 +112,8 @@ Checkpoints and traces (``neurec_tpu/trainer.py:128-131,492-551``):
 ``_ckpt_every`` epochs, and a run resumed at its final epoch still evaluates.
 Epoch ``e``'s draws depend on ``e`` alone (``epoch_generator``, the
 dense_row ``step``), so a resumed run on the CPU gives the uninterrupted
-run's bits. ``trace_dir`` runs ``train`` inside ``profiling.device_trace``.
+run's bits. ``trace_dir`` runs ``train`` inside ``profiling.device_trace``
+and then logs the program's spans by name (``profiling.summary``).
 """
 
 from __future__ import annotations
@@ -126,6 +127,7 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from neurec_tpu_torch import profiling
 from neurec_tpu_torch.bridge import map_params, param_leaves
 from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.data.sequences import user_seq_windows
@@ -138,7 +140,6 @@ from neurec_tpu_torch.parallel.distributed import is_primary_host
 from neurec_tpu_torch.parallel.mesh import (
     BatchSplit, Mesh, all_gather_rows, all_sum, all_sum_many, axis_size, shard_params, slice_rows,
 )
-from neurec_tpu_torch.profiling import device_trace
 from neurec_tpu_torch.step_graph import KeptSteps, Steps, step_seeds, take_steps, train_step
 
 # padded-exclusion-table byte budget: above it the sampled epochs exclude
@@ -262,10 +263,11 @@ class _DeviceCount:
         if steps > self.rows:
             raise ValueError("a counted block of %d steps over tables of %d rows" % (steps, self.rows))
         self.steps = steps
-        for table, rows_of in self.tables.values():
-            table[:steps].copy_(torch.from_numpy(rows_of(steps)))
-        if self.cursor is not None:
-            self.cursor.zero_()
+        with profiling.span("neurec.steps.counts"):
+            for table, rows_of in self.tables.values():
+                table[:steps].copy_(torch.from_numpy(rows_of(steps)))
+            if self.cursor is not None:
+                self.cursor.zero_()
 
 
 def _host_count(states) -> int:
@@ -577,26 +579,31 @@ class Trainer:
         filter the negatives are one pre-draw over every slot
         (``bloom_negatives``), on a generator seeded by one draw of this one."""
         B, steps = self.model.batch_size, self.steps
-        perm = torch.randperm(steps * B, generator=generator, device=self.device)
-        valid = perm < self.n_instances
-        inst = torch.where(valid, perm, torch.zeros_like(perm)).to(torch.int32).reshape(steps, B)
-        w = valid.to(torch.float32).reshape(steps, B)
-        if self._dense_row:
-            negs = torch.zeros((steps, 0), dtype=torch.int32, device=self.device)
-        elif self._excl_bloom is not None:
-            # the whole epoch's negatives before the steps, on a generator of
-            # their own (the step seeds below are other draws of this one)
-            pre_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=self.device))
-            pre = torch.Generator(device=self.device).manual_seed(pre_seed)
-            users = self._users_flat[self._base(inst)].reshape(-1)
-            negs = self.bloom_negatives(pre, users).reshape(steps, B)
-        else:
-            users = self._users_flat[self._base(inst)]
-            negs = torch.stack([
-                sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
-                for s in range(steps)
-            ])
-        return EpochDraws(inst, w, negs, step_seeds(generator, steps))
+        with profiling.span("neurec.draw_epoch"):
+            with profiling.span("neurec.draw.perm"):
+                perm = torch.randperm(steps * B, generator=generator, device=self.device)
+                valid = perm < self.n_instances
+                inst = torch.where(valid, perm, torch.zeros_like(perm)).to(torch.int32).reshape(steps, B)
+                w = valid.to(torch.float32).reshape(steps, B)
+            with profiling.span("neurec.draw.negatives"):
+                if self._dense_row:
+                    negs = torch.zeros((steps, 0), dtype=torch.int32, device=self.device)
+                elif self._excl_bloom is not None:
+                    # the whole epoch's negatives before the steps, on a generator of
+                    # their own (the step seeds below are other draws of this one)
+                    pre_seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=self.device))
+                    pre = torch.Generator(device=self.device).manual_seed(pre_seed)
+                    users = self._users_flat[self._base(inst)].reshape(-1)
+                    negs = self.bloom_negatives(pre, users).reshape(steps, B)
+                else:
+                    users = self._users_flat[self._base(inst)]
+                    negs = torch.stack([
+                        sample_negatives(generator, self._padded_items[users[s]], self.model.num_items, ())
+                        for s in range(steps)
+                    ])
+            with profiling.span("neurec.draw.seeds"):
+                seeds = step_seeds(generator, steps)
+        return EpochDraws(inst, w, negs, seeds)
 
     def _base(self, inst: torch.Tensor) -> torch.Tensor:
         return (inst if self._pairwise or self._dense_row else inst % self.n_positives).long()
@@ -652,7 +659,8 @@ class Trainer:
             return partial(self._step, params, opt_state, (inst, w, negs), cursor, total, split, epoch)
 
         inputs = dict(inst=inst, w=w, negs=negs, epoch=epoch_t)
-        total = self.take_steps(Steps(make, steps, seeds, opt_state, split, inputs=inputs, reads=params))
+        with profiling.span("neurec.run_epoch"):
+            total = self.take_steps(Steps(make, steps, seeds, opt_state, split, inputs=inputs, reads=params))
         return params, opt_state, total / steps
 
     def take_steps(self, steps: Steps) -> torch.Tensor:
@@ -825,9 +833,10 @@ class Trainer:
 
     def train(self) -> str:
         if self.trace_dir:
-            with device_trace(self.trace_dir, self.device):
+            with profiling.device_trace(self.trace_dir, self.device):
                 result = self._train()
             self.logger.info("device trace written to %s" % self.trace_dir)
+            self.logger.info("spans (host time):\n%s" % profiling.summary())
             return result
         return self._train()
 

@@ -1,7 +1,8 @@
 """The port's ``profiling.py`` against the JAX package's, on the CPU: the
 ``timer`` line, ``StepTimer.summary`` on the same totals, and the traces
 ``device_trace`` and ``Trainer(trace_dir=...)`` write (Chrome / Perfetto
-JSON that parses, with the operators that ran)."""
+JSON that parses, with the operators and the program's spans that ran,
+and the spans' summary logged after the trace)."""
 
 import json
 import os
@@ -85,8 +86,18 @@ def test_trainer_trace_dir_writes_a_trace(tmp_path):
     trainer = Trainer(model, ds, conf, logger=logger, device="cpu")
     values = [float(x) for x in trainer.train().split("\t")]
     assert len(values) == 1 and np.isfinite(values).all()
-    assert logger.lines[-1] == "device trace written to %s" % trace_dir
+    assert logger.lines[-2] == "device trace written to %s" % trace_dir
+    # then the program's spans by name, the store's summary
+    summary = logger.lines[-1].splitlines()
+    assert summary[0] == "spans (host time):"
+    assert [line.split()[0] for line in summary[1:]] == ["neurec.draw.negatives", "neurec.draw.perm",
+                                                         "neurec.draw.seeds", "neurec.draw_epoch",
+                                                         "neurec.eval.read", "neurec.evaluate",
+                                                         "neurec.program.eager", "neurec.run_epoch",
+                                                         "neurec.steps.eager"]
     (name,) = os.listdir(trace_dir)
     names = {e.get("name") for e in _events(os.path.join(trace_dir, name))}
-    # the epoch's optimizer steps and the evaluation's top-K ran inside it
+    # the epoch's optimizer steps and the evaluation's top-K ran inside it,
+    # and the program's spans
     assert "aten::topk" in names and any("Optimizer.step" in str(n) for n in names)
+    assert {"neurec.run_epoch", "neurec.evaluate"} <= names
