@@ -50,9 +50,12 @@ failure exits non-zero before the result line):
    north star (``phase: kernel_case``): against their plain versions, the
    same bits twice, K3 == K2, and the tile-1024 plan == the tile-256 one.
    Last, the top-K at the evaluation shape (2048 x 38,546, k 20):
-   ``ops/topk.py`` (``torch.topk`` and the tie fix-up) and the stable sort
+   ``ops/topk.py`` (the kernel, ``csrc/topk.cu``) and the stable sort
    it replaced, timed in the same call, with equal ids and values, also on
-   rows where ranks 10-39 are set to the 20th value (``phase: breakdown``);
+   rows where ranks 10-39 are set to the 20th value (``phase: breakdown``),
+   and the kernel's record (``topk[resident]``: the plain version's ids and
+   value bits, its time and device time against its bound, the plain
+   version's and ``torch.topk``'s);
 4. the serving path, with every launch count set to 0 just before and
    read just after: full evaluation of every test user (twice: cold, then
    warm) and 4 ``batch_topk`` requests of 512 users (k=20, consumed items
@@ -387,7 +390,7 @@ Float32 matrix products run in full f32 (TF32 off) everywhere, as in the
 JAX package on the CPU.
 
 The last lines: ``{"kernels": [...]}`` (every kernel and variant, with the
-``device_ms`` of the SpMM kernels and
+``device_ms`` of K1, the SpMM kernels and the top-K, and
 ``launches_by_path``), the ``nvidia-smi`` name/power-limit line, and
 ``{"ok": true, "device": {...}}``. ``run.main`` (phase 15) also runs
 SBPR and DiffNet on the seeded rating file with a seeded friendship file.
@@ -2549,7 +2552,7 @@ def main() -> int:
     from neurec_tpu_torch.ops import masked_scores as k1
     from neurec_tpu_torch.ops import spmm as k2
     from neurec_tpu_torch.ops.sampling import sample_negatives
-    from neurec_tpu_torch.ops.topk import top_k
+    from neurec_tpu_torch.ops.topk import top_k, top_k_reference
     from neurec_tpu_torch.pretrain import save_pretrain
     from neurec_tpu_torch.recommend import batch_topk
     from neurec_tpu_torch.trainer import EpochDraws, Trainer
@@ -2839,7 +2842,7 @@ def main() -> int:
     for x in (ego, ego.bfloat16()):
         kernel_case("tile1024", plan_1024, x, same_as=k2.plan_scatter(plan, x))
     # where an eval batch and a serving request spend their time besides
-    # the kernels: the lowest-id-first top-K, torch.topk with the tie fix-up
+    # the kernels: the lowest-id-first top-K, the kernel of csrc/topk.cu
     # (ops/topk.py) against the stable sort of each row it replaced, in one
     # call; the same ids and values, also where ties are forced across the
     # K-th place (ranks 10-39 of every row set to the 20th value)
@@ -2864,6 +2867,24 @@ def main() -> int:
           "serving_batch_sort_ms": time_ms(torch, lambda: stable_sort_topk(masked[:SERVING_USERS], SERVING_K)),
           "serving_batch_scores_ms": time_ms(torch, lambda: u[:SERVING_USERS] @ item_table.T)})
     del tied, order
+    # the top-K kernel's record for the kernels line: its values and ids the
+    # plain version's bit for bit; bound: the scores read once, k values and
+    # ids a row written
+    got, want = top_k(masked, SERVING_K), top_k_reference(masked, SERVING_K)
+    topk_equal = bool(torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int32),
+                                                                   want[0].view(torch.int32)))
+    rec = {"name": "topk[resident]", "route": "cuda", "source": "neurec_tpu_torch/csrc/topk.cu",
+           "replaces": "none: lax.top_k is XLA's (neurec_tpu/eval/tiers.py)", "launches": None,
+           "max_abs_err": 0.0 if topk_equal else None, "tol": "the same ids and value bits (exact)",
+           "shape": [B, I, SERVING_K], "ms": time_ms(torch, lambda: top_k(masked, SERVING_K)),
+           "plain_ms": time_ms(torch, lambda: top_k_reference(masked, SERVING_K)),
+           "library_ms": time_ms(torch, lambda: torch.topk(masked, SERVING_K, dim=-1)),
+           "library_call": "torch.topk of the values (no order among ties)",
+           "bound_ms": (B * I * 4 + 12 * B * SERVING_K) / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    rec["device_ms"], rec["device_ms_by_kernel"] = device_ms(torch, lambda: top_k(masked, SERVING_K))
+    emit({"phase": "kernel", **rec})
+    require(topk_equal, "the top-K kernel disagrees with its plain version")
+    records[rec["name"]] = rec
 
     # -- 4. the main path, counted ------------------------------------------
     users_all = rng.choice(dataset.num_users, SERVING_REQUESTS * SERVING_USERS, replace=False)
@@ -2902,7 +2923,7 @@ def main() -> int:
           "serving_request_s": serve_s,
           "serving_users_per_s": SERVING_REQUESTS * SERVING_USERS / sum(serve_s),
           "launches": launches})
-    for name in ("masked_scores", "plan_spmm"):
+    for name in ("masked_scores", "plan_spmm", "topk", "topk_resident"):
         require(launches[name] > 0, "kernel %s was not launched on the main path" % name)
     require(eval_cold == eval_warm, "two evaluations of the same params differ")
     metrics = parse_metrics(eval_warm)
@@ -4372,6 +4393,8 @@ def main() -> int:
         "plan_spmm[bwd,block]": ("plan_spmm_t", ("dp2",)),
         "plan_spmm[bf16]": ("plan_spmm", ("bf16",)),
         "plan_spmm[bwd,bf16]": ("plan_spmm_t", ("bf16",)),
+        "topk[resident]": ("topk_resident", ("serve", "serve_int8", "ngcf", "eval_graph_northstar",
+                                             "eval_graph_ngcf", "serve_graph")),
     }
     for pack in (2, 4):
         for dt, suffix in (("", ""), ("_bf16", ",bf16")):

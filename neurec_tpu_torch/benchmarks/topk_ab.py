@@ -1,31 +1,37 @@
-"""The exact segment top-K against the full-row top-K, on the card.
+"""The top-K kernel against the composition it replaced, and the exact
+segment top-K, on the card.
 
     python -m neurec_tpu_torch.benchmarks.topk_ab [--users 2048] [--items 38546] [--ks 20 50]
         [--iters 20] [--seed 2024] [--out FILE]
 
 At an evaluation batch of gowalla's catalogue (2048 x 38,546 f32 scores by
-default), for each input and each K, three calls on the same scores:
+default), for each input and each K, these calls on the same scores:
 
-* ``top_k``: ``ops/topk.py::top_k`` (``torch.topk`` of order keys and the
-  tie fix-up), what the evaluator runs;
+* ``top_k``: ``ops/topk.py::top_k``, what the evaluator runs: the kernel
+  (``csrc/topk.cu``) on the path it took for the row length (``path``; None
+  on the CPU, where ``top_k`` is the plain version);
+* ``top_k_plain``: ``top_k_reference``, the composition the kernel replaced
+  (``torch.topk`` of order keys and the tie fix-up), run on the card;
 * ``exact``: ``ops/fast_topk.py::exact_topk_indices`` (segment maxima,
   hot segments, a ``top_k`` of the gathered ones);
 * ``rowmax``: ``x.amax(dim=1)``, one read of the scores: the floor any
   top-K stands on (``read_floor_ms``, the bytes over the card's HBM rate).
 
-And the parts, to show where the time goes: ``torch_topk``, the library
-call (``torch.topk`` of the values, no order among ties), which ``top_k``
-runs on its order keys; ``tie_cumsum``, the full-row running count of the
-ties at the K-th key of ``top_k``'s fix-up; ``exact_rerank``, the ``top_k``
-of the gathered hot segments, (B, max_hot * seg), that ends ``exact``.
+And the plain version's parts, the numbers from before the kernel:
+``torch_topk``, the library call (``torch.topk`` of the values, no order
+among ties), which ``top_k_plain`` runs on its order keys; ``tie_cumsum``,
+the full-row running count of the ties at the K-th key of its fix-up;
+``exact_rerank``, the ``top_k`` of the gathered hot segments, (B, max_hot *
+seg), that ends ``exact``.
 
 Each has its CUDA-event time (``ms``, the mean of ``iters`` back-to-back
 calls after as many of warm-up) and its device time (``device_ms``, the
 kernels' summed time under ``torch.profiler`` from a window in which every
-kernel ran a whole number of times a call, or None where none was whole),
-and ``exact`` its ``overflow`` (rows with more than ``max_hot`` hot
-segments) and whether its ids equal ``top_k``'s (``ids_equal``; required
-wherever ``overflow`` is 0).
+kernel ran a whole number of times a call, or None where none was whole).
+``kernel_equal`` says whether the kernel's values and ids equal the plain
+version's, bit for bit; ``exact`` has its ``overflow`` (rows with more than
+``max_hot`` hot segments) and whether its ids equal ``top_k``'s
+(``ids_equal``; required wherever ``overflow`` is 0).
 
 The inputs: ``randn`` from the numpy seed here; ``chip_smoke.py`` also
 hands in a batch of K1's masked scores of the trained north star. It
@@ -43,7 +49,8 @@ import torch
 
 from neurec_tpu_torch.benchmarks.k1_widths import _events_ms, card
 from neurec_tpu_torch.ops.fast_topk import exact_topk_indices
-from neurec_tpu_torch.ops.topk import order_key, top_k
+from neurec_tpu_torch.ops import _build
+from neurec_tpu_torch.ops.topk import PATHS, order_key, top_k, top_k_reference
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
@@ -72,14 +79,19 @@ def whole_window_device_ms(fn: Callable, n: int = 20, tries: int = 6) -> Optiona
 
 def run(inputs: Dict[str, torch.Tensor], ks: Sequence[int] = (20, 50), iters: int = 20,
         device_ms: Callable = whole_window_device_ms) -> dict:
-    """The three calls on each (B, I) f32 input at each K (module docstring);
+    """The calls on each (B, I) f32 input at each K (module docstring);
     raises where ``exact`` reports no overflow and its ids differ."""
     report = {}
     for name, x in inputs.items():
         B, I = x.shape
         floor = B * I * 4 / PEAK_BYTES_PER_S * 1e3
         for k in ks:
-            want = top_k(x, k)[1]
+            before = dict(_build.LAUNCHES)
+            got, plain = top_k(x, k), top_k_reference(x, k)
+            path = [p for p in PATHS if _build.LAUNCHES["topk_" + p] > before["topk_" + p]]
+            kernel_equal = bool(torch.equal(got[1], plain[1]) and
+                                torch.equal(got[0].view(torch.int32), plain[0].view(torch.int32)))
+            want = got[1]
             idx, overflow = exact_topk_indices(x, k)
             overflow = int(overflow)
             differ = int((idx.long() != want).any(dim=1).sum())
@@ -90,13 +102,15 @@ def run(inputs: Dict[str, torch.Tensor], ks: Sequence[int] = (20, 50), iters: in
             t = torch.topk(key, k, dim=-1).values.amin(-1, keepdim=True)
             hot = x[:, : 64 * 128].contiguous()  # the re-rank's shape (max_hot 64, seg 128)
             calls = {"top_k": lambda x=x, k=k: top_k(x, k),
+                     "top_k_plain": lambda x=x, k=k: top_k_reference(x, k),
                      "exact": lambda x=x, k=k: exact_topk_indices(x, k),
                      "rowmax": lambda x=x: x.amax(dim=1),
                      "torch_topk": lambda x=x, k=k: torch.topk(x, k, dim=-1),
                      "tie_cumsum": lambda key=key, t=t: torch.cumsum(key == t, dim=-1, dtype=torch.int32),
                      "exact_rerank": lambda hot=hot, k=k: top_k(hot, k)}
             rec = {"shape": [B, I], "k": k, "read_bytes": B * I * 4, "read_floor_ms": floor,
-                   "overflow": overflow, "ids_equal": differ == 0, "rows_differing": differ}
+                   "path": path[0] if path else None, "kernel_equal": kernel_equal, "overflow": overflow,
+                   "ids_equal": differ == 0, "rows_differing": differ}
             for call, fn in calls.items():
                 rec[call] = {"ms": _events_ms(fn, iters), "device_ms": device_ms(fn)}
             report["%s/k%d" % (name, k)] = rec

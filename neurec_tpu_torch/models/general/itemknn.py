@@ -136,7 +136,7 @@ class ItemKNN(Recommender):
             x1.index_add_(0, row[s:e] * width + (col[s:e] - lo), val[s:e])
             dot = torch.sparse.mm(r_t, x1.view(U, width)).T  # (width, I)
             cols = torch.arange(lo, lo + width, device=dev)
-            vals, ids = top_k(self._similarity(dot, cols, ss, norms), K)
+            vals, ids = top_k(self._similarity(dot, cols, ss, norms).contiguous(), K)
             w_vals.append(vals)
             w_idx.append(ids)
         w_vals = torch.cat(w_vals)

@@ -39,6 +39,7 @@ SOURCES = {
     "plan_spmm": "plan_spmm.cu",
     "plan_spmm_packed": "plan_spmm_packed.cu",
     "dma_rate": "dma_rate.cu",
+    "topk": "topk.cu",
 }
 
 NVCC_FLAGS = [
@@ -51,10 +52,12 @@ NVCC_FLAGS = [
 ]
 
 # one count per kernel: the SpMM kernels' launches over a transposed plan
-# (the backward of A @ x) apart from their forward ones, the probe's by mode
+# (the backward of A @ x) apart from their forward ones, the probe's by mode,
+# the top-K's in all and by path
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "masked_scores", "plan_spmm", "plan_spmm_t", "plan_spmm_packed", "plan_spmm_packed_t",
     "dma_rate_serial", "dma_rate_pipelined", "round_tf32", "fma_chain",
+    "topk", "topk_resident", "topk_streamed",
 )}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -107,5 +107,6 @@ def test_the_probe_checks_the_ids_and_reports_every_call(monkeypatch):
     rec = rep["randn/k20"]
     assert rec["overflow"] == 0 and rec["ids_equal"] and rec["rows_differing"] == 0
     assert rec["read_bytes"] == 8 * 9000 * 4
-    assert set(rec) >= {"top_k", "exact", "rowmax", "torch_topk", "tie_cumsum", "exact_rerank"}
-    assert len(ran) == 6
+    assert rec["path"] is None  # a CPU tensor takes the plain version: no kernel, no path
+    assert set(rec) >= {"top_k", "top_k_plain", "exact", "rowmax", "torch_topk", "tie_cumsum", "exact_rerank"}
+    assert len(ran) == 7
