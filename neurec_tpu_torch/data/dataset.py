@@ -4,7 +4,9 @@ Port of ``neurec_tpu/data/dataset.py`` in numpy and scipy alone. It
 writes and reads the same cache files under ``data.cache.path``
 (``_tmp_<name>/<name>_<splitter>_u<min>_i<min>[_by_time].{train,test,
 user2id,item2id,md5,info}``) and exposes the same ``train_matrix``,
-``test_matrix``, ``time_matrix``, ``get_user_*_dict`` and ``__str__``.
+``test_matrix``, ``time_matrix``, ``get_user_*_dict`` and ``__str__``;
+with a time column also ``test_time_matrix``, the test actions' times
+(HSTU's query time), which the JAX package does not keep.
 
 The sampled-candidates protocol (``neurec_tpu/data/dataset.py:244-330``):
 
@@ -105,6 +107,7 @@ class Dataset:
         self.train_matrix: Optional[csr_matrix] = None
         self.test_matrix: Optional[csr_matrix] = None
         self.time_matrix: Optional[csr_matrix] = None
+        self.test_time_matrix: Optional[csr_matrix] = None
         self.negative_matrix: Optional[csr_matrix] = None
         self.userids: Optional[Dict] = None
         self.itemids: Optional[Dict] = None
@@ -195,6 +198,10 @@ class Dataset:
         if file_format in ("UIRT", "UIT"):
             self.time_matrix = csr_matrix(
                 (train_data["time"], (train_data["user"], train_data["item"])),
+                shape=shape,
+            )
+            self.test_time_matrix = csr_matrix(
+                (test_data["time"], (test_data["user"], test_data["item"])),
                 shape=shape,
             )
         self.negative_matrix = self._load_test_neg_items(all_data, config, saved_prefix, sep)

@@ -22,10 +22,12 @@ class InMemoryDataset:
         time_matrix: csr_matrix = None,
         negative_matrix: csr_matrix = None,
         name: str = "synthetic",
+        test_time_matrix: csr_matrix = None,
     ):
         self.train_matrix = train_matrix
         self.test_matrix = test_matrix
         self.time_matrix = time_matrix
+        self.test_time_matrix = test_time_matrix
         self.negative_matrix = negative_matrix
         self.dataset_name = name
         self.num_users, self.num_items = train_matrix.shape

@@ -546,7 +546,25 @@ class UniEvaluator:
                 return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
             if plan.stream:
                 mask_data = self._get_edges(ck, batches)
-            return self._run(prog, predict_fn, params, batches, mask_data, ck)
+            out = self._run(prog, predict_fn, params, batches, mask_data, ck)
+            self._note_call(predict_fn, self.test_users if test_users is None else users, batches)
+            return out
+
+    @staticmethod
+    def _note_call(predict_fn: PredictFn, users: np.ndarray, batches) -> None:
+        """A model's ``on_evaluate(rows)`` hook, where it has one, after a
+        call: ``rows`` the host ids of the call's batch rows, the pad rows
+        user 0 as ``_make_batches`` pads them. The kept program runs no
+        Python on a replay, so what a model records of a call (HSTU's
+        pair counts) is recorded here, on the host. The model is found as
+        ``predict_fn.__self__``: the hook fires for a bound method
+        (``model.predict``), and not for a lambda or a partial around
+        one, which records nothing."""
+        hook = getattr(getattr(predict_fn, "__self__", None), "on_evaluate", None)
+        if hook is not None:
+            rows = np.zeros(batches[0].numel(), dtype=np.int64)
+            rows[: len(users)] = users
+            hook(rows)
 
     def _mean(self, total: torch.Tensor, count: torch.Tensor) -> np.ndarray:
         mean = (

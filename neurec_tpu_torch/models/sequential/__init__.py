@@ -6,6 +6,7 @@ from neurec_tpu_torch.models.sequential import (  # noqa: F401  (registers each 
     gru4rec,
     gru4recplus,
     hrm,
+    hstu,
     npe,
     sasrec,
     srgnn,

@@ -64,7 +64,7 @@ from neurec_tpu_torch.ops.metrics import all_metrics, hit_matrix
 from neurec_tpu_torch.recommend import batch_topk
 from tests.helpers import make_config, make_synthetic_dataset
 from tests.test_social_models import _make_social_file
-from tests.test_zoo_sharding import _props_for
+from tests.port_props import props_for as _props_for
 
 torch.set_float32_matmul_precision("highest")
 

@@ -83,6 +83,8 @@ CONFS = {
                   l2_reg=0.01, lr=0.01, batch_size=64),
     "sasrec": dict(recommender="SASRec", hidden_units=16, max_len=8, num_blocks=2, num_heads=2, dropout_rate=0.3,
                    l2_emb=0.01, lr=0.01, batch_size=32),
+    "hstu": dict(recommender="HSTU", item_embedding_dim=16, num_blocks=2, num_heads=2, dqk=8, dv=8,
+                 max_sequence_length=16, num_negatives=8, dropout_rate=0.2, lr=0.01, batch_size=32),
     "srgnn": dict(recommender="SRGNN", hidden_size=16, max_seq_len=8, lr=0.01, lr_dc_step=1, batch_size=64),
     "jca": dict(recommender="JCA", hidden_neuron=16, reg=0.01, f_act="tanh", g_act="sigmoid", num_neg=2,
                 batch_size=64),

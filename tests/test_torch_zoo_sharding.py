@@ -31,7 +31,7 @@ from neurec_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from neurec_tpu_torch.bridge import param_leaves
 from neurec_tpu_torch.config import Config
 from neurec_tpu_torch.data.dataset import Dataset
-from neurec_tpu_torch.models import get_model, registered_models
+from neurec_tpu_torch.models import PORT_ONLY, get_model, registered_models
 from tests import torch_mesh_worker as W
 from tests.helpers import make_config, make_synthetic_dataset
 from tests.test_zoo_sharding import NO_TABLE, _props_for
@@ -81,8 +81,12 @@ def _both(tmp_path, name, num_users=60):
 
 
 def test_the_parity_covers_both_registries():
-    assert sorted(registered_models()) == sorted(jax_registered_models()) == W.ALL_MODELS
+    """The port holds the JAX zoo's 35 and, beyond them, exactly its own
+    models (``PORT_ONLY``), which no JAX model mirrors."""
+    assert sorted(jax_registered_models()) == W.ALL_MODELS
     assert len(W.ALL_MODELS) == 35
+    assert PORT_ONLY == ("HSTU",) and not set(PORT_ONLY) & set(W.ALL_MODELS)
+    assert sorted(registered_models()) == sorted(W.ALL_MODELS + list(PORT_ONLY))
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
