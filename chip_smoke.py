@@ -368,7 +368,20 @@ failure exits non-zero before the result line):
    (``NAIS_SERVING_REQUESTS``: the second replays). The
    summary line ``phase: eval_graph`` gathers them. The captured calls'
    launches count in the kernels line (paths ``eval_graph_*``,
-   ``serve_graph`` and ``serve_graph_nais``).
+   ``serve_graph`` and ``serve_graph_nais``);
+35. ``hstu``: HSTU's three kernels (``benchmarks/hstu_ab.py``) on card
+   tensors at the evaluation's shapes: ``hstu_layer_in`` and
+   ``hstu_layer_out`` at (2048, 200, d 50, 2 heads of 25), the attention
+   at 2048 and 128 users over the cell's lengths and full ones, each no
+   farther from its plain version computed in float64 than twice the
+   plain version's own in float32 (a NaN, an infinity or one TF32 pass
+   fails), with ms, device ms, the plain version's ms and ``bound_ms``;
+   then HSTU at the published widths evaluated over ``HSTU_EVAL_USERS``
+   seeded histories, a kept program's capture and its replay each from
+   ``reset_launches``: 8 launches of each kernel a batch, the
+   ``neurec.hstu.attn`` span's ``fused_layers`` equal to them, the two
+   calls' metrics equal. Their launches count in the kernels line (paths
+   ``hstu_eval``, ``hstu_eval_replay``).
 
 Cuts, against a real run: the north star and path A train 2 epochs (the
 JAX record ran 120), path B 5; path C's MF and MLP train 200 steps and
@@ -739,6 +752,14 @@ EVAL_GRAPH_WARM = 3
 EVAL_GRAPH_USERS = {"NeuMF": 4096, "GRU4Rec": 2048, "NAIS": 4096, "DeepICF": 4096}
 EVAL_GRAPH_PATHS = ("northstar", "pack2", "ngcf", "neumf", "gru4rec", "nais", "deepicf")
 NAIS_SERVING_REQUESTS = 2
+# phase 35, hstu: HSTU-large's published widths (the hstu_ml20m.eval_seq
+# cell's), evaluated over HSTU_EVAL_USERS seeded histories of 20 .. 400
+# actions among HSTU_ITEMS items: two batches of 2,048, so the body replays
+HSTU_PUBLISHED = dict(recommender="HSTU", item_embedding_dim=50, num_blocks=8, num_heads=2, dqk=25, dv=25,
+                      max_sequence_length=200, num_negatives=128, temperature=0.05, dropout_rate=0.2,
+                      batch_size=128, lr=0.001, topk=[10], metric=["Recall", "NDCG"], test_batch_size=2048)
+HSTU_EVAL_USERS, HSTU_ITEMS = 4096, 3000
+HSTU_KERNELS = ("hstu_attn", "hstu_layer_in", "hstu_layer_out")
 
 
 class SmokeFailure(RuntimeError):
@@ -2367,6 +2388,28 @@ def step_ms(torch, trainer, draws):
     sl = slice(0, 1)
     return time_ms(torch, lambda: trainer.run_epoch(params_c, opt_c, draws.inst[sl], draws.w[sl],
                                                     draws.negs[sl], draws.seeds[sl]), iters=10)
+
+
+def hstu_histories(np, sp, users, items, seed):
+    """Histories of 20 .. 400 distinct items with increasing times, the
+    last of each to test: an InMemoryDataset with its time matrices."""
+    from neurec_tpu_torch.data.synthetic import InMemoryDataset
+
+    rng = np.random.RandomState(seed)
+    n = rng.randint(20, 401, users)
+    its = np.concatenate([rng.choice(items, k, replace=False) for k in n])
+    times = 10 ** 9 + np.concatenate([np.cumsum(1 + np.floor(np.exp(rng.uniform(0, 16, k)))) for k in n])
+    rows = np.repeat(np.arange(users), n)
+    last = np.cumsum(n) - 1
+    train = np.ones(len(rows), bool)
+    train[last] = False
+
+    def csr(keep, values):
+        return sp.csr_matrix((values[keep], (rows[keep], its[keep])), shape=(users, items))
+
+    ones = np.ones(len(rows))
+    return InMemoryDataset(csr(train, ones), csr(~train, ones), time_matrix=csr(train, times),
+                           test_time_matrix=csr(~train, times))
 
 
 def ml1m_seeded_rows(np):
@@ -4062,6 +4105,69 @@ def main() -> int:
           "tol": "ids equal to top_k's wherever the overflow is 0 (a non-zero overflow is reported)"})
     del x_randn, x_k1
 
+    # -- 35. HSTU: its kernels against their plain versions, an evaluation's launches
+    from neurec_tpu_torch import profiling
+    from neurec_tpu_torch.benchmarks import hstu_ab
+    from neurec_tpu_torch.data.synthetic import DictConfig
+
+    t = time.perf_counter()
+    hstu_rep = hstu_ab.run(iters=20, seed=SEED)
+    hstu_bad = hstu_ab.failures(hstu_rep)
+    emit({"phase": "hstu_kernels", "card": hstu_rep["card"], "layers": hstu_rep["layers"],
+          "shapes": hstu_rep["shapes"], "seconds": time.perf_counter() - t,
+          "tol": "gap from the float64 plain version <= 2 x the float32 plain version's + 1e-7 (finite)"})
+    require(not hstu_bad, "HSTU kernels past their limit from float64 (kernel, gap, limit): %s" % hstu_bad)
+    hstu_tol = "gap from float64 %s <= 2 x the plain f32 version's + 1e-7"
+    for row in hstu_rep["layers"]:
+        records[row["kernel"]] = {
+            "name": row["kernel"], "route": "cuda", "source": "neurec_tpu_torch/csrc/hstu_layer.cu",
+            "replaces": "none: the JAX package has no HSTU", "launches": None, "max_abs_err": row["max_abs_err"],
+            "tol": hstu_tol % row["gap_limit"], "shape": [row["B"], row["N"], row["d"]], "ms": row["fused"]["ms"],
+            "device_ms": row["fused"]["device_ms"], "plain_ms": row["plain"]["ms"], "library_ms": None,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "err_vs_f64": row["gap"],
+            "plain_err_vs_f64": row["plain_gap"]}
+    cell = next(r for r in hstu_rep["shapes"] if r["B"] == EVAL_USERS_PER_BATCH and r["lengths"] == "cell")
+    records["hstu_attn"] = {
+        "name": "hstu_attn", "route": "cuda", "source": "neurec_tpu_torch/csrc/hstu_attention.cu",
+        "replaces": "none: the JAX package has no HSTU", "launches": None, "max_abs_err": cell["max_abs_err"],
+        "tol": hstu_tol % cell["gap_limit"], "shape": [cell["B"], cell["N"], cell["heads"], cell["d"]],
+        "ms": cell["kernel"]["ms"], "device_ms": cell["kernel"]["device_ms"], "plain_ms": cell["plain"]["ms"],
+        "library_ms": cell["library"]["ms"], "library_device_ms": cell["library"]["device_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "err_vs_f64": cell["kernel_gap"],
+        "plain_err_vs_f64": cell["plain_gap"]}
+    # the kernels' launches on the evaluation's own path: a kept program's
+    # capture, then its replay, each counted from zero; the counter that
+    # hstu_fused_layers.eval reads equal to the layer kernels' launches
+    t = time.perf_counter()
+    ds_h = hstu_histories(np, sp, HSTU_EVAL_USERS, HSTU_ITEMS, SEED)
+    model_h = get_model("HSTU")(ds_h, DictConfig(HSTU_PUBLISHED), device="cuda")
+    params_h = model_h.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    ev_h = Evaluator.from_dataset(ds_h, DictConfig(HSTU_PUBLISHED), device="cuda")
+    per_call = HSTU_PUBLISHED["num_blocks"] * -(-HSTU_EVAL_USERS // HSTU_PUBLISHED["test_batch_size"])
+    hstu_results = []
+    for label in ("hstu_eval", "hstu_eval_replay"):
+        _build.reset_launches()
+        with profiling.tracing():
+            profiling.reset()
+            hstu_results.append(ev_h.evaluate(model_h.predict, params_h))
+            torch.cuda.synchronize()
+            spans_h = profiling.spans()
+        paths[label] = dict(_build.LAUNCHES)
+        fused_h = [sp_.attrs.get("fused_layers") for sp_ in spans_h if sp_.name == "neurec.hstu.attn"]
+        captured_h = [sp_.attrs.get("captured") for sp_ in spans_h if sp_.name == "neurec.evaluate"]
+        emit({"phase": "hstu_eval", "path": label, "result": hstu_results[-1], "fused_layers": fused_h,
+              "captured": captured_h, "launches": {k: paths[label][k] for k in HSTU_KERNELS},
+              "users": HSTU_EVAL_USERS, "seconds": time.perf_counter() - t})
+        require({k: paths[label][k] for k in HSTU_KERNELS} == dict.fromkeys(HSTU_KERNELS, per_call),
+                "%s: HSTU launches %s, expected %d each" % (label, {k: paths[label][k] for k in HSTU_KERNELS},
+                                                            per_call))
+        require(fused_h == [per_call], "%s: neurec.hstu.attn fused_layers %s, expected [%d]" % (label, fused_h,
+                                                                                               per_call))
+        t = time.perf_counter()
+    require(hstu_results[0] == hstu_results[1], "HSTU: the replay's metrics %s differ from the capture's %s"
+            % (hstu_results[1], hstu_results[0]))
+    del model_h, params_h, ev_h, ds_h
+
     # -- 15. ``python -m neurec_tpu_torch.run`` for each model of paths C and D
     run_dir = os.path.join(REPO, "build", "run_main")
     os.makedirs(run_dir, exist_ok=True)
@@ -4396,6 +4502,8 @@ def main() -> int:
         "topk[resident]": ("topk_resident", ("serve", "serve_int8", "ngcf", "eval_graph_northstar",
                                              "eval_graph_ngcf", "serve_graph")),
     }
+    for name in HSTU_KERNELS:
+        entry_paths[name] = (name, ("hstu_eval", "hstu_eval_replay"))
     for pack in (2, 4):
         for dt, suffix in (("", ""), ("_bf16", ",bf16")):
             path = "pack%d%s" % (pack, dt)

@@ -102,6 +102,7 @@ from neurec_tpu_torch import native, profiling, step_graph
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.eval import tiers
 from neurec_tpu_torch.eval.tiers import TierPlan, select_tier
+from neurec_tpu_torch.ops import _build
 from neurec_tpu_torch.ops.masked_scores import pack_train_bits
 from neurec_tpu_torch.ops.metrics import METRIC_INDEX, METRIC_NAMES, all_metrics, hit_matrix
 from neurec_tpu_torch.ops.topk import top_k
@@ -546,17 +547,22 @@ class UniEvaluator:
                 return np.zeros((self.metrics_num, len(self.top_show)), np.float32)
             if plan.stream:
                 mask_data = self._get_edges(ck, batches)
+            before = dict(_build.LAUNCHES)
             out = self._run(prog, predict_fn, params, batches, mask_data, ck)
-            self._note_call(predict_fn, self.test_users if test_users is None else users, batches)
+            launches = {name: _build.LAUNCHES[name] - n for name, n in before.items()}
+            self._note_call(predict_fn, self.test_users if test_users is None else users, batches, launches)
             return out
 
     @staticmethod
-    def _note_call(predict_fn: PredictFn, users: np.ndarray, batches) -> None:
-        """A model's ``on_evaluate(rows)`` hook, where it has one, after a
-        call: ``rows`` the host ids of the call's batch rows, the pad rows
-        user 0 as ``_make_batches`` pads them. The kept program runs no
-        Python on a replay, so what a model records of a call (HSTU's
-        pair counts) is recorded here, on the host. The model is found as
+    def _note_call(predict_fn: PredictFn, users: np.ndarray, batches, launches: Dict[str, int]) -> None:
+        """A model's ``on_evaluate(rows, launches)`` hook, where it has one,
+        after a call: ``rows`` the host ids of the call's batch rows, the
+        pad rows user 0 as ``_make_batches`` pads them; ``launches`` each
+        kernel's launches over the call (the change of ``_build.LAUNCHES``:
+        the wrappers' counts on an eager call or a capture, the captured
+        launches on a replay). The kept program runs no Python on a replay,
+        so what a model records of a call (HSTU's pair counts and fused
+        layers) is recorded here, on the host. The model is found as
         ``predict_fn.__self__``: the hook fires for a bound method
         (``model.predict``), and not for a lambda or a partial around
         one, which records nothing."""
@@ -564,7 +570,7 @@ class UniEvaluator:
         if hook is not None:
             rows = np.zeros(batches[0].numel(), dtype=np.int64)
             rows[: len(users)] = users
-            hook(rows)
+            hook(rows, launches)
 
     def _mean(self, total: torch.Tensor, count: torch.Tensor) -> np.ndarray:
         mean = (

@@ -37,10 +37,13 @@ Departures from the published code: b1 (the published projection has no
 bias; it starts at zero here); the time bucket's log in float64
 (``ops/hstu.py``); the padded layout (the published encoder is jagged;
 the pad positions here affect no real one). Spans: ``neurec.hstu.encode``
-[``batch``, ``positions``, ``layers``, ``heads``] where the encoder runs
-(eagerly, or at capture); ``neurec.hstu.attn`` [``pairs``,
-``real_pairs``] once an evaluation call (``on_evaluate``), from the
-lengths kept on the host.
+[``batch``, ``positions``, ``layers``, ``heads``, ``fused_layers``: the
+layers that launched the fused kernels, ``ops/hstu.py::fusable``] where
+the encoder runs (eagerly, or at capture); ``neurec.hstu.attn``
+[``pairs``, ``real_pairs``, ``fused_layers``: the call's launches of
+``hstu_layer_in``, one a (batch, layer) pass that ran fused] once an
+evaluation call (``on_evaluate``), from the lengths kept on the host and
+the launches the evaluator counted over the call.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from neurec_tpu_torch.bridge import map_params, param_leaves
 from neurec_tpu_torch.device import DeviceLike
 from neurec_tpu_torch.models.base import Recommender, register
 from neurec_tpu_torch.models.sequential.seq_common import SeqDraws
-from neurec_tpu_torch.ops import hstu
+from neurec_tpu_torch.ops import _build, hstu
 from neurec_tpu_torch.ops.initializers import get_initializer, glorot_uniform
 from neurec_tpu_torch.step_graph import Steps, at, step_seeds, train_step
 from neurec_tpu_torch.trainer import OptaxAdam
@@ -173,14 +176,17 @@ class HSTU(SeqDraws, Recommender):
         """(B, N) item ids, (B,) lengths, (B, N + 1) times -> (B, N, d)."""
         B, N = seq.shape
         with profiling.span("neurec.hstu.encode", batch=B, positions=N, layers=len(params["blocks"]),
-                            heads=self.num_heads):
+                            heads=self.num_heads) as s:
             x = self.rows_padded(params, "item_emb", seq) * (self.d ** 0.5) + params["pos_emb"][None, :N]
             drop = None
             if generator is not None and self.dropout_rate > 0:
                 drop = lambda t: self._dropout(t, generator, self.dropout_rate)  # noqa: E731
                 x = drop(x)
+            launched = _build.LAUNCHES["hstu_layer_in"]
             for blk in params["blocks"]:
                 x = hstu.layer(blk, x, lengths, ts, self.num_heads, self.dqk, self.dv, dropout=drop)
+            if s is not None:
+                s.attrs["fused_layers"] = _build.LAUNCHES["hstu_layer_in"] - launched
             return x
 
     def _negatives_uniform(self, generator, shape) -> torch.Tensor:
@@ -248,12 +254,14 @@ class HSTU(SeqDraws, Recommender):
         return (F.normalize(u, dim=-1, eps=NORM_EPS),
                 F.normalize(self.whole(params, "item_emb"), dim=-1, eps=NORM_EPS))
 
-    def on_evaluate(self, users: np.ndarray) -> None:
+    def on_evaluate(self, users: np.ndarray, launches: dict) -> None:
         """The evaluator's call ran over ``users`` (host ids, one a row of
-        its batches, pad rows included): the span ``neurec.hstu.attn`` with
-        the (query, key) pairs its attention launches computed and the
-        causal pairs they needed, over its layers."""
+        its batches, pad rows included) and made ``launches``: the span
+        ``neurec.hstu.attn`` with the (query, key) pairs its attention
+        launches computed and the causal pairs they needed, over its
+        layers, and its (batch, layer) passes that ran fused (the launches
+        of ``hstu_layer_in``)."""
         with profiling.span("neurec.hstu.attn") as s:
             if s is not None:
                 pairs, real = self._pairs_host[:, users].sum(1) * self.num_blocks
-                s.attrs.update(pairs=int(pairs), real_pairs=int(real))
+                s.attrs.update(pairs=int(pairs), real_pairs=int(real), fused_layers=int(launches["hstu_layer_in"]))

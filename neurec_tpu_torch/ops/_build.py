@@ -41,6 +41,7 @@ SOURCES = {
     "dma_rate": "dma_rate.cu",
     "topk": "topk.cu",
     "hstu_attention": "hstu_attention.cu",
+    "hstu_layer": "hstu_layer.cu",
 }
 
 NVCC_FLAGS = [
@@ -58,7 +59,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "masked_scores", "plan_spmm", "plan_spmm_t", "plan_spmm_packed", "plan_spmm_packed_t",
     "dma_rate_serial", "dma_rate_pipelined", "round_tf32", "fma_chain",
-    "topk", "topk_resident", "topk_streamed", "hstu_attn",
+    "topk", "topk_resident", "topk_streamed", "hstu_attn", "hstu_layer_in", "hstu_layer_out",
 )}
 
 _libs: Dict[str, ctypes.CDLL] = {}

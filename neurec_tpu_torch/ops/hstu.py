@@ -32,6 +32,14 @@ it: the least |Δ| of each bucket 1..128 and up, found here with
 (query, key) pairs a call's launch geometry computes and those the
 mathematics needs, which the model records on the span
 ``neurec.hstu.attn``.
+
+Around the attention, a layer runs ``layer_in_reference`` (``SiLU(LN(x)
+W1 + b1)``) and ``layer_out_reference`` (``x + (u * LN(attn)) W2 + b2``),
+plain torch, or, where ``fusable`` says so (CUDA float32, no gradient
+wanted, no dropout: evaluation), ``layer_in`` and ``layer_out``, which
+launch ``csrc/hstu_layer.cu`` (``neurec::hstu_layer_in``,
+``neurec::hstu_layer_out``) or raise. Training keeps the plain graph and
+its autograd.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ LN_EPS = 1e-6
 TILE_Q = TILE_K = 32
 # the widest head the kernel takes (csrc/hstu_attention.cu: DMAX)
 MAX_HEAD_DIM = 32
+# the widest stream and attention output, and fused projection, the layer
+# kernels take (csrc/hstu_layer.cu: MAX_D, MAX_W)
+MAX_LAYER_DIM, MAX_LAYER_WIDTH = 64, 256
 
 
 def time_buckets(delta: torch.Tensor) -> torch.Tensor:
@@ -210,18 +221,130 @@ def layer_norm(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + LN_EPS)
 
 
+def layer_in_reference(x, w1, b1) -> torch.Tensor:
+    """The plain version of a layer's pass before the attention: (B, N, d)
+    -> ``SiLU(LN(x) W1 + b1)``, (B, N, W)."""
+    return F.silu(layer_norm(x) @ w1 + b1)
+
+
+def layer_out_reference(attn, u, x, w2, b2, dropout=None) -> torch.Tensor:
+    """The plain version of a layer's pass after the attention: ``x +
+    (dropout(u * LN(attn)) W2 + b2)``."""
+    y = u * layer_norm(attn)
+    if dropout is not None:
+        y = dropout(y)
+    return x + (y @ w2 + b2)
+
+
+def fusable(x, p: dict, dropout=None) -> bool:
+    """Whether ``layer`` takes the fused kernels: a CUDA float32 stream, no
+    dropout, and no gradient wanted (grad mode off, or nothing of ``x`` and
+    ``p`` requires one). Training keeps the plain passes and their
+    autograd graph."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or dropout is not None:
+        return False
+    return not (torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in p.values())))
+
+
+def _on_cuda(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError("the HSTU layer kernels run on cuda, not %s" % x.device)
+
+
+def _layer_operand(name: str, t, device, shape) -> None:
+    if t.dtype != torch.float32 or t.device != device:
+        raise TypeError("the HSTU layer kernels take float32 %s on %s, got %s on %s" % (name, device, t.dtype,
+                                                                                        t.device))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s: shape %s, expected %s" % (name, tuple(t.shape), tuple(shape)))
+
+
+def _rows(name: str, t, device, shape) -> None:
+    """A contiguous, 16-byte aligned float32 operand of ``shape``."""
+    _layer_operand(name, t, device, shape)
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("%s: strides %s at offset %d are not contiguous 16-byte aligned rows"
+                         % (name, t.stride(), t.data_ptr() % 16))
+
+
+def _widths(**widths) -> None:
+    for name, (n, most) in widths.items():
+        if not 1 <= n <= most:
+            raise ValueError("the HSTU layer kernels take %s of 1 .. %d, got %d" % (name, most, n))
+
+
+def layer_in(x, w1, b1) -> torch.Tensor:
+    """``SiLU(LN(x) W1 + b1)`` by ``csrc/hstu_layer.cu``: x (B, N, d)
+    float32, contiguous, w1 (d, W), b1 (W,) -> (B, N, W) float32. ``LAUNCHES``
+    counts ``hstu_layer_in``."""
+    _on_cuda(x)
+    B, N, d = x.shape
+    W = w1.shape[-1]
+    _widths(d=(d, MAX_LAYER_DIM), W=(W, MAX_LAYER_WIDTH))
+    _rows("x", x, x.device, (B, N, d))
+    _layer_operand("w1", w1, x.device, (d, W))
+    _layer_operand("b1", b1, x.device, (W,))
+    w1, b1 = w1.contiguous(), b1.contiguous()
+    out = torch.empty((B, N, W), dtype=torch.float32, device=x.device)
+    if out.numel():
+        lib = _build.load("hstu_layer", x.device)
+        fn = lib.neurec_hstu_layer_in
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        with torch.cuda.device(x.device):
+            code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), B * N, d, W,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, code, "hstu_layer_in")
+        _build.LAUNCHES["hstu_layer_in"] += 1
+    return out
+
+
+def layer_out(attn, u, x, w2, b2) -> torch.Tensor:
+    """``x + ((u * LN(attn)) W2 + b2)`` by ``csrc/hstu_layer.cu``: attn (B,
+    N, hv) and x (B, N, d) float32, contiguous; u (B, N, hv) rows at one
+    stride, its columns together (the first hv columns of the layer's
+    projection); w2 (hv, d), b2 (d,) -> the new x, (B, N, d) float32.
+    ``LAUNCHES`` counts ``hstu_layer_out``."""
+    _on_cuda(x)
+    B, N, hv = attn.shape
+    d = x.shape[-1]
+    _widths(hv=(hv, MAX_LAYER_DIM), d=(d, MAX_LAYER_DIM))
+    _rows("attn", attn, x.device, (B, N, hv))
+    _rows("x", x, x.device, (B, N, d))
+    _layer_operand("u", u, x.device, (B, N, hv))
+    if u.stride(2) != 1 or u.stride(0) != N * u.stride(1) or u.stride(1) < hv:
+        raise ValueError("u: strides %s are not rows of %d at one stride" % (u.stride(), hv))
+    _layer_operand("w2", w2, x.device, (hv, d))
+    _layer_operand("b2", b2, x.device, (d,))
+    w2, b2 = w2.contiguous(), b2.contiguous()
+    out = torch.empty_like(x)
+    if out.numel():
+        lib = _build.load("hstu_layer", x.device)
+        fn = lib.neurec_hstu_layer_out
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        with torch.cuda.device(x.device):
+            code = fn(attn.data_ptr(), u.data_ptr(), u.stride(1), x.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                      out.data_ptr(), B * N, hv, d, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, code, "hstu_layer_out")
+        _build.LAUNCHES["hstu_layer_out"] += 1
+    return out
+
+
 def layer(p: dict, x, lengths, ts, heads: int, dqk: int, dv: int, dropout=None) -> torch.Tensor:
     """One HSTU layer: ``x + (dropout(u * LN(A v)) W2 + b2)`` with u, v, q,
     k from ``SiLU(LN(x) W1 + b1)``; ``p`` holds ``w1``, ``b1``, ``w2``,
-    ``b2``, ``w_p``, ``w_t``."""
-    B, N, _ = x.shape
-    uvqk = F.silu(layer_norm(x) @ p["w1"] + p["b1"])
+    ``b2``, ``w_p``, ``w_t``. The passes around the attention are the two
+    fused kernels where ``fusable``, else the plain versions."""
+    fused = fusable(x, p, dropout)
+    uvqk = (layer_in if fused else layer_in_reference)(x, p["w1"], p["b1"])
     hv, hq = heads * dv, heads * dqk
     u = uvqk[..., :hv]
     v = uvqk[..., hv:2 * hv].unflatten(-1, (heads, dv))
     q = uvqk[..., 2 * hv:2 * hv + hq].unflatten(-1, (heads, dqk))
     k = uvqk[..., 2 * hv + hq:].unflatten(-1, (heads, dqk))
-    y = u * layer_norm(attention(q, k, v, lengths, ts, p["w_p"], p["w_t"]))
-    if dropout is not None:
-        y = dropout(y)
-    return x + (y @ p["w2"] + p["b2"])
+    a = attention(q, k, v, lengths, ts, p["w_p"], p["w_t"])
+    if fused:
+        return layer_out(a, u, x, p["w2"], p["b2"])
+    return layer_out_reference(a, u, x, p["w2"], p["b2"], dropout)

@@ -451,13 +451,13 @@ def routes() -> tuple:
     """What a capture holds besides the tensors it reads: the values of
     ``SPMM_ENV`` now (None where unset) and the module-level kernel
     wrappers the ops look up at each call (K1's, K2's, K3's, HSTU's
-    attention), so that a
-    kept program is captured anew after a change of either (a wrapper
-    replaced by its plain version, say)."""
+    attention and layer kernels), so that a kept program is captured anew
+    after a change of either (a wrapper replaced by its plain version,
+    say)."""
     from neurec_tpu_torch.ops import hstu, masked_scores as k1, spmm as k2
 
     wrappers = (k1.masked_scores, k1.masked_scores_bits, k2.plan_spmm, k2.plan_scatter, k2.plan_spmm_packed,
-                hstu.attention_kernel)
+                hstu.attention_kernel, hstu.layer_in, hstu.layer_out)
     return tuple(os.environ.get(name) for name in SPMM_ENV) + wrappers
 
 

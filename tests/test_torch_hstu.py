@@ -27,12 +27,18 @@ tables, so a fault in how the model lays out a history shows too. Held:
   the pair counts of both launch geometries, whose tiles are read from the
   kernel's source;
 * ``by_time``'s order on both of its sorts (a time span under 2**32 and
-  over it).
+  over it);
+* the layer's path: the fused kernels only for CUDA float32 with no
+  gradient wanted and no dropout (``fusable``, on stand-in tensors), the
+  plain passes on the CPU and in training, and the counter of fused
+  (batch, layer) passes on ``neurec.hstu.encode`` and ``neurec.hstu.attn``
+  (the kernels' wrappers stood in for by the plain versions).
 """
 
 import math
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -174,13 +180,15 @@ def test_plain_attention_and_pair_counts():
 
 
 def test_the_tile_geometry_is_the_kernels():
-    """``pair_counts`` and the wrapper's width check read the kernel's
-    tiles and widest head from Python copies: they are its source's."""
-    with open(os.path.join(_build.CSRC_DIR, "hstu_attention.cu")) as fin:
-        source = fin.read()
-    found = {name: int(re.search(r"constexpr int %s = (\d+);" % name, source).group(1))
-             for name in ("BQ", "BK", "DMAX")}
-    assert found == {"BQ": hstu.TILE_Q, "BK": hstu.TILE_K, "DMAX": hstu.MAX_HEAD_DIM}
+    """``pair_counts`` and the wrappers' width checks read the kernels'
+    tiles and widest operands from Python copies: they are their sources'."""
+    found = {}
+    for fname, names in (("hstu_attention.cu", ("BQ", "BK", "DMAX")), ("hstu_layer.cu", ("MAX_D", "MAX_W"))):
+        with open(os.path.join(_build.CSRC_DIR, fname)) as fin:
+            source = fin.read()
+        found.update({name: int(re.search(r"constexpr int %s = (\d+);" % name, source).group(1)) for name in names})
+    assert found == {"BQ": hstu.TILE_Q, "BK": hstu.TILE_K, "DMAX": hstu.MAX_HEAD_DIM,
+                     "MAX_D": hstu.MAX_LAYER_DIM, "MAX_W": hstu.MAX_LAYER_WIDTH}
 
 
 @pytest.mark.parametrize("step", [1, 2 ** 33], ids=["seconds_one_key", "wide_span_lexsort"])
@@ -317,7 +325,98 @@ def test_evaluate_and_serve_follow_the_reference_ranking(built):
     assert len(spans) == 1
     _, lengths, _ = eval_inputs(hist, np.append(users, [0] * (16 - len(users))))  # two batches of 8, pad user 0
     pairs, real = hstu.pair_counts(lengths.numpy(), N, H, False)
-    assert spans[0].attrs == {"pairs": 2 * int(pairs.sum()), "real_pairs": 2 * int(real.sum())}
+    assert spans[0].attrs == {"pairs": 2 * int(pairs.sum()), "real_pairs": 2 * int(real.sum()), "fused_layers": 0}
     users = np.arange(len(hist), dtype=np.int32)
     ids, _ = batch_topk(model, params, 5, users=users, train_matrix=ds.train_matrix, batch_size=8, device="cpu")
     _assert_ranked(ids, hist, users, params, ds, 5)
+
+
+def _stand_in(device="cuda", dtype=torch.float32, requires_grad=False):
+    """What ``fusable`` reads of a tensor, on any device name."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype, requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("device,dtype,grad,x_grad,p_grad,dropout,want", [
+    ("cuda", torch.float32, False, False, True, False, True),
+    ("cuda", torch.float32, True, False, False, False, True),
+    ("cuda", torch.float32, True, False, True, False, False),
+    ("cuda", torch.float32, True, True, False, False, False),
+    ("cuda", torch.float32, False, False, False, True, False),
+    ("cpu", torch.float32, False, False, False, False, False),
+    ("cuda", torch.float64, False, False, False, False, False),
+], ids=["evaluation", "nothing_requires_grad", "params_want_grad", "stream_wants_grad", "dropout", "cpu",
+        "float64"])
+def test_the_fused_path_is_chosen_where_it_applies(device, dtype, grad, x_grad, p_grad, dropout, want):
+    x = _stand_in(device, dtype, x_grad)
+    p = {name: _stand_in(requires_grad=p_grad) for name in ("w1", "b1", "w2", "b2", "w_p", "w_t")}
+    with torch.set_grad_enabled(grad):
+        assert hstu.fusable(x, p, (lambda t: t) if dropout else None) is want
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["cpu_plain", "fused_stand_ins"])
+def test_the_fused_layers_are_counted(built, monkeypatch, fused):
+    """On the CPU every layer takes the plain passes and the counters read
+    0; with ``fusable`` answering as on a card and the kernels' wrappers
+    stood in for by the plain versions (counting their launches as the
+    wrappers do), evaluation counts each (batch, layer) pass from the
+    launches over the call and gives the plain path's results, while a
+    training loss (gradient wanted) still takes the plain passes."""
+    hist, ds, model, params = built
+    calls = []
+    real = hstu.fusable
+
+    def on_card(x, p, dropout=None):
+        return real(_stand_in(dtype=x.dtype, requires_grad=x.requires_grad), p, dropout)
+
+    def wrapped(name, plain):
+        def run(*args):
+            if not fused:
+                raise AssertionError("%s launched on the CPU" % name)
+            calls.append(name)
+            _build.LAUNCHES["hstu_layer_" + name] += 1  # as the wrapper counts its launch
+            return plain(*args)
+        return run
+
+    monkeypatch.setattr(hstu, "layer_in", wrapped("in", hstu.layer_in_reference))
+    monkeypatch.setattr(hstu, "layer_out", wrapped("out", hstu.layer_out_reference))
+    monkeypatch.setattr(hstu, "fusable", on_card if fused else real)
+    ev = Evaluator.from_dataset(ds, DictConfig(CONF), device="cpu")
+    with profiling.tracing():
+        profiling.reset()
+        got = ev.evaluate(model.predict, params)
+        spans = profiling.spans()
+    layers = CONF["num_blocks"] if fused else 0
+    assert [s.attrs["fused_layers"] for s in spans if s.name == "neurec.hstu.encode"] == [layers, layers]
+    attn = [s for s in spans if s.name == "neurec.hstu.attn"]
+    assert len(attn) == 1 and attn[0].attrs["fused_layers"] == 2 * layers  # two batches of 8
+    assert calls == ["in", "out"] * 2 * layers
+    # the same call by the plain passes gives the same metrics
+    monkeypatch.setattr(hstu, "fusable", lambda x, p, dropout=None: False)
+    assert ev.evaluate(model.predict, params) == got
+    # a training loss wants gradients: the plain passes, none counted
+    monkeypatch.setattr(hstu, "fusable", on_card if fused else real)
+    del calls[:]
+    idx = torch.arange(4)
+    negs = torch.randint(0, 40, (4, N, 5), generator=torch.Generator().manual_seed(2))
+    with profiling.tracing():
+        profiling.reset()
+        model.seq_loss(params, model._seq[idx], model._tgt[idx], model._train_len[idx], model._train_ts[idx],
+                       torch.ones(4), negs, None)
+        encodes = [s.attrs["fused_layers"] for s in profiling.spans() if s.name == "neurec.hstu.encode"]
+    assert encodes == [0] and calls == []
+
+
+@pytest.mark.parametrize("gap,ok", [(1e-7, True), (2.9e-7, True), (3.2e-7, False), (float("nan"), False),
+                                    (float("inf"), False)], ids=["near", "within", "past", "nan", "inf"])
+def test_the_ab_report_fails_a_kernel_past_its_limit(gap, ok):
+    """``benchmarks/hstu_ab.py`` holds each kernel to twice its plain
+    version's gap from float64 (1e-7 here: a limit of 3e-7), and a NaN or
+    an infinity fails it, in the layer rows and the attention's rows."""
+    from neurec_tpu_torch.benchmarks import hstu_ab
+
+    limit = hstu_ab.gap_limit(1e-7)
+    report = {"layers": [{"kernel": "hstu_layer_out", "gap": gap, "gap_limit": limit}],
+              "shapes": [{"B": 2048, "lengths": "cell", "kernel_gap": gap, "gap_limit": limit}]}
+    want = [] if ok else [("hstu_layer_out", gap, limit), ("hstu_attn[2048,cell]", gap, limit)]
+    assert repr(hstu_ab.failures(report)) == repr(want)
+
