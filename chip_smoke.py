@@ -1698,7 +1698,9 @@ def kept_record(trainer):
     """What a call leaves in the trainer's kept runs: the graphs they
     captured in it, the step counts of the graphs they hold and their
     pools' bytes (nothing where it ran eagerly)."""
-    if not trainer._captures():
+    from neurec_tpu_torch import step_graph
+
+    if not step_graph.captures(trainer.device, trainer.graphs, trainer.mesh):
         return {}
     return {"captured": sum(k.captured for k in trainer.kept.values()),
             "held": sorted(c for k in trainer.kept.values() for c in k.graphs.graphs),
@@ -2253,22 +2255,20 @@ def eval_graph_check(torch, label, trainer, paths, n_users=None, sync_check=Fals
                     paths["eval_graph_" + label] = dict(_build.LAUNCHES)
                 warm_ms = float(np.median(secs[1:])) * 1e3
                 device = _device_ms(torch, call)
-                n_batches = sum(k.batches[0].shape[0] for k in ev._kept.values())
+                n_batches = sum(k.tensors["batches"][0].shape[0] for k in ev.kept.values())
                 runs[mode] = {"result": result, "ids": ev.last_ids.cpu(), "n_batches": n_batches}
                 rec[mode] = {"eval_cold_s": secs[0], "eval_warm_s": secs[1:], "launches_cold": launches[0],
                              "launches_warm": launches[1], "graph_launches_per_warm_call": graph_launches[1],
                              "device_ms": device, "idle_share": None if device is None else 1.0 - device / warm_ms,
-                             "pool_bytes": [k.program.pool_bytes for k in ev._kept.values()]}
+                             "pool_bytes": [k.pool_bytes for k in ev.kept.values()]}
                 if graphs and sync_check:
-                    (kept,) = ev._kept.values()
-                    kept.args["params"] = params
+                    (kept,) = ev.kept.values()
                     torch.cuda.synchronize()
                     torch.cuda.set_sync_debug_mode("error")
                     try:
-                        kept.program.run(n_batches)
+                        kept.run(n_batches, params)
                     finally:
                         torch.cuda.set_sync_debug_mode(0)
-                        kept.args["params"] = None
                     torch.cuda.synchronize()
                     rec[mode]["sync_debug"] = "quiet over a warm replay"
                 del ev
@@ -2310,8 +2310,8 @@ def serving_graph_check(torch, model, params, requests, train_matrix, paths, lab
     try:
         with counting:
             for mode, graphs in (("eager", False), ("graph", True)):
-                for key in [k for k in recommend._EXPORT_CACHE if k[0] == id(model)]:
-                    recommend._release(key)
+                for key in [k for k in recommend.EXPORTS if k[0] == id(model)]:
+                    recommend.EXPORTS.release(key)
 
                 def serve(req):
                     return batch_topk(model, params, SERVING_K, users=req, train_matrix=train_matrix,
@@ -2329,11 +2329,11 @@ def serving_graph_check(torch, model, params, requests, train_matrix, paths, lab
                     paths[label] = dict(_build.LAUNCHES)
                 warm_ms = float(np.median(secs[1:])) * 1e3
                 device = _device_ms(torch, lambda: serve(requests[-1]))
-                exports = [e for k, e in recommend._EXPORT_CACHE.items() if k[0] == id(model)]
+                exports = [e for k, e in recommend.EXPORTS.items() if k[0] == id(model)]
                 outs[mode] = out
                 rec[mode] = {"serving_request_s": secs, "graph_launches_per_request": graph_launches,
                              "device_ms": device, "idle_share": None if device is None else 1.0 - device / warm_ms,
-                             "programs": len(exports), "pool_bytes": [e.program.pool_bytes for e in exports]}
+                             "programs": len(exports), "pool_bytes": [e.pool_bytes for e in exports]}
     finally:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved)
@@ -2365,8 +2365,8 @@ def edge_eval(torch, trainer, result_cold, cold_s):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     device = _device_ms(torch, call)
-    (kept,) = ev._kept.values()
-    users_b, valid = kept.batches[0].cpu().numpy(), kept.batches[2].cpu().numpy()
+    (kept,) = ev.kept.values()
+    users_b, _, valid = (b.cpu().numpy() for b in kept.tensors["batches"])
     capacity = model.predict_capacity(users_b, valid)
     exact = int((model._lens_host[users_b] * valid).sum())
     rec = {"eval_users": len(ev.test_users), "n_batches": int(users_b.shape[0]), "batch_size": int(users_b.shape[1]),
@@ -2375,8 +2375,8 @@ def edge_eval(torch, trainer, result_cold, cold_s):
            "eval_users_per_s": len(ev.test_users) / warm_s, "e_max": capacity,
            "edges_exact": exact, "edge_slots": capacity * int(users_b.shape[0]),
            "slots_per_edge": capacity * int(users_b.shape[0]) / max(exact, 1),
-           "captured": kept.program.capture and kept.program._graphs is not None,
-           "pool_bytes": kept.program.pool_bytes, "warm_equals_cold": result == result_cold}
+           "captured": kept.capture and kept._graphs is not None,
+           "pool_bytes": kept.pool_bytes, "warm_equals_cold": result == result_cold}
     require(rec["captured"], "%s: its evaluation was not captured" % model.name)
     require(rec["warm_equals_cold"], "%s: the warm evaluation differs from the cold one" % model.name)
     return rec

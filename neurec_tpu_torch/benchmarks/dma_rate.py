@@ -63,6 +63,10 @@ def dma_copies_reference(offs: torch.Tensor, n_dma: int, rows: int) -> torch.Ten
     return out.index_fill_(0, _written_rows(offs, n_dma, rows), 1.0)
 
 
+_DMA_RATE = _build.Entry("dma_rate", "neurec_dma_rate", [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [
+    ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def dma_copies(offs: torch.Tensor, n_dma: int, rows: int, mode: str, out: torch.Tensor) -> torch.Tensor:
     """K4: ``n_dma`` copies of a ``(rows, 128)`` tile of 1.0 into ``out``
     at rows ``offs[k % n]`` .. + rows - 1; ``mode`` serial or pipelined.
@@ -82,16 +86,8 @@ def dma_copies(offs: torch.Tensor, n_dma: int, rows: int, mode: str, out: torch.
     if out.device.type != "cuda":
         raise ValueError("dma_copies runs on cuda or cpu, not %s" % out.device)
     offs = offs.contiguous()
-    lib = _build.load("dma_rate", out.device)
-    fn = lib.neurec_dma_rate
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    with torch.cuda.device(out.device):
-        code = fn(offs.data_ptr(), offs.numel(), n_dma, rows, int(mode == "serial"), out.data_ptr(),
-                  torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(lib, code, "dma_rate")
-    _build.LAUNCHES["dma_rate_" + mode] += 1
+    _DMA_RATE(out.device, offs.data_ptr(), offs.numel(), n_dma, rows, int(mode == "serial"), out.data_ptr(),
+              counts=("dma_rate_" + mode,))
     return out
 
 

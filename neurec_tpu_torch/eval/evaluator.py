@@ -65,13 +65,14 @@ static buffer. Nothing in them reads the host; ``_mean`` reads the totals
 once at the end. A model whose ``predict`` takes an edge capacity (NAIS,
 DeepICF: ``predict_capacity``, the most train pairs of the real users of
 any batch of the set, rounded up to 8) gets it once a program, as a host
-int. On a CUDA device (``_captures``: ``graphs``, no mesh of more than
-one rank) the program is a ``step_graph.KeptProgram``: its first call runs eagerly and
-captures the prologue and the body as CUDA graphs, which every later call
-replays, prologue once and body once a batch, as the JAX package keeps
-its jitted programs. Programs are kept per predict function and batch set (the
-default set or a cached subset, an LRU of ``KEPT_MAX``, pools released on
-eviction) and captured anew when a ``params`` leaf moves or changes shape
+int. On a CUDA device (``step_graph.captures``: ``graphs``, no mesh of
+more than one rank) the program is a ``step_graph.KeptProgram``: its first
+call runs eagerly and captures the prologue and the body as CUDA graphs,
+which every later call replays, prologue once and body once a batch, as
+the JAX package keeps its jitted programs. Programs are kept in
+``self.kept`` (a ``step_graph.KeptStore``, an LRU of 8, pools released on
+eviction) per predict function and batch set (the default set or a cached
+subset) and captured anew when a ``params`` leaf moves or changes shape
 (``step_graph.signature``), when the batches or the tier's mask data are
 rebuilt, or when ``NEUREC_SPMM_PACK`` / ``NEUREC_SPMM_DTYPE`` /
 ``NEUREC_SPMM_PALLAS`` or a kernel's wrapper change
@@ -112,23 +113,6 @@ from neurec_tpu_torch.parallel.mesh import Mesh, axis_size, slice_rows
 PredictFn = Callable[[object, torch.Tensor], torch.Tensor]
 
 
-class _Kept(NamedTuple):
-    """One evaluation program kept across calls, with what it was made for:
-    ``sig`` (``params``' leaves, capture, ``record_ids``,
-    ``step_graph.routes``), the batch set and the tier's mask data (held,
-    compared by identity), its ``args`` (``params`` during a run), its
-    output buffers."""
-
-    sig: tuple
-    batches: tuple
-    mask_data: object
-    program: step_graph.KeptProgram
-    args: dict
-    total: torch.Tensor
-    count: torch.Tensor
-    ids: Optional[torch.Tensor]
-
-
 class EvalProgram(NamedTuple):
     """The tier plan for one predict function and the functions it runs."""
 
@@ -141,9 +125,6 @@ class EvalProgram(NamedTuple):
 
 
 _log = logging.getLogger("neurec_tpu_torch.eval")
-
-# evaluation programs (captured graphs and their pools) an evaluator keeps
-KEPT_MAX = 8
 
 NATIVE_SINGLE_PROCESS = (
     "the eval_backend=native host tier assumes fully-addressable score arrays and is single-process "
@@ -191,7 +172,7 @@ class UniEvaluator:
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
-        # each call's program as CUDA graphs kept across calls (_captures)
+        # each call's program as CUDA graphs kept across calls (step_graph.captures)
         self.graphs = graphs
         self._item_shard_flag = _item_shard_flag(item_shard)
         self.num_thread = int(num_thread)
@@ -273,7 +254,8 @@ class UniEvaluator:
         self.record_ids = False
         self.last_ids: Optional[torch.Tensor] = None
         # the programs of the calls, keyed by (predict function, batch set)
-        self._kept: "OrderedDict[tuple, _Kept]" = OrderedDict()
+        # (an LRU of 8, the graphs and pools of the evicted released)
+        self.kept = step_graph.KeptStore(most=8)
 
     def _host_rows(self, users, min_len: int = 1, pad_to: Optional[int] = None) -> np.ndarray:
         """Padded sorted train rows for the given users, padded with
@@ -579,39 +561,25 @@ class UniEvaluator:
         k_idx = np.minimum(self.top_show, self.num_items) - 1
         return mean[self._metric_rows][:, k_idx]
 
-    def _captures(self, predict_fn: PredictFn) -> bool:
-        """Whether a call's program runs as CUDA graphs kept across calls:
-        on a CUDA device, with ``graphs``, without a mesh of more than one
-        rank (as ``Trainer._captures``)."""
-        return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
-
     @torch.no_grad()
     def _run(self, prog: EvalProgram, predict_fn, params, batches, mask_data, ck: Optional[bytes]):
         """One call: the kept program for (``predict_fn``, the batch set),
         made or captured anew where what it was made for changed, run over
         the batches; the mean of its totals."""
-        capture = self._captures(predict_fn)
-        sig = (step_graph.signature(params), capture, self.record_ids, step_graph.routes())
-        key = (self._program_key(predict_fn), ck)
-        kept = self._kept.get(key)
-        if kept is None or kept.sig != sig or kept.batches is not batches or kept.mask_data is not mask_data:
-            if kept is not None:
-                kept.program.release()
-            kept = self._kept[key] = self._make_kept(prog, predict_fn, batches, mask_data, sig, capture)
-            while len(self._kept) > KEPT_MAX:
-                self._kept.popitem(last=False)[1].program.release()
-        self._kept.move_to_end(key)
-        kept.args["params"] = params
-        try:
-            kept.program.run(batches[0].shape[0])
-        finally:
-            kept.args["params"] = None
-        with profiling.span("neurec.eval.read"):
-            if kept.ids is not None:
-                self.last_ids = kept.ids.reshape(-1, kept.ids.shape[2]).clone()
-            return self._mean(kept.total, kept.count)
+        capture = step_graph.captures(self.device, self.graphs, self.mesh)
 
-    def _make_kept(self, prog: EvalProgram, predict_fn, batches, mask_data, sig, capture: bool) -> _Kept:
+        def holding():  # the batches and the mask data by identity: the program holds them
+            return step_graph.signature(params), capture, self.record_ids, id(batches), id(mask_data)
+
+        with self.kept.use((self._program_key(predict_fn), ck), holding,
+                           lambda: self._make_kept(prog, predict_fn, batches, mask_data, capture)) as program:
+            out = program.run(batches[0].shape[0], params)
+        with profiling.span("neurec.eval.read"):
+            if out["ids"] is not None:
+                self.last_ids = out["ids"].reshape(-1, out["ids"].shape[2]).clone()
+            return self._mean(out["total"], out["count"])
+
+    def _make_kept(self, prog: EvalProgram, predict_fn, batches, mask_data, capture: bool) -> step_graph.KeptProgram:
         """The program of one call: a prologue (the totals and the cursor
         zeroed, the hoisted tables) and the protocol's body a batch."""
         users_b = batches[0]
@@ -623,37 +591,37 @@ class UniEvaluator:
         ids = None
         if self.record_ids and self.user_neg_test is None:
             ids = torch.zeros((users_b.shape[0], users_b.shape[1], K), dtype=torch.int64, device=dev)
-        args, tables = {"params": None}, {}
+        tables = {}
 
-        def prologue():
+        def prologue(params):
             cursor.zero_()
             total.zero_()
             count.zero_()
             # user-independent tables (graph propagation) once a call, not a batch
             if prog.tables_fn is not None:
-                u_table, item_table = prog.tables_fn(args["params"])
+                u_table, item_table = prog.tables_fn(params)
                 tables["hoisted"] = (u_table.float(), item_table.float())
             if prog.dense_fn is not None:
-                tables["dense"] = prog.dense_fn(args["params"]).float()
+                tables["dense"] = prog.dense_fn(params).float()
 
         make = self._candidates_body if self.user_neg_test is not None else self._catalogue_body
         predict_fn = sized_predict(predict_fn, users_b, batches[2])
-        body = make(prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids)
-        program = step_graph.KeptProgram(prologue, body, dev, capture)
-        return _Kept(sig, batches, mask_data, program, args, total, count, ids)
+        body = make(prog, predict_fn, batches, mask_data, tables, cursor, total, count, ids)
+        return step_graph.KeptProgram(prologue, body, dev, capture, dict(
+            batches=batches, mask_data=mask_data, total=total, count=count, ids=ids))
 
     # The bodies hold what they read, not the evaluator: a kept program
     # that held it would make a reference cycle, and its pool would wait
     # for the garbage collector.
-    def _candidates_body(self, prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids):
+    def _candidates_body(self, prog, predict_fn, batches, mask_data, tables, cursor, total, count, ids):
         """The sampled-candidates protocol's batch at ``cursor``."""
         K = min(self.max_top, self.num_items)
         cand_rows, n_pos = self._cand_rows, self._n_pos
 
-        def body():
+        def body(params):
             users, sel, valid = step_graph.at(cursor, *batches)
             dense_scores = tables.get("dense")
-            scores = dense_scores[users] if dense_scores is not None else predict_fn(args["params"], users).float()
+            scores = dense_scores[users] if dense_scores is not None else predict_fn(params, users).float()
             m = candidate_metrics(scores, cand_rows[sel], n_pos[sel], K)
             total.add_(torch.sum(m * valid[:, None, None], dim=0))
             count.add_(torch.sum(valid))
@@ -661,7 +629,7 @@ class UniEvaluator:
 
         return body
 
-    def _catalogue_body(self, prog, predict_fn, batches, mask_data, args, tables, cursor, total, count, ids):
+    def _catalogue_body(self, prog, predict_fn, batches, mask_data, tables, cursor, total, count, ids):
         """The full-catalogue protocol's batch at ``cursor``: the tier's
         mask, the score, the top-K, the metric sums."""
         plan, mesh = prog.plan, self.mesh
@@ -672,8 +640,7 @@ class UniEvaluator:
             pack = (tiers.make_edge_pack(plan.pack_block, plan.pack_block) if plan.item_shard
                     else tiers.make_edge_pack(plan.pack_block, plan.bits_width))
 
-        def body():
-            params = args["params"]
+        def body(params):
             users, sel, valid = step_graph.at(cursor, *batches)
             # the splitting tiers score this rank's rows; their top-K come back whole
             users_l, sel_l = (slice_rows(users, mesh), slice_rows(sel, mesh)) if plan.dp else (users, sel)

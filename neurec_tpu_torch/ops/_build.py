@@ -6,8 +6,10 @@ rather than minutes), all sources at once in parallel, into
 ``build/neurec_tpu_torch/`` beside the package (git-ignored). A library's
 file name carries a hash of its source, the headers under ``csrc/`` and the
 flags, so an edited source or header is rebuilt and an unchanged one is
-reused. Wrappers pass raw pointers and PyTorch's current stream; each C
-entry point returns the launch's ``cudaGetLastError()`` code.
+reused. Each C entry point takes raw pointers and then PyTorch's current
+stream, and returns the launch's ``cudaGetLastError()`` code; an ops module
+binds each one it calls as an ``Entry`` and declares the wrappers that the
+ops look up at each call, and so may be replaced, as ``swappable``.
 
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -24,8 +26,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from neurec_tpu_torch.device import DeviceLike, resolve_device
 
@@ -64,6 +69,23 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# (module, name) -> the kernel wrapper the module defined under that name
+WRAPPERS: Dict[Tuple[str, str], Callable] = {}
+
+
+def swappable(fn: Callable) -> Callable:
+    """Declare ``fn`` a kernel wrapper that the ops look up as a module
+    attribute at each call (a decorator; ``fn`` is returned as it is)."""
+    WRAPPERS[fn.__module__, fn.__name__] = fn
+    return fn
+
+
+def swapped() -> tuple:
+    """``(module, name, what the module names now)`` of each declared
+    wrapper replaced since."""
+    now = ((key, getattr(sys.modules[key[0]], key[1])) for key in WRAPPERS)
+    return tuple(key + (fn,) for key, fn in now if fn is not WRAPPERS[key])
 
 
 def reset_launches() -> None:
@@ -163,3 +185,31 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         lib.neurec_error_string.argtypes = [ctypes.c_int]
         msg = lib.neurec_error_string(code).decode()
         raise RuntimeError("%s kernel launch failed: cuda error %d (%s)" % (what, code, msg))
+
+
+class Entry:
+    """Entry point ``symbol`` of kernel library ``library``, taking
+    ``argtypes`` and then the stream, returning a ``cudaError_t``: bound
+    once, at its first launch (the library loaded, built first if
+    needed)."""
+
+    def __init__(self, library: str, symbol: str, argtypes: Sequence):
+        self.library, self.symbol = library, symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self._lib = self._fn = None
+
+    def __call__(self, device: torch.device, *args, counts: Sequence[str] = ()) -> None:
+        """Launch on ``device``'s current stream, the device made current
+        for the call where it is not; raise on an error; add one launch to
+        each of ``counts`` in ``LAUNCHES``."""
+        if self._fn is None:
+            lib = load(self.library, device)
+            fn = getattr(lib, self.symbol)
+            fn.restype, fn.argtypes = ctypes.c_int, self.argtypes
+            self._lib, self._fn = lib, fn
+        switch = device.index != torch.cuda.current_device()
+        with torch.cuda.device(device) if switch else contextlib.nullcontext():
+            code = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        check(self._lib, code, self.symbol)
+        for name in counts:
+            LAUNCHES[name] += 1

@@ -143,6 +143,11 @@ def attention(q, k, v, lengths, ts, w_p, w_t) -> torch.Tensor:
     return _Attention.apply(q, k, v, w_p, w_t, lengths, ts)
 
 
+_ATTN = _build.Entry("hstu_attention", "neurec_hstu_attn_fwd", [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+    ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
+
+
+@_build.swappable
 def attention_kernel(q, k, v, lengths, ts, w_p, w_t) -> torch.Tensor:
     """The attention by ``csrc/hstu_attention.cu``: q, k (B, N, h, dqk) and
     v (B, N, h, dv) float32 views of one buffer's rows (a position's row at
@@ -173,26 +178,12 @@ def attention_kernel(q, k, v, lengths, ts, w_p, w_t) -> torch.Tensor:
         raise ValueError("w_p (%d,) and w_t (%d,) expected" % (2 * N - 1, N_BUCKETS + 1))
     out = torch.empty((B, N, h * dv), dtype=torch.float32, device=q.device)
     if B:
-        _run(q, k, v, ld, lengths, ts, w_p, w_t, out)
-        _build.LAUNCHES["hstu_attn"] += 1
+        if q.device.type != "cuda":
+            raise ValueError("the HSTU attention kernel runs on cuda, not %s" % q.device)
+        _ATTN(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, lengths.data_ptr(), ts.data_ptr(),
+              w_p.data_ptr(), w_t.data_ptr(), bucket_edges(q.device).data_ptr(), out.data_ptr(), B, N, h, dqk, dv,
+              counts=("hstu_attn",))
     return out
-
-
-def _run(q, k, v, ld, lengths, ts, w_p, w_t, out) -> None:
-    if q.device.type != "cuda":
-        raise ValueError("the HSTU attention kernel runs on cuda, not %s" % q.device)
-    lib = _build.load("hstu_attention", q.device)
-    fn = lib.neurec_hstu_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    B, N, h, dqk = q.shape
-    edges = bucket_edges(q.device)
-    with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, lengths.data_ptr(), ts.data_ptr(), w_p.data_ptr(),
-                  w_t.data_ptr(), edges.data_ptr(), out.data_ptr(), B, N, h, dqk, v.shape[3],
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "hstu_attn")
 
 
 def pair_counts(lengths: np.ndarray, N: int, heads: int, kernel: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -273,6 +264,13 @@ def _widths(**widths) -> None:
             raise ValueError("the HSTU layer kernels take %s of 1 .. %d, got %d" % (name, most, n))
 
 
+_LAYER_IN = _build.Entry("hstu_layer", "neurec_hstu_layer_in", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+    ctypes.c_int] * 2)
+_LAYER_OUT = _build.Entry("hstu_layer", "neurec_hstu_layer_out", [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [
+    ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2)
+
+
+@_build.swappable
 def layer_in(x, w1, b1) -> torch.Tensor:
     """``SiLU(LN(x) W1 + b1)`` by ``csrc/hstu_layer.cu``: x (B, N, d)
     float32, contiguous, w1 (d, W), b1 (W,) -> (B, N, W) float32. ``LAUNCHES``
@@ -287,18 +285,12 @@ def layer_in(x, w1, b1) -> torch.Tensor:
     w1, b1 = w1.contiguous(), b1.contiguous()
     out = torch.empty((B, N, W), dtype=torch.float32, device=x.device)
     if out.numel():
-        lib = _build.load("hstu_layer", x.device)
-        fn = lib.neurec_hstu_layer_in
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        with torch.cuda.device(x.device):
-            code = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), B * N, d, W,
-                      torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, code, "hstu_layer_in")
-        _build.LAUNCHES["hstu_layer_in"] += 1
+        _LAYER_IN(x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), B * N, d, W,
+                  counts=("hstu_layer_in",))
     return out
 
 
+@_build.swappable
 def layer_out(attn, u, x, w2, b2) -> torch.Tensor:
     """``x + ((u * LN(attn)) W2 + b2)`` by ``csrc/hstu_layer.cu``: attn (B,
     N, hv) and x (B, N, d) float32, contiguous; u (B, N, hv) rows at one
@@ -319,16 +311,8 @@ def layer_out(attn, u, x, w2, b2) -> torch.Tensor:
     w2, b2 = w2.contiguous(), b2.contiguous()
     out = torch.empty_like(x)
     if out.numel():
-        lib = _build.load("hstu_layer", x.device)
-        fn = lib.neurec_hstu_layer_out
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        with torch.cuda.device(x.device):
-            code = fn(attn.data_ptr(), u.data_ptr(), u.stride(1), x.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      out.data_ptr(), B * N, hv, d, torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, code, "hstu_layer_out")
-        _build.LAUNCHES["hstu_layer_out"] += 1
+        _LAYER_OUT(x.device, attn.data_ptr(), u.data_ptr(), u.stride(1), x.data_ptr(), w2.data_ptr(),
+                   b2.data_ptr(), out.data_ptr(), B * N, hv, d, counts=("hstu_layer_out",))
     return out
 
 

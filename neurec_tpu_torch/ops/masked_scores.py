@@ -125,6 +125,9 @@ def round_tf32_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), rounded, x)
 
 
+_ROUND_TF32 = _build.Entry("masked_scores", "neurec_round_tf32", [ctypes.c_void_p] * 2 + [ctypes.c_longlong])
+
+
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """TF32 rounding of an f32 tensor; on a CUDA tensor the card's own
     ``cvt.rna.tf32.f32``, which K1's integer rounding reproduces on every
@@ -135,14 +138,7 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
         return round_tf32_reference(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    lib = _build.load("masked_scores", x.device)
-    fn = lib.neurec_round_tf32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "round_tf32")
-    _build.LAUNCHES["round_tf32"] += 1
+    _ROUND_TF32(x.device, x.data_ptr(), out.data_ptr(), x.numel(), counts=("round_tf32",))
     return out
 
 
@@ -160,6 +156,9 @@ def fma_chain_scores_reference(u: torch.Tensor, items: torch.Tensor) -> torch.Te
     return acc
 
 
+_FMA_CHAIN = _build.Entry("masked_scores", "neurec_fma_chain", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
+
+
 def fma_chain_scores(u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     """(B, I) f32 u @ items^T, each score one fmaf chain from 0 over k in
     order, a thread a score on the card: the f32 path's arithmetic without
@@ -170,15 +169,8 @@ def fma_chain_scores(u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
         return fma_chain_scores_reference(u, items)
     u, items = u.contiguous(), items.contiguous()
     out = torch.empty((u.shape[0], items.shape[0]), dtype=torch.float32, device=u.device)
-    lib = _build.load("masked_scores", u.device)
-    fn = lib.neurec_fma_chain
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    with torch.cuda.device(u.device):
-        code = fn(u.data_ptr(), items.data_ptr(), out.data_ptr(), u.shape[0], items.shape[0], u.shape[1],
-                  torch.cuda.current_stream(u.device).cuda_stream)
-    _build.check(lib, code, "fma_chain")
-    _build.LAUNCHES["fma_chain"] += 1
+    _FMA_CHAIN(u.device, u.data_ptr(), items.data_ptr(), out.data_ptr(), u.shape[0], items.shape[0], u.shape[1],
+               counts=("fma_chain",))
     return out
 
 
@@ -220,6 +212,10 @@ def aligned16(u: torch.Tensor, items: torch.Tensor) -> bool:
     return u.data_ptr() % 16 == 0 and items.data_ptr() % 16 == 0
 
 
+_MASKED_SCORES = _build.Entry("masked_scores", "neurec_masked_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    ctypes.c_longlong] + [ctypes.c_int] * 3)
+
+
 def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
     """Run the K1 kernel; ``mask`` is a (B, mask_stride) uint8/int8 tensor."""
     if u.device.type != "cuda":
@@ -230,22 +226,12 @@ def _launch(u, items, mask, num_items, mask_stride, plane_bytes, mode):
     u, items = u.contiguous(), items.contiguous()
     out = torch.empty((B, num_items), dtype=torch.float32, device=u.device)
     aligned = int(aligned16(u, items))
-    lib = _build.load("masked_scores", u.device)
-    fn = lib.neurec_masked_scores
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(u.device):
-        code = fn(
-            u.data_ptr(), items.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, num_items, d, mask_stride, plane_bytes, mode, aligned,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _build.check(lib, code, "masked_scores")
-    _build.LAUNCHES["masked_scores"] += 1
+    _MASKED_SCORES(u.device, u.data_ptr(), items.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                   B, num_items, d, mask_stride, plane_bytes, mode, aligned, counts=("masked_scores",))
     return out
 
 
+@_build.swappable
 def masked_scores(
     u: torch.Tensor, items: torch.Tensor, train_rows: torch.Tensor
 ) -> torch.Tensor:
@@ -264,6 +250,7 @@ def masked_scores(
     return _launch(u, items, mask, num_items, mask.shape[1], 1, mode=0)
 
 
+@_build.swappable
 def masked_scores_bits(
     u: torch.Tensor, items: torch.Tensor, bits: torch.Tensor, width: int, num_items: int
 ) -> torch.Tensor:

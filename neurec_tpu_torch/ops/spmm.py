@@ -35,10 +35,9 @@ autograd. Launches over a transposed plan count as ``plan_spmm_t`` (K2) and
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -367,14 +366,17 @@ def _check_launch(plan: SpmmPlan, x: torch.Tensor, what: str) -> bool:
     return True
 
 
-# kernel name -> (library, entry point with its argument types set)
-_ENTRIES: Dict[str, Tuple[ctypes.CDLL, Any]] = {}
+# kernel name -> its entry point: the schedule's, the values', x's, out's and
+# the scratch rows' pointers, the span and split counts, the kernel's own
+# integers and x_bf16
+_ENTRIES = {name: _build.Entry(name, "neurec_" + name, [ctypes.c_void_p] * 9 + [ctypes.c_int] * (3 + n_ints))
+            for name, n_ints in (("plan_spmm", 1), ("plan_spmm_packed", 3))}
 
 
-def _launch(name: str, plan: SpmmPlan, x: torch.Tensor, vals: torch.Tensor, *ints: int) -> torch.Tensor:
+def _launch(name: str, plan: SpmmPlan, x: torch.Tensor, vals: torch.Tensor, *ints: int, counts=()) -> torch.Tensor:
     """Run kernel ``name`` (K2 ``plan_spmm`` or K3 ``plan_spmm_packed``)
     along the plan's schedule; ``ints`` are the entry point's own integer
-    arguments before ``x_bf16``."""
+    arguments before ``x_bf16``; ``counts`` the ``LAUNCHES`` it adds to."""
     sched = spmm_schedule(plan)
     x = x.contiguous()
     if x.data_ptr() % 16:
@@ -384,37 +386,27 @@ def _launch(name: str, plan: SpmmPlan, x: torch.Tensor, vals: torch.Tensor, *int
     n_spans, n_split = sched.spans.shape[0], sched.split.shape[0]
     # one scratch row per span; the spans that hold a piece of a cut row write theirs
     partial = torch.empty((n_spans, d), dtype=torch.float32, device=x.device) if n_split else None
-    if name not in _ENTRIES:
-        lib = _build.load(name, x.device)
-        fn = getattr(lib, "neurec_" + name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * (2 + len(ints) + 1) + [ctypes.c_void_p]
-        _ENTRIES[name] = (lib, fn)
-    lib, fn = _ENTRIES[name]
-    switch = x.device.index != torch.cuda.current_device()
-    with torch.cuda.device(x.device) if switch else contextlib.nullcontext():
-        code = fn(
-            sched.perm.data_ptr(), sched.cols.data_ptr(), sched.row_ptr.data_ptr(), sched.spans.data_ptr(),
-            sched.split.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            n_spans, n_split, *ints, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, code, name)
+    _ENTRIES[name](
+        x.device, sched.perm.data_ptr(), sched.cols.data_ptr(), sched.row_ptr.data_ptr(), sched.spans.data_ptr(),
+        sched.split.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        n_spans, n_split, *ints, int(x.dtype == torch.bfloat16), counts=counts,
+    )
     return out
 
 
+@_build.swappable
 def plan_scatter(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
     """K2: (n_rows, d) f32 = A @ x for the plan's sparse A (x f32 or bf16,
     plan on x's device). A launch is the span kernel, plus a fix-up kernel
     where the schedule cut rows."""
     if not _check_launch(plan, x, "plan_spmm"):
         return plan_spmm_reference(plan, x)
-    out = _launch("plan_spmm", plan, x, plan.vals, x.shape[1])
-    _build.LAUNCHES["plan_spmm_t" if plan.transposed else "plan_spmm"] += 1
-    return out
+    return _launch("plan_spmm", plan, x, plan.vals, x.shape[1],
+                   counts=("plan_spmm_t" if plan.transposed else "plan_spmm",))
 
 
+@_build.swappable
 def plan_spmm_packed(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor:
     """K3: A @ x with ``pack`` (2 or 4) edges' rows fetched per load
     instruction, reading the edge values from the parity-grouped plan
@@ -424,11 +416,11 @@ def plan_spmm_packed(plan: SpmmPlan, x: torch.Tensor, pack: int) -> torch.Tensor
     _, vals_p = packed_layout(plan, pack)
     if not _check_launch(plan, x, "plan_spmm_packed"):
         return plan_spmm_packed_reference(plan, x, pack)
-    out = _launch("plan_spmm_packed", plan, x, vals_p, plan.rows.shape[1], x.shape[1], pack)
-    _build.LAUNCHES["plan_spmm_packed_t" if plan.transposed else "plan_spmm_packed"] += 1
-    return out
+    return _launch("plan_spmm_packed", plan, x, vals_p, plan.rows.shape[1], x.shape[1], pack,
+                   counts=("plan_spmm_packed_t" if plan.transposed else "plan_spmm_packed",))
 
 
+@_build.swappable
 def plan_spmm(plan: SpmmPlan, x: torch.Tensor) -> torch.Tensor:
     """(n_rows, d) f32 = A @ x in x's dtype (f32 or bf16; ``PlanSpmm``
     casts to ``spmm_compute_dtype()`` first), routed as the JAX package's

@@ -37,6 +37,9 @@ from neurec_tpu_torch.ops import _build
 # from device memory
 PATHS = ("resident", "streamed")
 
+_TOPK = _build.Entry("topk", "neurec_topk", [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+
 
 def order_key(x: torch.Tensor) -> torch.Tensor:
     """int32 keys whose signed order is the IEEE total order of ``x`` as
@@ -73,6 +76,7 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return top_k_kernel(x, k)
 
 
+@_build.swappable
 def top_k_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``top_k`` by the kernel: ``x`` a float32 (B, I) block with unit
     stride along a row, 1 <= k <= I. ``LAUNCHES`` counts ``topk`` and
@@ -101,16 +105,8 @@ def _run(x: torch.Tensor, k: int, vals: torch.Tensor, ids: torch.Tensor, streame
     row's length: the tests hold both paths to one answer."""
     if x.device.type != "cuda":
         raise ValueError("the top-K kernel runs on cuda, not %s" % x.device)
-    lib = _build.load("topk", x.device)
-    fn = lib.neurec_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     B, I = x.shape
     ld = x.stride(0) if B > 1 else I
     path = ctypes.c_int(-1)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), ld, B, I, k, vals.data_ptr(), ids.data_ptr(), int(streamed), ctypes.byref(path),
-                  torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "topk")
+    _TOPK(x.device, x.data_ptr(), ld, B, I, k, vals.data_ptr(), ids.data_ptr(), int(streamed), ctypes.byref(path))
     return PATHS[path.value]

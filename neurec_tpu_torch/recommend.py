@@ -21,16 +21,16 @@ block, as JAX's ``mode="drop"``), and writes its top-K into static
 (n_batches, B, k) buffers; the host reads them once at the end. A model
 whose ``predict`` takes an edge capacity (NAIS, DeepICF:
 ``predict_capacity``) gets the request's, rounded up to a power of two as
-the edge count is. The programs are kept per live model in
-``_EXPORT_CACHE``, keyed by (B, k, masked, use_dense), the batch, edge and
-capacity counts and the kernels' routes (``step_graph.routes``), with a
-weakref finalizer on the model and an LRU of ``_EXPORT_CACHE_MAX``; a
-program holds the model weakly. On a CUDA device (``_captures``, and
-``graphs``) a program is a
-``step_graph.KeptProgram`` captured as CUDA graphs at its first call and
-replayed by later ones; a call copies its users and edges into the
-program's static inputs, and a program whose ``params`` leaves moved is
-captured anew. Elsewhere the same program runs eagerly.
+the edge count is. The programs are kept in ``EXPORTS``, one
+``step_graph.KeptStore`` a process (an LRU of 8), keyed by the model,
+(B, k, masked, use_dense), the batch, edge and capacity counts; a program
+holds the model weakly, and a finalizer on the model releases its
+programs. On a CUDA device (``step_graph.captures``, and ``graphs``) a
+program is a ``step_graph.KeptProgram`` captured as CUDA graphs at its
+first call and replayed by later ones; a call copies its users and edges
+into the program's static inputs, and a program whose ``params`` leaves
+moved, or a kernel wrapper swapped (``step_graph.routes``), is captured
+anew. Elsewhere the same program runs eagerly.
 
 While tracing is on (``profiling``), a call is the span
 ``neurec.batch_topk`` (attribute ``captured``, the graphs a capture
@@ -43,8 +43,7 @@ and ``neurec.serve.read`` (the two reads back).
 from __future__ import annotations
 
 import weakref
-from collections import OrderedDict
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,53 +53,13 @@ from neurec_tpu_torch.device import DeviceLike, resolve_device
 from neurec_tpu_torch.ops.topk import top_k
 
 
-class _Export(NamedTuple):
-    """A kept export program, its static inputs and outputs, ``args``
-    (``params`` during a run) and ``sig`` (``step_graph.signature`` of the
-    params it was made for)."""
-
-    program: step_graph.KeptProgram
-    users_b: torch.Tensor
-    e_items: torch.Tensor
-    e_users: torch.Tensor
-    scores: torch.Tensor
-    items: torch.Tensor
-    args: dict
-    sig: tuple
+# the export programs of this process
+EXPORTS = step_graph.KeptStore(most=8)
 
 
-_EXPORT_CACHE: "OrderedDict[tuple, _Export]" = OrderedDict()
-_EXPORT_CACHE_MAX = 8
-
-
-def _release(key) -> None:
-    export = _EXPORT_CACHE.pop(key, None)
-    if export is not None:
-        export.program.release()
-
-
-def _cache_get(model, sub_key) -> Optional[_Export]:
-    key = (id(model), sub_key)
-    export = _EXPORT_CACHE.get(key)
-    if export is not None:
-        _EXPORT_CACHE.move_to_end(key)
-    return export
-
-
-def _cache_put(model, sub_key, export: _Export) -> None:
-    key = (id(model), sub_key)
-    _release(key)
-    _EXPORT_CACHE[key] = export
-    mid = id(model)
-    weakref.finalize(model, lambda mid=mid: [_release(k) for k in [k for k in _EXPORT_CACHE if k[0] == mid]])
-    while len(_EXPORT_CACHE) > _EXPORT_CACHE_MAX:
-        _release(next(iter(_EXPORT_CACHE)))
-
-
-def _captures(model, device: torch.device) -> bool:
-    """Whether the export runs as CUDA graphs kept across calls (unless
-    the caller passes ``graphs=False``)."""
-    return device.type == "cuda"
+def _release_model(mid: int) -> None:
+    for key in [key for key in EXPORTS if key[0] == mid]:
+        EXPORTS.release(key)
 
 
 def _batch_edges_from_csr(csr, users_pad, n_valid, n_batches, B):
@@ -191,38 +150,32 @@ def batch_topk(
         if not use_dense and callable(getattr(model, "predict_capacity", None)):
             real = (np.arange(n_batches * B) < n).reshape(n_batches, B)
             capacity = max(1 << (model.predict_capacity(users_pad.reshape(n_batches, B), real) - 1).bit_length(), 8)
-        capture = graphs and _captures(model, dev)
-        sub_key = (B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, capture, step_graph.routes())
-        sig = step_graph.signature(params)
-        export = _cache_get(model, sub_key)
-        if export is None or export.sig != sig:
-            export = _make_export(model, B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, dev, capture,
-                                  sig)
-            _cache_put(model, sub_key, export)
-        with profiling.span("neurec.serve.h2d") as sp:
-            if sp:
-                sp.attrs["h2d_bytes"] = export.users_b.nbytes + export.e_items.nbytes + export.e_users.nbytes
-            export.users_b.copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
-            export.e_items.copy_(torch.from_numpy(e_items))
-            export.e_users.copy_(torch.from_numpy(e_users))
-        export.args["params"] = params
-        try:
-            export.program.run(n_batches)
-        finally:
-            export.args["params"] = None
+        capture = step_graph.captures(dev, graphs)
+        key = (id(model), B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, capture)
+        with EXPORTS.use(key, lambda: step_graph.signature(params), lambda: _make_export(
+                model, B, k, masked, use_dense, n_batches, e_items.shape[1], capacity, dev, capture)) as export:
+            inputs = export.tensors
+            with profiling.span("neurec.serve.h2d") as sp:
+                if sp:
+                    sp.attrs["h2d_bytes"] = inputs["users"].nbytes + inputs["e_items"].nbytes + inputs["e_users"].nbytes
+                inputs["users"].copy_(torch.from_numpy(users_pad.reshape(n_batches, B)))
+                inputs["e_items"].copy_(torch.from_numpy(e_items))
+                inputs["e_users"].copy_(torch.from_numpy(e_users))
+            out = export.run(n_batches, params)
         with profiling.span("neurec.serve.read"):
-            items = export.items.reshape(-1, k).cpu().numpy()[:n]
-            scores = export.scores.reshape(-1, k).cpu().numpy()[:n]
+            items = out["items"].reshape(-1, k).cpu().numpy()[:n]
+            scores = out["scores"].reshape(-1, k).cpu().numpy()[:n]
         return items.astype(np.int32), scores.astype(np.float32)
 
 
-def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev, capture, sig) -> _Export:
+def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev, capture) -> step_graph.KeptProgram:
     """The export program over static inputs (users, edge items, edge
     slots) and outputs (scores, ids), ``predict`` given ``capacity`` where
     it is not None; it reaches the model through a weak reference, so the
-    cache does not keep the model alive."""
+    store does not keep the model alive."""
     sized = {} if capacity is None else {"capacity": capacity}
     model_ref = weakref.ref(model)
+    weakref.finalize(model, _release_model, id(model))
     num_items = model.num_items
     cursor = torch.zeros(1, dtype=torch.int64, device=dev)
     users_b = torch.zeros((n_batches, B), dtype=torch.int64, device=dev)
@@ -230,16 +183,16 @@ def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev
     e_users = torch.zeros((n_batches, e_max), dtype=torch.int64, device=dev)
     out_scores = torch.zeros((n_batches, B, k), dtype=torch.float32, device=dev)
     out_items = torch.zeros((n_batches, B, k), dtype=torch.int64, device=dev)
-    args, tables = {"params": None}, {}
+    tables = {}
 
-    def prologue():
+    def prologue(params):
         cursor.zero_()
         if use_dense:
-            tables["dense"] = model_ref().eval_dense_scores(args["params"]).float()
+            tables["dense"] = model_ref().eval_dense_scores(params).float()
 
-    def body():
+    def body(params):
         bu, ei, eu = step_graph.at(cursor, users_b, e_items, e_users)
-        scores = tables["dense"][bu] if use_dense else model_ref().predict(args["params"], bu, **sized).float()
+        scores = tables["dense"][bu] if use_dense else model_ref().predict(params, bu, **sized).float()
         if masked:
             # one fill at flat offsets of a copy with one element past the
             # block: a pad pair (slot == B) writes there, as mode="drop"
@@ -253,5 +206,5 @@ def _make_export(model, B, k, masked, use_dense, n_batches, e_max, capacity, dev
         out_items.index_copy_(0, cursor, idx[None])
         cursor.add_(1)
 
-    program = step_graph.KeptProgram(prologue, body, dev, capture)
-    return _Export(program, users_b, e_items, e_users, out_scores, out_items, args, sig)
+    return step_graph.KeptProgram(prologue, body, dev, capture, dict(
+        users=users_b, e_items=e_items, e_users=e_users, scores=out_scores, items=out_items))

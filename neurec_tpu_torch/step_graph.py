@@ -61,14 +61,16 @@ draws from the generator it is handed, seeded from ``step_seeds``, which
 the epoch's generator draws on the host before the steps, and ends in
 ``train_step``.
 
-``KeptProgram(prologue, body, device, capture)`` is the evaluator's and the
-serving export's form (the JAX package's jitted evaluation and export,
-cached per predict function and per model). Its first call runs eagerly
-and captures a graph of the prologue and one of the body; later calls
-replay the prologue once and the body once a batch. The caller keeps it
-while what it captured holds: ``signature`` of the tensors it reads (an
-update in place keeps it) and ``routes``, the SpMM variables and the
-kernels' wrappers at capture. A ``KeptSteps`` holds by the same rule.
+``KeptProgram(prologue, body, device, capture, tensors)`` is the
+evaluator's and the serving export's form (the JAX package's jitted
+evaluation and export, cached per predict function and per model). Its
+first call runs eagerly and captures a graph of the prologue and one of the
+body; later calls replay the prologue once and the body once a batch.
+
+Whether a program runs as CUDA graphs is one rule, ``captures``; the
+trainer, the evaluator and the serving export each keep theirs in a
+``KeptStore``, by key with the holding it was made under (``signature``
+of the tensors it reads, which an update in place keeps, and ``routes``).
 
 Spans (``profiling.span``, recorded only while tracing is on): a kept
 run's ``neurec.steps.inputs`` (the copies into its buffers),
@@ -82,7 +84,9 @@ call's top span as ``captured`` (``profiling.count``).
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
+from collections import OrderedDict
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
@@ -135,8 +139,17 @@ class _CudaGraphs:
         for gen in generators:
             graph.register_generator_state(gen)
         self.graphs.append(graph)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            fn()
+        # no garbage collection inside a capture: a dead program's graph
+        # reset there (PyTorch no longer collects before a capture) would
+        # invalidate it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
     @staticmethod
@@ -356,6 +369,14 @@ def _opt_signature(opt) -> tuple:
     return (id(opt), signature([g["params"] for g in opt.param_groups]), signature(state))
 
 
+def steps_holding(steps: Steps, unroll: int) -> tuple:
+    """What a ``KeptSteps`` of ``steps`` holds: the ``scan_unroll``, the
+    tensors of ``reads`` and the optimizer's params and state where they
+    were (an update in place keeps them), the inputs' shapes and dtypes,
+    and whether the steps draw."""
+    return unroll, signature(steps.reads), _opt_signature(steps.opt), _layout(steps.inputs), steps.seeds is None
+
+
 class KeptSteps:
     """A run of steps kept across calls: the counterpart of the JAX
     trainer's epoch, jitted once in ``initialize`` and called every epoch
@@ -376,12 +397,9 @@ class KeptSteps:
     is first needed); the optimizer's tables are refilled in place for the
     call's steps. ``updates`` are copied back to the call's tensors.
 
-    The program holds while ``holds(steps, unroll)``: the same
-    ``scan_unroll``, the tensors of ``reads`` and the optimizer's params
-    and state where they were (an update in place keeps them), the inputs'
-    shapes and dtypes, ``routes()`` (the SpMM variables, the kernels'
-    wrappers) as at capture, and ``n`` within its count tables. A failed
-    capture or replay raises; nothing falls back to eager steps."""
+    A trainer keeps it in a ``KeptStore`` under ``steps_holding`` and
+    while ``fits``: ``n`` within its count tables. A failed capture or
+    replay raises; nothing falls back to eager steps."""
 
     def __init__(self, steps: Steps, device: torch.device, unroll: int):
         self.device, self.unroll = device, unroll
@@ -392,7 +410,6 @@ class KeptSteps:
         self.graphs = _StepGraphs(step, device, unroll, steps.seeds is not None)
         self.count = None  # the optimizer's device count (``_DeviceCount``)
         self.calls = 0
-        self._held = None
 
     @property
     def captured(self) -> int:
@@ -403,15 +420,9 @@ class KeptSteps:
     def pool_bytes(self) -> int:
         return self.graphs.pool_bytes
 
-    def _holding(self, steps: Steps) -> tuple:
-        return (routes(), signature(steps.reads), _opt_signature(steps.opt), _layout(steps.inputs),
-                steps.seeds is None)
-
-    def holds(self, steps: Steps, unroll: int) -> bool:
-        """Whether a call of ``steps`` at ``unroll`` may replay this
-        program (see the class docstring)."""
-        rows = self.count.rows if self.count is not None else steps.n
-        return self.unroll == unroll and steps.n <= rows and self._held == self._holding(steps)
+    def fits(self, n: int) -> bool:
+        """Whether a call of ``n`` steps fits the optimizer's count tables."""
+        return self.count is None or n <= self.count.rows
 
     def run(self, steps: Steps) -> torch.Tensor:
         """The call's steps; returns their summed losses (a fresh 0-d f32
@@ -432,8 +443,6 @@ class KeptSteps:
                 _copy_tree(steps.inputs[name], self.inputs[name])
         if steps.opt is not None:
             steps.opt.zero_grad(set_to_none=True)
-        if not self.calls:
-            self._held = self._holding(steps)
         self.calls += 1
         return self.total.clone()
 
@@ -449,16 +458,69 @@ SPMM_ENV = ("NEUREC_SPMM_PACK", "NEUREC_SPMM_DTYPE", "NEUREC_SPMM_PALLAS")
 
 def routes() -> tuple:
     """What a capture holds besides the tensors it reads: the values of
-    ``SPMM_ENV`` now (None where unset) and the module-level kernel
-    wrappers the ops look up at each call (K1's, K2's, K3's, HSTU's
-    attention and layer kernels), so that a kept program is captured anew
-    after a change of either (a wrapper replaced by its plain version,
-    say)."""
-    from neurec_tpu_torch.ops import hstu, masked_scores as k1, spmm as k2
+    ``SPMM_ENV`` now (None where unset) and the kernel wrappers that their
+    modules name in place of the ones they declared
+    (``_build.swappable``), so that a kept program is captured anew after
+    a change of either (a wrapper replaced by its plain version, say)."""
+    return tuple(os.environ.get(name) for name in SPMM_ENV) + _build.swapped()
 
-    wrappers = (k1.masked_scores, k1.masked_scores_bits, k2.plan_spmm, k2.plan_scatter, k2.plan_spmm_packed,
-                hstu.attention_kernel, hstu.layer_in, hstu.layer_out)
-    return tuple(os.environ.get(name) for name in SPMM_ENV) + wrappers
+
+def captures(device: torch.device, graphs: bool = True, mesh=None) -> bool:
+    """Whether a program runs as CUDA graphs kept across calls: on a CUDA
+    device, with ``graphs``, without a mesh of more than one rank (gloo
+    stages every collective through the host, which a graph cannot
+    hold)."""
+    return graphs and device.type == "cuda" and (mesh is None or mesh.size == 1)
+
+
+class KeptStore(OrderedDict):
+    """Programs by key, each kept with the holding it was made under: how
+    the trainer keeps its runs of steps, the evaluator its programs and the
+    serving export its own. A program has ``release()``.
+
+    ``use(key, holding, make, fits)`` yields the program kept under
+    ``key`` while it holds: ``holding()`` and ``routes()`` equal to what
+    they were after its first use (which may make state that it reads: the
+    optimizer's), and ``fits(program)`` where given. Else the kept one is
+    released and ``make()`` makes the new one. Past ``most`` programs
+    (None: no limit) the least recently used is released. A make, or a
+    use that raises, leaves nothing kept under ``key``."""
+
+    def __init__(self, most: Optional[int] = None):
+        super().__init__()
+        self.most = most
+        self.held = {}  # key -> (routes, holding) after its program's first use
+
+    @contextlib.contextmanager
+    def use(self, key, holding: Callable[[], Any], make: Callable[[], Any],
+            fits: Optional[Callable[[Any], bool]] = None):
+        program = self.get(key)
+        if program is not None and (self.held.get(key) != (routes(), holding())
+                                    or (fits is not None and not fits(program))):
+            self.release(key)
+            program = None
+        try:
+            made = program is None
+            if made:
+                self[key] = program = make()
+                while self.most is not None and len(self) > self.most:
+                    self.release(next(iter(self)))
+            self.move_to_end(key)
+            yield program
+            if made:
+                self.held[key] = routes(), holding()
+        except BaseException:
+            self.release(key)
+            raise
+
+    def release(self, key=None) -> None:
+        """Release the program kept under ``key`` (every program without
+        one): its graphs, their pool and its buffers."""
+        for k in list(self) if key is None else [key]:
+            self.held.pop(k, None)
+            program = self.pop(k, None)
+            if program is not None:
+                program.release()
 
 
 def signature(tree) -> tuple:
@@ -482,9 +544,11 @@ class KeptProgram:
     keeps in its cache (the evaluator's ``full_catalog_all`` /
     ``candidate_all``, the serving export).
 
-    Both run over device state they own (a cursor that ``prologue`` zeroes
+    ``run(n, params)`` calls ``prologue(params)`` and ``body(params)``:
+    both run over device state they own (a cursor that ``prologue`` zeroes
     and ``body`` reads at and advances, totals, static input and output
-    buffers) and read no host value that changes from call to call.
+    buffers, named in ``tensors`` for the caller) and read no host value
+    that changes from call to call.
 
     With ``capture`` the first ``run`` is the warm-up that capture needs:
     the call runs eagerly on a side stream (the kernel libraries load, what
@@ -492,32 +556,35 @@ class KeptProgram:
     prologue and the body are each captured into a graph on one memory
     pool, which runs nothing. Every later ``run`` replays the prologue's
     graph once and the body's ``n`` times: ``n + 1`` graph launches, no host
-    sync. So every call counts each kernel's launches once, as an eager
-    call does: the first by its wrappers, the later ones by the launches a
-    capture took, added once a replay (as a ``KeptSteps``'s). ``pool_bytes``
-    is the allocator's reserved memory grown over the captures. A failed
-    capture raises and leaves no graph; ``release`` resets the graphs.
+    sync, over the ``params`` tensors of the capture. So every call counts
+    each kernel's launches once, as an eager call does: the first by its
+    wrappers, the later ones by the launches a capture took, added once a
+    replay (as a ``KeptSteps``'s). ``pool_bytes`` is the allocator's
+    reserved memory grown over the captures. A failed capture raises and
+    leaves no graph; ``release`` resets the graphs.
     """
 
-    def __init__(self, prologue: Callable[[], None], body: Callable[[], None], device: torch.device,
-                 capture: bool):
+    def __init__(self, prologue: Callable[[Any], None], body: Callable[[Any], None], device: torch.device,
+                 capture: bool, tensors: Optional[dict] = None):
         self.prologue, self.body = prologue, body
         self.device, self.capture = device, capture
+        self.tensors = tensors or {}
         self.pool_bytes = 0
         self._graphs = None
 
-    def _eager(self, n: int) -> None:
-        self.prologue()
+    def _eager(self, n: int, params) -> None:
+        self.prologue(params)
         for _ in range(n):
-            self.body()
+            self.body(params)
 
-    def run(self, n: int) -> None:
+    def run(self, n: int, params=None) -> dict:
+        """The call: ``n`` batches over ``params``; returns ``tensors``."""
         if not self.capture:
             with profiling.span("neurec.program.eager"):
-                self._eager(n)
+                self._eager(n, params)
         elif self._graphs is None:
             with profiling.span("neurec.program.capture"):
-                self._capture(n)
+                self._capture(n, params)
             profiling.count(captured=2)
         else:
             cuda, (prologue, p_launches), (body, b_launches) = self._graphs
@@ -527,17 +594,18 @@ class KeptProgram:
                 for _ in range(n):
                     cuda.replay(body)
                     _build.add_launches(b_launches)
+        return self.tensors
 
-    def _capture(self, n: int) -> None:
+    def _capture(self, n: int, params) -> None:
         cuda = _CudaGraphs(self.device)
         try:
             with cuda:
-                cuda.warm_up(lambda: self._eager(n))
+                cuda.warm_up(lambda: self._eager(n, params))
                 before = cuda.reserved(empty=True)
                 with _build.captured_launches() as p_launches:
-                    prologue = cuda.capture(self.prologue, [])
+                    prologue = cuda.capture(lambda: self.prologue(params), [])
                 with _build.captured_launches() as b_launches:
-                    body = cuda.capture(self.body, [])
+                    body = cuda.capture(lambda: self.body(params), [])
                 self.pool_bytes = cuda.reserved() - before
         except BaseException:
             cuda.release()

@@ -6,7 +6,8 @@ called every epoch; here an epoch's steps are one step function (a
 built-in epoch's ``_step``, a custom epoch's from its model) that, on a
 CUDA device, a ``step_graph.KeptSteps`` captures as CUDA graphs of
 ``scan_unroll`` steps at the first epoch and replays at every later one
-(``take_steps``, the programs kept in ``Trainer.kept``), and that runs step
+(``take_steps``, the programs kept in ``Trainer.kept``, a
+``step_graph.KeptStore``), and that runs step
 by step on the CPU (``Trainer(graphs=False)`` and a mesh of more than one
 rank too).
 ``graphs`` reaches the evaluator too: its programs are CUDA graphs kept
@@ -127,7 +128,7 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from neurec_tpu_torch import profiling
+from neurec_tpu_torch import profiling, step_graph
 from neurec_tpu_torch.bridge import map_params, param_leaves
 from neurec_tpu_torch.data.padded import build_padded_positives
 from neurec_tpu_torch.data.sequences import user_seq_windows
@@ -521,7 +522,7 @@ class Trainer:
         self._epoch_fn: Optional[Callable] = None
         # the runs of steps captured where the trainer captures, kept for its
         # life by run name (Steps.name): the built-in epoch, each custom pass
-        self.kept: Dict[str, KeptSteps] = {}
+        self.kept = step_graph.KeptStore()
 
     def _build_exclusion(self, train_matrix) -> None:
         """The sampler's exclusion: the padded positive rows, or the pair
@@ -665,40 +666,25 @@ class Trainer:
 
     def take_steps(self, steps: Steps) -> torch.Tensor:
         """A run of steps as this trainer runs them: where it captures
-        (``_captures``), the ``step_graph.KeptSteps`` it keeps under
-        ``steps.name``, captured at the run's first call and replayed at
-        every later one while it holds (``KeptSteps.holds``), else captured
-        anew; eagerly elsewhere (``step_graph.take_steps``). Returns the
-        summed step losses, over 'data' on a split run. ``run_epoch`` and
-        the custom epochs (``Recommender.take_steps``) take their steps
-        here."""
-        if not self._captures():
+        (``step_graph.captures``), the ``step_graph.KeptSteps`` it keeps
+        under ``steps.name``, captured at the run's first call and replayed
+        at every later one while it holds (``step_graph.steps_holding``,
+        ``KeptSteps.fits``), else captured anew; eagerly elsewhere
+        (``step_graph.take_steps``). Returns the summed step losses, over
+        'data' on a split run. ``run_epoch`` and the custom epochs
+        (``Recommender.take_steps``) take their steps here."""
+        if not step_graph.captures(self.device, self.graphs, self.mesh):
             return self.dp_loss_total(take_steps(steps, self.device), steps.split)
-        kept = self.kept.get(steps.name)
-        if kept is not None and not kept.holds(steps, self.scan_unroll):
-            self.release_kept(steps.name)
-            kept = None
-        if kept is None:
-            kept = self.kept[steps.name] = KeptSteps(steps, self.device, self.scan_unroll)
-        try:
+        with self.kept.use(steps.name, lambda: step_graph.steps_holding(steps, self.scan_unroll),
+                           lambda: KeptSteps(steps, self.device, self.scan_unroll),
+                           lambda kept: kept.fits(steps.n)) as kept:
             total = kept.run(steps)
-        except BaseException:
-            self.release_kept(steps.name)
-            raise
         return self.dp_loss_total(total, steps.split)
 
     def release_kept(self, name: Optional[str] = None) -> None:
         """Release the kept run ``name`` (every kept run without one): its
         graphs, their pool and its buffers."""
-        for key in [name] if name is not None else list(self.kept):
-            kept = self.kept.pop(key, None)
-            if kept is not None:
-                kept.release()
-
-    def _captures(self) -> bool:
-        """Whether ``take_steps`` runs its steps as CUDA-graph replays: on a
-        CUDA device, with ``graphs``, without a mesh of more than one rank."""
-        return self.graphs and self.device.type == "cuda" and (self.mesh is None or self.mesh.size == 1)
+        self.kept.release(name)
 
     def _step(self, params: Params, opt_state, xs, cursor: torch.Tensor, total: torch.Tensor,
               split: Optional[BatchSplit], epoch: torch.Tensor, generator: Optional[torch.Generator]) -> None:

@@ -195,8 +195,8 @@ def _stub_graphs(monkeypatch):
 @pytest.mark.parametrize("unroll", [1, 3])
 def test_captured_epochs_equal_the_eager_ones(name, unroll, tmp_path, monkeypatch):
     """Two epochs through ``train_epoch``: eagerly, and through the
-    runner's captured path with the CUDA side stubbed (the trainer's
-    ``_captures`` true), one graph set per run of steps (the epoch's, or
+    runner's captured path with the CUDA side stubbed
+    (``step_graph.captures`` as on a card), one graph set per run of steps (the epoch's, or
     each kind of pass: CFGAN's D and G sub-epochs, IRGAN's D and G passes),
     captured at epoch 1 and kept: epoch 2 replays it."""
     opened = _stub_graphs(monkeypatch)
@@ -205,7 +205,7 @@ def test_captured_epochs_equal_the_eager_ones(name, unroll, tmp_path, monkeypatc
         trainer = trainer_for(name, tmp_path)
         trainer.scan_unroll = unroll
         if captured:
-            monkeypatch.setattr(trainer, "_captures", lambda: True)
+            monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
         losses = []
         for epoch in (1, 2):
             trainer.params, trainer.opt_state, loss = trainer.train_epoch(epoch)

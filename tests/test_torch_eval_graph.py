@@ -20,7 +20,7 @@ prologue and body run eagerly. Held here:
   another value of ``NEUREC_SPMM_PACK`` / ``_DTYPE`` / ``_PALLAS``, a
   kernel wrapper replaced by its plain version and ``record_ids`` each
   capture anew and release the old program; an update in place does not;
-  the programs are an LRU of ``KEPT_MAX`` over batch sets; a kept program
+  the programs are an LRU of 8 over batch sets; a kept program
   replays its prologue once and its body once a batch and adds the
   captured launches once a replay;
 * the serving cache: a weak hold on the model (its death evicts and
@@ -56,7 +56,7 @@ from neurec_tpu_torch.data.dataset import Dataset
 from neurec_tpu_torch.data.synthetic import DictConfig, random_dataset
 from neurec_tpu_torch.eval import evaluator as evaluator_mod
 from neurec_tpu_torch.eval import tiers
-from neurec_tpu_torch.eval.evaluator import KEPT_MAX, GroupedEvaluator, UniEvaluator, candidate_metrics
+from neurec_tpu_torch.eval.evaluator import GroupedEvaluator, UniEvaluator, candidate_metrics
 from neurec_tpu_torch.models import get_model, registered_models
 from neurec_tpu_torch.ops import _build, graph
 from neurec_tpu_torch.ops import masked_scores as k1
@@ -298,14 +298,18 @@ class StubGraphs:
         return 0
 
 
+def on_card(device, graphs=True, mesh=None):
+    """``step_graph.captures`` as on a card: wherever ``graphs`` is on."""
+    return graphs
+
+
 @pytest.fixture
 def stubbed(monkeypatch):
     """The CUDA side stubbed; the evaluator and serving capture on the CPU
     where they would on a card."""
     StubGraphs.made = []
     monkeypatch.setattr(step_graph, "_CudaGraphs", StubGraphs)
-    monkeypatch.setattr(UniEvaluator, "_captures", lambda self, fn: self.graphs)
-    monkeypatch.setattr(recommend, "_captures", lambda model, device: True)
+    monkeypatch.setattr(step_graph, "captures", on_card)
     return StubGraphs.made
 
 
@@ -345,19 +349,21 @@ def test_kept_program_recaptures_when_what_it_holds_changes(stubbed, monkeypatch
     assert captures() == 6
     ev.record_ids = True
     ev.evaluate_raw(model.predict, params)
-    assert captures() == 7 and len(ev._kept) == 1
+    assert captures() == 7 and len(ev.kept) == 1
 
 
 def test_kept_programs_are_an_lru_over_batch_sets(stubbed, monkeypatch):
     model, params, ev, _ = build("mf", monkeypatch)
-    subsets = [ev.test_users[i: i + 5] for i in range(KEPT_MAX + 3)]
+    most = ev.kept.most
+    assert most == 8
+    subsets = [ev.test_users[i: i + 5] for i in range(most + 3)]
     for users in subsets:
         ev.evaluate_raw(model.predict, params, users)
-    assert len(ev._kept) == KEPT_MAX
-    assert [s.released for s in stubbed] == [True] * 3 + [False] * KEPT_MAX
+    assert len(ev.kept) == most
+    assert [s.released for s in stubbed] == [True] * 3 + [False] * most
     # the newest is replayed, not captured again
     ev.evaluate_raw(model.predict, params, subsets[-1])
-    assert len(stubbed) == KEPT_MAX + 3
+    assert len(stubbed) == most + 3
 
 
 def test_grouped_evaluation_keeps_a_program_a_group(stubbed, monkeypatch):
@@ -383,17 +389,17 @@ def test_kept_program_replays_prologue_once_and_body_a_batch(monkeypatch):
             before = dict(_build.LAUNCHES)
             fn()  # the host code of a capture runs; its kernels do not
             assert _build.LAUNCHES != before
-            return fn.__name__
+            return events[-1].replace("eager ", "")  # what the capture ran
 
         @staticmethod
         def replay(name):
             events.append(name)
 
-    def prologue():
+    def prologue(params):
         _build.LAUNCHES["plan_spmm"] += 3
         events.append("eager prologue")
 
-    def body():
+    def body(params):
         _build.LAUNCHES["masked_scores"] += 1
         events.append("eager body")
 
@@ -424,7 +430,7 @@ def test_a_failed_capture_raises_and_keeps_no_graph(monkeypatch):
 
     monkeypatch.setattr(step_graph, "_CudaGraphs", Failing)
     Failing.made = []
-    program = step_graph.KeptProgram(lambda: None, lambda: None, torch.device("cpu"), capture=True)
+    program = step_graph.KeptProgram(lambda params: None, lambda params: None, torch.device("cpu"), capture=True)
     for _ in range(2):
         with pytest.raises(RuntimeError):
             program.run(3)
@@ -437,29 +443,29 @@ def test_serving_holds_its_model_weakly(monkeypatch):
     batch_topk(model, params, 5, train_matrix=ds.train_matrix, device="cpu")
     batch_topk(model, params, 3, train_matrix=ds.train_matrix, device="cpu")
     mid = id(model)
-    mine = [v for k, v in recommend._EXPORT_CACHE.items() if k[0] == mid]
+    mine = [v for k, v in recommend.EXPORTS.items() if k[0] == mid]
     assert len(mine) == 2
     ref = weakref.ref(model)
     del model
     gc.collect()
     assert ref() is None  # the cache did not keep it alive
-    assert not [k for k in recommend._EXPORT_CACHE if k[0] == mid] and all(e.program.body is None for e in mine)
+    assert not [k for k in recommend.EXPORTS if k[0] == mid] and all(e.body is None for e in mine)
 
 
 def test_serving_cache_is_an_lru_of_8():
     _, ds, _, model, _, params = mf_pair()
-    recommend._EXPORT_CACHE.clear()
+    recommend.EXPORTS.release()
     exports = []
     for k in range(1, 11):
         batch_topk(model, params, k, device="cpu")
-        exports.append(recommend._EXPORT_CACHE[next(reversed(recommend._EXPORT_CACHE))])
-    assert len(recommend._EXPORT_CACHE) == recommend._EXPORT_CACHE_MAX == 8
-    assert [e.program.body is None for e in exports] == [True] * 2 + [False] * 8
+        exports.append(list(recommend.EXPORTS.values())[-1])
+    assert len(recommend.EXPORTS) == recommend.EXPORTS.most == 8
+    assert [e.body is None for e in exports] == [True] * 2 + [False] * 8
 
 
 def test_serving_captures_once_a_request_size(stubbed):
     ds_j, ds, model_j, model, params_j, params = mf_pair()
-    recommend._EXPORT_CACHE.clear()
+    recommend.EXPORTS.release()
     a = np.arange(0, 12, dtype=np.int32)
     b = np.arange(12, 24, dtype=np.int32)
     e_a = recommend._batch_edges_from_csr(ds.train_matrix.tocsr(), a, 12, 3, 4)[0].shape[1]
@@ -487,7 +493,7 @@ def test_the_eager_models_are_nais_and_deepicf():
     assert [name for name in registered_models() if hasattr(get_model(name), "eval_graphs")] == []
     sized = [name for name in registered_models() if hasattr(get_model(name), "predict_capacity")]
     assert sized == ["DeepICF", "NAIS"]
-    assert recommend._captures(None, torch.device("cuda")) and not recommend._captures(None, torch.device("cpu"))
+    assert step_graph.captures(torch.device("cuda")) and not step_graph.captures(torch.device("cpu"))
 
 
 # -- every model's program captured under a guard against host reads ------
@@ -567,7 +573,7 @@ def test_every_model_captures_without_a_host_read(name, tmp_path, monkeypatch):
     GuardedGraphs.made = []
     monkeypatch.setattr(step_graph, "_CudaGraphs", GuardedGraphs)
     forced = evaluator_mod.Evaluator.from_dataset(ds, conf, device="cpu")
-    monkeypatch.setattr(forced.evaluator, "_captures", lambda fn: True)
+    monkeypatch.setattr(step_graph, "captures", on_card)
     # the first call runs eagerly, then captures: the guard runs the
     # captures' host code, and its CPU ops spoil that call's totals
     forced.evaluate(model.predict, params)

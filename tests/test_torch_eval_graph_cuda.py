@@ -181,7 +181,7 @@ def test_captured_evaluation_equals_the_eager_one(cuda, name, grouped, tmp_path)
         assert got == want, (name, call)
         assert len(got_ids) == len(want_ids) and all(torch.equal(a, b) for a, b in zip(got_ids, want_ids))
     inner = getattr(captured.evaluator, "evaluator", captured.evaluator)
-    assert all(k.program.capture and k.program._graphs is not None for k in inner._kept.values())
+    assert all(k.capture and k._graphs is not None for k in inner.kept.values())
 
 
 @pytest.mark.parametrize("name", ["MF", "LightGCN", "NeuMF", "CFGAN", "GRU4Rec", "NAIS", "DeepICF"])
@@ -254,9 +254,9 @@ def test_edge_predict_captures_bit_equal(cuda, name, neg, monkeypatch):
         got, got_ids = call(captured)
         assert got == want, (name, turn)
         assert all(torch.equal(a, b) for a, b in zip(got_ids, want_ids))
-        (kept,) = captured.evaluator._kept.values()
-        n_batches = kept.batches[0].shape[0]
-        assert n_batches >= 2 and kept.program._graphs is not None
+        (kept,) = captured.evaluator.kept.values()
+        n_batches = kept.tensors["batches"][0].shape[0]
+        assert n_batches >= 2 and kept._graphs is not None
         if turn:
             assert len(replays) - n == n_batches + 1
     if not neg:
@@ -273,12 +273,12 @@ def test_evaluation_after_training_steps_replays_on_the_new_weights(cuda, tmp_pa
         t = trainer(name, tmp_path)
         before = t.evaluate()
         inner = t.evaluator.evaluator
-        (kept,) = inner._kept.values()
+        (kept,) = inner.kept.values()
         params_before = {k: v.detach().clone() for k, v in t.params.items()}
         t.params, t.opt_state, _ = t.train_epoch(1, max_steps=5)
         assert any(not torch.equal(params_before[k], v) for k, v in t.params.items())
         after = t.evaluate()
-        (kept_after,) = inner._kept.values()
+        (kept_after,) = inner.kept.values()
         assert kept_after is kept  # replayed, not captured anew
         eager = Evaluator.from_dataset(t.dataset, t.config, device="cuda", graphs=False)
         assert after == eager.evaluate(t.model.predict, t.params) and after != before, name
@@ -304,8 +304,8 @@ def test_a_warm_replay_reads_nothing_on_the_host(cuda, tmp_path, monkeypatch):
     t = trainer("LightGCN", tmp_path)
     want = t.evaluate()
     inner = t.evaluator.evaluator
-    (kept,) = inner._kept.values()
-    n_batches = kept.batches[0].shape[0]
+    (kept,) = inner.kept.values()
+    n_batches = kept.tensors["batches"][0].shape[0]
     replays = []
     real = step_graph._CudaGraphs.replay
 
@@ -317,16 +317,14 @@ def test_a_warm_replay_reads_nothing_on_the_host(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
     _build.reset_launches()
     torch.cuda.synchronize()
-    kept.args["params"] = t.params
     torch.cuda.set_sync_debug_mode("error")
     try:
-        kept.program.run(n_batches)
+        out = kept.run(n_batches, t.params)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        kept.args["params"] = None
     assert len(replays) == n_batches + 1
-    assert kept.program.pool_bytes > 0
+    assert kept.pool_bytes > 0
     assert _build.LAUNCHES["masked_scores"] == n_batches
     assert _build.LAUNCHES["plan_spmm"] == t.model.n_layers
-    assert inner._mean(kept.total, kept.count).tolist() == inner.evaluate_raw(t.model.predict, t.params).tolist()
+    assert inner._mean(out["total"], out["count"]).tolist() == inner.evaluate_raw(t.model.predict, t.params).tolist()
     assert t.evaluate() == want

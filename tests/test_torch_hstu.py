@@ -249,13 +249,13 @@ def test_loss_and_gradients_match_the_reference(built):
 
 def _trainer(ds, params, kept, monkeypatch):
     model = get_model("HSTU")(ds, DictConfig(CONF), device="cpu")
-    t = Trainer(model, ds, DictConfig(CONF), logger=SilentLogger(), seed=3, device="cpu")
+    t = Trainer(model, ds, DictConfig(CONF), logger=SilentLogger(), seed=3, device="cpu", graphs=kept)
     t.initialize()
     t.params = map_params(lambda p: p.detach().clone().requires_grad_(), params)
     t.opt_state = t.init_opt_state(t.params)
     if kept:
         monkeypatch.setattr(step_graph, "_CudaGraphs", ReplayingGraphs)
-        monkeypatch.setattr(t, "_captures", lambda: True)
+        monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
     return t
 
 

@@ -111,14 +111,16 @@ def frozen(monkeypatch):
 
 def trainer_for(name, tmp_path, kept, monkeypatch):
     """The model's trainer at the small widths of the step-graph tests;
-    with ``kept`` its runs of steps are kept programs (``_captures``)."""
+    with ``kept`` its runs of steps are kept programs
+    (``step_graph.captures`` as on a card), else eager (``graphs=False``)."""
     if name == "lightgcn":  # the plan SpMM (K2's plain version on the CPU)
         monkeypatch.setattr(graph, "DENSE_LIMIT", 0)
     make = custom_graph.trainer_for if name in CUSTOM else step_tests.trainer_for
     trainer = make(name, tmp_path)
+    trainer.graphs = kept
     if kept:
         trainer.scan_unroll = UNROLL
-        monkeypatch.setattr(trainer, "_captures", lambda: True)
+        monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
     return trainer
 
 
@@ -223,10 +225,12 @@ def test_device_count_tables_are_refilled_across_calls(which, frozen):
     p = torch.from_numpy(init.copy()).requires_grad_(True)
     opt = optimizer(p)
     kept = KeptSteps(quadratic_steps(p, opt, targets[0]), CPU, UNROLL)
+    held = None  # as a trainer's store keeps it: after the first call, which makes Adam's state
     for c, call in enumerate(targets):
         steps = quadratic_steps(p, opt, call)
-        assert c == 0 or kept.holds(steps, UNROLL)
+        assert c == 0 or (step_graph.steps_holding(steps, UNROLL) == held and kept.fits(steps.n))
         kept.run(steps)
+        held = held or step_graph.steps_holding(steps, UNROLL)
         t0 = c * n
         table = kept.count.tables[0][0]
         want = np.stack([bias_corrections(0.9, t0, n), bias_corrections(0.999, t0, n)], axis=1)
@@ -335,7 +339,7 @@ def test_a_failed_capture_or_host_read_raises_and_keeps_nothing(tmp_path, monkey
 def _kept_trainer(model, ds, conf, monkeypatch):
     trainer = Trainer(model, ds, DictConfig(conf), logger=SilentLogger(), seed=7, device="cpu")
     trainer.scan_unroll = UNROLL
-    monkeypatch.setattr(trainer, "_captures", lambda: True)
+    monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
     return trainer
 
 

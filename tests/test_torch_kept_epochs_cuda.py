@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from neurec_tpu_torch import step_graph
 from neurec_tpu_torch.bridge import param_leaves
 from neurec_tpu_torch.data.synthetic import DictConfig, random_dataset
 from neurec_tpu_torch.models import get_model
@@ -122,7 +123,8 @@ def kept_and_eager(name, tmp_path, monkeypatch, unroll=1, max_steps=None):
     trainer is returned with its calls."""
     eager, control, kept = (trainer(name, tmp_path, g, monkeypatch) for g in (False, False, True))
     kept.scan_unroll = unroll
-    assert not eager._captures() and kept._captures()
+    assert not step_graph.captures(eager.device, eager.graphs, eager.mesh)
+    assert step_graph.captures(kept.device, kept.graphs, kept.mesh)
     want, again = three_epochs(eager, max_steps), three_epochs(control, max_steps)
     got = three_epochs(kept, max_steps)
     assert kept.kept and not eager.kept

@@ -222,10 +222,10 @@ def test_metric_strings_and_ids_match_jax(name):
     np.testing.assert_allclose([float(f) for f in fields], [float(f) for f in fields_j], atol=1e-6)
     # batches of different edge counts, the last padded with user 0; the
     # capacity is their most
-    (kept,) = inner._kept.values()
-    users_b = kept.batches[0].numpy()
-    edges = np.diff(ds.train_matrix.indptr)[users_b].sum(axis=1)
-    assert len(set(edges.tolist())) > 1 and (kept.batches[2].numpy() == 0).any()
+    (kept,) = inner.kept.values()
+    users_b, _, valid_b = kept.tensors["batches"]
+    edges = np.diff(ds.train_matrix.indptr)[users_b.numpy()].sum(axis=1)
+    assert len(set(edges.tolist())) > 1 and (valid_b.numpy() == 0).any()
     n = len(inner.test_users)
     np.testing.assert_array_equal(inner.last_ids[:n].numpy(), jax_ids(model_j, params_np, ds, inner.test_users, 10))
 
@@ -255,7 +255,7 @@ def test_serving_export_matches_jax(name):
     sel = np.asarray([5, 0, 9, 9, 30, 2, 11, 0, 40, 23, 14], np.int32)
     params_j = jax.tree_util.tree_map(jnp.asarray, params_np)
     params = params_from_numpy(params_np, "cpu")
-    recommend._EXPORT_CACHE.clear()
+    recommend.EXPORTS.release()
     for users, batch_size in ((sel, 4), (None, 16)):
         ids_j, sc_j = jax_batch_topk(model_j, params_j, 7, users=users, batch_size=batch_size,
                                      train_matrix=ds_j.train_matrix)
@@ -263,7 +263,7 @@ def test_serving_export_matches_jax(name):
                              device="cpu")
         np.testing.assert_array_equal(ids, np.asarray(ids_j))
         np.testing.assert_allclose(sc, np.asarray(sc_j), rtol=1e-5, atol=1e-5)
-    caps = [key[1][6] for key in recommend._EXPORT_CACHE if key[0] == id(model)]
+    caps = [key[7] for key in recommend.EXPORTS if key[0] == id(model)]
     assert len(caps) == 2 and all(c >= 8 and c & (c - 1) == 0 for c in caps)
 
 
@@ -280,14 +280,14 @@ def test_captured_under_the_host_read_guard(name, monkeypatch):
         monkeypatch.setattr(step_graph, "_CudaGraphs", GuardedGraphs)
         GuardedGraphs.made = []
         forced = Evaluator.from_dataset(ds, DictConfig(conf), device="cpu")
-        monkeypatch.setattr(forced.evaluator, "_captures", lambda fn: True)
+        monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
         forced.evaluate(model.predict, params)
         assert forced.evaluate(model.predict, params) == eager
         assert len(GuardedGraphs.made) == 1
         monkeypatch.undo()
     want = batch_topk(model, params, 6, batch_size=8, train_matrix=ds.train_matrix, device="cpu", graphs=False)
     monkeypatch.setattr(step_graph, "_CudaGraphs", GuardedGraphs)
-    monkeypatch.setattr(recommend, "_captures", lambda model, device: True)
+    monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
     GuardedGraphs.made = []
     for _ in range(2):
         got = batch_topk(model, params, 6, batch_size=8, train_matrix=ds.train_matrix, device="cpu")

@@ -31,7 +31,6 @@ import torch
 from neurec_tpu_torch import profiling, recommend, step_graph
 from neurec_tpu_torch.bridge import param_leaves
 from neurec_tpu_torch.data.synthetic import DictConfig, random_dataset
-from neurec_tpu_torch.eval.evaluator import UniEvaluator
 from neurec_tpu_torch.models import get_model
 from neurec_tpu_torch.ops import graph
 from neurec_tpu_torch.profiling import StepTimer
@@ -78,9 +77,7 @@ def captured(monkeypatch):
         return made[-1]
 
     monkeypatch.setattr(step_graph, "_CudaGraphs", graphs)
-    monkeypatch.setattr(Trainer, "_captures", lambda self: True)
-    monkeypatch.setattr(UniEvaluator, "_captures", lambda self, fn: self.graphs)
-    monkeypatch.setattr(recommend, "_captures", lambda model, device: True)
+    monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
     return made
 
 
@@ -256,7 +253,7 @@ def test_serving_attributes(captured):
 
 def test_the_ninth_export_key_evicts(captured):
     t, _ = trainer()
-    recommend._EXPORT_CACHE.clear()
+    recommend.EXPORTS.release()
     with profiling.tracing():
         for k in range(1, 10):
             batch_topk(t.model, t.params, k, users=np.arange(10, dtype=np.int32), device="cpu")
@@ -266,10 +263,10 @@ def test_the_ninth_export_key_evicts(captured):
         batch_topk(t.model, moved, 9, users=np.arange(10, dtype=np.int32), device="cpu")
         # the first key was dropped when the ninth arrived: captured anew
         batch_topk(t.model, t.params, 1, users=np.arange(10, dtype=np.int32), device="cpu")
-    assert len(recommend._EXPORT_CACHE) == recommend._EXPORT_CACHE_MAX
+    assert len(recommend.EXPORTS) == recommend.EXPORTS.most
     calls = by_name("neurec.batch_topk")
     assert [s.attrs["captured"] for s in calls] == [2] * 11
-    recommend._EXPORT_CACHE.clear()
+    recommend.EXPORTS.release()
 
 
 def test_outputs_are_the_same_bits_on_and_off(captured):
@@ -279,7 +276,7 @@ def test_outputs_are_the_same_bits_on_and_off(captured):
         with profiling.tracing() if on else profiling._OFF:
             losses, result, served = work(t, ds, epochs=(1, 2, 3))
         got[on] = (losses, result, served, [p.detach().clone() for _, p in param_leaves(t.params)])
-        recommend._EXPORT_CACHE.clear()
+        recommend.EXPORTS.release()
     (l0, r0, s0, p0), (l1, r1, s1, p1) = got[False], got[True]
     assert all(torch.equal(a, b) for a, b in zip(l0, l1))
     assert r0 == r1

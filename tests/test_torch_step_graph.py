@@ -238,7 +238,7 @@ def test_scan_unroll_replays_equal_the_eager_epoch(name, tmp_path, monkeypatch):
                 stub.append(ReplayingGraphs(device))
                 return stub[-1]
             monkeypatch.setattr(step_graph, "_CudaGraphs", graphs)
-            monkeypatch.setattr(trainer, "_captures", lambda: True)
+            monkeypatch.setattr(step_graph, "captures", lambda device, graphs=True, mesh=None: graphs)
         else:
             monkeypatch.setattr(step_graph, "_CudaGraphs", None)
         params, opt, loss = trainer.run_epoch(trainer.params, trainer.opt_state, *draws, epoch=2)
@@ -399,7 +399,7 @@ def test_scan_unroll_is_read_as_the_jax_trainer_reads_it(tmp_path):
         extra = {} if raw is None else {"scan_unroll": raw}
         trainer = Trainer(model, ds, DictConfig(dict(CONFS["mf"], **extra)), logger=SilentLogger(), device="cpu")
         assert trainer.scan_unroll == want, raw
-        assert trainer.graphs and not trainer._captures()  # the CPU runs eagerly
+        assert trainer.graphs and not step_graph.captures(trainer.device, trainer.graphs)  # the CPU runs eagerly
     assert not Trainer(model, ds, conf, logger=SilentLogger(), device="cpu", graphs=False).graphs
 
 
